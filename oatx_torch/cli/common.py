@@ -1,0 +1,53 @@
+"""Shared CLI wiring: tokenizer resolution (port of oatx/cli/common.py:12-60)."""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+from oatx_torch.config.schema import ExperimentCfg
+from oatx_torch.data.tokenizer import WordPieceTokenizer, load_tokenizer
+
+
+def resolve_tokenizer(
+    exp: ExperimentCfg,
+    corpus=None,  # List[str] or a lazy () -> List[str]
+    search_dirs: Optional[List[str]] = None,
+) -> WordPieceTokenizer:
+    """Tokenizer resolution order (oatx's):
+      1. a vocab.txt in `search_dirs` (checkpoint dirs);
+      2. top-level config key "tokenizer": {"vocab": <path>};
+      3. a vocab.txt next to arch.text_params.model (HF-layout dir);
+      4. hermetic fallback — a vocab built from `corpus` (deterministic).
+    oatx also tries a locally cached HF tokenizer between 3 and 4; the port
+    reads vocab files only."""
+    if exp.arch.text_params.family != "distilbert":
+        raise NotImplementedError(
+            f"text family {exp.arch.text_params.family!r} is not ported yet")
+    for d in search_dirs or []:
+        vp = os.path.join(str(d), "vocab.txt")
+        if os.path.exists(vp):
+            return load_tokenizer(vp)
+    tok_cfg = exp.raw.get("tokenizer", {})
+    vocab = tok_cfg.get("vocab")
+    if vocab and os.path.exists(vocab):
+        return load_tokenizer(vocab)
+    model_dir = exp.arch.text_params.model
+    if os.path.isdir(model_dir) and os.path.exists(os.path.join(model_dir, "vocab.txt")):
+        return load_tokenizer(model_dir)
+    if callable(corpus):  # lazy: only materialize captions when really needed
+        corpus = corpus()
+    if corpus:
+        if exp.arch.load_checkpoint or exp.arch.text_params.pretrained:
+            import logging
+
+            logging.getLogger("oatx_torch").warning(
+                "building the tokenizer vocab from a corpus while arch uses "
+                "pretrained/imported text weights — token ids will NOT match "
+                "the checkpoint's vocab; ship the original vocab.txt "
+                "(tokenizer.vocab) for meaningful text embeddings")
+        return WordPieceTokenizer.build_from_corpus(
+            corpus, vocab_size=int(tok_cfg.get("vocab_size", 30522)))
+    raise FileNotFoundError(
+        "no tokenizer vocab: set config key tokenizer.vocab or make "
+        "arch.text_params.model a directory containing vocab.txt")
