@@ -8,8 +8,11 @@ printed):
   1. environment — the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the nvcc build of every kernel in oatx_torch/csrc;
   2. kernels — each hand-written kernel against its plain PyTorch version on
-     the card at the main-path shapes of bucket 4 (bf16), with its time, the
-     plain version's, one PyTorch library call's and the card's bound;
+     the card (bf16): kernels 1 and 2 at the serving shapes of bucket 4,
+     kernel 3 (ln_linear) at the train step's LN→qkv shape, each with its
+     time, the plain version's, one PyTorch library call's and the card's
+     bound; and for all three the forward + backward time through the
+     kernel's autograd.Function at the train step's shapes;
   3. serve — the full-width zero-shot config (configs/ft/msrvtt/zsl/normal.json:
      ViT-B/16 over 4×224² frames + DistilBERT-base, bf16, random weights from
      seed 0) built through oatx_torch.cli.serve, its HTTP server on a
@@ -22,6 +25,20 @@ printed):
      set to 0 just before and read just after; every kernel must have run 12
      times per video-tower forward. The served embedding is held against the
      same model with the plain versions.
+  4. train — the flagship pretraining step that bench.py builds (ViT-B/16
+     divided space-time over 4×224² + DistilBERT-base, 256-d projections,
+     bf16 compute with f32 master weights, NormSoftmax at 0.05, AdamW at
+     2e-4, batch 8, seq_len 24, random weights from seed 0, one fixed
+     numpy-seeded batch), through oatx_torch.train.step's init_state and
+     make_train_step, once with fused_qkv=True and once with False. Per run:
+     TRAIN_STEPS counted steps (launch counters set to 0 just before and read
+     just after: 12 ln_mlp, 12 space_attention and 24 or 0 ln_linear per
+     step), each step's loss (finite, and lower at the end than at step 1),
+     the median step time over TIME_WINDOWS windows with their spread,
+     clips/s, MFU, peak device memory, a CUDA-only device trace, and one
+     step's gradients through the kernels against the same through the plain
+     versions: every parameter must have a finite gradient. The two runs'
+     step-1 losses agree within bf16 tolerance.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -65,9 +82,39 @@ LN_MLP_ATOL = 3e-3
 # rms 0.12, max 0.94 on an H100; atol is 0.9 % of the rms. Observed:
 # max_abs_err 1.95e-3, 0.91 of the tolerance at atol 5e-4.
 SPACE_ATTENTION_ATOL = 1e-3
+# ln_linear's output at these inputs (LN(x) rows of 768 times N(0, 0.02²)
+# weights, plus a bias) has rms ≈ 0.56; both versions sum the same bf16
+# products in f32, so only a flipped bf16 rounding of z or of the output
+# separates them: atol 2e-3, 0.4 % of the rms.
+LN_LINEAR_ATOL = 2e-3
 # Served embedding (12 blocks, bf16) vs the same model with the plain versions
 # on the card: the per-layer differences above compound through depth.
 E2E_MIN_COSINE = 0.999
+TRAIN_BATCH = 8        # bench.py:83-85: batch 8, 4 frames, seq_len 24
+TRAIN_SEQ = 24
+TRAIN_STEPS = 10       # counted steps per fused_qkv setting (the loss must fall)
+TIME_WINDOWS = 5       # timed windows after them; the first is dropped
+WINDOW_STEPS = 5       # steps per timed window
+PROFILED_STEPS = 2
+TOP_OTHER = 8          # largest "other" kernels listed in a train step's trace
+# One step's gradients through the kernels vs through the plain versions on
+# the card, same weights and batch (bf16 compute through 12 + 6 layers; the
+# two backward passes round at different points): per tensor
+# ‖g − r‖ ≤ GRAD_RTOL·‖r‖ + GRAD_ATOL·(global ‖r‖) (grad_check), and the
+# global norms' relative difference.
+# Measured (NVIDIA H100 80GB HBM3, 700.00 W): the tensors that carry the
+# gradient agree to ≤ 4.5 % each (patch_embed.proj.weight, the worst), the
+# time branch's to 6-106 % of their own size but ≤ 0.6 % of the global norm;
+# global norms within 0.53 %, global cosine ≥ 0.99987.
+GRAD_RTOL = 0.1
+GRAD_ATOL = 0.02
+GRAD_NORM_RTOL = 0.02
+GRAD_MIN_GLOBAL_COSINE = 0.999
+# fused_qkv on vs off, step 1 from the same weights: the same function with
+# the qkv product summed by kernel 3 instead of cuBLAS and its bias added in
+# f32 instead of bf16 (zero at init): bf16 roundings only. Measured 8.4e-4
+# on an H100.
+FUSED_LOSS_RTOL = 1e-2
 LAT_REQUESTS = 100     # timed requests per bucket and round, after warm-up
 LAT_ROUNDS = 3         # rounds per bucket: the p50's spread inside one call
 LAT_WARMUP = 5
@@ -75,6 +122,7 @@ PROFILED_REQUESTS = 10
 # device kernels by name, for the per-group breakdown of a video request
 KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_kernel",)),
                  ("space_attention", ("space_attention_kernel",)),
+                 ("ln_linear", ("ln_linear_kernel",)),
                  ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
                  ("softmax", ("softmax",)),
                  ("conv", ("conv", "implicit")),
@@ -203,20 +251,88 @@ def kernel_space_attention(dev, g):
     }
 
 
+def kernel_ln_linear(dev, g):
+    from oatx_torch.ops.kernels.ln_linear import ln_linear, ln_linear_plain
+
+    R, K, N = TRAIN_BATCH * 785, 768, 2304  # the train step's LN→qkv
+    bf = torch.bfloat16
+    x = torch.randn(R, K, device=dev, generator=g).to(bf)
+    gamma = 1 + 0.1 * torch.randn(K, device=dev, generator=g)
+    beta = 0.1 * torch.randn(K, device=dev, generator=g)
+    w = (0.02 * torch.randn(N, K, device=dev, generator=g)).to(bf)
+    b = 0.02 * torch.randn(N, device=dev, generator=g)
+    args = (x, gamma, beta, w, b, 1e-6)
+    got = ln_linear(*args)
+    torch.cuda.synchronize()
+    errs = check_close("ln_linear", got, ln_linear_plain(*args), LN_LINEAR_ATOL)
+    gb, bb, bbf = (t.to(bf) for t in (gamma, beta, b))
+
+    def library():
+        return F.linear(F.layer_norm(x, (K,), gb, bb, 1e-6), w, bbf)
+
+    nbytes = R * K * 2 + N * K * 2 + R * N * 2 + (2 * K + N) * 4
+    bound, by = bound_ms(nbytes, 2 * R * K * N)
+    return {
+        "name": "ln_linear", "route": "cuda", "source": "oatx_torch/csrc/ln_linear.cu",
+        "replaces": "oatx/ops/pallas/ln_linear.py:58", **errs,
+        "ms": time_ms(lambda: ln_linear(*args)),
+        "plain_ms": time_ms(lambda: ln_linear_plain(*args), iters=5),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(library),
+        "shape": f"x ({R}, {K}) bf16 -> ({R}, {N})",
+    }
+
+
+def fwd_bwd_ms(dev, g):
+    """Forward + backward through each kernel's autograd.Function at the
+    train step's shapes (B = 8, T = 785: 6280 rows; f32 master weights as the
+    model holds them), CUDA events over 10 iterations after warm-up."""
+    from oatx_torch.ops.kernels.ln_linear import ln_linear
+    from oatx_torch.ops.kernels.ln_mlp import ln_mlp
+    from oatx_torch.ops.kernels.space_attention import space_attention
+
+    R, D, H = TRAIN_BATCH * 785, 768, 3072
+
+    def leaf(*shape, scale=1.0, dtype=torch.float32, offset=0.0):
+        t = offset + scale * torch.randn(*shape, device=dev, generator=g)
+        return t.to(dtype).requires_grad_()
+
+    x = leaf(R, D, dtype=torch.bfloat16)
+    ln = (leaf(D, scale=0.1, offset=1.0), leaf(D, scale=0.1))
+    qkv = leaf(TRAIN_BATCH, 785, 3, 12, 64, dtype=torch.bfloat16)
+    calls = {
+        "ln_mlp": (ln_mlp, (x, *ln, leaf(H, D, scale=0.02), leaf(H, scale=0.02),
+                            leaf(D, H, scale=0.02), leaf(D, scale=0.02))),
+        "ln_linear": (ln_linear, (x, *ln, leaf(3 * D, D, scale=0.02),
+                                  leaf(3 * D, scale=0.02))),
+        "space_attention": (lambda t: space_attention(t[:, :, 0] * 0.125, t[:, :, 1],
+                                                      t[:, :, 2], 4), (qkv,)),
+    }
+    out = {}
+    for name, (fn, args) in calls.items():
+        dy = torch.randn(fn(*args).shape, device=dev, generator=g).to(torch.bfloat16)
+        out[name] = time_ms(lambda: torch.autograd.grad(fn(*args), args, dy), iters=10)
+    return out
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the towers through the kernels' plain versions (reference run)."""
+    """Route the towers through the kernels' plain versions (reference run;
+    autograd differentiates them directly)."""
     from oatx_torch.models import vit_spacetime
     from oatx_torch.ops import attention
+    from oatx_torch.ops.kernels.ln_linear import ln_linear_plain
     from oatx_torch.ops.kernels.ln_mlp import ln_mlp_plain
     from oatx_torch.ops.kernels.space_attention import space_attention_plain
 
-    saved = vit_spacetime.ln_mlp, attention.space_attention
-    vit_spacetime.ln_mlp, attention.space_attention = ln_mlp_plain, space_attention_plain
+    saved = vit_spacetime.ln_mlp, attention.space_attention, attention.ln_linear
+    vit_spacetime.ln_mlp = ln_mlp_plain
+    attention.space_attention = space_attention_plain
+    attention.ln_linear = ln_linear_plain
     try:
         yield
     finally:
-        vit_spacetime.ln_mlp, attention.space_attention = saved
+        vit_spacetime.ln_mlp, attention.space_attention, attention.ln_linear = saved
 
 
 def post(url, payload):
@@ -241,7 +357,8 @@ def npy_b64(a):
 def device_trace(fn, n):
     """Trace n calls of fn with CUDA activity only (no host-side tracing to
     slow the host-bound path). Returns per call: device busy ms (the union of
-    kernel and copy intervals), device activities, and device ms by group."""
+    kernel and copy intervals), device activities, device ms by group, and
+    the TOP_OTHER largest kernels of the group "other" by ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -263,11 +380,15 @@ def device_trace(fn, n):
             cur_e = max(cur_e, e)
     busy_us += cur_e - cur_s
     groups: dict = {}
+    other: dict = {}
     for s, e, name in iv:
         low = name.lower()
         g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + (e - s) / 1e3 / n
-    return busy_us / 1e3 / n, len(iv) / n, groups
+        if g == "other":
+            other[name[:80]] = other.get(name[:80], 0.0) + (e - s) / 1e3 / n
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
+    return busy_us / 1e3 / n, len(iv) / n, groups, top
 
 
 def bucket_latency(url, svc, payload_v, payload_t):
@@ -376,7 +497,7 @@ def serve_phase(tmp, smi):
             payload_t = json.dumps({"texts": (texts * b)[:b]}).encode()
             rec = bucket_latency(url, svc, payload_v, payload_t)
             for tower, payload in (("video", payload_v), ("text", payload_t)):
-                busy, acts, groups = device_trace(
+                busy, acts, groups, _ = device_trace(
                     lambda: post(f"{url}/embed_{tower}", payload), PROFILED_REQUESTS)
                 rec[f"{tower}_device_busy_ms"] = busy
                 rec[f"{tower}_idle_share"] = 1 - busy / rec[f"{tower}_p50_ms"]
@@ -416,6 +537,152 @@ def serve_phase(tmp, smi):
         th.join(timeout=10)
 
 
+def grad_check(got, ref):
+    """Per-tensor agreement of two gradient sets: ‖g − r‖ ≤ GRAD_RTOL·‖r‖ +
+    GRAD_ATOL·‖r‖_all, where ‖r‖_all is the global norm (the absolute part
+    covers tensors whose gradient is rounding noise in both: at time_init
+    'zeros' the time branch adds a constant to every channel, which norm1
+    removes, so its true gradient is 0). Returns the record's grad_* keys."""
+    d = {n: float((got[n].double() - ref[n].double()).norm()) for n in ref}
+    r = {n: float(ref[n].double().norm()) for n in ref}
+    total = float(np.sqrt(sum(v * v for v in r.values())))
+    gnorm = float(np.sqrt(sum(float(g.double().square().sum()) for g in got.values())))
+    used = {n: d[n] / (GRAD_RTOL * r[n] + GRAD_ATOL * total) for n in ref}
+    dot = sum(float((got[n].double() * ref[n].double()).sum()) for n in ref)
+    worst = sorted(used, key=used.get, reverse=True)[:6]
+    return {"grad_norm": gnorm, "plain_grad_norm": total,
+            "grad_norm_rel_diff": abs(gnorm - total) / total,
+            "grad_global_cosine": dot / (gnorm * total),
+            "grad_tol_used": used[worst[0]], "grad_tensors": len(ref),
+            "grad_worst": [(n, round(used[n], 4), r[n] / total, d[n] / max(r[n], 1e-30))
+                           for n in worst]}
+
+
+def train_cfg(fused_qkv):
+    """bench.py:101-113's model: ViT-B/16 over 4 frames (time attention
+    zero-initialised), DistilBERT-base, 256-d projections, bf16 compute."""
+    from oatx_torch.models import distilbert as dbert
+    from oatx_torch.models import towers
+    from oatx_torch.models import vit_spacetime as vst
+
+    return towers.TowerConfig(
+        video=vst.SpaceTimeViTConfig(num_frames=4, time_init="zeros", fused_qkv=fused_qkv),
+        text=dbert.DistilBertConfig(), projection_dim=256, variant="baseline",
+        compute_dtype=torch.bfloat16)
+
+
+def train_run(fused_qkv, batch, smi, dev):
+    """One fused_qkv setting of the train phase; returns its record."""
+    from oatx_torch.ops.kernels.ln_linear import ln_linear
+    from oatx_torch.ops.kernels.ln_mlp import ln_mlp
+    from oatx_torch.ops.kernels.space_attention import space_attention
+    from oatx_torch.train import optim, step as steplib
+    from oatx_torch.train.flops import flops_forward_per_clip
+
+    cfg = train_cfg(fused_qkv)
+    depth = cfg.video.depth
+    t0 = time.perf_counter()
+    state = steplib.init_state(cfg, optim.make_optimizer(lr=2e-4), device=dev,
+                               generator=torch.Generator(dev).manual_seed(0))
+    train_step = steplib.make_train_step(cfg, steplib.LossConfig(), device=dev)
+    tag = f"train fused_qkv={fused_qkv}"
+    print(f"{tag}: model and AdamW built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in state.model.parameters())} parameters)", flush=True)
+
+    # ---- the main path, counted ----
+    for k in (ln_mlp, space_attention, ln_linear):
+        k.launches = 0
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))
+    launches = {"ln_mlp": ln_mlp.launches, "space_attention": space_attention.launches,
+                "ln_linear": ln_linear.launches}
+    # ---- end of the counted run ----
+    want = {"ln_mlp": depth, "space_attention": depth,
+            "ln_linear": 2 * depth if fused_qkv else 0}
+    for name, n in launches.items():
+        if n != want[name] * TRAIN_STEPS:
+            raise AssertionError(f"{tag}: {name} launched {n} times in {TRAIN_STEPS} "
+                                 f"steps, want {want[name]} per step")
+    print(f"{tag}: losses {json.dumps(losses)}; launches {launches} in "
+          f"{TRAIN_STEPS} steps", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss not finite or not falling: {losses}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    windows = []
+    for _ in range(TIME_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WINDOW_STEPS):
+            state, m = train_step(state, batch)
+        float(m["loss"])
+        windows.append((time.perf_counter() - t0) / WINDOW_STEPS * 1e3)
+    kept = windows[1:]
+    step_ms = float(np.median(kept))
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, acts, groups, top = device_trace(lambda: train_step(state, batch), PROFILED_STEPS)
+    flops = 3.0 * flops_forward_per_clip(cfg.video, cfg.text, TRAIN_SEQ)
+    rec = {"fused_qkv": fused_qkv, "step1_loss": losses[0], "last_loss": losses[-1],
+           "step_ms": step_ms, "step_ms_spread": (max(kept) - min(kept)) / step_ms,
+           "windows_ms": windows, "clips_per_s": TRAIN_BATCH / step_ms * 1e3,
+           "mfu": TRAIN_BATCH / step_ms * 1e3 * flops / PEAK_BF16_FLOPS,
+           "flops_per_clip_step": flops, "peak_mem_gib": peak / 2 ** 30,
+           "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
+           "device_activities": acts, "device_ms_by_group": groups,
+           "device_top_other_ms": top,
+           "launches": launches}
+
+    # one step's gradients, kernels vs plain versions (not counted, no update)
+    model = state.model
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = steplib.loss_fn(model, steplib.LossConfig(), batch)
+        loss.backward()
+        return {n: (p.grad.detach().clone() if p.grad is not None else None)
+                for n, p in model.named_parameters()}
+
+    got = grads()
+    with plain_versions():
+        ref = grads()
+    model.zero_grad(set_to_none=True)
+    missing = [n for n, g in got.items() if g is None or not bool(torch.isfinite(g).all())]
+    if missing:
+        raise AssertionError(f"{tag}: {len(missing)} parameters without a finite "
+                             f"gradient through the kernels, e.g. {missing[:5]}")
+    rec.update(grad_check(got, ref))
+    print(f"{tag} ({smi}): " + json.dumps(rec), flush=True)
+    if rec["grad_tol_used"] > 1 or rec["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+            or rec["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+        raise AssertionError(f"{tag}: gradients through the kernels disagree with the "
+                             f"plain versions: {rec['grad_worst']}")
+    return rec
+
+
+def train_phase(smi, dev, res=224):
+    """The train step at full width, fused_qkv on then off (module docstring)."""
+    rng = np.random.default_rng(0)  # bench.py:115-120
+    batch = {
+        "video": torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, 4, res, res, 3)).astype(np.float32)).to(dev, torch.bfloat16),
+        "input_ids": torch.from_numpy(rng.integers(0, 30522, (TRAIN_BATCH, TRAIN_SEQ))).to(dev),
+        "attention_mask": torch.ones(TRAIN_BATCH, TRAIN_SEQ, dtype=torch.int32, device=dev),
+    }
+    runs = [train_run(fused, batch, smi, dev) for fused in (True, False)]
+    on, off = runs
+    rel = abs(on["step1_loss"] - off["step1_loss"]) / abs(off["step1_loss"])
+    print(f"train: step-1 loss fused_qkv on {on['step1_loss']:.6f} vs off "
+          f"{off['step1_loss']:.6f} (rel {rel:.2e}); step ms {on['step_ms']:.3f} vs "
+          f"{off['step_ms']:.3f}, clips/s {on['clips_per_s']:.3f} vs {off['clips_per_s']:.3f}, "
+          f"MFU {on['mfu']:.4f} vs {off['mfu']:.4f}, peak GiB {on['peak_mem_gib']:.2f} vs "
+          f"{off['peak_mem_gib']:.2f} ({smi})", flush=True)
+    if rel > FUSED_LOSS_RTOL:
+        raise AssertionError(f"fused_qkv on/off step-1 losses differ by {rel:.3e}")
+    return {name: on["launches"][name] + off["launches"][name] for name in on["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -442,7 +709,10 @@ def main() -> int:
           f"(sm_90a); ptxas: {json.dumps(ptxas)}", flush=True)
 
     g = torch.Generator(dev).manual_seed(0)
-    kernels = [kernel_ln_mlp(dev, g), kernel_space_attention(dev, g)]
+    kernels = [kernel_ln_mlp(dev, g), kernel_space_attention(dev, g), kernel_ln_linear(dev, g)]
+    fb = fwd_bwd_ms(dev, g)
+    for k in kernels:
+        k["fwd_bwd_ms"] = fb[k["name"]]
     print("kernels " + " | ".join(
         f"{k['name']}: {k['shape']}, max_abs_err {k['max_abs_err']:.3e}, "
         f"max_rel_err {k['max_rel_err']:.3e}, tolerance |err| <= {k['atol']} + "
@@ -450,14 +720,21 @@ def main() -> int:
         f"max {k['ref_max']:.3e}, "
         f"kernel_ms {k['ms']:.4f}, plain_ms {k['plain_ms']:.4f}, "
         f"library_ms {k['library_ms']:.4f}, bound_ms {k['bound_ms']:.4f} "
-        f"({k['bound_by']})" for k in kernels) + f" [{smi}]", flush=True)
+        f"({k['bound_by']}), fwd_bwd_ms at the train shape {k['fwd_bwd_ms']:.4f}"
+        for k in kernels) + f" [{smi}]", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches = serve_phase(tmp, smi)
+        phases = {"serve": serve_phase(tmp, smi)}
+    phases["train"] = train_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "fwd_bwd_ms",
+            "launches_by_phase")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
+                                  if n.get(k["name"])}
+        k["launches"] = sum(k["launches_by_phase"].values())
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']}: no launch on any main path")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

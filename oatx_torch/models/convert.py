@@ -7,6 +7,10 @@ port's own copy of the mapping in oatx/models/convert.py:321-384
 (`frozen_in_time_to_torch` with `_export_distilbert_text`): linear kernels
 (in, out) → weights (out, in), conv kernels HWIO → OIHW.
 
+`opt_state_from_optax` carries an optax AdamW state (oatx's `make_optimizer`
+chain) across through the same key map, so a JAX run can continue in the
+port: `AdamW.load_named_state(opt_state_from_optax(...))`.
+
 `load_checkpoint` reads a `.pth` in the {'state_dict', 'epoch'} format that
 oatx's `convert.export_torch_checkpoint` writes (and the reference saves).
 Positional-embedding inflation on a frame- or patch-count mismatch is not in
@@ -98,6 +102,35 @@ def state_dict_from_oatx(params: Params, tower_cfg) -> Dict[str, torch.Tensor]:
     if "vid_proj" in params:
         _dense(sd, "vid_proj.0", params["vid_proj"])
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}  # writable copies
+
+
+def _find_state(state, has: str):
+    """The first node of a nested optax state (tuples of NamedTuples) that
+    has every attribute named in `has`."""
+    if all(hasattr(state, a) for a in has.split()):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            hit = _find_state(sub, has)
+            if hit is not None:
+                return hit
+    return None
+
+
+def opt_state_from_optax(opt_state, tower_cfg) -> Dict[str, Any]:
+    """optax AdamW state → {'count', 'mu', 'nu'[, 'ema']} with the moments
+    (and the EMA params, when the chain has one) keyed like the port's
+    parameters, for `train.optim.AdamW.load_named_state`."""
+    adam = _find_state(opt_state, "count mu nu")
+    if adam is None:
+        raise ValueError("no AdamW (ScaleByAdamState) in the optimizer state")
+    out: Dict[str, Any] = {"count": int(np.asarray(adam.count)),
+                           "mu": state_dict_from_oatx(adam.mu, tower_cfg),
+                           "nu": state_dict_from_oatx(adam.nu, tower_cfg)}
+    ema = _find_state(opt_state, "ema")
+    if ema is not None:
+        out["ema"] = state_dict_from_oatx(ema.ema, tower_cfg)
+    return out
 
 
 def load_checkpoint(model: nn.Module, path: str) -> nn.Module:

@@ -1,11 +1,15 @@
-"""SpaceTimeTransformer — divided space-time ViT video tower, forward
+"""SpaceTimeTransformer — divided space-time ViT video tower
 (port of oatx/models/vit_spacetime.py:25-354).
 
 Block wiring (:166-188):
     u = x + time_attn(norm3(x))
     r = x + space_attn(norm1(u))        # residual from x, not u
     out = r + ln_mlp(norm2, r)          # kernel 1 (oatx's fused_mlp default)
-Space attention runs kernel 2 (ops/kernels/space_attention.py). Parameter
+Space attention runs kernel 2 (ops/kernels/space_attention.py). With
+`fused_qkv=True` each LN→qkv pair runs as kernel 3 (ops/kernels/ln_linear.py,
+oatx :168-177); the port's one CLS-first stream is the layout oatx falls back
+to under `fused_qkv` (:297-299). Every kernel carries its gradient, so the
+tower trains. Parameter
 names follow the reference state_dict (`blocks.N.{norm1,norm2,norm3,attn,
 timeattn,mlp}.*`, `patch_embed.proj`, `cls_token`, `pos_embed`,
 `temporal_embed`, `norm`), so `load_state_dict(strict=True)` is the bridge.
@@ -13,8 +17,8 @@ timeattn,mlp}.*`, `patch_embed.proj`, `cls_token`, `pos_embed`,
 The config accepts every oatx key. The layout knobs (`cls_position`,
 `split_cls_stream`) leave outputs unchanged and are ignored: the port has one
 token order, CLS first. Remat, scanned blocks, pipeline stages, sequence
-parallelism, region taps and the fused LN→qkv op are not in this slice, and
-the unfused MLP (`fused_mlp=False`) is not ported: the tower raises on them.
+parallelism and region taps are not ported yet, and the unfused MLP
+(`fused_mlp=False`) is not ported: the tower raises on them.
 """
 
 from __future__ import annotations
@@ -77,8 +81,6 @@ def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
         return "sequence_parallel"
     if cfg.region_tap_layer is not None:
         return "region_tap_layer"
-    if cfg.fused_qkv:
-        return "fused_qkv (the ln_linear kernel is not ported yet)"
     if not cfg.fused_mlp:
         return "fused_mlp=False (the port runs kernel 1 in every block)"
     return None
@@ -99,10 +101,13 @@ class Attention(nn.Module):
                 self.proj.weight.fill_(1.0)
 
     def forward(self, x: torch.Tensor, num_heads: int, num_frames: int,
-                mode: str) -> torch.Tensor:
+                mode: str, norm: Optional[LayerNorm] = None) -> torch.Tensor:
+        """`norm` given: x is pre-norm and LN→qkv runs as kernel 3."""
+        ln = {} if norm is None else dict(ln_w=norm.weight, ln_b=norm.bias,
+                                          ln_eps=norm.eps)
         return divided_attention(x, self.qkv.weight, self.qkv.bias,
                                  self.proj.weight, self.proj.bias,
-                                 num_heads, num_frames, mode)
+                                 num_heads, num_frames, mode, **ln)
 
 
 class Mlp(nn.Module):
@@ -126,8 +131,12 @@ class SpaceTimeBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
         h = self.cfg.num_heads
-        u = x + self.timeattn(self.norm3(x), h, num_frames, "time")
-        r = x + self.attn(self.norm1(u), h, num_frames, "space")
+        if self.cfg.fused_qkv:
+            u = x + self.timeattn(x, h, num_frames, "time", self.norm3)
+            r = x + self.attn(u, h, num_frames, "space", self.norm1)
+        else:
+            u = x + self.timeattn(self.norm3(x), h, num_frames, "time")
+            r = x + self.attn(self.norm1(u), h, num_frames, "space")
         m, n2 = self.mlp, self.norm2
         return r + ln_mlp(r, n2.weight, n2.bias, m.fc1.weight, m.fc1.bias,
                           m.fc2.weight, m.fc2.bias, LN_EPS)

@@ -2,7 +2,9 @@
 
 One formulation, the reference's CLS-first token order:
   * qkv = Linear(x); heads split head-major from the fused 3·D output; q
-    pre-scaled by Dh^-0.5 (`qkv_heads`, oatx `_qkv` :82-99);
+    pre-scaled by Dh^-0.5 (`qkv_heads`, oatx `_qkv` :82-99). Given LN params,
+    x is the pre-norm stream and LN→qkv runs as kernel 3
+    (ops/kernels/ln_linear.py), oatx's `fused_qkv` path;
   * `full_attention`: (B, T) mask with 1 = attend, masked logits filled with
     finfo(f32).min, softmax in f32, p cast to the compute dtype before P·V
     (:102-115);
@@ -22,17 +24,25 @@ from typing import Optional
 
 import torch
 
+from oatx_torch.ops.kernels.ln_linear import ln_linear
 from oatx_torch.ops.kernels.space_attention import space_attention
 from oatx_torch.ops.layers import linear
 
 
 def qkv_heads(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              num_heads: int):
+              num_heads: int, ln_w: Optional[torch.Tensor] = None,
+              ln_b: Optional[torch.Tensor] = None, ln_eps: float = 1e-6):
     """(B, T, D) → q, k, v each (B, T, H, Dh); q pre-scaled (a new tensor),
-    k and v views into the fused qkv output."""
+    k and v views into the fused qkv output. With `ln_w`/`ln_b`, x is the
+    pre-norm stream and qkv = ln_linear(x) (bias added in f32, as oatx's
+    ln_linear does; plain `linear` adds it in the compute dtype)."""
     b, t, d = x.shape
     dh = d // num_heads
-    qkv = linear(x, weight, bias).reshape(b, t, 3, num_heads, dh)
+    if ln_w is not None:
+        qkv = ln_linear(x, ln_w, ln_b, weight, bias, ln_eps)
+    else:
+        qkv = linear(x, weight, bias)
+    qkv = qkv.reshape(b, t, 3, num_heads, dh)
     return qkv[:, :, 0] * (dh ** -0.5), qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -75,14 +85,18 @@ def time_attention(q, k, v, num_frames: int) -> torch.Tensor:
 
 
 def divided_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
-                      num_heads: int, num_frames: int, mode: str) -> torch.Tensor:
+                      num_heads: int, num_frames: int, mode: str,
+                      ln_w: Optional[torch.Tensor] = None,
+                      ln_b: Optional[torch.Tensor] = None,
+                      ln_eps: float = 1e-6) -> torch.Tensor:
     """One VarAttention pass over x (B, 1 + F·N, D), CLS first, with grouping
-    `mode` ∈ {'space', 'time'}."""
+    `mode` ∈ {'space', 'time'}. With LN params x is pre-norm and the LN runs
+    inside the qkv projection (kernel 3)."""
     b, t, d = x.shape
     f = num_frames
     if f < 1 or (t - 1) % f:
         raise ValueError(f"token count {t} incompatible with {f} frames")
-    q, k, v = qkv_heads(x, qkv_w, qkv_b, num_heads)
+    q, k, v = qkv_heads(x, qkv_w, qkv_b, num_heads, ln_w, ln_b, ln_eps)
     if mode == "space":
         out = space_attention(q, k, v, f)
     elif mode == "time":

@@ -1,4 +1,4 @@
-"""Divided space attention, forward, CLS-first token order.
+"""Divided space attention, CLS-first token order, with its gradient.
 
 Replaces the TPU kernel oatx/ops/pallas/spacetime_attention.py
 `_space_attention_fwd_pallas` (:60-84, body `_space_kernel` :30-57) and
@@ -23,8 +23,16 @@ kernel reads q/k/v through their strides, so the views of the fused qkv
 output need no transpose copy. Shared memory (≈ 149 KB at N = 196) allows one
 block per SM; that and the scalar CLS block are left for a later change.
 
-On a CPU tensor the wrapper runs `space_attention_plain`; on a CUDA tensor it
-launches the kernel or raises.
+Gradient: `space_attention` is a torch.autograd.Function. Its backward is
+`space_attention_backward`, plain PyTorch: it recomputes
+`space_attention_plain` from the saved q, k, v and differentiates it with
+torch.autograd, as oatx differentiates `_space_attention_reference`
+(:123-127; oatx has no Pallas backward either). Its einsums run on f32
+copies of the bf16 operands, like the plain forward. No backward kernel is
+written by hand yet.
+
+On a CPU tensor the forward runs `space_attention_plain`; on a CUDA tensor
+it launches the kernel or raises. The backward is the same on both.
 """
 
 from __future__ import annotations
@@ -74,13 +82,18 @@ def _lib():
     return lib
 
 
-def space_attention(q, k, v, num_frames: int):
-    """Divided space attention; q, k, v (B, T, H, Dh), CLS first, q pre-scaled.
-    Returns a contiguous (B, T, H, Dh) tensor."""
-    if q.device.type == "cpu":
-        return space_attention_plain(q, k, v, num_frames)
-    if not q.is_cuda:
-        raise ValueError(f"space_attention: unsupported device {q.device}")
+def space_attention_backward(q, k, v, dout, num_frames: int):
+    """VJP of `space_attention`: (dq, dk, dv), each in its input's dtype and
+    shape, through autograd of the plain version."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+        out = space_attention_plain(*leaves, num_frames)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _launch(q, k, v, num_frames: int):
+    """The CUDA kernel: q, k, v (B, T, H, Dh) bf16, read through their
+    strides → a contiguous (B, T, H, Dh) output."""
     b, t, h, dh = q.shape
     f = num_frames
     if f < 1 or (t - 1) % f:
@@ -113,6 +126,31 @@ def space_attention(q, k, v, num_frames: int):
     with _count_lock:
         space_attention.launches += 1
     return out
+
+
+class _SpaceAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_frames):
+        ctx.num_frames = num_frames
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return space_attention_plain(q, k, v, num_frames)
+        if not q.is_cuda:
+            raise ValueError(f"space_attention: unsupported device {q.device}")
+        return _launch(q, k, v, num_frames)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*space_attention_backward(*ctx.saved_tensors, dout, ctx.num_frames),
+                None)
+
+
+def space_attention(q, k, v, num_frames: int):
+    """Divided space attention; q, k, v (B, T, H, Dh), CLS first, q pre-scaled.
+    Returns a contiguous (B, T, H, Dh) tensor. Differentiable: k and v may be
+    strided views (of the fused qkv output); their gradients flow back
+    through the views."""
+    return _SpaceAttention.apply(q, k, v, num_frames)
 
 
 space_attention.launches = 0

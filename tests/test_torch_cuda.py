@@ -9,7 +9,12 @@ repository's conftest:
 Tolerance: bf16 kernel vs bf16 plain version, O(1) outputs. Both round to
 bf16 at the same points (z, h, p) but sum in different orders, so a rounding
 may land one bf16 ulp apart (≈ 4e-3 at 1) and spread through the next
-product: atol 2e-2.
+product: atol 2e-2. Gradients through a kernel's autograd.Function against
+autograd through its plain version (both bf16 on the card) are held by their
+relative L2 error: the two backward passes round at different points (the
+Function's VJP keeps dW and dz in f32 and rounds dpre1 once; autograd of the
+plain version rounds each cotangent back to bf16 at every cast), so a few
+bf16 ulps (2^-8 ≈ 4e-3 each) separate them: GRAD_REL 2e-2.
 """
 
 import pytest
@@ -19,10 +24,15 @@ from oatx_torch.models import distilbert as pdb
 from oatx_torch.models import towers as ptowers
 from oatx_torch.models import vit_spacetime as pvst
 from oatx_torch.ops import attention as patt
+from oatx_torch.ops.kernels import ln_linear as pll
 from oatx_torch.ops.kernels import ln_mlp as plm
 from oatx_torch.ops.kernels import space_attention as psa
+from oatx_torch.ops.kernels._common import mm_f32
+from oatx_torch.train import optim as poptim
+from oatx_torch.train import step as pstep
 
 ATOL = 2e-2
+GRAD_REL = 2e-2
 
 
 @pytest.fixture
@@ -67,6 +77,85 @@ def test_space_attention_kernel_matches_plain(card, b, frames, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [(6280, 768, 2304), (33, 768, 2304), (50, 48, 128)])
+def test_ln_linear_kernel_matches_plain(card, rows, k, n):
+    """The train step's LN→qkv shape, a ragged last row tile, and a small K
+    that is not a multiple of the 64-column K chunk."""
+    g = torch.Generator(card).manual_seed(rows + k)
+    bf = torch.bfloat16
+    x = torch.randn(rows, k, device=card, generator=g).to(bf)
+    w = (torch.randn(n, k, device=card, generator=g) / k ** 0.5).to(bf)
+    small = [0.1 * torch.randn(m, device=card, generator=g) for m in (k, k, n)]
+    args = (x, 1 + small[0], small[1], w, small[2], 1e-6)
+    before = pll.ln_linear.launches
+    got = pll.ln_linear(*args)
+    torch.cuda.synchronize()
+    assert pll.ln_linear.launches == before + 1
+    torch.testing.assert_close(got.float(), pll.ln_linear_plain(*args).float(),
+                               atol=ATOL, rtol=0)
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _grads_match(fn, plain, args, names):
+    """Gradients of a random projection of fn(*args) against the same through
+    the plain version (autograd), per input."""
+    out = fn(*args)
+    dy = torch.randn_like(out.float()).to(out.dtype)
+    got = torch.autograd.grad(out, args, dy)
+    want = torch.autograd.grad(plain(*args), args, dy)
+    for name, a, b in zip(names, got, want):
+        assert a is not None and bool(torch.isfinite(a).all()), name
+        assert _rel(a, b) <= GRAD_REL, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_backward_products_keep_f32(card):
+    """mm_f32 takes bf16 operands on the card and returns the f32 sum."""
+    g = torch.Generator(card).manual_seed(1)
+    a = torch.randn(300, 768, device=card, generator=g).to(torch.bfloat16)
+    b = torch.randn(768, 256, device=card, generator=g).to(torch.bfloat16)
+    got = mm_f32(a.t().contiguous().t(), b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, a.float() @ b.float(), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_functions_give_gradients(card):
+    """Each of the three autograd.Functions on the card (kernel forward, plain
+    VJP) against autograd through its plain version, every input's gradient."""
+    g = torch.Generator(card).manual_seed(2)
+    bf = torch.bfloat16
+    R, D, H, N = 1570, 768, 3072, 2304
+
+    def leaf(*shape, scale=1.0, dtype=torch.float32, offset=0.0):
+        t = offset + scale * torch.randn(*shape, device=card, generator=g)
+        return t.to(dtype).requires_grad_()
+
+    x = leaf(R, D, dtype=bf)
+    ln = [leaf(D, scale=0.1, offset=1.0), leaf(D, scale=0.1)]
+    before = (plm.ln_mlp.launches, pll.ln_linear.launches, psa.space_attention.launches)
+    _grads_match(plm.ln_mlp, plm.ln_mlp_plain,
+                 (x, *ln, leaf(H, D, scale=0.02), leaf(H, scale=0.02),
+                  leaf(D, H, scale=0.02), leaf(D, scale=0.02)),
+                 ("x", "ln_w", "ln_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b"))
+    _grads_match(pll.ln_linear, pll.ln_linear_plain,
+                 (x, *ln, leaf(N, D, scale=0.02), leaf(N, scale=0.02)),
+                 ("x", "ln_w", "ln_b", "weight", "bias"))
+    qkv = leaf(2, 785, 3, 12, 64, dtype=bf)
+
+    def views(fn):  # k and v are strided views of the qkv tensor, as trained
+        return lambda t: fn(t[:, :, 0] * 0.125, t[:, :, 1], t[:, :, 2], 4)
+
+    _grads_match(views(psa.space_attention), views(psa.space_attention_plain),
+                 (qkv,), ("qkv",))
+    assert (plm.ln_mlp.launches, pll.ln_linear.launches,
+            psa.space_attention.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_cannot_take(card):
     x = torch.zeros(4, 128, device=card)  # f32 activations
     w1, w2 = torch.zeros(512, 128, device=card), torch.zeros(128, 512, device=card)
@@ -76,6 +165,16 @@ def test_kernels_refuse_what_they_cannot_take(card):
     q = torch.zeros(1, 9, 2, 32, device=card, dtype=torch.bfloat16)  # Dh 32
     with pytest.raises(ValueError, match="Dh"):
         psa.space_attention(q, q, q, 2)
+    w = torch.zeros(256, 128, device=card)
+    with pytest.raises(ValueError, match="bf16"):
+        pll.ln_linear(x, vec[0], vec[1], w, torch.zeros(256, device=card))
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="N=200"):
+        pll.ln_linear(xb, vec[0], vec[1], w[:200], torch.zeros(200, device=card))
+    with pytest.raises(ValueError, match="shared memory"):
+        pll.ln_linear(torch.zeros(4, 2048, device=card, dtype=torch.bfloat16),
+                      torch.ones(2048, device=card), torch.zeros(2048, device=card),
+                      torch.zeros(128, 2048, device=card), torch.zeros(128, device=card))
 
 
 @pytest.mark.cuda
@@ -101,3 +200,35 @@ def test_video_tower_through_the_kernels(card, monkeypatch):
         want = model.compute_video(x)["cls"]
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     assert bool(torch.isfinite(got).all()) and float(cos.min()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_qkv", [False, True])
+def test_train_step_through_the_kernels(card, fused_qkv):
+    """One bf16 train step of a small tower on the card (Dh = 64): each block
+    launches kernels 1 and 2 once and, under fused_qkv, kernel 3 twice; every
+    parameter gets a finite gradient (a kernel output without a grad_fn
+    would leave whole blocks with None), and the step moves every block
+    weight."""
+    cfg = ptowers.TowerConfig(
+        video=pvst.SpaceTimeViTConfig(img_size=32, embed_dim=128, depth=2, num_heads=2,
+                                      num_frames=2, time_init="random", fused_qkv=fused_qkv),
+        text=pdb.DistilBertConfig(vocab_size=100, dim=64, hidden_dim=128, n_layers=1,
+                                  n_heads=4),
+        projection_dim=32, compute_dtype=torch.bfloat16)
+    state = pstep.init_state(cfg, poptim.make_optimizer(lr=1e-3), device=card,
+                             generator=torch.Generator(card).manual_seed(0))
+    g = torch.Generator(card).manual_seed(1)
+    batch = {"video": torch.randn(4, 2, 32, 32, 3, device=card, generator=g),
+             "input_ids": torch.randint(0, 100, (4, 5), device=card, generator=g)}
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    counts = (plm.ln_mlp.launches, psa.space_attention.launches, pll.ln_linear.launches)
+    state, metrics = pstep.make_train_step(cfg, pstep.LossConfig(), device=card)(state, batch)
+    torch.cuda.synchronize()
+    assert (plm.ln_mlp.launches - counts[0], psa.space_attention.launches - counts[1],
+            pll.ln_linear.launches - counts[2]) == (2, 2, 4 if fused_qkv else 0)
+    assert bool(torch.isfinite(metrics["loss"])) and state.step == 1
+    for n, p in state.model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
+        if ".blocks." in n and n.endswith("weight"):  # the params behind the kernels
+            assert not torch.equal(p.detach(), before[n]), n

@@ -76,6 +76,43 @@ def test_vit_spacetime_matches_oatx(params, model, layout, frames):
                                    atol=ATOL, rtol=0, err_msg=key)
 
 
+@pytest.mark.parametrize("frames", [2, 1])
+def test_vit_spacetime_fused_qkv_matches_oatx(params, frames):
+    """fused_qkv=True: each LN→qkv pair through kernel 3's Function, against
+    oatx's ln_linear path (which runs its own CLS-first stream). Forward and
+    the gradient of a scalar of it w.r.t. every tower parameter and the input,
+    f32 at 1e-4 of each tensor's scale (gradients summed in other orders)."""
+    cfg = oatx_cfg(fused_qkv=True)
+    pc = port_cfg()
+    pc = dataclasses.replace(pc, video=dataclasses.replace(pc.video, fused_qkv=True))
+    model = port_model(params, pc).video_model
+    x = _video(30 + frames, f=frames)
+    proj = np.random.default_rng(3).standard_normal(64).astype(np.float32)
+
+    def scalar(p, v):
+        out = jvst.apply(p, cfg.video, v)
+        return jnp.sum(out["cls"] @ proj) + jnp.mean(out["patches"] ** 2), out
+
+    (_, want), (gp, gx) = jax.value_and_grad(scalar, argnums=(0, 1), has_aux=True)(
+        params["video"], jnp.asarray(x))
+    xt = t(x).requires_grad_()
+    got = model(xt)
+    for key in ("cls", "patches"):
+        np.testing.assert_allclose(got[key].detach().numpy(), np.asarray(want[key]),
+                                   atol=ATOL, rtol=0, err_msg=key)
+    (torch.sum(got["cls"] @ t(proj)) + got["patches"].square().mean()).backward()
+    grads = pconvert.state_dict_from_oatx(to_numpy({"video": gp, "text": params["text"]}), pc)
+    checked = 0
+    for name, prm in model.named_parameters():
+        w = grads["video_model." + name].numpy()
+        np.testing.assert_allclose(prm.grad.numpy(), w, rtol=0,
+                                   atol=ATOL * max(np.abs(w).max(), 1e-3), err_msg=name)
+        checked += 1
+    assert checked == len(list(model.parameters()))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), rtol=0,
+                               atol=ATOL * np.abs(np.asarray(gx)).max())
+
+
 def test_vit_spacetime_cls_mean_half_pooling(params):
     cfg = oatx_cfg(pooling="cls_mean_half")
     pc = port_cfg()
@@ -214,7 +251,7 @@ def test_init_is_seeded():
 @pytest.mark.parametrize("change", [
     dict(video=dict(remat=True)), dict(video=dict(scan_blocks=True)),
     dict(video=dict(pipeline_stages=2)), dict(video=dict(sequence_parallel=True)),
-    dict(video=dict(region_tap_layer=1)), dict(video=dict(fused_qkv=True)),
+    dict(video=dict(region_tap_layer=1)),
     dict(video=dict(fused_mlp=False)), dict(variant="global_local"),
     dict(text_family="bert"),
 ])
@@ -234,6 +271,8 @@ def test_entry_points_need_cuda_unless_given_cpu(monkeypatch):
     from oatx_torch.cli import serve as pserve
     from oatx_torch.serve.embed_service import EmbedService
     from oatx_torch.serve.retrieval_index import RetrievalIndex
+    from oatx_torch.train import optim as poptim
+    from oatx_torch.train import step as pstep
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -249,6 +288,15 @@ def test_entry_points_need_cuda_unless_given_cpu(monkeypatch):
         RetrievalIndex(np.ones((2, 4), np.float32), ["a", "b"])
     with pytest.raises(RuntimeError, match="CUDA"):
         pserve.build_service(["-c", SMOKE_CONFIG])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pstep.init_state(port_cfg(), poptim.make_optimizer())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pstep.make_train_step(port_cfg(), pstep.LossConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pstep.make_eval_step(port_cfg())
+    state = pstep.init_state(port_cfg(), poptim.make_optimizer(), device="cpu")
+    assert next(state.model.parameters()).device.type == "cpu"
+    assert callable(pstep.make_train_step(port_cfg(), pstep.LossConfig(), device="cpu"))
     assert EmbedService(model, port_cfg(), device="cpu").device.type == "cpu"
     assert RetrievalIndex(np.ones((2, 4), np.float32), ["a", "b"],
                           device="cpu").device.type == "cpu"

@@ -334,14 +334,17 @@ def test_cli_serves_oatx_checkpoint_like_oatx(tmp_path):
 
 
 def test_port_imports_no_jax_and_no_oatx():
-    """A fresh interpreter (isolated: no site hooks) imports the serving
-    entry points without pulling in jax or the oatx package."""
+    """A fresh interpreter (isolated: no site hooks) imports the serving and
+    training entry points without pulling in jax or the oatx package."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import oatx_torch.serve.embed_service, oatx_torch.cli.serve, "
             "oatx_torch.serve.retrieval_index, oatx_torch.models.convert, "
-            "oatx_torch.ops.kernels.ln_mlp, oatx_torch.ops.kernels.space_attention; "
+            "oatx_torch.ops.kernels.ln_mlp, oatx_torch.ops.kernels.space_attention, "
+            "oatx_torch.ops.kernels.ln_linear, oatx_torch.train.step, "
+            "oatx_torch.train.optim, oatx_torch.train.flops, "
+            "oatx_torch.losses.contrastive; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'oatx', 'flax')); print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench')); print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-I", "-c", code, REPO], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
