@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the oatx_torch port once on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-ln-linear LIB]
+
+--parent-ln-linear names a library built from another csrc/ln_linear.cu
+with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
+the kernels phase then also checks it and times it in turns with this
+tree's kernel (parent, this, this, parent), alone and under forward +
+backward, at the train step's shape.
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -10,9 +16,10 @@ printed):
   2. kernels — each hand-written kernel against its plain PyTorch version on
      the card (bf16): kernels 1 and 2 at the serving shapes of bucket 4,
      kernel 3 (ln_linear) at the train step's LN→qkv shape, each with its
-     time, the plain version's, one PyTorch library call's and the card's
-     bound; and for all three the forward + backward time through the
-     kernel's autograd.Function at the train step's shapes;
+     time, achieved TFLOP/s, ptxas registers and spills, the plain
+     version's time, one PyTorch library call's and the card's bound; and
+     for all three the forward + backward time (and device busy time)
+     through the kernel's autograd.Function at the train step's shapes;
   3. serve — the full-width zero-shot config (configs/ft/msrvtt/zsl/normal.json:
      ViT-B/16 over 4×224² frames + DistilBERT-base, bf16, random weights from
      seed 0) built through oatx_torch.cli.serve, its HTTP server on a
@@ -45,11 +52,14 @@ per-kernel JSON record.
 
 from __future__ import annotations
 
+import argparse
 import base64
 import contextlib
+import ctypes
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -146,6 +156,30 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def ptxas_report(log):
+    """Registers and spill bytes of every kernel in one nvcc -Xptxas -v log,
+    e.g. [{"kernel": "ln_linear_kernel", "registers": 168,
+    "spill_stores": 36, "spill_loads": 56}]."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+            name = k.group(1) if k else m.group(1)
+            if k and k.group(2):
+                name += "<" + ", ".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
+            cur = {"kernel": name}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -197,7 +231,7 @@ def kernel_ln_mlp(dev, g):
         "replaces": "oatx/ops/pallas/ln_mlp.py:98", **errs,
         "ms": time_ms(lambda: ln_mlp(*args)),
         "plain_ms": time_ms(lambda: ln_mlp_plain(*args), iters=5),
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, "flops": flops,
         "library_ms": time_ms(library),
         "shape": f"x ({R}, {D}) bf16, hidden {H}",
     }
@@ -245,13 +279,37 @@ def kernel_space_attention(dev, g):
         "replaces": "oatx/ops/pallas/spacetime_attention.py:60", **errs,
         "ms": time_ms(lambda: space_attention(q, k, v, Fr)),
         "plain_ms": time_ms(lambda: space_attention_plain(q, k, v, Fr), iters=5),
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, "flops": flops,
         "library_ms": time_ms(library),
         "shape": f"q/k/v ({B}, {T}, {Hh}, {Dh}) bf16, {Fr} frames",
     }
 
 
-def kernel_ln_linear(dev, g):
+def load_parent_ln_linear(path):
+    """The library at `path`, built from another csrc/ln_linear.cu with the
+    same C interface, set up as ln_linear's `_lib()` sets up its own."""
+    lib = ctypes.CDLL(os.path.abspath(path))
+    f = lib.ln_linear_fwd_bf16
+    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return lib
+
+
+@contextlib.contextmanager
+def ln_linear_library(lib):
+    """ln_linear launches `lib`'s kernel instead of its own (None: its own)."""
+    from oatx_torch.ops.kernels import ln_linear as pll
+
+    saved = pll._lib
+    if lib is not None:
+        pll._lib = lambda: lib
+    try:
+        yield
+    finally:
+        pll._lib = saved
+
+
+def kernel_ln_linear(dev, g, parent=None):
     from oatx_torch.ops.kernels.ln_linear import ln_linear, ln_linear_plain
 
     R, K, N = TRAIN_BATCH * 785, 768, 2304  # the train step's LN→qkv
@@ -264,29 +322,45 @@ def kernel_ln_linear(dev, g):
     args = (x, gamma, beta, w, b, 1e-6)
     got = ln_linear(*args)
     torch.cuda.synchronize()
-    errs = check_close("ln_linear", got, ln_linear_plain(*args), LN_LINEAR_ATOL)
+    want = ln_linear_plain(*args)
+    errs = check_close("ln_linear", got, want, LN_LINEAR_ATOL)
     gb, bb, bbf = (t.to(bf) for t in (gamma, beta, b))
 
     def library():
         return F.linear(F.layer_norm(x, (K,), gb, bb, 1e-6), w, bbf)
 
     nbytes = R * K * 2 + N * K * 2 + R * N * 2 + (2 * K + N) * 4
-    bound, by = bound_ms(nbytes, 2 * R * K * N)
-    return {
+    flops = 2 * R * K * N
+    bound, by = bound_ms(nbytes, flops)
+    rec = {
         "name": "ln_linear", "route": "cuda", "source": "oatx_torch/csrc/ln_linear.cu",
         "replaces": "oatx/ops/pallas/ln_linear.py:58", **errs,
         "ms": time_ms(lambda: ln_linear(*args)),
         "plain_ms": time_ms(lambda: ln_linear_plain(*args), iters=5),
-        "bound_ms": bound, "bound_by": by,
+        "bound_ms": bound, "bound_by": by, "flops": flops,
         "library_ms": time_ms(library),
         "shape": f"x ({R}, {K}) bf16 -> ({R}, {N})",
     }
+    if parent is not None:
+        with ln_linear_library(parent):
+            perr = check_close("ln_linear (parent)", ln_linear(*args), want, LN_LINEAR_ATOL)
+        turns = []
+        for lib in (parent, None, None, parent):
+            with ln_linear_library(lib):
+                turns.append(time_ms(lambda: ln_linear(*args)))
+        rec["parent"] = {"ms_turns": turns, "max_abs_err": perr["max_abs_err"],
+                         "tol_used": perr["tol_used"]}
+    return rec
 
 
-def fwd_bwd_ms(dev, g):
+def fwd_bwd_ms(dev, g, parent=None):
     """Forward + backward through each kernel's autograd.Function at the
     train step's shapes (B = 8, T = 785: 6280 rows; f32 master weights as the
-    model holds them), CUDA events over 10 iterations after warm-up."""
+    model holds them): (ms by CUDA events over 10 iterations after warm-up,
+    which counts the host's gaps between launches; device busy ms of one
+    call from a CUDA-only trace of 5, which does not). With `parent`,
+    "ln_linear_parent" holds the same through the parent's kernel, timed
+    before and after this tree's: ((events ms, events ms), device ms)."""
     from oatx_torch.ops.kernels.ln_linear import ln_linear
     from oatx_torch.ops.kernels.ln_mlp import ln_mlp
     from oatx_torch.ops.kernels.space_attention import space_attention
@@ -311,7 +385,15 @@ def fwd_bwd_ms(dev, g):
     out = {}
     for name, (fn, args) in calls.items():
         dy = torch.randn(fn(*args).shape, device=dev, generator=g).to(torch.bfloat16)
-        out[name] = time_ms(lambda: torch.autograd.grad(fn(*args), args, dy), iters=10)
+        call = lambda: torch.autograd.grad(fn(*args), args, dy)  # noqa: E731
+        if name == "ln_linear" and parent is not None:
+            with ln_linear_library(parent):
+                before = time_ms(call, iters=10)
+        out[name] = time_ms(call, iters=10), device_trace(call, 5)[0]
+        if name == "ln_linear" and parent is not None:
+            with ln_linear_library(parent):
+                out["ln_linear_parent"] = ((before, time_ms(call, iters=10)),
+                                           device_trace(call, 5)[0])
     return out
 
 
@@ -684,6 +766,10 @@ def train_phase(smi, dev, res=224):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-ln-linear", metavar="LIB",
+                    help="library built from another csrc/ln_linear.cu, timed beside this one")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -703,16 +789,26 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     secs = _build.build_all()
-    ptxas = {k: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for k, log in _build.build_logs.items()}
+    ptxas = {k: ptxas_report(log) for k, log in _build.build_logs.items()}
     print(f"build: nvcc {secs:.1f} s for {[s.name for s in _build.sources()]} "
           f"(sm_90a); ptxas: {json.dumps(ptxas)}", flush=True)
 
+    parent = None
+    if opts.parent_ln_linear:
+        parent = load_parent_ln_linear(opts.parent_ln_linear)
     g = torch.Generator(dev).manual_seed(0)
-    kernels = [kernel_ln_mlp(dev, g), kernel_space_attention(dev, g), kernel_ln_linear(dev, g)]
-    fb = fwd_bwd_ms(dev, g)
+    kernels = [kernel_ln_mlp(dev, g), kernel_space_attention(dev, g),
+               kernel_ln_linear(dev, g, parent)]
+    fb = fwd_bwd_ms(dev, g, parent)
+    if parent is not None:
+        (ev0, ev1), busy = fb["ln_linear_parent"]
+        kernels[2]["parent"].update(fwd_bwd_ms=[ev0, ev1], fwd_bwd_device_ms=busy)
+        print(f"ln_linear parent ({opts.parent_ln_linear}): {json.dumps(kernels[2]['parent'])}",
+              flush=True)
     for k in kernels:
-        k["fwd_bwd_ms"] = fb[k["name"]]
+        k["fwd_bwd_ms"], k["fwd_bwd_device_ms"] = fb[k["name"]]
+        k["tflops"] = k["flops"] / k["ms"] / 1e9  # achieved, 2 flops per multiply-add
+        k["ptxas"] = ptxas.get(k["name"])
     print("kernels " + " | ".join(
         f"{k['name']}: {k['shape']}, max_abs_err {k['max_abs_err']:.3e}, "
         f"max_rel_err {k['max_rel_err']:.3e}, tolerance |err| <= {k['atol']} + "
@@ -720,22 +816,24 @@ def main() -> int:
         f"max {k['ref_max']:.3e}, "
         f"kernel_ms {k['ms']:.4f}, plain_ms {k['plain_ms']:.4f}, "
         f"library_ms {k['library_ms']:.4f}, bound_ms {k['bound_ms']:.4f} "
-        f"({k['bound_by']}), fwd_bwd_ms at the train shape {k['fwd_bwd_ms']:.4f}"
+        f"({k['bound_by']}), {k['tflops']:.1f} TFLOP/s, "
+        f"fwd_bwd_ms at the train shape {k['fwd_bwd_ms']:.4f} "
+        f"(device busy {k['fwd_bwd_device_ms']:.4f})"
         for k in kernels) + f" [{smi}]", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         phases = {"serve": serve_phase(tmp, smi)}
     phases["train"] = train_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "fwd_bwd_ms",
-            "launches_by_phase")
+            "tol_used", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
+            "fwd_bwd_ms", "fwd_bwd_device_ms", "ptxas", "launches_by_phase", "parent")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}
         k["launches"] = sum(k["launches_by_phase"].values())
         if not k["launches"]:
             raise AssertionError(f"{k['name']}: no launch on any main path")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

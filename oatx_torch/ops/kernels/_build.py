@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# what the last build printed (ptxas register / spill report)
+# what nvcc printed for each library (ptxas register / spill report); kept
+# beside the library as lib<name>-<hash>.log, so a later process reads it too
 build_logs: Dict[str, str] = {}
 
 
@@ -58,8 +59,9 @@ def _lib_path(src: Path) -> Path:
 
 
 def build_all() -> float:
-    """Compile every csrc/*.cu whose library is missing, all in parallel.
-    Returns the wall seconds spent (0 when everything was built already)."""
+    """Compile every csrc/*.cu whose library is missing, all in parallel,
+    and fill `build_logs`. Returns the wall seconds spent (0 when
+    everything was built already)."""
     todo = [s for s in sources() if not _lib_path(s).exists()]
     t0 = time.perf_counter()
     if todo:
@@ -80,9 +82,14 @@ def build_all() -> float:
             if p.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
             else:
+                out.with_suffix(".log").write_text(log)
                 os.replace(tmp, out)  # atomic: concurrent builders agree
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for src in sources():
+        log = _lib_path(src).with_suffix(".log")
+        if src.stem not in build_logs and log.exists():
+            build_logs[src.stem] = log.read_text()
     return time.perf_counter() - t0
 
 

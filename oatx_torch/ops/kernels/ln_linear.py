@@ -13,22 +13,28 @@ What bounds it on an H100: operations. At the train step's LN→qkv
 ≈ 0.0225 ms at 989 TFLOP/s, while the ≈ 42 MB it must move (x 9.6 MB, W
 3.5 MB, y 28.9 MB) take ≈ 0.0126 ms at 3.35 TB/s.
 
-Design (csrc/ln_linear.cu): a block takes a tile of 64 rows × 128 output
-columns. Its 8 warps compute the tile's LN statistics in f32, a warp per row,
-and write z as bf16 into shared memory (64 × 768 × 2 = 96 KB, dynamic shared
-memory). The block then walks K in chunks of 64: each chunk of W's 128 rows
-is staged in shared memory with cp.async, two buffers deep, and every warp
-accumulates a 32 × 32 piece of the tile in f32 WMMA fragments. The epilogue
-adds the bias in f32 and stores bf16. The grid is (row tiles × column tiles),
-99 × 18 at the train shape, so it fills the 132 SMs; every column tile
-recomputes its rows' LN. That trade is deliberate: the statistics cost
-≈ 1/50 of the tile's products, and one block per row tile looping over all
-of N would be kernel 1's under-filled shape. Measured on an H100 (PERF.md,
-chip_smoke.py): 0.49 ms at the train shape, 22× the bound and 9× cuBLAS's
-layer_norm → linear; the legacy mma.sync path with one 136 KB block per SM
-and two barriers per 64-wide K chunk runs the tensor cores at ≈ 5 % of
-peak. wgmma, TMA, deeper pipelining and more blocks per SM are left for a
-later change.
+Design (csrc/ln_linear.cu, Hopper): TMA, mbarriers and wgmma. A persistent
+block per SM walks a run of 128 × 256 output tiles with two consumer
+warpgroups (64 rows each) and one producer warp. The producer's TMA loads
+fill a ring of 4 stages, each holding an x chunk (128 × 64) and a W chunk
+(256 × 64), both in the 128-byte swizzle. When a block's row tile changes,
+the consumers first take the rows' statistics from x chunks streamed
+through the ring (Chan's update in f32, three chunks to a stage). Then, per
+64-wide K chunk, each warpgroup overwrites its rows of the x chunk with
+z = bf16(LN(x)·γ + β) in place, fences it for the async proxy and issues
+four wgmma m64n256k16. The LayerNorm of one chunk overlaps the tensor
+cores' work on the previous one. The epilogue adds the bias in f32 and
+writes y through swizzled 64 × 64 boxes by TMA stores. z never reaches
+device memory. K and N need only be multiples of 8 (TMA's 16-byte rows);
+ragged R, N and K < 64 are handled by TMA's zero fill and clipped stores.
+The kernel needs no shared memory that grows with K, so K has no limit.
+
+Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6,
+chip_smoke.py): 0.095 ms at the train shape (233 TFLOP/s, 24 % of peak,
+4.2× the bound); 0.089-0.091 ms in turns with the WMMA kernel it replaced
+(0.488 ms) in the same call; 0.058 ms for cuBLAS's layer_norm → linear.
+The ring is bound by the L2 → SM rate, and the 54 of 132 blocks that take
+a fourth tile set the end.
 
 Gradient: `ln_linear` is a torch.autograd.Function. Its backward is
 `ln_linear_backward`, plain PyTorch that mirrors oatx's `_ln_linear2d_bwd`
@@ -50,8 +56,6 @@ import torch
 from oatx_torch.ops.kernels import _build
 from oatx_torch.ops.kernels._common import ln_parts, mm_f32
 
-COL_TILE = 128       # output columns per block (N must be a multiple)
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _count_lock = threading.Lock()
 
 
@@ -91,9 +95,6 @@ def _lib():
         f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
             [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
-        s = lib.ln_linear_smem_bytes
-        s.argtypes = [ctypes.c_int]
-        s.restype = ctypes.c_longlong
     return lib
 
 
@@ -108,9 +109,10 @@ def _launch(x2, ln_w, ln_b, weight, bias, eps):
         raise ValueError(f"ln_linear: weight {tuple(weight.shape)}, bias "
                          f"{tuple(bias.shape)}, LN {tuple(ln_w.shape)} do not "
                          f"fit K={k}")
-    if k % 16 or n % COL_TILE:
-        raise ValueError(f"ln_linear kernel: unsupported widths K={k} (a "
-                         f"multiple of 16) N={n} (a multiple of {COL_TILE})")
+    if k % 8 or n % 8 or k == 0 or n == 0:
+        raise ValueError(f"ln_linear kernel: unsupported widths K={k} N={n} "
+                         "(each a positive multiple of 8: TMA reads rows of "
+                         "16-byte multiples)")
     x2 = x2.contiguous()
     dev = x2.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -120,16 +122,13 @@ def _launch(x2, ln_w, ln_b, weight, bias, eps):
     for a in args:
         if a.device != dev:
             raise ValueError("ln_linear: all operands must be on one device")
-    if x2.data_ptr() % 16 or args[3].data_ptr() % 16:
-        raise ValueError("ln_linear kernel: x and W must be 16-byte aligned")
+    # TMA reads x and W, the LayerNorm warps read γ and β, in 16-byte pieces
+    args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
     rows = x2.shape[0]
     y = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return y
     lib = _lib()
-    if lib.ln_linear_smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"ln_linear kernel: K={k} needs more shared memory "
-                         "than a block has")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.ln_linear_fwd_bf16(*[a.data_ptr() for a in args], y.data_ptr(),

@@ -77,10 +77,13 @@ def test_space_attention_kernel_matches_plain(card, b, frames, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,k,n", [(6280, 768, 2304), (33, 768, 2304), (50, 48, 128)])
+@pytest.mark.parametrize("rows,k,n", [(6280, 768, 2304), (33, 768, 2304), (1, 768, 2304),
+                                      (50, 48, 128), (300, 128, 384), (129, 2048, 264)])
 def test_ln_linear_kernel_matches_plain(card, rows, k, n):
-    """The train step's LN→qkv shape, a ragged last row tile, and a small K
-    that is not a multiple of the 64-column K chunk."""
+    """The train step's LN→qkv shape (6280 = 49·128 + 8 rows), ragged last
+    row tiles (33, 1, 129 rows), K under one 64-column chunk (48), N that
+    the 256-column tile does not divide (384, as the small train step's
+    embed_dim 128 gives, and 264), and K = 2048."""
     g = torch.Generator(card).manual_seed(rows + k)
     bf = torch.bfloat16
     x = torch.randn(rows, k, device=card, generator=g).to(bf)
@@ -169,12 +172,12 @@ def test_kernels_refuse_what_they_cannot_take(card):
     with pytest.raises(ValueError, match="bf16"):
         pll.ln_linear(x, vec[0], vec[1], w, torch.zeros(256, device=card))
     xb = x.to(torch.bfloat16)
-    with pytest.raises(ValueError, match="N=200"):
-        pll.ln_linear(xb, vec[0], vec[1], w[:200], torch.zeros(200, device=card))
-    with pytest.raises(ValueError, match="shared memory"):
-        pll.ln_linear(torch.zeros(4, 2048, device=card, dtype=torch.bfloat16),
-                      torch.ones(2048, device=card), torch.zeros(2048, device=card),
-                      torch.zeros(128, 2048, device=card), torch.zeros(128, device=card))
+    with pytest.raises(ValueError, match="N=100"):  # TMA rows of y: 16-byte multiples
+        pll.ln_linear(xb, vec[0], vec[1], w[:100], torch.zeros(100, device=card))
+    with pytest.raises(ValueError, match="K=100"):  # TMA rows of x and W
+        pll.ln_linear(torch.zeros(4, 100, device=card, dtype=torch.bfloat16),
+                      torch.ones(100, device=card), torch.zeros(100, device=card),
+                      torch.zeros(128, 100, device=card), torch.zeros(128, device=card))
 
 
 @pytest.mark.cuda

@@ -292,3 +292,15 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
         psa.space_attention(q, q, q, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         pll.ln_linear(x, *[torch.zeros(1, device="meta")] * 4)
+
+
+@pytest.mark.parametrize("k,n", [(100, 128), (128, 100)])
+def test_ln_linear_kernel_refuses_widths_tma_cannot_read(k, n):
+    """The kernel's TMA reads x, W and writes y in rows of 16-byte multiples:
+    the wrapper refuses K or N that is not a multiple of 8 before anything
+    reaches a device."""
+    meta = dict(device="meta")
+    x = torch.zeros(4, k, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match=f"K={k} N={n}"):
+        pll._launch(x, torch.zeros(k, **meta), torch.zeros(k, **meta),
+                    torch.zeros(n, k, **meta), torch.zeros(n, **meta), 1e-6)
