@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """Drive the oatx_torch port once on one CUDA card and check it.
 
-    python3 chip_smoke.py [--parent-ln-linear LIB]
+    python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
 the kernels phase then also checks it and times it in turns with this
 tree's kernel (parent, this, this, parent), alone and under forward +
-backward, at the train step's shape.
+backward, at the train step's shape. --parent-ln-mlp does the same for an
+earlier csrc/ln_mlp.cu with the one-kernel C interface (8 pointers, 4 ints,
+eps, stream), at R = 785, 3140 and 6280.
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
   1. environment — the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the nvcc build of every kernel in oatx_torch/csrc;
   2. kernels — each hand-written kernel against its plain PyTorch version on
-     the card (bf16): kernels 1 and 2 at the serving shapes of bucket 4,
-     kernel 3 (ln_linear) at the train step's LN→qkv shape, each with its
+     the card (bf16): kernel 1 (ln_mlp) at R = 785, 3140 and 6280 rows (its
+     record at bucket 4's 3140, with the ms of each split of its second
+     product), kernel 2 at bucket 4's serving shapes, kernel 3 (ln_linear)
+     at the train step's LN→qkv shape, each with its
      time, achieved TFLOP/s, ptxas registers and spills, the plain
      version's time, one PyTorch library call's and the card's bound; and
      for all three the forward + backward time (and device busy time)
@@ -130,7 +134,7 @@ LAT_ROUNDS = 3         # rounds per bucket: the p50's spread inside one call
 LAT_WARMUP = 5
 PROFILED_REQUESTS = 10
 # device kernels by name, for the per-group breakdown of a video request
-KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_kernel",)),
+KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_",)),
                  ("space_attention", ("space_attention_kernel",)),
                  ("ln_linear", ("ln_linear_kernel",)),
                  ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
@@ -180,6 +184,12 @@ def ptxas_report(log):
     return out
 
 
+def kernel_name(name):
+    """The `..._kernel` identifier in a device kernel's name from a trace."""
+    m = re.search(r"\w+_kernel", name)
+    return m.group(0) if m else name
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -200,40 +210,137 @@ def check_close(name, got, want, atol):
     return rec
 
 
-def kernel_ln_mlp(dev, g):
-    from oatx_torch.ops.kernels.ln_mlp import ln_mlp, ln_mlp_plain
+LN_MLP_ROWS = (785, 3140, 6280)  # serving buckets 1 and 4; bucket 16's halves, the train step
+LN_MLP_RECORD_ROWS = 3140        # the record's ms, errors and bound
+LN_MLP_SPLITS = (1, 2, 3, 6)     # K ranges of the second product, timed at each R
 
-    R, D, H = 4 * 785, 768, 3072  # bucket 4: B·T rows of the patch+CLS stream
+
+def load_parent_ln_mlp(path):
+    """The library at `path`, built from an earlier csrc/ln_mlp.cu with the
+    one-kernel C interface ln_mlp_fwd_bf16(x, gamma, beta, w1, b1, w2, b2, y,
+    R, K, H, N, eps, stream), as a drop-in for ln_mlp's `_launch`."""
+    lib = ctypes.CDLL(os.path.abspath(path))
+    f = lib.ln_mlp_fwd_bf16
+    f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+
+    def launch(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps):
+        dev, f32, bf = x2.device, torch.float32, torch.bfloat16
+        args = [x2.contiguous(), ln_w.to(f32).contiguous(), ln_b.to(f32).contiguous(),
+                fc1_w.to(bf).contiguous(), fc1_b.to(f32).contiguous(),
+                fc2_w.to(bf).contiguous(), fc2_b.to(f32).contiguous()]
+        y = torch.empty((x2.shape[0], fc2_w.shape[0]), dtype=bf, device=dev)
+        err = f(*[a.data_ptr() for a in args], y.data_ptr(), x2.shape[0], x2.shape[1],
+                fc1_w.shape[0], fc2_w.shape[0], float(eps),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"parent ln_mlp: CUDA error {err}")
+        return y
+
+    return launch
+
+
+@contextlib.contextmanager
+def ln_mlp_library(parent):
+    """ln_mlp's Function launches `parent` instead of its own kernels (None:
+    its own)."""
+    from oatx_torch.ops.kernels import ln_mlp as plm
+
+    saved = plm._launch
+    if parent is not None:
+        plm._launch = parent
+    try:
+        yield
+    finally:
+        plm._launch = saved
+
+
+def kernel_ln_mlp(dev, g, parent=None):
+    """Kernel 1 at each of LN_MLP_ROWS (ViT-B/16's MLP, 768 → 3072 → 768):
+    errors against the plain version, ms, bound, library ms and TFLOP/s; ms
+    at each split of the second product (stage B); with `parent`, the
+    parent's errors and ms in turns (parent, this, this, parent). The
+    record's top-level numbers are those at LN_MLP_RECORD_ROWS."""
+    from oatx_torch.ops.kernels import ln_mlp as plm
+
+    D, H = 768, 3072
     bf = torch.bfloat16
-    x = torch.randn(R, D, device=dev, generator=g).to(bf)
+    xs = torch.randn(max(LN_MLP_ROWS), D, device=dev, generator=g).to(bf)
     gamma = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
     beta = 0.1 * torch.randn(D, device=dev, generator=g)
     w1 = (0.02 * torch.randn(H, D, device=dev, generator=g)).to(bf)
     b1 = 0.02 * torch.randn(H, device=dev, generator=g)
     w2 = (0.02 * torch.randn(D, H, device=dev, generator=g)).to(bf)
     b2 = 0.02 * torch.randn(D, device=dev, generator=g)
-    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
-    got = ln_mlp(*args)
-    torch.cuda.synchronize()
-    want = ln_mlp_plain(*args)
-    errs = check_close("ln_mlp", got, want, LN_MLP_ATOL)
     gb, bb, b1b, b2b = (t.to(bf) for t in (gamma, beta, b1, b2))
+    by_rows = {}
+    for R in LN_MLP_ROWS:
+        x = xs[:R]
+        args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+        got = plm.ln_mlp(*args)
+        torch.cuda.synchronize()
+        want = plm.ln_mlp_plain(*args)
+        rec = check_close(f"ln_mlp R={R}", got, want, LN_MLP_ATOL)
 
-    def library():
-        z = F.layer_norm(x, (D,), gb, bb, 1e-6)
-        return F.linear(F.gelu(F.linear(z, w1, b1b)), w2, b2b)
+        def library():
+            z = F.layer_norm(x, (D,), gb, bb, 1e-6)
+            return F.linear(F.gelu(F.linear(z, w1, b1b)), w2, b2b)
 
-    nbytes = 2 * R * D * 2 + 2 * D * H * 2 + (2 * D + H + D) * 4
-    flops = 2 * R * D * H * 2
-    b, by = bound_ms(nbytes, flops)
+        nbytes = 2 * R * D * 2 + 2 * D * H * 2 + (2 * D + H + D) * 4
+        flops = 2 * R * D * H * 2
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+        rec["flops"] = flops
+        call = lambda: plm.ln_mlp(*args)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        # the same calls' device busy time, without the host's gaps that
+        # events count where a call's host work outlasts its kernels, and
+        # its device kernels' ms (up, down or part + sum)
+        busy, _, _, kernels = device_trace(call, 20, top_of="ln_mlp")
+        rec["device_ms"] = busy
+        rec["device_ms_by_kernel"] = {kernel_name(k): v for k, v in kernels}
+        rec["library_ms"] = time_ms(library)
+        rec["library_device_ms"] = device_trace(library, 20)[0]
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["split_rule"] = plm._down_split(R, H, D, torch.cuda.get_device_properties(dev)
+                                            .multi_processor_count)
+        # stage B: each split of the second product in place of
+        # `_down_split`'s choice, launched without the autograd.Function
+        # (events, device busy)
+        splits, rule = {}, plm._down_split
+        fn = lambda: plm._launch(*args)  # noqa: E731
+        try:
+            for sp in LN_MLP_SPLITS:
+                plm._down_split = lambda *_, sp=sp: sp
+                check_close(f"ln_mlp R={R} split={sp}", fn(), want, LN_MLP_ATOL)
+                splits[sp] = (time_ms(fn), device_trace(fn, 20)[0])
+        finally:
+            plm._down_split = rule
+        rec["ms_by_split"] = {sp: t[0] for sp, t in splits.items()}
+        rec["device_ms_by_split"] = {sp: t[1] for sp, t in splits.items()}
+        if R == LN_MLP_RECORD_ROWS:
+            rec["plain_ms"] = time_ms(lambda: plm.ln_mlp_plain(*args), iters=5)
+        if parent is not None:
+            with ln_mlp_library(parent):
+                perr = check_close(f"ln_mlp R={R} (parent)", plm.ln_mlp(*args), want,
+                                   LN_MLP_ATOL)
+            turns, busy = [], []
+            for lib in (parent, None, None, parent):
+                with ln_mlp_library(lib):
+                    turns.append(time_ms(call))
+                    busy.append(device_trace(call, 20)[0])
+            rec["parent"] = {"ms_turns": turns, "device_ms_turns": busy,
+                             "max_abs_err": perr["max_abs_err"], "tol_used": perr["tol_used"]}
+        by_rows[R] = rec
+    top = by_rows[LN_MLP_RECORD_ROWS]
     return {
         "name": "ln_mlp", "route": "cuda", "source": "oatx_torch/csrc/ln_mlp.cu",
-        "replaces": "oatx/ops/pallas/ln_mlp.py:98", **errs,
-        "ms": time_ms(lambda: ln_mlp(*args)),
-        "plain_ms": time_ms(lambda: ln_mlp_plain(*args), iters=5),
-        "bound_ms": b, "bound_by": by, "flops": flops,
-        "library_ms": time_ms(library),
-        "shape": f"x ({R}, {D}) bf16, hidden {H}",
+        "replaces": "oatx/ops/pallas/ln_mlp.py:98",
+        **{k: top[k] for k in ("max_abs_err", "max_rel_err", "tol_used", "ref_rms",
+                               "ref_max", "atol", "ms", "plain_ms", "bound_ms", "bound_by",
+                               "flops", "library_ms")},
+        "by_rows": {R: {k: v for k, v in r.items() if k not in ("flops", "plain_ms")}
+                    for R, r in by_rows.items()},
+        "shape": f"x ({LN_MLP_RECORD_ROWS}, {D}) bf16, hidden {H}",
     }
 
 
@@ -354,18 +461,18 @@ def kernel_ln_linear(dev, g, parent=None):
 
 
 def fwd_bwd_ms(dev, g, parent=None):
-    """Forward + backward through each kernel's autograd.Function at the
+    """Forward + backward through kernels 2 and 3's autograd.Functions at the
     train step's shapes (B = 8, T = 785: 6280 rows; f32 master weights as the
-    model holds them): (ms by CUDA events over 10 iterations after warm-up,
-    which counts the host's gaps between launches; device busy ms of one
-    call from a CUDA-only trace of 5, which does not). With `parent`,
-    "ln_linear_parent" holds the same through the parent's kernel, timed
-    before and after this tree's: ((events ms, events ms), device ms)."""
+    model holds them; kernel 1's is ln_mlp_fwd_bwd's): (ms by CUDA events
+    over 10 iterations after warm-up, which counts the host's gaps between
+    launches; device busy ms of one call from a CUDA-only trace of 5, which
+    does not). With `parent`, "ln_linear_parent" holds the same through the
+    parent's kernel, timed before and after this tree's: ((events ms, events
+    ms), device ms)."""
     from oatx_torch.ops.kernels.ln_linear import ln_linear
-    from oatx_torch.ops.kernels.ln_mlp import ln_mlp
     from oatx_torch.ops.kernels.space_attention import space_attention
 
-    R, D, H = TRAIN_BATCH * 785, 768, 3072
+    R, D = TRAIN_BATCH * 785, 768
 
     def leaf(*shape, scale=1.0, dtype=torch.float32, offset=0.0):
         t = offset + scale * torch.randn(*shape, device=dev, generator=g)
@@ -375,8 +482,6 @@ def fwd_bwd_ms(dev, g, parent=None):
     ln = (leaf(D, scale=0.1, offset=1.0), leaf(D, scale=0.1))
     qkv = leaf(TRAIN_BATCH, 785, 3, 12, 64, dtype=torch.bfloat16)
     calls = {
-        "ln_mlp": (ln_mlp, (x, *ln, leaf(H, D, scale=0.02), leaf(H, scale=0.02),
-                            leaf(D, H, scale=0.02), leaf(D, scale=0.02))),
         "ln_linear": (ln_linear, (x, *ln, leaf(3 * D, D, scale=0.02),
                                   leaf(3 * D, scale=0.02))),
         "space_attention": (lambda t: space_attention(t[:, :, 0] * 0.125, t[:, :, 1],
@@ -394,6 +499,40 @@ def fwd_bwd_ms(dev, g, parent=None):
             with ln_linear_library(parent):
                 out["ln_linear_parent"] = ((before, time_ms(call, iters=10)),
                                            device_trace(call, 5)[0])
+    return out
+
+
+def ln_mlp_fwd_bwd(dev, g, parent=None):
+    """Forward + backward through ln_mlp's Function at each of LN_MLP_ROWS
+    (f32 master weights, as the model holds them): {R: {"ms": CUDA events
+    over 10 calls, "device_ms": device busy of one call from a trace of 5}};
+    with `parent`, the same through the parent's kernel, timed before and
+    after this tree's ("parent_ms": [before, after], "parent_device_ms")."""
+    from oatx_torch.ops.kernels.ln_mlp import ln_mlp
+
+    D, H = 768, 3072
+
+    def leaf(*shape, scale=1.0, dtype=torch.float32, offset=0.0):
+        t = offset + scale * torch.randn(*shape, device=dev, generator=g)
+        return t.to(dtype).requires_grad_()
+
+    params = (leaf(D, scale=0.1, offset=1.0), leaf(D, scale=0.1), leaf(H, D, scale=0.02),
+              leaf(H, scale=0.02), leaf(D, H, scale=0.02), leaf(D, scale=0.02))
+    out = {}
+    for R in LN_MLP_ROWS:
+        args = (leaf(R, D, dtype=torch.bfloat16), *params)
+        dy = torch.randn(R, D, device=dev, generator=g).to(torch.bfloat16)
+        call = lambda: torch.autograd.grad(ln_mlp(*args), args, dy)  # noqa: E731
+        rec = {}
+        if parent is not None:
+            with ln_mlp_library(parent):
+                before = time_ms(call, iters=10)
+        rec["ms"], rec["device_ms"] = time_ms(call, iters=10), device_trace(call, 5)[0]
+        if parent is not None:
+            with ln_mlp_library(parent):
+                rec["parent_ms"] = [before, time_ms(call, iters=10)]
+                rec["parent_device_ms"] = device_trace(call, 5)[0]
+        out[R] = rec
     return out
 
 
@@ -436,11 +575,11 @@ def npy_b64(a):
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def device_trace(fn, n):
+def device_trace(fn, n, top_of="other"):
     """Trace n calls of fn with CUDA activity only (no host-side tracing to
     slow the host-bound path). Returns per call: device busy ms (the union of
     kernel and copy intervals), device activities, device ms by group, and
-    the TOP_OTHER largest kernels of the group "other" by ms."""
+    the TOP_OTHER largest kernels of the group `top_of` by ms."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -467,7 +606,7 @@ def device_trace(fn, n):
         low = name.lower()
         g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + (e - s) / 1e3 / n
-        if g == "other":
+        if g == top_of:
             other[name[:80]] = other.get(name[:80], 0.0) + (e - s) / 1e3 / n
     top = sorted(other.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
     return busy_us / 1e3 / n, len(iv) / n, groups, top
@@ -769,6 +908,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
                     help="library built from another csrc/ln_linear.cu, timed beside this one")
+    ap.add_argument("--parent-ln-mlp", metavar="LIB",
+                    help="library built from an earlier csrc/ln_mlp.cu (one-kernel C "
+                         "interface), timed beside this one")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -796,10 +938,16 @@ def main() -> int:
     parent = None
     if opts.parent_ln_linear:
         parent = load_parent_ln_linear(opts.parent_ln_linear)
+    parent_mlp = load_parent_ln_mlp(opts.parent_ln_mlp) if opts.parent_ln_mlp else None
     g = torch.Generator(dev).manual_seed(0)
-    kernels = [kernel_ln_mlp(dev, g), kernel_space_attention(dev, g),
+    kernels = [kernel_ln_mlp(dev, g, parent_mlp), kernel_space_attention(dev, g),
                kernel_ln_linear(dev, g, parent)]
     fb = fwd_bwd_ms(dev, g, parent)
+    for R, rec in ln_mlp_fwd_bwd(dev, g, parent_mlp).items():
+        kernels[0]["by_rows"][R]["fwd_bwd"] = rec
+    train_rows = kernels[0]["by_rows"][TRAIN_BATCH * 785]["fwd_bwd"]
+    fb["ln_mlp"] = train_rows["ms"], train_rows["device_ms"]
+    print(f"ln_mlp by rows ({smi}): {json.dumps(kernels[0]['by_rows'])}", flush=True)
     if parent is not None:
         (ev0, ev1), busy = fb["ln_linear_parent"]
         kernels[2]["parent"].update(fwd_bwd_ms=[ev0, ev1], fwd_bwd_device_ms=busy)
@@ -826,7 +974,8 @@ def main() -> int:
     phases["train"] = train_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
-            "fwd_bwd_ms", "fwd_bwd_device_ms", "ptxas", "launches_by_phase", "parent")
+            "fwd_bwd_ms", "fwd_bwd_device_ms", "ptxas", "launches_by_phase", "parent",
+            "by_rows")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}

@@ -8,7 +8,8 @@ library for sm_90a:
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
 The libraries go into oatx_torch/_build/ (git-ignored), named by a hash of
-the source and flags, so a checkout builds once and rebuilds after an edit.
+the source, the shared headers (csrc/*.cuh) and the flags, so a checkout
+builds once and rebuilds after an edit of either.
 All sources build in parallel (one nvcc per source, started together) at the
 first kernel launch, and are loaded with ctypes. Nothing here runs at import:
 every module must import on a machine without nvcc or a card.
@@ -54,7 +55,12 @@ def sources() -> List[Path]:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of `src`, named by a hash of the source, every header in
+    csrc/ (any source may include any of them) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

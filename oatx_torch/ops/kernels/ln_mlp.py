@@ -8,19 +8,33 @@ body `_kernel` :84-95) and computes what its `_fwd_xla` (:124-135) computes:
 with f32 LN statistics (eps from the caller), z and h cast to the compute dtype
 before each matmul, f32 accumulation, biases added in f32, exact-erf GELU.
 
-What bounds it on an H100: operations. At R = 12560 rows (bucket 16 without
-chunking) it does 2·2·R·768·3072 ≈ 118.5 GFLOP, ≈ 0.12 ms at 989 TFLOP/s,
-while the ≈ 48 MB it must move take ≈ 14 µs at 3.35 TB/s.
+What bounds it on an H100: operations. At R = 3140 rows (serving bucket 4)
+it does 2·2·R·768·3072 ≈ 29.6 GFLOP, 0.030 ms at 989 TFLOP/s, while the
+≈ 14 MB it must move (x, y, W1, W2) take ≈ 4 µs at 3.35 TB/s.
 
-Design (csrc/ln_mlp.cu): the Pallas kernel keeps all of W1 and W2 resident
-in VMEM; a Hopper block has at most 227 KB of shared memory, so here each
-block takes 32 rows, writes LN(x) as a bf16 tile into shared memory, then
-walks the hidden dimension in chunks of 128: h = GELU(z @ W1[:, chunk] + b1)
-stays in shared memory and y += h @ W2[chunk, :] accumulates in f32 WMMA
-fragments spread over the block's 8 warps. The (rows × 4D) hidden tensor
-never reaches device memory. W1/W2 fragments stream from L2 for every row
-tile (no shared-memory staging, no TMA/wgmma yet) and bucket 1 (785 rows,
-25 blocks) under-fills the 132 SMs: both are left for a later change.
+Design (csrc/ln_mlp.cu on csrc/hopper.cuh, the mainloop of kernel 3): two
+hand-written products through a bf16 hidden tensor h (R, H) that the
+wrapper allocates. `ln_mlp_up_kernel` is kernel 3's LayerNorm → linear
+(persistent grid of 128 × 256 tiles, one producer warp issuing TMA loads
+into a 4-stage mbarrier ring in the 128-byte swizzle, two consumer
+warpgroups on wgmma m64n256k16, z written in place over each x chunk) with
++ b1 → exact-erf GELU → bf16 in its epilogue, stored to h by TMA.
+`ln_mlp_down_kernel` is the same mainloop on h and W2 without the
+LayerNorm, + b2 → y. When y has fewer 128 × 256 tiles than half the SMs
+(bucket 1: 7 × 3 tiles), `_down_split` splits the second product's hidden
+dimension into K ranges: `ln_mlp_part_kernel` writes each range's f32 sum
+to a workspace and `ln_mlp_sum_kernel` adds them in order, then b2
+(deterministic). h goes through device memory because a block cannot hold
+its rows' whole y in registers (BM × 768 f32 is 384 KB at BM = 128, 1.5×
+an SM's register file) and splitting y's columns recomputes fc1; h costs
+one write and one read of R·H bf16, much of it in the 50 MB L2.
+
+Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, device
+busy per call; PERF.md §6): 0.051 / 0.120 / 0.200 ms at R = 785 / 3140 /
+6280 (≈ 248 TFLOP/s at 3140, 4.0× its bound), 3.8-8.9× faster than the
+one-kernel WMMA design it replaced, in turns in the same call; cuBLAS's
+layer_norm → linear → gelu → linear takes 0.028 / 0.068 / 0.131 ms. At
+785 rows a call's host work (≈ 0.1 ms) outlasts its kernels.
 
 Gradient: `ln_mlp` is a torch.autograd.Function. Its backward is
 `ln_mlp_backward`, plain PyTorch that mirrors oatx's `_ln_mlp2d_bwd`
@@ -30,7 +44,8 @@ operands with f32 outputs (`_common.mm_f32`). No backward kernel is written
 by hand yet.
 
 On a CPU tensor the forward runs `ln_mlp_plain`; on a CUDA tensor it
-launches the kernel or raises. The backward is the same on both.
+launches the kernels or raises. The backward is the same on both. One call
+counts one launch in `ln_mlp.launches`, whichever device kernels it runs.
 """
 
 from __future__ import annotations
@@ -44,9 +59,7 @@ import torch.nn.functional as F
 from oatx_torch.ops.kernels import _build
 from oatx_torch.ops.kernels._common import ln_parts, mm_f32
 
-_ROWS_PER_BLOCK = 32
-_HIDDEN_CHUNK = 128
-_WARPS = 8
+_TILE_ROWS, _TILE_COLS, _CHUNK = 128, 256, 64  # csrc/hopper.cuh BM, BN, KC
 _count_lock = threading.Lock()
 
 
@@ -94,46 +107,67 @@ def ln_mlp_backward(x, ln_w, ln_b, fc1_w, fc1_b, fc2_w, dy, eps: float = 1e-6):
 def _fn(lib):
     f = lib.ln_mlp_fwd_bf16
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
             [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
     return f
 
 
+def _down_split(rows: int, hidden: int, n: int, sms: int) -> int:
+    """K ranges of the second product (h @ W2ᵀ): 1 when y's 128 × 256 tiles
+    fill at least half the card, else as many ranges as give every SM a
+    unit, each of at least 4 chunks of 64 hidden columns (the ring's depth)."""
+    tiles = -(-rows // _TILE_ROWS) * -(-n // _TILE_COLS)
+    if 2 * tiles > sms:
+        return 1
+    return max(1, min(sms // tiles, -(-hidden // _CHUNK) // 4))
+
+
 def _launch(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps):
-    """The CUDA kernel on 2-D bf16 x (R, K) → y (R, N) bf16."""
+    """The CUDA kernels on 2-D bf16 x (R, K) → y (R, N) bf16."""
     if x2.dtype != torch.bfloat16:
         raise ValueError(f"ln_mlp kernel takes bf16 activations, got {x2.dtype}")
     k = x2.shape[-1]
     hid, n = fc1_w.shape[0], fc2_w.shape[0]
-    if fc1_w.shape != (hid, k) or fc2_w.shape != (n, hid):
-        raise ValueError(f"ln_mlp: weight shapes {tuple(fc1_w.shape)}, "
-                         f"{tuple(fc2_w.shape)} do not fit D={k}")
-    if k % 16 or k > 1024 or hid % _HIDDEN_CHUNK or n % (16 * _WARPS) \
-            or n // (16 * _WARPS) > 8:
-        raise ValueError(f"ln_mlp kernel: unsupported widths D={k} "
-                         f"hidden={hid} out={n}")
+    if fc1_w.shape != (hid, k) or fc2_w.shape != (n, hid) or fc1_b.shape != (hid,) \
+            or fc2_b.shape != (n,) or ln_w.shape != (k,) or ln_b.shape != (k,):
+        raise ValueError(f"ln_mlp: fc1 {tuple(fc1_w.shape)}, {tuple(fc1_b.shape)}, fc2 "
+                         f"{tuple(fc2_w.shape)}, {tuple(fc2_b.shape)}, LN "
+                         f"{tuple(ln_w.shape)}, {tuple(ln_b.shape)} do not fit D={k}")
+    if k % 8 or hid % 8 or n % 8 or 0 in (k, hid, n):
+        raise ValueError(f"ln_mlp kernel: unsupported widths D={k} hidden={hid} "
+                         f"out={n} (each a positive multiple of 8: TMA reads rows "
+                         "of 16-byte multiples)")
     x2 = x2.contiguous()
     rows = x2.shape[0]
     dev = x2.device
     f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
     args = [x2,
             ln_w.to(**f32).contiguous(), ln_b.to(**f32).contiguous(),
-            fc1_w.to(dtype=torch.bfloat16, device=dev).contiguous(),
-            fc1_b.to(**f32).contiguous(),
-            fc2_w.to(dtype=torch.bfloat16, device=dev).contiguous(),
-            fc2_b.to(**f32).contiguous()]
+            fc1_w.to(**bf16).contiguous(), fc1_b.to(**f32).contiguous(),
+            fc2_w.to(**bf16).contiguous(), fc2_b.to(**f32).contiguous()]
     for a in args:
         if a.device != dev:
             raise ValueError("ln_mlp: all operands must be on one device")
-    y = torch.empty((rows, n), dtype=torch.bfloat16, device=dev)
+    # TMA reads x, W1 and W2; the LayerNorm reads γ and β, the split's sum
+    # b2, in 16-byte pieces
+    args = [a if a.data_ptr() % 16 == 0 else a.clone() for a in args]
+    y = torch.empty((rows, n), **bf16)
     if rows == 0:
         return y
+    h = torch.empty((rows, hid), **bf16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = _down_split(rows, hid, n, sms)
+    part = None
+    if split > 1:
+        part = torch.empty((split, -(-rows // _TILE_ROWS) * _TILE_ROWS, n), **f32)
     lib = _build.load("ln_mlp")
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _fn(lib)(*[a.data_ptr() for a in args], y.data_ptr(),
-                       rows, k, hid, n, float(eps), stream)
+        err = _fn(lib)(*[a.data_ptr() for a in args], y.data_ptr(), h.data_ptr(),
+                       part.data_ptr() if part is not None else None,
+                       rows, k, hid, n, split, float(eps), stream)
     _build.check(lib, err, "ln_mlp")
     with _count_lock:
         ln_mlp.launches += 1

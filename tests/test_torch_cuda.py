@@ -45,8 +45,15 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,hidden", [(785, 768, 3072), (33, 768, 3072), (1, 128, 512)])
+@pytest.mark.parametrize("rows,d,hidden", [
+    (6280, 768, 3072), (3140, 768, 3072), (785, 768, 3072), (33, 768, 3072), (1, 768, 3072),
+    (300, 128, 512), (1, 128, 512), (50, 48, 192), (129, 1024, 4096)])
 def test_ln_mlp_kernel_matches_plain(card, rows, d, hidden):
+    """The ViT-B MLP at the serving and train row counts (6280 = 49·128 + 8,
+    785 = 6·128 + 17: the second product split over the hidden dimension at
+    785, 33 and 1 rows), the small train step's widths (hidden 512 and out
+    128, which the 256-column tile does not divide), D under one 64-column
+    chunk (48) and ViT-L's 1024 → 4096 → 1024."""
     g = torch.Generator(card).manual_seed(rows)
     bf = torch.bfloat16
     x = torch.randn(rows, d, device=card, generator=g).to(bf)
@@ -165,13 +172,17 @@ def test_kernels_refuse_what_they_cannot_take(card):
     vec = [torch.zeros(n, device=card) for n in (128, 128, 512, 128)]
     with pytest.raises(ValueError, match="bf16"):
         plm.ln_mlp(x, vec[0], vec[1], w1, vec[2], w2, vec[3])
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="hidden=100"):  # TMA rows of h and W2
+        plm.ln_mlp(xb, vec[0], vec[1], w1[:100], vec[2][:100], w2[:, :100], vec[3])
+    with pytest.raises(ValueError, match="out=100"):  # TMA rows of y
+        plm.ln_mlp(xb, vec[0], vec[1], w1, vec[2], w2[:100], vec[3][:100])
     q = torch.zeros(1, 9, 2, 32, device=card, dtype=torch.bfloat16)  # Dh 32
     with pytest.raises(ValueError, match="Dh"):
         psa.space_attention(q, q, q, 2)
     w = torch.zeros(256, 128, device=card)
     with pytest.raises(ValueError, match="bf16"):
         pll.ln_linear(x, vec[0], vec[1], w, torch.zeros(256, device=card))
-    xb = x.to(torch.bfloat16)
     with pytest.raises(ValueError, match="N=100"):  # TMA rows of y: 16-byte multiples
         pll.ln_linear(xb, vec[0], vec[1], w[:100], torch.zeros(100, device=card))
     with pytest.raises(ValueError, match="K=100"):  # TMA rows of x and W

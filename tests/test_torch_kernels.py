@@ -304,3 +304,47 @@ def test_ln_linear_kernel_refuses_widths_tma_cannot_read(k, n):
     with pytest.raises(ValueError, match=f"K={k} N={n}"):
         pll._launch(x, torch.zeros(k, **meta), torch.zeros(k, **meta),
                     torch.zeros(n, k, **meta), torch.zeros(n, **meta), 1e-6)
+
+
+@pytest.mark.parametrize("k,hid,n", [(100, 512, 128), (128, 100, 128), (128, 512, 100)])
+def test_ln_mlp_kernel_refuses_widths_tma_cannot_read(k, hid, n):
+    """The kernels' TMA reads x, W1, h, W2 and writes h, y in rows of 16-byte
+    multiples: the wrapper refuses D, hidden or out that is not a multiple
+    of 8 before anything reaches a device."""
+    meta = dict(device="meta")
+    x = torch.zeros(4, k, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match=f"D={k} hidden={hid} out={n}"):
+        plm._launch(x, torch.zeros(k, **meta), torch.zeros(k, **meta),
+                    torch.zeros(hid, k, **meta), torch.zeros(hid, **meta),
+                    torch.zeros(n, hid, **meta), torch.zeros(n, **meta), 1e-6)
+
+
+@pytest.mark.parametrize("rows,hid,n,want", [
+    (785, 3072, 768, 6),    # serving bucket 1: 7 x 3 tiles of y, 8 chunks a range
+    (3140, 3072, 768, 1),   # bucket 4: 25 x 3 tiles fill more than half the card
+    (6280, 3072, 768, 1),
+    (1, 3072, 768, 12),     # ranges of at least 4 chunks of 64
+    (300, 512, 128, 2),     # the small train step
+    (50, 192, 48, 1),       # hidden under 4 chunks
+])
+def test_ln_mlp_down_split_fills_the_card(rows, hid, n, want):
+    assert plm._down_split(rows, hid, n, 132) == want
+
+
+def test_build_rehashes_when_a_shared_header_changes(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc/*.cuh and the flags, so
+    an edit of a header that a source includes builds it anew (no nvcc
+    here: only the name is computed)."""
+    from oatx_torch.ops.kernels import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    src, hdr = tmp_path / "k.cu", tmp_path / "hopper.cuh"
+    src.write_text('#include "hopper.cuh"\n')
+    hdr.write_text("constexpr int S = 4;\n")
+    first = _build._lib_path(src)
+    assert first == _build._lib_path(src) and first.parent == tmp_path / "_build"
+    hdr.write_text("constexpr int S = 3;\n")
+    assert _build._lib_path(src) != first
+    hdr.write_text("constexpr int S = 4;\n")
+    assert _build._lib_path(src) == first
