@@ -2,6 +2,7 @@
 """Drive the oatx_torch port once on one CUDA card and check it.
 
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
+                          [--parent-space-attention LIB] [--sweep-query-splits]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -9,7 +10,12 @@ the kernels phase then also checks it and times it in turns with this
 tree's kernel (parent, this, this, parent), alone and under forward +
 backward, at the train step's shape. --parent-ln-mlp does the same for an
 earlier csrc/ln_mlp.cu with the one-kernel C interface (8 pointers, 4 ints,
-eps, stream), at R = 785, 3140 and 6280.
+eps, stream), at R = 785, 3140 and 6280. --parent-space-attention does it
+for an earlier csrc/space_attention.cu with the one-launch C interface
+(4 pointers, 12 strides, 4 ints, stream; no log-sum-exp, so its forward +
+backward takes the plain backward, as that tree did), at B = 1, 4 and 8.
+--sweep-query-splits also times kernel 2's forward at 1-4 blocks per frame
+group at each B, the choice that `_query_split` encodes.
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -18,12 +24,18 @@ printed):
   2. kernels — each hand-written kernel against its plain PyTorch version on
      the card (bf16): kernel 1 (ln_mlp) at R = 785, 3140 and 6280 rows (its
      record at bucket 4's 3140, with the ms of each split of its second
-     product), kernel 2 at bucket 4's serving shapes, kernel 3 (ln_linear)
-     at the train step's LN→qkv shape, each with its
-     time, achieved TFLOP/s, ptxas registers and spills, the plain
-     version's time, one PyTorch library call's and the card's bound; and
-     for all three the forward + backward time (and device busy time)
-     through the kernel's autograd.Function at the train step's shapes;
+     product), kernel 2 (space_attention) and its backward kernels
+     (space_attention_bwd, against autograd of the plain version and, not
+     checked, both against the exact f64 gradient) at B = 1, 4 and 8 of the
+     serving shapes and over SA_TAIL_DRAWS more draws at B = 4 (records at
+     bucket 4, `by_batch` for each B), kernel 3 (ln_linear) at the
+     train step's LN→qkv shape, each with its time (CUDA events, and device
+     busy time from traces that must hold every kernel launched), achieved
+     TFLOP/s, ptxas registers and spills, the plain version's time, one
+     PyTorch library call's (SDPA and its backward for kernel 2) and the
+     card's bound; and for all three the forward + backward time (and
+     device busy time) through the kernel's autograd.Function at the train
+     step's shapes;
   3. serve — the full-width zero-shot config (configs/ft/msrvtt/zsl/normal.json:
      ViT-B/16 over 4×224² frames + DistilBERT-base, bf16, random weights from
      seed 0) built through oatx_torch.cli.serve, its HTTP server on a
@@ -43,13 +55,14 @@ printed):
      numpy-seeded batch), through oatx_torch.train.step's init_state and
      make_train_step, once with fused_qkv=True and once with False. Per run:
      TRAIN_STEPS counted steps (launch counters set to 0 just before and read
-     just after: 12 ln_mlp, 12 space_attention and 24 or 0 ln_linear per
-     step), each step's loss (finite, and lower at the end than at step 1),
-     the median step time over TIME_WINDOWS windows with their spread,
-     clips/s, MFU, peak device memory, a CUDA-only device trace, and one
-     step's gradients through the kernels against the same through the plain
-     versions: every parameter must have a finite gradient. The two runs'
-     step-1 losses agree within bf16 tolerance.
+     just after: 12 ln_mlp, 12 space_attention, 12 space_attention_bwd and
+     24 or 0 ln_linear per step), each step's loss (finite, and lower at the
+     end than at step 1), the median step time over TIME_WINDOWS windows
+     with their spread, clips/s, MFU, peak device memory (after a
+     gc.collect(), with the memory held before the run), a CUDA-only device
+     trace, and one step's gradients through the kernels against the same
+     through the plain versions: every parameter must have a finite
+     gradient. The two runs' step-1 losses agree within bf16 tolerance.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -60,6 +73,7 @@ import argparse
 import base64
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import os
@@ -133,9 +147,12 @@ LAT_REQUESTS = 100     # timed requests per bucket and round, after warm-up
 LAT_ROUNDS = 3         # rounds per bucket: the p50's spread inside one call
 LAT_WARMUP = 5
 PROFILED_REQUESTS = 10
+TRACE_ATTEMPTS = 3     # traces of one measurement before lost records fail the run
 # device kernels by name, for the per-group breakdown of a video request
 KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_",)),
-                 ("space_attention", ("space_attention_kernel",)),
+                 ("space_attention_bwd", ("space_attention_bwd", "space_attention_cls_bwd",
+                                          "space_attention_cls_key")),
+                 ("space_attention", ("space_attention_",)),
                  ("ln_linear", ("ln_linear_kernel",)),
                  ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
                  ("softmax", ("softmax",)),
@@ -195,17 +212,25 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, want, atol):
-    """Errors of got against want, and the share of the tolerance used."""
+def check_close(name, got, want, atol, allow=None):
+    """Errors of got against want, and the share of the tolerance used.
+    `allow`, a per-element term added to atol + BF16_RTOL·|want| (kernel 2's
+    p rounding, space_attention_flip_allowance), also gives the share of the
+    tolerance without it (`tol_used_bare`, measured, not checked)."""
     want = want.float()
     err = (got.float() - want).abs()
+    bare = atol + BF16_RTOL * want.abs()
     rec = {"max_abs_err": float(err.max()),
            "max_rel_err": float((err / want.abs().clamp_min(1e-3)).max()),
-           "tol_used": float((err / (atol + BF16_RTOL * want.abs())).max()),
+           "tol_used": float((err / (bare if allow is None else bare + allow)).max()),
            "ref_rms": float(want.square().mean().sqrt()),
            "ref_max": float(want.abs().max()), "atol": atol}
+    if allow is not None:
+        rec["tol_used_bare"] = float((err / bare).max())
+        rec["allow_max"] = float(allow.max())
     if not rec["tol_used"] <= 1 or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: outside |err| <= {atol} + {BF16_RTOL}·|ref| "
+        raise AssertionError(f"{name}: outside |err| <= {atol} + {BF16_RTOL}·|ref|"
+                             f"{'' if allow is None else ' + allow'} "
                              f"(or non-finite output): {rec}")
     return rec
 
@@ -213,6 +238,7 @@ def check_close(name, got, want, atol):
 LN_MLP_ROWS = (785, 3140, 6280)  # serving buckets 1 and 4; bucket 16's halves, the train step
 LN_MLP_RECORD_ROWS = 3140        # the record's ms, errors and bound
 LN_MLP_SPLITS = (1, 2, 3, 6)     # K ranges of the second product, timed at each R
+LN_MLP_EXPECT = (("ln_mlp_", 1),)  # device kernels a call launches at least (device_trace)
 
 
 def load_parent_ln_mlp(path):
@@ -295,7 +321,7 @@ def kernel_ln_mlp(dev, g, parent=None):
         # the same calls' device busy time, without the host's gaps that
         # events count where a call's host work outlasts its kernels, and
         # its device kernels' ms (up, down or part + sum)
-        busy, _, _, kernels = device_trace(call, 20, top_of="ln_mlp")
+        busy, _, _, kernels = device_trace(call, 20, top_of="ln_mlp", expect=LN_MLP_EXPECT)
         rec["device_ms"] = busy
         rec["device_ms_by_kernel"] = {kernel_name(k): v for k, v in kernels}
         rec["library_ms"] = time_ms(library)
@@ -312,7 +338,7 @@ def kernel_ln_mlp(dev, g, parent=None):
             for sp in LN_MLP_SPLITS:
                 plm._down_split = lambda *_, sp=sp: sp
                 check_close(f"ln_mlp R={R} split={sp}", fn(), want, LN_MLP_ATOL)
-                splits[sp] = (time_ms(fn), device_trace(fn, 20)[0])
+                splits[sp] = (time_ms(fn), device_trace(fn, 20, expect=LN_MLP_EXPECT)[0])
         finally:
             plm._down_split = rule
         rec["ms_by_split"] = {sp: t[0] for sp, t in splits.items()}
@@ -327,7 +353,7 @@ def kernel_ln_mlp(dev, g, parent=None):
             for lib in (parent, None, None, parent):
                 with ln_mlp_library(lib):
                     turns.append(time_ms(call))
-                    busy.append(device_trace(call, 20)[0])
+                    busy.append(device_trace(call, 20, expect=LN_MLP_EXPECT)[0])
             rec["parent"] = {"ms_turns": turns, "device_ms_turns": busy,
                              "max_abs_err": perr["max_abs_err"], "tol_used": perr["tol_used"]}
         by_rows[R] = rec
@@ -344,52 +370,352 @@ def kernel_ln_mlp(dev, g, parent=None):
     }
 
 
-def kernel_space_attention(dev, g):
-    from oatx_torch.ops.kernels.space_attention import space_attention, \
-        space_attention_plain
+# serving bucket 1, bucket 4 (the record), bucket 16's halves and the train step
+SA_BATCHES = (1, 4, 8)
+SA_RECORD_BATCH = 4       # the record's ms, errors and bound (serving bucket 4)
+SA_SPLITS = (1, 2, 3, 4)  # blocks per frame group, timed at each batch (--sweep-query-splits)
+SA_FWD_EXPECT = (("space_attention_kernel", 1),)
+SA_BWD_EXPECT = (("space_attention_cls_bwd_kernel", 1), ("space_attention_bwd_kernel", 1),
+                 ("space_attention_cls_key_kernel", 1))
+SA_FWD_BWD_EXPECT = SA_FWD_EXPECT + SA_BWD_EXPECT
+SA_TAIL_DRAWS = 40        # more draws at the record batch, each checked
+# Kernel 2 and its plain version round p to bf16 from f32 values that differ
+# a little (S summed in another order, another exp): where a p lies that
+# close to a bf16 rounding boundary the two round it to neighbouring values,
+# and the output moves by ulp(p)·|v|, over atol once p ≥ 1/8 and |v| ≳ 2
+# (the WMMA kernel before it too). space_attention_flip_allowance adds that term for
+# exactly those p, from a bound on how far either version's f32 p can lie
+# from the exact one: per f32 addition a relative 2^-23 of the running sum
+# (round to nearest gives 2^-24; the tensor cores' truncating adders 2^-23),
+# 2^-21 for either version's exp (the SFU's 2^x: 2 ulps).
+SA_ADD_ERR = 2.0 ** -23
+SA_EXP_ERR = 2.0 ** -21
+# Backward kernels vs autograd of the plain version, both bf16 on the card,
+# per gradient tensor by relative L2 error: the plain version rounds dP to
+# bf16 (the cast of p), the kernels round dS and P for their products; as
+# tests/test_torch_cuda.py's GRAD_REL.
+SA_GRAD_REL = 2e-2
 
-    B, Fr, N, Hh, Dh = 4, 4, 196, 12, 64  # bucket 4, ViT-B/16 224², 4 frames
+
+def load_parent_space_attention(path):
+    """The library at `path`, built from an earlier csrc/space_attention.cu
+    with the one-launch C interface space_attention_fwd_bf16(q, k, v, o, 12
+    strides, B, T, H, F, stream), as a drop-in for space_attention's
+    `_launch` (it writes no log-sum-exp: the parent tree's backward is
+    autograd of the plain version)."""
+    lib = ctypes.CDLL(os.path.abspath(path))
+    f = lib.space_attention_fwd_bf16
+    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+
+    def launch(q, k, v, num_frames, with_lse=False):
+        b, t, h, dh = q.shape
+        out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+        strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
+        err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides, b, t, h,
+                num_frames, torch.cuda.current_stream(q.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"parent space_attention: CUDA error {err}")
+        return out, None
+
+    return launch
+
+
+def space_attention_plain_vjp(q, k, v, dout, num_frames):
+    """Autograd of space_attention_plain: the backward before the kernels."""
+    from oatx_torch.ops.kernels.space_attention import space_attention_plain
+
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(space_attention_plain(*leaves, num_frames), leaves, dout)
+
+
+@contextlib.contextmanager
+def space_attention_library(parent):
+    """space_attention's Function launches `parent`'s forward and takes the
+    parent tree's backward (autograd of the plain version) instead of its
+    own kernels (None: its own)."""
+    from oatx_torch.ops.kernels import space_attention as psa
+
+    saved = psa._launch, psa._launch_backward
+    if parent is not None:
+        psa._launch = parent
+        psa._launch_backward = lambda q, k, v, dout, lse, f: \
+            space_attention_plain_vjp(q, k, v, dout, f)
+    try:
+        yield
+    finally:
+        psa._launch, psa._launch_backward = saved
+
+
+def _rel_l2(got, want):
+    return [float((a.double() - b.double()).norm() / b.double().norm())
+            for a, b in zip(got, want)]
+
+
+def grad_errors(name, got, want, exact):
+    """Per-tensor relative L2 error of (dq, dk, dv) against the plain VJP,
+    checked; and, measured, of both against `exact`, the VJP of the same
+    function in f64 with p unrounded (`grad_rel_exact`): how far each
+    version's bf16 roundings take it from the exact gradient."""
+    rel = _rel_l2(got, want)
+    rec = {"max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want)),
+           "grad_rel": dict(zip("qkv", rel)), "tol_used": max(rel) / SA_GRAD_REL,
+           "grad_rel_tol": SA_GRAD_REL,
+           "grad_rel_exact": {"kernel": dict(zip("qkv", _rel_l2(got, exact))),
+                              "plain": dict(zip("qkv", _rel_l2(want, exact)))}}
+    if not rec["tol_used"] <= 1 or not all(bool(torch.isfinite(a).all()) for a in got):
+        raise AssertionError(f"{name}: relative L2 error above {SA_GRAD_REL} "
+                             f"(or non-finite gradient): {rec}")
+    return rec
+
+
+def _flip_weight(s, a, dh):
+    """ulp(p) of each p = softmax(s) (f64 logits, keys last) that lies within
+    either version's error bound of a bf16 rounding boundary, else 0. `a` is
+    Σ_d |q_d·k_d| per logit, which bounds the error of an f32 sum of S."""
+    p = torch.softmax(s, dim=-1)
+    m = s.abs().amax(-1, keepdim=True)
+    r = s.amax(-1, keepdim=True) - s.amin(-1, keepdim=True)
+    # relative error of either version's f32 p: S of this key and of the
+    # others (through the sum), the exp's argument (≤ 2 roundings of |s - m|,
+    # |m|) and the exp, numerator and sum, then the sum and the division
+    delta = (2 * dh * SA_ADD_ERR * a.amax(-1, keepdim=True)
+             + 2 * (2 * SA_ADD_ERR * (m + r) + SA_EXP_ERR)
+             + (s.shape[-1] + 1) * SA_ADD_ERR)
+    # p's bf16 neighbours below and above (f32 holds every bf16 midpoint)
+    lo = p.float().view(torch.int32) & -65536
+    hi = (lo + 65536).view(torch.float32).double()
+    lo = lo.view(torch.float32).double()
+    return torch.where((p - (lo + hi) / 2).abs() <= delta * p, hi - lo, 0.0)
+
+
+def space_attention_flip_allowance(q, k, v, num_frames):
+    """Per output element of kernel 2, Σ_j ulp(p_j)·|v_j| over the p_j that
+    the kernel and the plain version may round to bf16 to neighbouring values
+    (_flip_weight), in f32: the term added to SPACE_ATTENTION_ATOL +
+    2^-7·|ref| where those roundings move the output."""
+    b, t, h, dh = q.shape
+    f = num_frames
+    n = (t - 1) // f
+    qd, kd, vd = (a.double() for a in (q, k, v))
+    qc = qd[:, :1]
+    cls = torch.einsum("bhqk,bkhd->bqhd", _flip_weight(
+        torch.einsum("bqhd,bkhd->bhqk", qc, kd),
+        torch.einsum("bqhd,bkhd->bhqk", qc.abs(), kd.abs()), dh), vd.abs())
+
+    def group(a):
+        return torch.cat([a[:, None, :1].expand(b, f, 1, h, dh),
+                          a[:, 1:].reshape(b, f, n, h, dh)], dim=2)
+
+    qp, kg = qd[:, 1:].reshape(b, f, n, h, dh), group(kd)
+    out = torch.einsum("bfhqk,bfkhd->bfqhd", _flip_weight(
+        torch.einsum("bfqhd,bfkhd->bfhqk", qp, kg),
+        torch.einsum("bfqhd,bfkhd->bfhqk", qp.abs(), kg.abs()), dh), group(vd.abs()))
+    return torch.cat([cls, out.reshape(b, f * n, h, dh)], dim=1).float()
+
+
+def space_attention_tail(dev, parent=None):
+    """Kernel 2 over SA_TAIL_DRAWS more draws (seeds 0..) at the record
+    batch, each checked against the plain version within SPACE_ATTENTION_ATOL
+    + 2^-7·|ref| + space_attention_flip_allowance; with `parent`, the
+    parent's errors on the same draws, measured, not checked. Returns per
+    version the largest share of the tolerance per draw, with the allowance
+    and without it (`bare_*`)."""
+    from oatx_torch.ops.kernels import space_attention as psa
+
+    B, Fr, T = SA_RECORD_BATCH, 4, 785
+    used = {"this": [], "parent": []}
+    for seed in range(SA_TAIL_DRAWS):
+        g = torch.Generator(dev).manual_seed(seed)
+        qkv = torch.randn(B, T, 3, 12, 64, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0] * 0.125, qkv[:, :, 1], qkv[:, :, 2]
+        want = psa.space_attention_plain(q, k, v, Fr).float()
+        allow = space_attention_flip_allowance(q, k, v, Fr)
+        bare = SPACE_ATTENTION_ATOL + BF16_RTOL * want.abs()
+        for name, lib in (("this", None), ("parent", parent)):
+            if name == "parent" and parent is None:
+                continue
+            with space_attention_library(lib):
+                got = psa.space_attention(q, k, v, Fr)
+            if name == "this":
+                check_close(f"space_attention tail draw {seed}", got, want,
+                            SPACE_ATTENTION_ATOL, allow)
+            err = (got.float() - want).abs()
+            used[name].append((float((err / (bare + allow)).max()), float((err / bare).max())))
+    return {name: {"draws": len(u), "over_1": sum(x > 1 for x, _ in u),
+                   "max": max(x for x, _ in u), "median": float(np.median([x for x, _ in u])),
+                   "bare_over_1": sum(y > 1 for _, y in u), "bare_max": max(y for _, y in u)}
+            for name, u in used.items() if u}
+
+
+def kernel_space_attention(dev, g, parent=None, sweep=False):
+    """Kernel 2 at each of SA_BATCHES (ViT-B/16 over 4 frames of 224²: T =
+    785, 12 heads): the forward's errors against the plain version, ms,
+    device ms, bound, library ms (SDPA) and TFLOP/s, with `sweep` also ms
+    at each of SA_SPLITS query splits;
+    the backward kernels' errors against autograd of the plain version, ms,
+    bound and library ms (SDPA's backward); forward + backward through the
+    Function; with `parent`, the parent's errors and times in turns (parent,
+    this, this, parent), alone and under forward + backward (the parent
+    tree's backward is the plain one). Returns the forward's and the
+    backward's records; their top-level numbers are those at
+    SA_RECORD_BATCH."""
+    from oatx_torch.ops.kernels import space_attention as psa
+
+    Fr, N, Hh, Dh = 4, 196, 12, 64
     T = 1 + Fr * N
-    qkv = torch.randn(B, T, 3, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
-    q = qkv[:, :, 0] * Dh ** -0.5  # as ops.attention.qkv_heads gives them
-    k, v = qkv[:, :, 1], qkv[:, :, 2]
-    got = space_attention(q, k, v, Fr)
-    torch.cuda.synchronize()
-    want = space_attention_plain(q, k, v, Fr)
-    errs = check_close("space_attention", got, want, SPACE_ATTENTION_ATOL)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd, bwd = {}, {}
+    for B in SA_BATCHES:
+        qkv = torch.randn(B, T, 3, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
+        q = qkv[:, :, 0] * Dh ** -0.5  # as ops.attention.qkv_heads gives them
+        k, v = qkv[:, :, 1], qkv[:, :, 2]
+        got = psa.space_attention(q, k, v, Fr)
+        torch.cuda.synchronize()
+        want = psa.space_attention_plain(q, k, v, Fr)
+        allow = space_attention_flip_allowance(q, k, v, Fr)
+        rec = check_close(f"space_attention B={B}", got, want, SPACE_ATTENTION_ATOL, allow)
 
-    # yardstick: SDPA over the (B·F, H, 196, 197) groups plus the CLS row,
-    # on inputs gathered into its layout beforehand (not timed)
-    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, T, Dh)
+        # yardstick: SDPA over the (B·F, H, 196, 197) groups plus the CLS row,
+        # on inputs gathered into its layout beforehand (not timed)
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, T, Dh)
 
-    def groups(t):
-        p = t[:, :, 1:].reshape(B, Hh, Fr, N, Dh).permute(0, 2, 1, 3, 4)
-        return p.reshape(B * Fr, Hh, N, Dh)
+        def groups(t):
+            p = t[:, :, 1:].reshape(B, Hh, Fr, N, Dh).permute(0, 2, 1, 3, 4)
+            return p.reshape(B * Fr, Hh, N, Dh)
 
-    def with_cls(t):
-        c = t[:, :, :1].unsqueeze(1).expand(B, Fr, Hh, 1, Dh).reshape(B * Fr, Hh, 1, Dh)
-        return torch.cat([c, groups(t)], dim=2).contiguous()
+        def with_cls(t):
+            c = t[:, :, :1].unsqueeze(1).expand(B, Fr, Hh, 1, Dh).reshape(B * Fr, Hh, 1, Dh)
+            return torch.cat([c, groups(t)], dim=2).contiguous()
 
-    qg, kg, vg = groups(qh).contiguous(), with_cls(kh), with_cls(vh)
-    qc, kc, vc = qh[:, :, :1].contiguous(), kh.contiguous(), vh.contiguous()
+        lib_in = [groups(qh).contiguous(), with_cls(kh), with_cls(vh),
+                  qh[:, :, :1].contiguous(), kh.contiguous(), vh.contiguous()]
 
-    def library():
-        F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
-        F.scaled_dot_product_attention(qc, kc, vc, scale=1.0)
+        def library():
+            return (F.scaled_dot_product_attention(*lib_in[:3], scale=1.0),
+                    F.scaled_dot_product_attention(*lib_in[3:], scale=1.0))
 
-    nbytes = 4 * B * T * Hh * Dh * 2
-    flops = 2 * 2 * B * Hh * (T + Fr * N * (N + 1)) * Dh
-    b, by = bound_ms(nbytes, flops)
-    return {
+        nbytes = 4 * B * T * Hh * Dh * 2
+        flops = 2 * 2 * B * Hh * (T + Fr * N * (N + 1)) * Dh
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+        rec["flops"] = flops
+        call = lambda: psa.space_attention(q, k, v, Fr)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_trace(call, 20, expect=SA_FWD_EXPECT)[0]
+        rec["library_ms"] = time_ms(library)
+        rec["library_device_ms"] = device_trace(library, 20)[0]
+        rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["device_tflops"] = flops / rec["device_ms"] / 1e9
+        rec["split_rule"] = psa._query_split(B * Fr * Hh, -(-N // 16), sms)
+        if sweep:
+            splits, rule = {}, psa._query_split
+            try:
+                for sp in SA_SPLITS:
+                    psa._query_split = lambda *_, sp=sp: sp
+                    check_close(f"space_attention B={B} split={sp}", call(), want,
+                                SPACE_ATTENTION_ATOL, allow)
+                    splits[sp] = (time_ms(call), device_trace(call, 20, expect=SA_FWD_EXPECT)[0])
+            finally:
+                psa._query_split = rule
+            rec["ms_by_split"] = {sp: t[0] for sp, t in splits.items()}
+            rec["device_ms_by_split"] = {sp: t[1] for sp, t in splits.items()}
+        if B == SA_RECORD_BATCH:
+            rec["plain_ms"] = time_ms(lambda: psa.space_attention_plain(q, k, v, Fr), iters=5)
+
+        # the backward kernels alone, from the forward's log-sum-exp
+        qd = q.detach()
+        _, lse = psa._launch(qd, k, v, Fr, with_lse=True)
+        dout = torch.randn(B, T, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
+        bcall = lambda: psa.space_attention_backward(qd, k, v, dout, Fr, lse)  # noqa: E731
+        brec = grad_errors(f"space_attention backward B={B}", bcall(),
+                           space_attention_plain_vjp(qd, k, v, dout, Fr),
+                           space_attention_plain_vjp(*(a.double() for a in (qd, k, v, dout)), Fr))
+        # dV, dP, dQ, dK and S recomputed: 5 products of the forward's 2;
+        # q, k, v, dO read and dq, dk, dv written once
+        bflops = flops * 5 // 2
+        brec["bound_ms"], brec["bound_by"] = bound_ms(7 * B * T * Hh * Dh * 2, bflops)
+        brec["flops"] = bflops
+        brec["ms"] = time_ms(bcall)
+        brec["device_ms"] = device_trace(bcall, 20, expect=SA_BWD_EXPECT)[0]
+        brec["tflops"] = bflops / brec["ms"] / 1e9
+        brec["device_tflops"] = bflops / brec["device_ms"] / 1e9
+        if B == SA_RECORD_BATCH:
+            brec["plain_ms"] = time_ms(
+                lambda: space_attention_plain_vjp(qd, k, v, dout, Fr), iters=5)
+        # SDPA's backward: its forward + backward under autograd, minus its forward
+        lib_leaves = [t.detach().requires_grad_() for t in lib_in]
+        douts = [o.detach().clone() for o in library()]
+        lib_fb = lambda: torch.autograd.grad(  # noqa: E731
+            (F.scaled_dot_product_attention(*lib_leaves[:3], scale=1.0),
+             F.scaled_dot_product_attention(*lib_leaves[3:], scale=1.0)), lib_leaves, douts)
+        lib_f = lambda: (F.scaled_dot_product_attention(*lib_leaves[:3], scale=1.0),  # noqa: E731
+                         F.scaled_dot_product_attention(*lib_leaves[3:], scale=1.0))
+        brec["library_ms"] = time_ms(lib_fb) - time_ms(lib_f)
+        brec["library_device_ms"] = device_trace(lib_fb, 20)[0] - device_trace(lib_f, 20)[0]
+
+        # forward + backward through the Function (the train step's use)
+        leaf = qkv.detach().requires_grad_()
+        fb = lambda: torch.autograd.grad(  # noqa: E731
+            psa.space_attention(leaf[:, :, 0] * 0.125, leaf[:, :, 1], leaf[:, :, 2], Fr),
+            leaf, dout)
+        rec["fwd_bwd_ms"] = time_ms(fb, iters=10)
+        rec["fwd_bwd_device_ms"] = device_trace(fb, 5, expect=SA_FWD_BWD_EXPECT)[0]
+        if parent is not None:
+            with space_attention_library(parent):
+                perr = check_close(f"space_attention B={B} (parent)", call(), want,
+                                   SPACE_ATTENTION_ATOL, allow)
+            turns = {"ms": [], "device_ms": [], "fwd_bwd_ms": [], "fwd_bwd_device_ms": []}
+            for lib in (parent, None, None, parent):
+                fb_expect = SA_FWD_EXPECT if lib is not None else SA_FWD_BWD_EXPECT
+                with space_attention_library(lib):
+                    turns["ms"].append(time_ms(call))
+                    turns["device_ms"].append(device_trace(call, 20, expect=SA_FWD_EXPECT)[0])
+                    turns["fwd_bwd_ms"].append(time_ms(fb, iters=10))
+                    turns["fwd_bwd_device_ms"].append(device_trace(fb, 5, expect=fb_expect)[0])
+            rec["parent"] = {**{f"{k_}_turns": t for k_, t in turns.items()},
+                             **{k_: perr[k_] for k_ in ("max_abs_err", "tol_used",
+                                                        "tol_used_bare")}}
+        fwd[B], bwd[B] = rec, brec
+    top, btop = fwd[SA_RECORD_BATCH], bwd[SA_RECORD_BATCH]
+    top["tol_tail"] = space_attention_tail(dev, parent)
+    # the forward kernel's residency at this shape, as launched
+    lib, blocks, smem = psa._lib(), ctypes.c_int(), ctypes.c_int()
+    occ = lib.space_attention_fwd_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        if occ(T, Fr, ctypes.byref(blocks), ctypes.byref(smem)):
+            raise RuntimeError("space_attention_fwd_occupancy failed")
+    top["occupancy"] = {"blocks_per_sm": blocks.value, "warps_per_sm": 4 * blocks.value,
+                        "smem_bytes_per_block": smem.value}
+    shape = f"q/k/v ({SA_RECORD_BATCH}, {T}, {Hh}, {Dh}) bf16, {Fr} frames"
+    drop = ("flops", "plain_ms")
+    return [{
         "name": "space_attention", "route": "cuda",
         "source": "oatx_torch/csrc/space_attention.cu",
-        "replaces": "oatx/ops/pallas/spacetime_attention.py:60", **errs,
-        "ms": time_ms(lambda: space_attention(q, k, v, Fr)),
-        "plain_ms": time_ms(lambda: space_attention_plain(q, k, v, Fr), iters=5),
-        "bound_ms": b, "bound_by": by, "flops": flops,
-        "library_ms": time_ms(library),
-        "shape": f"q/k/v ({B}, {T}, {Hh}, {Dh}) bf16, {Fr} frames",
-    }
+        "replaces": "oatx/ops/pallas/spacetime_attention.py:60",
+        **{k_: top[k_] for k_ in ("max_abs_err", "max_rel_err", "tol_used", "tol_used_bare",
+                                  "allow_max", "tol_tail", "ref_rms",
+                                  "ref_max", "atol", "ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "flops", "library_ms", "library_device_ms",
+                                  "occupancy")},
+        "by_batch": {B: {k_: v_ for k_, v_ in r.items() if k_ not in drop}
+                     for B, r in fwd.items()},
+        "shape": shape,
+    }, {
+        "name": "space_attention_bwd", "route": "cuda",
+        "source": "oatx_torch/csrc/space_attention.cu",
+        "replaces": "oatx/ops/pallas/spacetime_attention.py:123",
+        **{k_: btop[k_] for k_ in ("max_abs_err", "tol_used", "grad_rel", "grad_rel_tol",
+                                   "grad_rel_exact", "ms",
+                                   "device_ms", "plain_ms", "bound_ms", "bound_by", "flops",
+                                   "library_ms", "library_device_ms")},
+        "by_batch": {B: {k_: v_ for k_, v_ in r.items() if k_ not in drop}
+                     for B, r in bwd.items()},
+        "shape": shape + ", dO bf16",
+    }]
 
 
 def load_parent_ln_linear(path):
@@ -461,14 +787,15 @@ def kernel_ln_linear(dev, g, parent=None):
 
 
 def fwd_bwd_ms(dev, g, parent=None):
-    """Forward + backward through kernels 2 and 3's autograd.Functions at the
-    train step's shapes (B = 8, T = 785: 6280 rows; f32 master weights as the
-    model holds them; kernel 1's is ln_mlp_fwd_bwd's): (ms by CUDA events
-    over 10 iterations after warm-up, which counts the host's gaps between
-    launches; device busy ms of one call from a CUDA-only trace of 5, which
-    does not). With `parent`, "ln_linear_parent" holds the same through the
-    parent's kernel, timed before and after this tree's: ((events ms, events
-    ms), device ms)."""
+    """Forward + backward through kernel 3's and kernel 2's autograd.Functions
+    at the train step's shapes (B = 8, T = 785: 6280 rows; f32 master
+    weights as the model holds them; kernel 1's is ln_mlp_fwd_bwd's, kernel
+    2's at B = 1 and 4 kernel_space_attention's): (ms by CUDA events over 10
+    iterations after warm-up, which counts the host's gaps between launches;
+    device busy ms of one call from a CUDA-only trace of 5, which does not).
+    With `parent`, "ln_linear_parent" holds the same through the parent's
+    kernel, timed before and after this tree's: ((events ms, events ms),
+    device ms)."""
     from oatx_torch.ops.kernels.ln_linear import ln_linear
     from oatx_torch.ops.kernels.space_attention import space_attention
 
@@ -483,22 +810,22 @@ def fwd_bwd_ms(dev, g, parent=None):
     qkv = leaf(TRAIN_BATCH, 785, 3, 12, 64, dtype=torch.bfloat16)
     calls = {
         "ln_linear": (ln_linear, (x, *ln, leaf(3 * D, D, scale=0.02),
-                                  leaf(3 * D, scale=0.02))),
+                                  leaf(3 * D, scale=0.02)), (("ln_linear_kernel", 1),)),
         "space_attention": (lambda t: space_attention(t[:, :, 0] * 0.125, t[:, :, 1],
-                                                      t[:, :, 2], 4), (qkv,)),
+                                                      t[:, :, 2], 4), (qkv,), SA_FWD_BWD_EXPECT),
     }
     out = {}
-    for name, (fn, args) in calls.items():
+    for name, (fn, args, expect) in calls.items():
         dy = torch.randn(fn(*args).shape, device=dev, generator=g).to(torch.bfloat16)
         call = lambda: torch.autograd.grad(fn(*args), args, dy)  # noqa: E731
         if name == "ln_linear" and parent is not None:
             with ln_linear_library(parent):
                 before = time_ms(call, iters=10)
-        out[name] = time_ms(call, iters=10), device_trace(call, 5)[0]
+        out[name] = time_ms(call, iters=10), device_trace(call, 5, expect=expect)[0]
         if name == "ln_linear" and parent is not None:
             with ln_linear_library(parent):
                 out["ln_linear_parent"] = ((before, time_ms(call, iters=10)),
-                                           device_trace(call, 5)[0])
+                                           device_trace(call, 5, expect=expect)[0])
     return out
 
 
@@ -527,11 +854,12 @@ def ln_mlp_fwd_bwd(dev, g, parent=None):
         if parent is not None:
             with ln_mlp_library(parent):
                 before = time_ms(call, iters=10)
-        rec["ms"], rec["device_ms"] = time_ms(call, iters=10), device_trace(call, 5)[0]
+        rec["ms"] = time_ms(call, iters=10)
+        rec["device_ms"] = device_trace(call, 5, expect=LN_MLP_EXPECT)[0]
         if parent is not None:
             with ln_mlp_library(parent):
                 rec["parent_ms"] = [before, time_ms(call, iters=10)]
-                rec["parent_device_ms"] = device_trace(call, 5)[0]
+                rec["parent_device_ms"] = device_trace(call, 5, expect=LN_MLP_EXPECT)[0]
         out[R] = rec
     return out
 
@@ -575,23 +903,53 @@ def npy_b64(a):
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def device_trace(fn, n, top_of="other"):
+def device_trace(fn, n, top_of="other", expect=()):
     """Trace n calls of fn with CUDA activity only (no host-side tracing to
     slow the host-bound path). Returns per call: device busy ms (the union of
     kernel and copy intervals), device activities, device ms by group, and
-    the TOP_OTHER largest kernels of the group `top_of` by ms."""
+    the TOP_OTHER largest kernels of the group `top_of` by ms.
+
+    The profiler drops device records now and then, most often just after
+    it starts: so one untimed call of fn runs first inside the trace, then a
+    marker kernel (ATen's spin_kernel), and only records that start after
+    the marker count. `expect`: (name substring, device kernels per call)
+    pairs; the trace must hold at least n times that many kernels of each
+    name, and some device activity in any case. A trace that lost records is
+    taken again, up to TRACE_ATTEMPTS times, then the call raises, so a lost
+    record never shrinks a device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-    iv = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.time_range.end > e.time_range.start)
-    if not iv:
-        raise AssertionError("the device trace holds no device activity")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)  # the marker
+            torch.cuda.synchronize()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        # the profiler's raw device records (µs)
+        recs = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                      for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA
+                      and e.duration_ns() > 0)
+        marks = [end for _, end, name in recs if "spin_kernel" in name]
+        t0 = max(marks, default=float("inf"))
+        iv = [r for r in recs if r[0] >= t0]
+        lost = [f"{sum(key in name for _, _, name in iv)} '{key}' kernels of {per_call * n}"
+                for key, per_call in expect
+                if sum(key in name for _, _, name in iv) < per_call * n]
+        if not marks:
+            lost.append("no marker")
+        elif not iv:
+            lost.append("no device activity")
+        if not lost:
+            break
+        print(f"device_trace: attempt {attempt} holds {', '.join(lost)}: records were lost",
+              file=sys.stderr, flush=True)
+    else:
+        raise AssertionError(f"device_trace: every one of {TRACE_ATTEMPTS} traces lost records")
     busy_us, (cur_s, cur_e) = 0.0, iv[0][:2]
     for s, e, _ in iv[1:]:
         if s > cur_e:
@@ -717,9 +1075,15 @@ def serve_phase(tmp, smi):
             payload_v = json.dumps({"video_b64": npy_b64(clips)}).encode()
             payload_t = json.dumps({"texts": (texts * b)[:b]}).encode()
             rec = bucket_latency(url, svc, payload_v, payload_t)
+            calls0 = svc.tower_calls["video"]
+            post(url + "/embed_video", payload_v)
+            per_request = svc.tower_calls["video"] - calls0  # video forwards a request
             for tower, payload in (("video", payload_v), ("text", payload_t)):
+                expect = [(key, 12 * per_request) for key in ("space_attention_kernel", "ln_mlp_")
+                          if tower == "video"]
                 busy, acts, groups, _ = device_trace(
-                    lambda: post(f"{url}/embed_{tower}", payload), PROFILED_REQUESTS)
+                    lambda: post(f"{url}/embed_{tower}", payload), PROFILED_REQUESTS,
+                    expect=expect)
                 rec[f"{tower}_device_busy_ms"] = busy
                 rec[f"{tower}_idle_share"] = 1 - busy / rec[f"{tower}_p50_ms"]
                 rec[f"{tower}_device_activities"] = acts
@@ -796,12 +1160,18 @@ def train_run(fused_qkv, batch, smi, dev):
     """One fused_qkv setting of the train phase; returns its record."""
     from oatx_torch.ops.kernels.ln_linear import ln_linear
     from oatx_torch.ops.kernels.ln_mlp import ln_mlp
-    from oatx_torch.ops.kernels.space_attention import space_attention
+    from oatx_torch.ops.kernels.space_attention import space_attention, \
+        space_attention_backward
     from oatx_torch.train import optim, step as steplib
     from oatx_torch.train.flops import flops_forward_per_clip
 
     cfg = train_cfg(fused_qkv)
     depth = cfg.video.depth
+    # memory left by earlier phases counts in the peak: collect what is
+    # unreachable first, and record what stays held
+    before = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    held = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     state = steplib.init_state(cfg, optim.make_optimizer(lr=2e-4), device=dev,
                                generator=torch.Generator(dev).manual_seed(0))
@@ -811,16 +1181,17 @@ def train_run(fused_qkv, batch, smi, dev):
           f"({sum(p.numel() for p in state.model.parameters())} parameters)", flush=True)
 
     # ---- the main path, counted ----
-    for k in (ln_mlp, space_attention, ln_linear):
+    for k in (ln_mlp, space_attention, space_attention_backward, ln_linear):
         k.launches = 0
     losses = []
     for _ in range(TRAIN_STEPS):
         state, m = train_step(state, batch)
         losses.append(float(m["loss"]))
     launches = {"ln_mlp": ln_mlp.launches, "space_attention": space_attention.launches,
+                "space_attention_bwd": space_attention_backward.launches,
                 "ln_linear": ln_linear.launches}
     # ---- end of the counted run ----
-    want = {"ln_mlp": depth, "space_attention": depth,
+    want = {"ln_mlp": depth, "space_attention": depth, "space_attention_bwd": depth,
             "ln_linear": 2 * depth if fused_qkv else 0}
     for name, n in launches.items():
         if n != want[name] * TRAIN_STEPS:
@@ -843,13 +1214,19 @@ def train_run(fused_qkv, batch, smi, dev):
     kept = windows[1:]
     step_ms = float(np.median(kept))
     peak = torch.cuda.max_memory_allocated(dev)
-    busy, acts, groups, top = device_trace(lambda: train_step(state, batch), PROFILED_STEPS)
+    expect = [(key, depth) for key in ("ln_mlp_", "space_attention_kernel",
+                                       "space_attention_bwd_kernel")]
+    if fused_qkv:
+        expect.append(("ln_linear_kernel", 2 * depth))
+    busy, acts, groups, top = device_trace(lambda: train_step(state, batch), PROFILED_STEPS,
+                                           expect=expect)
     flops = 3.0 * flops_forward_per_clip(cfg.video, cfg.text, TRAIN_SEQ)
     rec = {"fused_qkv": fused_qkv, "step1_loss": losses[0], "last_loss": losses[-1],
            "step_ms": step_ms, "step_ms_spread": (max(kept) - min(kept)) / step_ms,
            "windows_ms": windows, "clips_per_s": TRAIN_BATCH / step_ms * 1e3,
            "mfu": TRAIN_BATCH / step_ms * 1e3 * flops / PEAK_BF16_FLOPS,
            "flops_per_clip_step": flops, "peak_mem_gib": peak / 2 ** 30,
+           "mem_held_gib": held / 2 ** 30, "mem_freed_by_gc_gib": (before - held) / 2 ** 30,
            "device_busy_ms": busy, "idle_share": 1 - busy / step_ms,
            "device_activities": acts, "device_ms_by_group": groups,
            "device_top_other_ms": top,
@@ -898,7 +1275,8 @@ def train_phase(smi, dev, res=224):
           f"{off['step1_loss']:.6f} (rel {rel:.2e}); step ms {on['step_ms']:.3f} vs "
           f"{off['step_ms']:.3f}, clips/s {on['clips_per_s']:.3f} vs {off['clips_per_s']:.3f}, "
           f"MFU {on['mfu']:.4f} vs {off['mfu']:.4f}, peak GiB {on['peak_mem_gib']:.2f} vs "
-          f"{off['peak_mem_gib']:.2f} ({smi})", flush=True)
+          f"{off['peak_mem_gib']:.2f} (held before the run {on['mem_held_gib']:.2f} vs "
+          f"{off['mem_held_gib']:.2f}) ({smi})", flush=True)
     if rel > FUSED_LOSS_RTOL:
         raise AssertionError(f"fused_qkv on/off step-1 losses differ by {rel:.3e}")
     return {name: on["launches"][name] + off["launches"][name] for name in on["launches"]}
@@ -911,6 +1289,12 @@ def main() -> int:
     ap.add_argument("--parent-ln-mlp", metavar="LIB",
                     help="library built from an earlier csrc/ln_mlp.cu (one-kernel C "
                          "interface), timed beside this one")
+    ap.add_argument("--parent-space-attention", metavar="LIB",
+                    help="library built from an earlier csrc/space_attention.cu (one-launch "
+                         "C interface without log-sum-exp), timed beside this one")
+    ap.add_argument("--sweep-query-splits", action="store_true",
+                    help="also time kernel 2's forward at each of 1-4 blocks per frame "
+                         "group (the choice behind _query_split)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -939,30 +1323,45 @@ def main() -> int:
     if opts.parent_ln_linear:
         parent = load_parent_ln_linear(opts.parent_ln_linear)
     parent_mlp = load_parent_ln_mlp(opts.parent_ln_mlp) if opts.parent_ln_mlp else None
+    parent_sa = (load_parent_space_attention(opts.parent_space_attention)
+                 if opts.parent_space_attention else None)
     g = torch.Generator(dev).manual_seed(0)
-    kernels = [kernel_ln_mlp(dev, g, parent_mlp), kernel_space_attention(dev, g),
+    kernels = [kernel_ln_mlp(dev, g, parent_mlp), *kernel_space_attention(dev, g, parent_sa,
+                                                              opts.sweep_query_splits),
                kernel_ln_linear(dev, g, parent)]
+    by_name = {k["name"]: k for k in kernels}
     fb = fwd_bwd_ms(dev, g, parent)
+    fb["space_attention_bwd"] = fb["space_attention"]
     for R, rec in ln_mlp_fwd_bwd(dev, g, parent_mlp).items():
-        kernels[0]["by_rows"][R]["fwd_bwd"] = rec
-    train_rows = kernels[0]["by_rows"][TRAIN_BATCH * 785]["fwd_bwd"]
+        by_name["ln_mlp"]["by_rows"][R]["fwd_bwd"] = rec
+    train_rows = by_name["ln_mlp"]["by_rows"][TRAIN_BATCH * 785]["fwd_bwd"]
     fb["ln_mlp"] = train_rows["ms"], train_rows["device_ms"]
-    print(f"ln_mlp by rows ({smi}): {json.dumps(kernels[0]['by_rows'])}", flush=True)
+    print(f"ln_mlp by rows ({smi}): {json.dumps(by_name['ln_mlp']['by_rows'])}", flush=True)
+    for name in ("space_attention", "space_attention_bwd"):
+        print(f"{name} by batch ({smi}): {json.dumps(by_name[name]['by_batch'])}", flush=True)
     if parent is not None:
         (ev0, ev1), busy = fb["ln_linear_parent"]
-        kernels[2]["parent"].update(fwd_bwd_ms=[ev0, ev1], fwd_bwd_device_ms=busy)
-        print(f"ln_linear parent ({opts.parent_ln_linear}): {json.dumps(kernels[2]['parent'])}",
-              flush=True)
+        by_name["ln_linear"]["parent"].update(fwd_bwd_ms=[ev0, ev1], fwd_bwd_device_ms=busy)
+        print(f"ln_linear parent ({opts.parent_ln_linear}): "
+              f"{json.dumps(by_name['ln_linear']['parent'])}", flush=True)
     for k in kernels:
         k["fwd_bwd_ms"], k["fwd_bwd_device_ms"] = fb[k["name"]]
         k["tflops"] = k["flops"] / k["ms"] / 1e9  # achieved, 2 flops per multiply-add
-        k["ptxas"] = ptxas.get(k["name"])
+        # the source's ptxas report; kernel 2's split into forward and backward kernels
+        report = ptxas.get(os.path.splitext(os.path.basename(k["source"]))[0]) or []
+        if k["name"].startswith("space_attention"):
+            bwd = [r for r in report if "bwd" in r["kernel"] or "cls_key" in r["kernel"]]
+            report = bwd if k["name"] == "space_attention_bwd" else \
+                [r for r in report if r not in bwd]
+        k["ptxas"] = report
     print("kernels " + " | ".join(
         f"{k['name']}: {k['shape']}, max_abs_err {k['max_abs_err']:.3e}, "
-        f"max_rel_err {k['max_rel_err']:.3e}, tolerance |err| <= {k['atol']} + "
-        f"2^-7·|ref| used to {k['tol_used']:.3f}, ref rms {k['ref_rms']:.3e} "
-        f"max {k['ref_max']:.3e}, "
-        f"kernel_ms {k['ms']:.4f}, plain_ms {k['plain_ms']:.4f}, "
+        + (f"max_rel_err {k['max_rel_err']:.3e}, tolerance |err| <= {k['atol']} + "
+           f"2^-7·|ref| used to {k['tol_used']:.3f}, ref rms {k['ref_rms']:.3e} "
+           f"max {k['ref_max']:.3e}, " if "atol" in k else
+           f"relative L2 {json.dumps(k['grad_rel'])} <= {k['grad_rel_tol']} used to "
+           f"{k['tol_used']:.3f}, ")
+        + f"kernel_ms {k['ms']:.4f}, plain_ms {k['plain_ms']:.4f}, "
         f"library_ms {k['library_ms']:.4f}, bound_ms {k['bound_ms']:.4f} "
         f"({k['bound_by']}), {k['tflops']:.1f} TFLOP/s, "
         f"fwd_bwd_ms at the train shape {k['fwd_bwd_ms']:.4f} "
@@ -973,9 +1372,10 @@ def main() -> int:
         phases = {"serve": serve_phase(tmp, smi)}
     phases["train"] = train_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "tol_used", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
-            "fwd_bwd_ms", "fwd_bwd_device_ms", "ptxas", "launches_by_phase", "parent",
-            "by_rows")
+            "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",
+            "fwd_bwd_device_ms", "ptxas", "occupancy", "launches_by_phase", "parent", "by_rows",
+            "by_batch")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}

@@ -8,31 +8,49 @@ query attends over all T keys; each frame's N patch queries attend over
 [CLS key + that frame's N keys]; softmax in f32 and p cast to the input dtype
 before P·V.
 
-What bounds it on an H100: bytes. At bucket 16 (B=16, T=785, H=12, Dh=64)
-q, k, v and the output are ≈ 77 MB, ≈ 23 µs at 3.35 TB/s; the ≈ 7.6 GFLOP
-take ≈ 8 µs at 989 TFLOP/s.
+What bounds it on an H100: bytes. At serving bucket 4 (B = 4, T = 785,
+H = 12, Dh = 64) q, k, v and the output are 19.3 MB, 5.8 µs at 3.35 TB/s;
+its 1.91 GFLOP take 1.9 µs at 989 TFLOP/s. The backward moves 7 such
+tensors (20 µs at B = 8) for ≈ 2.5× the forward's products.
 
-Design (csrc/space_attention.cu): one block per (frame, head, batch) instead
-of the Pallas program per (batch, head) with a loop over frames: the block
-holds the group's K and V (the CLS row + 196 frame rows, padded to 208, bf16)
-in shared memory and each of its 4 warps takes 16-query tiles: S = Q·Kᵀ in
-f32 WMMA fragments, the row softmax in f32 from shared memory, p rounded to
-bf16, O = P·V. The logits never reach device memory. One extra block per
-(head, batch) computes the CLS row over all T keys in the same launch. The
-kernel reads q/k/v through their strides, so the views of the fused qkv
-output need no transpose copy. Shared memory (≈ 149 KB at N = 196) allows one
-block per SM; that and the scalar CLS block are left for a later change.
+Forward design (csrc/space_attention.cu, one launch): blocks take units in
+the order they start. First the frame groups': a range of 16-query tiles of
+one (frame, head, batch) group. The group's K and V (CLS row + N frame
+rows, padded to 16·KT) go once into XOR-swizzled shared memory (61 KB at
+N = 196: 3 blocks, 12 warps, per SM), and per warp S = Q·Kᵀ by `mma.sync`
+m16n8k16 into registers, padded keys at −∞, the row max and sum over quad
+shuffles, p = bf16(e / sum) packed straight into the A fragments of O = P·V
+(V by `ldmatrix.trans`), and O out as 16-byte stores. S and P never leave
+registers. `_query_split` sets how many units share a group's query tiles,
+from the batch: at B = 1 each group's 13 tiles go to 4 units, at B = 8 one
+unit reads K and V once for all 13. The last unit of each group also
+writes the CLS query's logits against its keys. Then F CLS units per
+(head, batch) wait for those logits, take the exact max and sum over all T,
+p of one frame's keys and their P·V; the last of them adds the F partials
+in frame order. Every row's log-sum-exp is written when autograd will need
+it.
 
-Gradient: `space_attention` is a torch.autograd.Function. Its backward is
-`space_attention_backward`, plain PyTorch: it recomputes
-`space_attention_plain` from the saved q, k, v and differentiates it with
-torch.autograd, as oatx differentiates `_space_attention_reference`
-(:123-127; oatx has no Pallas backward either). Its einsums run on f32
-copies of the bf16 operands, like the plain forward. No backward kernel is
-written by hand yet.
+Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, device
+busy per call; PERF.md §6): the forward 0.0106 / 0.0200 / 0.0372 ms at
+B = 1 / 4 / 8, 9.8× the one-block-per-frame WMMA kernel it replaced at
+B = 4 and below SDPA over the same groups (0.0220); the backward 0.049 /
+0.066 / 0.136 ms; forward + backward 0.319 ms at B = 8, against 2.008
+with the WMMA forward and the plain backward.
 
-On a CPU tensor the forward runs `space_attention_plain`; on a CUDA tensor
-it launches the kernel or raises. The backward is the same on both.
+Gradient: `space_attention` is a torch.autograd.Function. On the card its
+backward is `space_attention_backward`'s kernels (three launches, no float
+atomics, bitwise the same from run to run): the CLS query's P and dP over
+each frame's keys; one block per (frame, head, batch) that recomputes P
+from the saved log-sum-exp and takes dq of its queries, dk and dv of its
+frame keys with the CLS query's share, and per-frame partials of the CLS
+row's dq and the CLS key's dk, dv; then those partials summed in frame
+order. The function it computes is autograd of `space_attention_plain`,
+which is oatx's jax.vjp of `_space_attention_reference` (:123-127):
+P = exp(S − lse) in f32, dV = bf16(P)ᵀ·dO, dP = dO·Vᵀ, D = rowsum(P ⊙ dP),
+dS = P ⊙ (dP − D), dQ = dS·K, dK = dSᵀ·Q, products from bf16 operands
+summed in f32. On a CPU tensor the forward runs `space_attention_plain` and
+the backward autograd of it; on a CUDA tensor each launches its kernels or
+raises.
 """
 
 from __future__ import annotations
@@ -45,8 +63,11 @@ import torch
 from oatx_torch.ops.kernels import _build
 
 _HEAD_DIM = 64
-_SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+_MAX_KEYS = 256       # a frame group's N + 1 keys (csrc MAX_KT · 16)
+_BLOCKS_PER_SM = 3    # frame-group blocks resident on one SM (__launch_bounds__)
+_MAX_SPLIT = 4        # blocks per group: one 16-query tile a warp at N = 196
 _count_lock = threading.Lock()
+_sm_counts: dict = {}
 
 
 def space_attention_plain(q, k, v, num_frames: int):
@@ -73,27 +94,38 @@ def _lib():
     lib = _build.load("space_attention")
     f = lib.space_attention_fwd_bf16
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + \
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        s = lib.space_attention_smem_bytes
-        s.argtypes = [ctypes.c_int, ctypes.c_int]
-        s.restype = ctypes.c_longlong
+        g = lib.space_attention_bwd_bf16
+        g.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 15 + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        g.restype = ctypes.c_int
+        lib.max_tokens = lib.space_attention_max_tokens()
     return lib
 
 
-def space_attention_backward(q, k, v, dout, num_frames: int):
-    """VJP of `space_attention`: (dq, dk, dv), each in its input's dtype and
-    shape, through autograd of the plain version."""
-    with torch.enable_grad():
-        leaves = [a.detach().requires_grad_() for a in (q, k, v)]
-        out = space_attention_plain(*leaves, num_frames)
-        return torch.autograd.grad(out, leaves, dout)
+def _sm_count(device: torch.device) -> int:
+    """SMs of the card, looked up once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
-def _launch(q, k, v, num_frames: int):
-    """The CUDA kernel: q, k, v (B, T, H, Dh) bf16, read through their
-    strides → a contiguous (B, T, H, Dh) output."""
+def _query_split(groups: int, query_tiles: int, sms: int) -> int:
+    """Blocks that share one frame group's 16-query tiles: as many as keep
+    all the groups' blocks in one wave of _BLOCKS_PER_SM per SM, at most
+    _MAX_SPLIT (each warp then has one tile at N = 196) and at least 1. More
+    blocks per group put more warps to work at a small batch; one block per
+    group reads the group's K and V once."""
+    return max(1, min(_MAX_SPLIT, query_tiles, sms * _BLOCKS_PER_SM // groups))
+
+
+def _check_inputs(q, k, v, num_frames: int):
+    """The kernels' limits: bf16, Dh = 64, N + 1 <= 256 keys a group,
+    16-byte aligned rows. Returns N."""
     b, t, h, dh = q.shape
     f = num_frames
     if f < 1 or (t - 1) % f:
@@ -104,45 +136,115 @@ def _launch(q, k, v, num_frames: int):
                              f"on {a.device}, q is {tuple(q.shape)} on {q.device}")
         if a.dtype != torch.bfloat16:
             raise ValueError(f"space_attention kernel takes bf16, {name} is {a.dtype}")
-        # 16-byte vector loads: contiguous head dim, 8-element strides
+        # 16-byte copies: contiguous head dim, 8-element strides
         if a.stride(-1) != 1 or any(s % 8 for s in a.stride()[:3]) \
                 or a.data_ptr() % 16:
             raise ValueError(f"space_attention: {name} strides {a.stride()} "
                              "are not 16-byte aligned rows")
     if dh != _HEAD_DIM:
         raise ValueError(f"space_attention kernel takes Dh={_HEAD_DIM}, got {dh}")
-    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    n = (t - 1) // f
+    if n + 1 > _MAX_KEYS:
+        raise ValueError(f"space_attention kernel: N={n} patches per frame; a frame "
+                         f"group's N + 1 keys must be at most {_MAX_KEYS}")
+    return n
+
+
+def _launch(q, k, v, num_frames: int, with_lse: bool = False):
+    """The forward kernel: q, k, v (B, T, H, Dh) bf16, read through their
+    strides → (a contiguous (B, T, H, Dh) output, each row's f32
+    log-sum-exp (B, H, T) or None)."""
+    b, t, h, dh = q.shape
+    n = _check_inputs(q, k, v, num_frames)
     lib = _lib()
-    if lib.space_attention_smem_bytes(t, f) > _SMEM_LIMIT:
-        raise ValueError(f"space_attention kernel: {(t - 1) // f} patches per "
-                         "frame need more shared memory than a block has")
+    if t > lib.max_tokens:
+        raise ValueError(f"space_attention kernel: T={t} tokens; the CLS row's "
+                         f"shared memory holds at most {lib.max_tokens} logits")
+    out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
+    # the CLS row's logits (rows of T rounded up to 4), its P·V per frame,
+    # and 1 + 2·B·H counters
+    ws = torch.empty(b * h * (-(-t // 4) * 4 + num_frames * dh + 2) + 1,
+                     dtype=torch.float32, device=q.device)
+    split = _query_split(b * h * num_frames, -(-n // 16), _sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
     with torch.cuda.device(q.device):
         err = lib.space_attention_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *strides, b, t, h, f, stream)
+            lse.data_ptr() if lse is not None else None, ws.data_ptr(),
+            *strides, b, t, h, num_frames, split, stream)
     _build.check(lib, err, "space_attention")
     with _count_lock:
         space_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _launch_backward(q, k, v, dout, lse, num_frames: int):
+    """The backward kernels from the forward's log-sum-exp → (dq, dk, dv),
+    each a contiguous (B, T, H, Dh) bf16 tensor."""
+    b, t, h, dh = q.shape
+    _check_inputs(q, k, v, num_frames)
+    if dout.shape != q.shape or dout.dtype != torch.bfloat16:
+        raise ValueError(f"space_attention backward: dout {tuple(dout.shape)} "
+                         f"{dout.dtype}, want {tuple(q.shape)} bf16")
+    if lse is None or lse.shape != (b, h, t) or lse.dtype != torch.float32:
+        raise ValueError("space_attention backward kernel needs the forward's "
+                         f"f32 log-sum-exp of shape {(b, h, t)}")
+    lib = _lib()
+    if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]) \
+            or dout.data_ptr() % 16:
+        dout = dout.contiguous()
+    lse = lse.contiguous()
+    grads = [torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device) for _ in range(3)]
+    # the CLS row's P and dP, per-frame partials of its dq and of the CLS
+    # key's dk, dv, and its own term at the CLS key
+    ws = torch.empty(b * h * (2 * t + 3 * num_frames * dh + 2), dtype=torch.float32,
+                     device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [s for a in (q, k, v, dout, grads[0]) for s in a.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = lib.space_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            *(g.data_ptr() for g in grads), ws.data_ptr(), *strides, b, t, h,
+            num_frames, stream)
+    _build.check(lib, err, "space_attention backward")
+    with _count_lock:
+        space_attention_backward.launches += 1
+    return tuple(grads)
+
+
+def space_attention_backward(q, k, v, dout, num_frames: int, lse=None):
+    """VJP of `space_attention`: (dq, dk, dv), each in its input's dtype and
+    shape. On the CPU: autograd of the plain version. On the card: the
+    backward kernels, from the forward's log-sum-exp `lse` (B, H, T)."""
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+            out = space_attention_plain(*leaves, num_frames)
+            return torch.autograd.grad(out, leaves, dout)
+    if not q.is_cuda:
+        raise ValueError(f"space_attention: unsupported device {q.device}")
+    return _launch_backward(q, k, v, dout, lse, num_frames)
 
 
 class _SpaceAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_frames):
         ctx.num_frames = num_frames
-        ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
             return space_attention_plain(q, k, v, num_frames)
         if not q.is_cuda:
             raise ValueError(f"space_attention: unsupported device {q.device}")
-        return _launch(q, k, v, num_frames)
+        out, lse = _launch(q, k, v, num_frames, with_lse=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, lse)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        return (*space_attention_backward(*ctx.saved_tensors, dout, ctx.num_frames),
-                None)
+        q, k, v, *lse = ctx.saved_tensors
+        return (*space_attention_backward(q, k, v, dout, ctx.num_frames, *lse), None)
 
 
 def space_attention(q, k, v, num_frames: int):
@@ -154,3 +256,4 @@ def space_attention(q, k, v, num_frames: int):
 
 
 space_attention.launches = 0
+space_attention_backward.launches = 0

@@ -68,19 +68,62 @@ def test_ln_mlp_kernel_matches_plain(card, rows, d, hidden):
     torch.testing.assert_close(got.float(), plm.ln_mlp_plain(*args).float(), atol=ATOL, rtol=0)
 
 
+def _qkv_views(card, b, frames, n, seed, heads=12):
+    """q, k, v of a (b, 1 + frames·n, 3, heads, 64) bf16 qkv tensor: k and v
+    strided views of it, q a fresh tensor (the view times 0.125), as the
+    towers give them."""
+    g = torch.Generator(card).manual_seed(seed)
+    qkv = torch.randn(b, 1 + frames * n, 3, heads, 64, device=card, generator=g)
+    qkv = qkv.to(torch.bfloat16)
+    return qkv[:, :, 0] * 0.125, qkv[:, :, 1], qkv[:, :, 2]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,frames,n", [(2, 4, 196), (3, 2, 4), (1, 1, 196)])
+@pytest.mark.parametrize("b,frames,n", [
+    (1, 4, 196), (2, 4, 196), (4, 4, 196), (8, 4, 196), (2, 16, 196), (3, 2, 4),
+    (1, 1, 196), (2, 4, 48)])
 def test_space_attention_kernel_matches_plain(card, b, frames, n):
-    g = torch.Generator(card).manual_seed(b * 100 + n)
-    t = 1 + frames * n
-    qkv = torch.randn(b, t, 3, 12, 64, device=card, generator=g).to(torch.bfloat16)
-    q, k, v = qkv[:, :, 0] * 0.125, qkv[:, :, 1], qkv[:, :, 2]  # strided views, as served
+    """Serving buckets 1, 4 and 8 (each query split of `_query_split`), 16
+    frames (T = 3137 CLS logits), N = 4 (one query tile, 11 padded keys),
+    one frame (T = 197, the 1-frame image batches) and N = 48."""
+    q, k, v = _qkv_views(card, b, frames, n, b * 100 + n)
     before = psa.space_attention.launches
     got = psa.space_attention(q, k, v, frames)
     torch.cuda.synchronize()
     assert psa.space_attention.launches == before + 1
     torch.testing.assert_close(got.float(), psa.space_attention_plain(q, k, v, frames).float(),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_space_attention_kernels_are_deterministic(card):
+    """Forward and backward twice on the same inputs: bitwise the same (no
+    float atomics; every sum in a fixed order)."""
+    q, k, v = _qkv_views(card, 2, 4, 196, 7)
+    out1, lse1 = psa._launch(q, k, v, 4, with_lse=True)
+    out2, lse2 = psa._launch(q, k, v, 4, with_lse=True)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    dout = torch.randn(out1.shape, device=card,
+                       generator=torch.Generator(card).manual_seed(8)).to(torch.bfloat16)
+    g1 = psa.space_attention_backward(q, k, v, dout, 4, lse1)
+    g2 = psa.space_attention_backward(q, k, v, dout, 4, lse1)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,n", [(1, 196), (2, 196), (4, 196), (2, 4)])
+def test_space_attention_backward_kernel_gradients(card, frames, n):
+    """The backward kernels against autograd of the plain version, each of
+    dq, dk, dv; the CLS key's gradient gathers from every frame and from the
+    CLS row (F = 1, 2, 4). One backward call counts one launch."""
+    q, k, v = _qkv_views(card, 2, frames, n, 30 + frames)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (psa.space_attention.launches, psa.space_attention_backward.launches)
+    _grads_match(lambda a, b, c: psa.space_attention(a, b, c, frames),
+                 lambda a, b, c: psa.space_attention_plain(a, b, c, frames),
+                 leaves, ("q", "k", "v"))
+    assert (psa.space_attention.launches, psa.space_attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -179,6 +222,9 @@ def test_kernels_refuse_what_they_cannot_take(card):
         plm.ln_mlp(xb, vec[0], vec[1], w1, vec[2], w2[:100], vec[3][:100])
     q = torch.zeros(1, 9, 2, 32, device=card, dtype=torch.bfloat16)  # Dh 32
     with pytest.raises(ValueError, match="Dh"):
+        psa.space_attention(q, q, q, 2)
+    q = torch.zeros(1, 1 + 2 * 256, 2, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N=256"):  # N + 1 keys of a group > 256
         psa.space_attention(q, q, q, 2)
     w = torch.zeros(256, 128, device=card)
     with pytest.raises(ValueError, match="bf16"):

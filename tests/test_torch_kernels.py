@@ -242,6 +242,80 @@ def test_space_attention_backward_matches_oatx_vjp(dtype):
     _close_grads(got, want, ("q", "k", "v"), dtype)
 
 
+def _blocked_backward(q, k, v, dout, f):
+    """Plain mirror of the backward kernels' decomposition (csrc/
+    space_attention.cu), in the inputs' dtype with f32 sums: P recomputed
+    from each row's saved f32 log-sum-exp; the CLS row's pass (dS and bf16(P)
+    over all T keys, dq of the CLS row); per frame group dq of its queries,
+    dk and dv of its keys plus the CLS query's share over the frame keys,
+    and the CLS key's partial; then the F partials summed in frame order
+    plus the CLS row's own term."""
+    b, t, h, dh = q.shape
+    n = (t - 1) // f
+    dt = q.dtype
+    qf, kf, vf, gf = (a.float() for a in (q, k, v, dout))
+    cast = lambda x: x.to(dt).float()  # noqa: E731  (bf16 operands of a product)
+
+    def lse_of(s):
+        m = s.amax(dim=-1, keepdim=True)
+        return m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+
+    # the CLS row over all T keys
+    s_c = torch.einsum("bhd,bkhd->bhk", qf[:, 0], kf)
+    p_c = torch.exp(s_c - lse_of(s_c))
+    dp_c = torch.einsum("bhd,bkhd->bhk", gf[:, 0], vf)
+    ds_c = p_c * (dp_c - (p_c * dp_c).sum(dim=-1, keepdim=True))
+    pb_c = cast(p_c)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dq[:, 0] = torch.einsum("bhk,bkhd->bhd", ds_c, kf)
+    parts = []
+    for fi in range(f):
+        rows = slice(1 + fi * n, 1 + (fi + 1) * n)
+        kg = torch.cat([kf[:, :1], kf[:, rows]], dim=1)  # (b, 1 + n, h, dh)
+        vg = torch.cat([vf[:, :1], vf[:, rows]], dim=1)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, rows], kg)
+        p = torch.exp(s - lse_of(s))
+        dp = torch.einsum("bqhd,bkhd->bhqk", gf[:, rows], vg)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        dq[:, rows] = torch.einsum("bhqk,bkhd->bqhd", cast(ds), kg)
+        dkg = torch.einsum("bhqk,bqhd->bkhd", cast(ds), qf[:, rows])
+        dvg = torch.einsum("bhqk,bqhd->bkhd", cast(p), gf[:, rows])
+        dk[:, rows] = dkg[:, 1:] + ds_c[..., rows].permute(0, 2, 1)[..., None] * qf[:, :1]
+        dv[:, rows] = dvg[:, 1:] + pb_c[..., rows].permute(0, 2, 1)[..., None] * gf[:, :1]
+        parts.append((dkg[:, 0], dvg[:, 0]))
+    dk0, dv0 = parts[0]
+    for pk, pv in parts[1:]:
+        dk0, dv0 = dk0 + pk, dv0 + pv
+    dk[:, 0] = dk0 + ds_c[..., 0, None] * qf[:, 0]
+    dv[:, 0] = dv0 + pb_c[..., 0, None] * gf[:, 0]
+    return tuple(a.to(dt) for a in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("frames,n", [(1, 4), (2, 4), (4, 196)])
+def test_space_attention_blocked_backward_matches_oatx_vjp(frames, n):
+    """The backward kernels' decomposition (per-group recompute from the
+    log-sum-exp, the CLS row's pass, the CLS key summed from F + 1 places)
+    against jax.vjp of oatx `_space_attention_reference` in f32, at 1e-5 of
+    each gradient's max, and against `space_attention_backward`."""
+    q, k, v, f = _qkv_problem(b=2, f=frames, n=n, h=1, dh=16, seed=frames + n)
+    dout = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jsa._space_attention_reference(a, b, c, f),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    T = torch.from_numpy
+    got = _blocked_backward(T(q), T(k), T(v), T(dout), f)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
+    plain = psa.space_attention_backward(T(q), T(k), T(v), T(dout), f)
+    for name, g, w in zip("qkv", got, plain):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * float(w.abs().max()), err_msg=name)
+
+
 @pytest.mark.parametrize("kernel", ["ln_mlp", "ln_linear", "space_attention"])
 def test_wrappers_backward_is_the_named_vjp(kernel, mlp_problem, linear_problem):
     """autograd through each wrapper returns exactly its named backward
@@ -329,6 +403,22 @@ def test_ln_mlp_kernel_refuses_widths_tma_cannot_read(k, hid, n):
 ])
 def test_ln_mlp_down_split_fills_the_card(rows, hid, n, want):
     assert plm._down_split(rows, hid, n, 132) == want
+
+
+@pytest.mark.parametrize("batch,want", [
+    (1, 4),   # serving bucket 1: 48 groups, each 13 tiles over 4 blocks
+    (2, 4),
+    (4, 2),   # bucket 4: 192 groups x 2 blocks fill the 396 resident slots
+    (8, 1),   # bucket 16's halves and the train step: 384 groups, one block each
+    (16, 1),
+])
+def test_space_attention_query_split_fills_the_card(batch, want):
+    groups = batch * 4 * 12  # 4 frames x 12 heads of ViT-B/16
+    assert psa._query_split(groups, 13, 132) == want
+
+
+def test_space_attention_query_split_keeps_a_tile_per_block():
+    assert psa._query_split(12, 1, 132) == 1  # N = 4: one query tile
 
 
 def test_build_rehashes_when_a_shared_header_changes(tmp_path, monkeypatch):
