@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
+                          [--only-trainer]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -15,7 +16,8 @@ for an earlier csrc/space_attention.cu with the one-launch C interface
 (4 pointers, 12 strides, 4 ints, stream; no log-sum-exp, so its forward +
 backward takes the plain backward, as that tree did), at B = 1, 4 and 8.
 --sweep-query-splits also times kernel 2's forward at 1-4 blocks per frame
-group at each B, the choice that `_query_split` encodes.
+group at each B, the choice that `_query_split` encodes. --only-trainer
+builds the kernels and runs phase 5 alone (no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -63,6 +65,22 @@ printed):
      trace, and one step's gradients through the kernels against the same
      through the plain versions: every parameter must have a finite
      gradient. The two runs' step-1 losses agree within bf16 tolerance.
+  5. trainer — oatx_torch.train.trainer.Trainer.train() on the pretrain
+     recipes (configs/pt/cc3m_webvid/), full width, over an in-memory corpus
+     of seeded separable 4-frame 256² clips (MemoryClips) through
+     ShardedLoader → Collator → device_prefetch → on-device train_augment:
+     norm.json at its per-GPU batch of 16 (init_val, TRAINER_EPOCHS epochs
+     of TRAINER_LEN_EPOCH steps, validation and a checkpoint after each;
+     the loss must fall and t2v R@1 rise from init_val), a Trainer resumed
+     from checkpoint-epoch1 (restored state bitwise, epoch 2's losses within
+     RESUME_LOSS_RTOL; a 2-step trace inside its loop gives the loop's idle
+     share), the same model at batch 16 with remat off / full / dots /
+     dots_all (one step's gradients under grad_check against remat off,
+     REMAT_STEPS counted steps, a device trace), and large_batch_pod.json
+     at batch 64 with fwd_chunk 8 (finite losses), then without fwd_chunk
+     if it fits. Each run's launches are counted around it and must equal
+     the counts derived from the code (want_launches); step ms, clips/s,
+     MFU, idle share and peak memory are printed for every setting.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -903,6 +921,28 @@ def npy_b64(a):
     return base64.b64encode(buf.getvalue()).decode()
 
 
+def device_records(prof):
+    """The profiler's raw device records, (start µs, end µs, name), sorted."""
+    return sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA
+                  and e.duration_ns() > 0)
+
+
+def busy_union_us(recs):
+    """µs covered by the union of the records' intervals."""
+    if not recs:
+        return 0.0
+    busy_us, (cur_s, cur_e) = 0.0, recs[0][:2]
+    for s, e, _ in recs[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy_us + cur_e - cur_s
+
+
 def device_trace(fn, n, top_of="other", expect=()):
     """Trace n calls of fn with CUDA activity only (no host-side tracing to
     slow the host-bound path). Returns per call: device busy ms (the union of
@@ -929,11 +969,7 @@ def device_trace(fn, n, top_of="other", expect=()):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        # the profiler's raw device records (µs)
-        recs = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3, e.name())
-                      for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == torch.autograd.DeviceType.CUDA
-                      and e.duration_ns() > 0)
+        recs = device_records(prof)
         marks = [end for _, end, name in recs if "spin_kernel" in name]
         t0 = max(marks, default=float("inf"))
         iv = [r for r in recs if r[0] >= t0]
@@ -950,14 +986,7 @@ def device_trace(fn, n, top_of="other", expect=()):
               file=sys.stderr, flush=True)
     else:
         raise AssertionError(f"device_trace: every one of {TRACE_ATTEMPTS} traces lost records")
-    busy_us, (cur_s, cur_e) = 0.0, iv[0][:2]
-    for s, e, _ in iv[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
+    busy_us = busy_union_us(iv)
     groups: dict = {}
     other: dict = {}
     for s, e, name in iv:
@@ -1282,6 +1311,439 @@ def train_phase(smi, dev, res=224):
     return {name: on["launches"][name] + off["launches"][name] for name in on["launches"]}
 
 
+# ------------------------------------------------------------------ trainer
+NORM_CONFIG = os.path.join(HERE, "configs", "pt", "cc3m_webvid", "norm.json")
+LARGE_CONFIG = os.path.join(HERE, "configs", "pt", "cc3m_webvid", "large_batch_pod.json")
+CORPUS_CLIPS = 32        # two of norm.json's per-GPU batches of 16: memorisable
+CORPUS_FRAMES = 4
+CANON = 256              # canonical frames: short side 256, centre-cropped
+TRAINER_EPOCHS = 2
+TRAINER_LEN_EPOCH = 16   # steps per epoch (len_epoch cycles of one loader)
+REMAT_SETTINGS = (None, "full", "dots", "dots_all")
+REMAT_STEPS = 3          # counted steps per remat setting at batch 16
+LARGE_BATCH = 64         # large_batch_pod.json's per-chip batch
+LARGE_STEPS = 6
+RESUME_LOSS_RTOL = 1e-3  # the resumed epoch's losses against the uninterrupted run's
+TEXT_LEN = 30            # the Collator's max_text_len (the reference's)
+WORDS = ("alpha", "beta", "gamma", "delta", "eps", "zeta")  # caption i: alpha{i} beta{i} ...
+
+
+class MemoryClips:
+    """An in-memory corpus of n separable clips: each a distinct colour under
+    a sine grating of its own angle and frequency that drifts across its
+    frames, plus noise, as canonical uint8 (F, 256, 256, 3) frames from
+    `seed`; and a caption of six words that no other caption shares (at
+    random init DistilBERT's CLS output is nearly the same for captions that
+    share most of their words, and a few steps do not tell them apart).
+    `get_sample(i, rng)` is what the port's ShardedLoader reads."""
+
+    dataset_name = "MemoryClips"
+
+    def __init__(self, n, seed):
+        rng = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:CANON, 0:CANON].astype(np.float32) / CANON
+        self.videos = np.empty((n, CORPUS_FRAMES, CANON, CANON, 3), np.uint8)
+        for i in range(n):
+            colour = rng.uniform(40, 215, 3).astype(np.float32)
+            theta, freq, phase = np.pi * i / n, 2 + i % 5, rng.uniform(0, 2 * np.pi)
+            for f in range(CORPUS_FRAMES):
+                wave = np.sin(2 * np.pi * freq * (xx * np.cos(theta) + yy * np.sin(theta))
+                              + phase + 0.3 * f)
+                img = colour + 35 * wave[..., None] + rng.normal(0, 6, (CANON, CANON, 3))
+                self.videos[i, f] = np.clip(img, 0, 255).astype(np.uint8)
+        self.captions = [" ".join(f"{w}{i}" for w in WORDS) for i in range(n)]
+
+    def __len__(self):
+        return len(self.captions)
+
+    def get_sample(self, i, rng):
+        return {"video": self.videos[i], "text": self.captions[i], "meta": {"index": i}}
+
+
+def corpus_loaders(ds, batch, with_valid=True):
+    from oatx_torch.data.loader import Collator, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+
+    col = Collator(WordPieceTokenizer.build_from_corpus(ds.captions), max_text_len=TEXT_LEN)
+    train = [ShardedLoader(ds, batch, col, seed=0, num_workers=4)]
+    valid = [ShardedLoader(ds, batch, col, shuffle=False, drop_last=False, num_workers=4)]
+    return train, valid if with_valid else []
+
+
+def recipe(path, **trainer):
+    """A recipe from configs/ with the chip run's trainer keys set."""
+    from oatx_torch.config.schema import ExperimentCfg
+
+    with open(path) as f:
+        raw = json.load(f)
+    raw["trainer"].update(trainer)
+    return ExperimentCfg.from_dict(raw)
+
+
+def set_video(exp, **video):
+    """exp with arch.args.video_params keys replaced."""
+    from oatx_torch.config.schema import ExperimentCfg
+
+    raw = json.loads(json.dumps(exp.raw))
+    raw["arch"]["args"]["video_params"].update(video)
+    return ExperimentCfg.from_dict(raw)
+
+
+def kernel_counts():
+    from oatx_torch.ops.kernels.ln_linear import ln_linear
+    from oatx_torch.ops.kernels.ln_mlp import ln_mlp
+    from oatx_torch.ops.kernels.space_attention import space_attention, \
+        space_attention_backward
+
+    return {"ln_mlp": ln_mlp, "space_attention": space_attention,
+            "space_attention_bwd": space_attention_backward, "ln_linear": ln_linear}
+
+
+@contextlib.contextmanager
+def counted(out):
+    """Sets every launch count to 0, and fills `out` with the counts at exit."""
+    ks = kernel_counts()
+    for k in ks.values():
+        k.launches = 0
+    yield
+    torch.cuda.synchronize()
+    out.update({name: k.launches for name, k in ks.items()})
+
+
+def want_launches(depth, steps, remat, chunks=None, forwards=0):
+    """Launches derived from the code. A step without remat runs kernels 1 and
+    2 once a block in the forward and kernel 2's backward once a block; per-
+    block remat runs the forward again in the backward (2·depth). fwd_chunk
+    runs each of its `chunks` sub-batches under a checkpoint of its own, whose
+    recompute runs the chunk's forward again (2·depth a chunk) and, with
+    per-block remat inside it, each block once more in its own recompute
+    (3·depth a chunk); the backward runs once a chunk. Eval forwards
+    (`forwards`) launch kernels 1 and 2 once a block and no backward."""
+    if chunks is None:
+        fwd = depth * (2 if remat else 1)
+    else:
+        fwd = depth * chunks * (3 if remat else 2)
+    return {"ln_mlp": steps * fwd + forwards * depth,
+            "space_attention": steps * fwd + forwards * depth,
+            "space_attention_bwd": steps * depth * (chunks or 1), "ln_linear": 0}
+
+
+def eval_forwards(validations, clips, batch):
+    """Video-tower forwards of `validations` passes over `clips` in batches
+    of `batch`, each embedded in chunks of 8 (the Trainer's eval step)."""
+    return validations * -(-clips // batch) * -(-batch // 8)
+
+
+def check_launches(tag, got, want):
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, derived {want}")
+
+
+class StepRecorder:
+    """Wraps a Trainer's train_step: after each step a CUDA event and the loss
+    tensor, no sync (a step's time is the interval between consecutive
+    events: the device's view of the trainer loop, host stalls included).
+    With `trace_at` = k, steps k and k + 1 run inside a CUDA-only
+    torch.profiler window fenced by syncs, whose device records give the
+    loop's device idle share (1 − busy / the window's wall time); `expect`
+    as device_trace's."""
+
+    def __init__(self, trainer, trace_at=None, expect=()):
+        self.step, self.trainer = trainer.train_step, trainer
+        self.events, self.losses = [], []
+        self.trace_at, self.expect, self.trace = trace_at, expect, None
+        trainer.train_step = self
+
+    def __call__(self, state, batch):
+        from torch.profiler import ProfilerActivity, profile
+
+        i = len(self.losses) + 1
+        if i == self.trace_at:
+            torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._t0 = time.perf_counter()
+        state, m = self.step(state, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        self.losses.append(m["loss"])
+        if self.trace_at is not None and i == self.trace_at + PROFILED_STEPS - 1:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - self._t0) * 1e3
+            self._prof.__exit__(None, None, None)
+            recs = device_records(self._prof)
+            lost = [key for key, per in self.expect
+                    if sum(key in r[2] for r in recs) < per * PROFILED_STEPS]
+            if lost or not recs:
+                raise AssertionError(f"trainer trace lost records of {lost or 'every kernel'}")
+            busy = busy_union_us(recs) / 1e3
+            self.trace = {"wall_ms": wall_ms / PROFILED_STEPS,
+                          "device_busy_ms": busy / PROFILED_STEPS,
+                          "idle_share": 1 - busy / wall_ms}
+        return state, m
+
+    def step_ms(self, per_epoch):
+        """Intervals between consecutive steps inside each epoch of
+        `per_epoch` steps (step 1 of an epoch has no predecessor there)."""
+        torch.cuda.synchronize()
+        out = []
+        for e0 in range(0, len(self.events), per_epoch):
+            evs = self.events[e0:e0 + per_epoch]
+            out += [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+        return out
+
+    def loss_values(self):
+        return [float(v) for v in self.losses]
+
+
+def speed(ms_list, batch, flops_per_clip):
+    step_ms = float(np.median(ms_list))
+    return {"step_ms": step_ms, "step_ms_spread": (max(ms_list) - min(ms_list)) / step_ms,
+            "steps_timed": len(ms_list), "clips_per_s": batch / step_ms * 1e3,
+            "mfu": batch / step_ms * 1e3 * flops_per_clip / PEAK_BF16_FLOPS}
+
+
+def fresh_peak(dev):
+    """Collect garbage, then start the peak count; → GiB held now."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev) / 2 ** 30
+
+
+def flops_per_clip_step(cfg):
+    from oatx_torch.train.flops import flops_forward_per_clip
+
+    return 3.0 * flops_forward_per_clip(cfg.video, cfg.text, TEXT_LEN)
+
+
+def state_equal(a, b):
+    """Tensors of two nested dicts bitwise equal (b on the host)."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.detach().cpu(), b)
+    return a == b
+
+
+def norm_recipe(tmp, smi, dev, ds):
+    """norm.json at its per-GPU batch of 16 through Trainer.train(), then a
+    Trainer resumed from its epoch-1 checkpoint running epoch 2 again."""
+    from oatx_torch.train import checkpoint as ckptlib
+    from oatx_torch.train.trainer import Trainer
+
+    exp = recipe(NORM_CONFIG, epochs=TRAINER_EPOCHS, len_epoch=TRAINER_LEN_EPOCH,
+                 save_period=1, verbosity=1)
+    batch = exp.data_loaders[0].batch_size
+    train, valid = corpus_loaders(ds, batch)
+    held = fresh_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(exp, train, valid, save_dir=os.path.join(tmp, "norm"), device=dev)
+    depth = tr.tower_cfg.video.depth
+    print(f"trainer norm@{batch}: Trainer built in {time.perf_counter() - t0:.1f} s "
+          f"(remat {tr.tower_cfg.video.remat}, fwd_chunk {exp.trainer.fwd_chunk})", flush=True)
+    rec = StepRecorder(tr)
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        hist = tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_launches(f"trainer norm@{batch}", launches, want_launches(
+        depth, TRAINER_EPOCHS * TRAINER_LEN_EPOCH, False,
+        forwards=eval_forwards(1 + TRAINER_EPOCHS, len(ds), batch)))  # init_val + each epoch
+    losses = rec.loss_values()
+    r1_init = tr.init_val_log["val_0_t2v_R1"]
+    r1_end = hist[TRAINER_EPOCHS]["val_0_t2v_R1"]
+    out = {"recipe": "norm.json", "batch": batch, "remat": False, "fwd_chunk": 0,
+           "losses": losses, "epoch_loss": [hist[e]["loss_0"] for e in (1, 2)],
+           "val_loss": [tr.init_val_log["val_loss_0"]] + [hist[e]["val_loss_0"] for e in (1, 2)],
+           "t2v_R1": [r1_init] + [hist[e]["val_0_t2v_R1"] for e in (1, 2)],
+           "v2t_R1": [tr.init_val_log["val_0_v2t_R1"]] + [hist[e]["val_0_v2t_R1"]
+                                                          for e in (1, 2)],
+           "input_wait": [hist[e]["input_wait"] for e in (1, 2)],
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
+           "launches": launches,
+           **speed(rec.step_ms(TRAINER_LEN_EPOCH), batch, flops_per_clip_step(tr.tower_cfg))}
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"trainer norm@{batch}: loss not finite or not falling: {losses}")
+    if not r1_end > r1_init:
+        raise AssertionError(f"trainer norm@{batch}: t2v R@1 {r1_init} at init_val, "
+                             f"{r1_end} after epoch {TRAINER_EPOCHS}: no gain")
+
+    # ---- resume from the epoch-1 checkpoint: epoch 2 again ----
+    ckpt = os.path.join(tmp, "norm", "checkpoint-epoch1")
+    snap = torch.load(os.path.join(ckpt, ckptlib.STATE_FILE), map_location="cpu",
+                      weights_only=True)
+    del tr
+    train, valid = corpus_loaders(ds, batch)
+    tr2 = Trainer(exp, train, valid, resume=ckpt, device=dev)
+    restored = (state_equal(tr2.state.model.state_dict(), snap["model"])
+                and state_equal(tr2.state.optimizer.named_state(), snap["optimizer"])
+                and tr2.state.step == snap["step"] == TRAINER_LEN_EPOCH)
+    if not restored or tr2.start_epoch != 2:
+        raise AssertionError("resume: the restored state is not the saved one "
+                             f"(start epoch {tr2.start_epoch}, step {tr2.state.step})")
+    expect = [("ln_mlp_", depth), ("space_attention_kernel", depth),
+              ("space_attention_bwd_kernel", depth)]
+    rec2 = StepRecorder(tr2, trace_at=3, expect=expect)
+    launches2 = {}
+    with counted(launches2):  # ---- the main path, counted ----
+        tr2.train()
+    check_launches("trainer resume", launches2, want_launches(
+        depth, TRAINER_LEN_EPOCH, False, forwards=eval_forwards(2, len(ds), batch)))
+    again, first = rec2.loss_values(), losses[TRAINER_LEN_EPOCH:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(again, first))
+    out["resume"] = {"restored_bitwise": restored, "losses": again, "max_rel_diff": rel,
+                     "bitwise": again == first}
+    out.update(rec2.trace)
+    if rel > RESUME_LOSS_RTOL:
+        raise AssertionError(f"resume: epoch 2's losses {again} vs {first} (rel {rel:.2e})")
+    print(f"trainer norm@{batch} ({smi}): " + json.dumps(out), flush=True)
+    return out, [launches, launches2]
+
+
+def remat_runs(smi, dev, ds):
+    """norm.json's model at batch 16: remat off, full, dots, dots_all — one
+    step's gradients against remat off (grad_check), REMAT_STEPS counted
+    steps with their times and peak memory, a device trace of 2."""
+    from oatx_torch.config.schema import build_tower_config, precision_dtype
+    from oatx_torch.data.transforms import TransformConfig, eval_transform
+    from oatx_torch.train import optim, step as steplib
+
+    base = recipe(NORM_CONFIG)
+    batch_n = base.data_loaders[0].batch_size
+    train, _ = corpus_loaders(ds, batch_n, with_valid=False)
+    host = next(iter(train[0]))
+    host.pop("meta")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    fixed = {**batch, "video": eval_transform(batch["video"], TransformConfig())}
+    runs, all_launches, ref = {}, [], None
+    for policy in REMAT_SETTINGS:
+        exp = set_video(base, remat=policy is not None, remat_policy=policy or "full")
+        cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(exp.trainer.precision))
+        depth = cfg.video.depth
+        tag = f"trainer remat={policy or 'off'}@{batch_n}"
+        state = steplib.init_state(cfg, optim.make_optimizer(lr=exp.optimizer.lr), device=dev,
+                                   generator=torch.Generator(dev).manual_seed(0))
+        model = state.model
+        loss, _ = steplib.loss_fn(model, steplib.LossConfig(), fixed)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        rec = {"remat": policy or "off", "batch": batch_n}
+        if ref is None:
+            ref = grads
+        else:
+            rec.update(grad_check(grads, ref))
+            rec["grad_tensors_bitwise"] = sum(torch.equal(grads[n], ref[n]) for n in ref)
+            if rec["grad_tol_used"] > 1 or rec["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+                    or rec["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+                raise AssertionError(f"{tag}: gradients disagree with remat off: "
+                                     f"{rec['grad_worst']}")
+        del grads
+        train_step = steplib.make_train_step(
+            cfg, steplib.LossConfig(), base_seed=1, device=dev,
+            augment=steplib.make_augmenter(train=True, tower_cfg=cfg))
+        rec["mem_held_gib"] = fresh_peak(dev)
+        launches, events, losses = {}, [], []
+        with counted(launches):  # ---- the main path, counted ----
+            for _ in range(REMAT_STEPS):
+                state, m = train_step(state, batch)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+                losses.append(m["loss"])
+        check_launches(tag, launches, want_launches(depth, REMAT_STEPS, policy is not None))
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        rec["losses"] = [float(v) for v in losses]
+        if not all(np.isfinite(rec["losses"])):
+            raise AssertionError(f"{tag}: non-finite loss {rec['losses']}")
+        rec.update(speed([a.elapsed_time(b) for a, b in zip(events, events[1:])], batch_n,
+                         flops_per_clip_step(cfg)))
+        expect = [("ln_mlp_", depth * (2 if policy else 1)), ("space_attention_bwd_kernel", depth)]
+        busy, _, groups, _ = device_trace(lambda: train_step(state, batch), PROFILED_STEPS,
+                                          expect=expect)
+        rec.update(device_busy_ms=busy, idle_share=1 - busy / rec["step_ms"],
+                   device_ms_by_group=groups, launches=launches)
+        print(f"{tag} ({smi}): " + json.dumps(rec), flush=True)
+        runs[rec["remat"]] = rec
+        all_launches.append(launches)
+        del state, model, train_step
+    return runs, all_launches
+
+
+def large_batch_recipe(smi, dev):
+    """large_batch_pod.json on one card: batch 64, fwd_chunk 8, remat full,
+    chunked NormSoftmax, cosine schedule, LARGE_STEPS steps through
+    Trainer.train(); then the same without fwd_chunk, if it fits."""
+    from oatx_torch.train.trainer import Trainer
+
+    ds = MemoryClips(LARGE_BATCH, seed=1)
+    out, all_launches = {}, []
+    for fwd_chunk in (8, 0):
+        exp = recipe(LARGE_CONFIG, epochs=1, len_epoch=LARGE_STEPS, init_val=False,
+                     save_period=100, verbosity=1, fwd_chunk=fwd_chunk)
+        batch = exp.data_loaders[0].batch_size
+        tag = f"trainer large_batch@{batch} fwd_chunk={fwd_chunk}"
+        train, _ = corpus_loaders(ds, batch, with_valid=False)
+        held = fresh_peak(dev)
+        try:
+            tr = Trainer(exp, train, [], device=dev)
+            depth = tr.tower_cfg.video.depth
+            rec = StepRecorder(tr)
+            launches = {}
+            with counted(launches):  # ---- the main path, counted ----
+                tr.train()
+        except torch.cuda.OutOfMemoryError as e:
+            if fwd_chunk:
+                raise
+            out[fwd_chunk] = {"fits": False, "error": str(e).splitlines()[0]}
+            print(f"{tag}: does not fit on the card ({smi}): {out[fwd_chunk]}", flush=True)
+            break
+        chunks = batch // fwd_chunk if fwd_chunk else None
+        check_launches(tag, launches, want_launches(depth, LARGE_STEPS, True, chunks=chunks))
+        losses = rec.loss_values()
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag}: non-finite loss {losses}")
+        r = {"recipe": "large_batch_pod.json", "batch": batch, "fwd_chunk": fwd_chunk,
+             "remat": tr.tower_cfg.video.remat_policy, "fits": True, "losses": losses,
+             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+             "mem_held_gib": held, "launches": launches,
+             **speed(rec.step_ms(LARGE_STEPS), batch, flops_per_clip_step(tr.tower_cfg))}
+        host = next(iter(train[0]))
+        host.pop("meta")
+        expect = [("space_attention_bwd_kernel", depth * (chunks or 1))]
+        busy, _, groups, _ = device_trace(lambda: rec.step(tr.state, host), PROFILED_STEPS,
+                                          expect=expect)
+        r.update(device_busy_ms=busy, idle_share=1 - busy / r["step_ms"],
+                 device_ms_by_group=groups)
+        print(f"{tag} ({smi}): " + json.dumps(r), flush=True)
+        out[fwd_chunk] = r
+        all_launches.append(launches)
+        del tr, rec
+    return out, all_launches
+
+
+def trainer_phase(smi, dev):
+    """Trainer.train() at full width (module docstring, phase 5)."""
+    ds = MemoryClips(CORPUS_CLIPS, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        norm, launches = norm_recipe(tmp, smi, dev, ds)
+    remat, more = remat_runs(smi, dev, ds)
+    launches += more
+    large, more = large_batch_recipe(smi, dev)
+    launches += more
+    rows = [("norm@16 trainer", norm)] + [(f"norm@16 remat {k}", v) for k, v in remat.items()] \
+        + [(f"large_batch@64 fwd_chunk {k}", v) for k, v in large.items() if v.get("fits")]
+    print(f"trainer summary ({smi}): " + json.dumps({
+        name: {k: r[k] for k in ("step_ms", "step_ms_spread", "clips_per_s", "mfu",
+                                 "idle_share", "peak_mem_gib") if k in r}
+        for name, r in rows}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -1295,6 +1757,9 @@ def main() -> int:
     ap.add_argument("--sweep-query-splits", action="store_true",
                     help="also time kernel 2's forward at each of 1-4 blocks per frame "
                          "group (the choice behind _query_split)")
+    ap.add_argument("--only-trainer", action="store_true",
+                    help="build the kernels and run the trainer phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1319,6 +1784,10 @@ def main() -> int:
     print(f"build: nvcc {secs:.1f} s for {[s.name for s in _build.sources()]} "
           f"(sm_90a); ptxas: {json.dumps(ptxas)}", flush=True)
 
+    if opts.only_trainer:
+        trainer_phase(smi, dev)
+        print("chip_smoke: --only-trainer ran the trainer phase alone", flush=True)
+        return 0
     parent = None
     if opts.parent_ln_linear:
         parent = load_parent_ln_linear(opts.parent_ln_linear)
@@ -1371,6 +1840,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phases = {"serve": serve_phase(tmp, smi)}
     phases["train"] = train_phase(smi, dev)
+    phases["trainer"] = trainer_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",

@@ -31,6 +31,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "device='cpu' to run the plain PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        if dev.index is None:  # 'cuda' names the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

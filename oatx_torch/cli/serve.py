@@ -67,7 +67,7 @@ def build_service(argv, device=None):
                 f"--{flag.replace('_', '-')} is not ported to oatx_torch yet")
     dev = resolve_device(device if device is not None else our.device)
 
-    exp = load_experiment(rest)
+    exp = load_experiment(rest, test=True)
     ckpt = str(exp.resume) if exp.resume else exp.cfg.arch.load_checkpoint
     search = [pathlib.Path(ckpt).parent] if ckpt else []
     # the port reads no dataset captions yet: the hermetic vocab is oatx's

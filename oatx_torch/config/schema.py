@@ -1,11 +1,12 @@
-"""Typed experiment configuration — the part the serving path reads
-(port of oatx/config/schema.py).
+"""Typed experiment configuration (port of oatx/config/schema.py).
 
-The same reference-schema JSON files load unchanged: `arch` (video_params,
-text_params, object_params, projection, load_checkpoint), `trainer.precision`
-and the raw dict (for the `tokenizer` key). `build_tower_config` maps them to
-the port's `TowerConfig` with a torch dtype in place of oatx's jnp one
-(schema.py:27,457).
+The same reference-schema JSON files load unchanged, to the same field values
+as oatx's: `arch` (video_params, text_params, object_params, projection,
+load_checkpoint), `data_loader` (one dict or a list), `optimizer`, `loss`,
+`metrics`, `trainer` (every key oatx reads, including its extensions:
+precision, fwd_chunk, ema_decay, len_epoch, ...) and the raw dict (for the
+`tokenizer` key). `build_tower_config` maps `arch` to the port's
+`TowerConfig` with a torch dtype in place of oatx's jnp one (:27,457).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -101,17 +102,27 @@ class TextParamsCfg:
 @dataclasses.dataclass
 class ObjectParamsCfg:
     model: str = ""
+    input_objects: bool = False
+    input_object_bboxs: bool = False
+    pseudo_labels: bool = False
     top_k: int = 10
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ObjectParamsCfg":
-        return cls(model=_get(d, "model", ""), top_k=int(_get(d, "top_k", 10)))
+        return cls(
+            model=_get(d, "model", ""),
+            input_objects=bool(_get(d, "input_objects", False)),
+            input_object_bboxs=bool(_get(d, "input_object_bboxs", False)),
+            pseudo_labels=bool(_get(d, "pseudo_labels", False)),
+            top_k=int(_get(d, "top_k", 10)),
+        )
 
 
 @dataclasses.dataclass
 class ArchCfg:
     type: str = "FrozenInTime"
     variant: str = "baseline"
+    object: bool = False
     stream: int = 2
     video_params: VideoParamsCfg = dataclasses.field(default_factory=VideoParamsCfg)
     text_params: TextParamsCfg = dataclasses.field(default_factory=TextParamsCfg)
@@ -119,6 +130,7 @@ class ArchCfg:
     projection: str = "minimal"
     projection_dim: int = 256
     load_checkpoint: str = ""
+    load_temporal_fix: str = "zeros"
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ArchCfg":
@@ -126,6 +138,7 @@ class ArchCfg:
         return cls(
             type=_get(d, "type", "FrozenInTime"),
             variant=_get(d, "variant", "baseline"),
+            object=bool(_get(d, "object", False)),
             stream=int(_get(d, "stream", 2)),
             video_params=VideoParamsCfg.from_dict(_get(args, "video_params", {})),
             text_params=TextParamsCfg.from_dict(_get(args, "text_params", {})),
@@ -133,31 +146,180 @@ class ArchCfg:
             projection=_get(args, "projection", "minimal"),
             projection_dim=int(_get(args, "projection_dim", 256)),
             load_checkpoint=_get(args, "load_checkpoint", "") or "",
+            load_temporal_fix=_get(args, "load_temporal_fix", "zeros"),
+        )
+
+
+@dataclasses.dataclass
+class DataLoaderCfg:
+    type: str = "TextVideoDataLoader"
+    dataset_name: str = "MSRVTT"
+    data_dir: str = ""
+    object_dir: str = ""
+    metadata_dir: Optional[str] = None
+    reader: str = "cv2"
+    shuffle: bool = True
+    num_workers: int = 4
+    batch_size: int = 16
+    split: str = "train"
+    cut: Optional[str] = None
+    subsample: float = 1      # < 1 keeps that fraction of the metadata
+    echo_factor: int = 1      # data echoing: E optimizer steps per decoded batch
+    text_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    object_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    video_params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def input_res(self) -> int:
+        return int(_get(self.video_params, "input_res", 224))
+
+    @property
+    def num_frames(self) -> int:
+        return int(_get(self.video_params, "num_frames", 4))
+
+    @property
+    def loading(self) -> str:
+        return _get(self.video_params, "loading", "strict")
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DataLoaderCfg":
+        args = _get(d, "args", {})
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(type=_get(d, "type", "TextVideoDataLoader"),
+                   **{k: v for k, v in args.items() if k in fields})
+
+
+@dataclasses.dataclass
+class OptimizerCfg:
+    type: str = "AdamW"        # AdamW | Adafactor | Lion | SGD (only AdamW is ported)
+    lr: float = 2e-4
+    weight_decay: float = 0.01
+    grad_clip: Optional[float] = None
+    milestones: List[int] = dataclasses.field(default_factory=lambda: [60, 80])
+    gamma: float = 0.1
+    schedule: str = "step"     # step (reference) | cosine | constant
+    warmup_steps: int = 0      # linear 0 → lr ramp before the schedule
+    lr_min: float = 0.0        # cosine floor
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "OptimizerCfg":
+        args = _get(d, "args", {})
+        if isinstance(_get(args, "schedule", "step"), (list, tuple)):
+            raise ValueError(
+                "optimizer.args.schedule is the schedule KIND "
+                "(step|cosine|constant); decay epochs go in "
+                "optimizer.args.milestones")
+        return cls(
+            type=_get(d, "type", "AdamW"),
+            lr=float(_get(args, "lr", 2e-4)),
+            weight_decay=float(_get(args, "weight_decay", 0.01)),
+            grad_clip=args.get("grad_clip"),
+            milestones=list(_get(args, "milestones", [60, 80])),
+            gamma=float(_get(args, "gamma", 0.1)),
+            schedule=str(_get(args, "schedule", "step")),
+            warmup_steps=int(_get(args, "warmup_steps", 0)),
+            lr_min=float(_get(args, "lr_min", 0.0)),
+        )
+
+
+@dataclasses.dataclass
+class LossCfg:
+    type: str = "NormSoftmaxLoss"
+    temperature: float = 0.05
+    margin: float = 1.0
+    region_bce_weight: float = 0.1
+    chunked: bool = False
+    chunk_size: int = 4096
+    object_nce_weight: float = 0.0
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LossCfg":
+        args = _get(d, "args", {})
+        return cls(
+            type=_get(d, "type", "NormSoftmaxLoss"),
+            temperature=float(_get(args, "temperature", 0.05)),
+            margin=float(_get(args, "margin", 1.0)),
+            region_bce_weight=float(_get(args, "region_bce_weight", 0.1)),
+            chunked=bool(_get(args, "chunked", False)),
+            chunk_size=int(_get(args, "chunk_size", 4096)),
+            object_nce_weight=float(_get(args, "object_nce_weight", 0.0)),
         )
 
 
 @dataclasses.dataclass
 class TrainerCfg:
-    precision: str = "bf16"   # 'bf16' | 'f32' — the compute dtype
+    """The trainer keys (oatx schema.py:263-346). On one device `zero1` and
+    `dp_mode` have nothing to shard or reduce; `model_parallel` > 1, `fsdp`,
+    `pipeline`, `dcn_slices` > 1 and `dp_mode: manual` need several devices
+    and raise in the Trainer."""
+    epochs: int = 100
+    max_samples_per_epoch: int = 1_000_000
+    save_dir: str = "exps"
+    save_period: int = 5
+    verbosity: int = 2
+    monitor: str = "min val_loss_0"
+    early_stop: int = 10
+    init_val: bool = True
+    val_period: int = 1        # validate every N epochs (and at the last)
+    neptune: bool = False
+    precision: str = "bf16"    # 'bf16' | 'f32' — the compute dtype
+    model_parallel: int = 1
+    dcn_slices: int = 1
+    seed: int = 0
+    accum_steps: int = 1       # gradient accumulation micro-steps
+    fwd_chunk: int = 0         # > 0: checkpointed tower forwards in chunks, loss
+    # over the full batch (train/step.py loss_fn)
+    dp_mode: str = "auto"      # 'auto' | 'gspmd' | 'manual'
+    grad_reduce_dtype: str = ""
+    zero1: bool = False
+    fsdp: bool = False
+    pipeline: bool = False
+    pipeline_microbatches: int = 4
+    cycle_shorter: bool = False  # wrap shorter loaders instead of truncating
+    skip_nonfinite: bool = False  # a non-finite loss/grad step is a no-op
+    ema_decay: float = 0.0     # > 0: a parameter EMA in the optimizer state
+    ema_eval: bool = True      # validate (and monitor) the EMA when kept
+    profile_epoch: int = 0     # > 0: a torch.profiler trace in this epoch
+    profile_start_step: int = 5
+    profile_steps: int = 4
+    async_checkpoint: bool = False  # periodic/best saves written by a thread
+    len_epoch: Optional[int] = None  # iteration-based epochs (cycles per epoch)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TrainerCfg":
-        return cls(precision=_get(d, "precision", "bf16"))
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
 
 
 @dataclasses.dataclass
 class ExperimentCfg:
     name: str = "experiment"
+    n_gpu: int = 1
     arch: ArchCfg = dataclasses.field(default_factory=ArchCfg)
+    data_loaders: List[DataLoaderCfg] = dataclasses.field(default_factory=list)
+    optimizer: OptimizerCfg = dataclasses.field(default_factory=OptimizerCfg)
+    loss: LossCfg = dataclasses.field(default_factory=LossCfg)
+    metrics: List[str] = dataclasses.field(
+        default_factory=lambda: ["t2v_metrics", "v2t_metrics"])
     trainer: TrainerCfg = dataclasses.field(default_factory=TrainerCfg)
+    visualizer: Dict[str, Any] = dataclasses.field(default_factory=dict)
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ExperimentCfg":
+        dl = _get(d, "data_loader", [])
+        if isinstance(dl, dict):
+            dl = [dl]
         return cls(
             name=_get(d, "name", "experiment"),
+            n_gpu=int(_get(d, "n_gpu", 1)),
             arch=ArchCfg.from_dict(_get(d, "arch", {})),
+            data_loaders=[DataLoaderCfg.from_dict(x) for x in dl],
+            optimizer=OptimizerCfg.from_dict(_get(d, "optimizer", {})),
+            loss=LossCfg.from_dict(_get(d, "loss", {})),
+            metrics=list(_get(d, "metrics", ["t2v_metrics", "v2t_metrics"])),
             trainer=TrainerCfg.from_dict(_get(d, "trainer", {})),
+            visualizer=_get(d, "visualizer", {}),
             raw=d,
         )
 

@@ -13,8 +13,9 @@ port: `AdamW.load_named_state(opt_state_from_optax(...))`.
 
 `load_checkpoint` reads a `.pth` in the {'state_dict', 'epoch'} format that
 oatx's `convert.export_torch_checkpoint` writes (and the reference saves).
-Positional-embedding inflation on a frame- or patch-count mismatch is not in
-this slice: such a checkpoint fails the strict load.
+A checkpoint with another frame or patch count has its positional embeddings
+inflated to the model's (`inflate_state_dict`, what oatx's
+`spacetime_vit_overlay_torch` does at :131-139) before the strict load.
 """
 
 from __future__ import annotations
@@ -133,12 +134,29 @@ def opt_state_from_optax(opt_state, tower_cfg) -> Dict[str, Any]:
     return out
 
 
-def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
+def inflate_state_dict(sd: Dict[str, torch.Tensor], video_cfg,
+                       temporal_fix: str = "zeros") -> Dict[str, torch.Tensor]:
+    """The video tower's pos_embed and temporal_embed resized to `video_cfg`'s
+    patch and frame counts (vit_spacetime.inflate_*); other keys unchanged."""
+    from oatx_torch.models import vit_spacetime as vst
+
+    out = dict(sd)
+    key = "video_model.pos_embed"
+    if key in out:
+        out[key] = vst.inflate_spatial_embed(out[key], video_cfg.patches_per_frame)
+    key = "video_model.temporal_embed"
+    if key in out:
+        out[key] = vst.inflate_temporal_embed(out[key], video_cfg.num_frames, temporal_fix)
+    return out
+
+
+def load_checkpoint(model: nn.Module, path: str, temporal_fix: str = "zeros") -> nn.Module:
     """Load a reference-format `.pth` ({'state_dict': ..., 'epoch': ...} or a
-    bare state_dict) into `model` with strict=True."""
+    bare state_dict) into a DualTower with strict=True, its positional
+    embeddings inflated to the model's geometry first."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["state_dict"] if isinstance(ckpt, dict) and "state_dict" in ckpt else ckpt
     sd = {k[len("module."):] if k.startswith("module.") else k: v  # DataParallel
           for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(inflate_state_dict(sd, model.cfg.video, temporal_fix), strict=True)
     return model

@@ -14,20 +14,40 @@ names follow the reference state_dict (`blocks.N.{norm1,norm2,norm3,attn,
 timeattn,mlp}.*`, `patch_embed.proj`, `cls_token`, `pos_embed`,
 `temporal_embed`, `norm`), so `load_state_dict(strict=True)` is the bridge.
 
+Remat (oatx :257-268, applied per block at :305-308) wraps each block in
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`:
+    full      keep the block's input only, recompute the rest (oatx policy None)
+    dots      also keep the outputs of 2-D weight products (aten mm/addmm):
+              jax's checkpoint_dots_with_no_batch_dims
+    dots_all  also keep batched products (aten bmm, the attention einsums):
+              jax's checkpoint_dots
+The kernels launch outside PyTorch's dispatcher, so no policy can keep their
+outputs: every policy runs them again in the backward, as oatx recomputes a
+pallas_call (it is not a dot). The selective policies run a Python policy
+call per ATen op in the forward and its recompute; on the H100 that host
+time outweighs what they save (PERF.md §5). `scan_blocks` is a compile-time
+choice in JAX; here it is the same loop over the blocks.
+
 The config accepts every oatx key. The layout knobs (`cls_position`,
 `split_cls_stream`) leave outputs unchanged and are ignored: the port has one
-token order, CLS first. Remat, scanned blocks, pipeline stages, sequence
-parallelism and region taps are not ported yet, and the unfused MLP
-(`fused_mlp=False`) is not ported: the tower raises on them.
+token order, CLS first. Pipeline stages, sequence parallelism and region taps
+are not ported yet, and the unfused MLP (`fused_mlp=False`) is not ported: the
+tower raises on them.
+
+`inflate_spatial_embed` / `inflate_temporal_embed` (oatx :413-454) resize the
+positional embeddings of a checkpoint with another patch or frame count.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.ops.attention import divided_attention
@@ -71,10 +91,6 @@ class SpaceTimeViTConfig:
 
 
 def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
-    if cfg.remat:
-        return "remat"
-    if cfg.scan_blocks:
-        return "scan_blocks"
     if cfg.pipeline_stages != 1:
         return "pipeline_stages"
     if cfg.sequence_parallel:
@@ -84,6 +100,30 @@ def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
     if not cfg.fused_mlp:
         return "fused_mlp=False (the port runs kernel 1 in every block)"
     return None
+
+
+_SAVED_OPS = {  # remat_policy → aten products whose outputs the backward keeps
+    "full": (),
+    "dots": ("mm", "addmm"),
+    "dots_all": ("mm", "addmm", "bmm", "baddbmm"),
+}
+
+
+def _save_products(saved, ctx, op, *args, **kwargs):
+    name = op.overloadpacket.__name__
+    return (ckpt.CheckpointPolicy.MUST_SAVE if name in saved
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_context_fn(policy: str):
+    """checkpoint's `context_fn` for oatx's remat_policy (module docstring)."""
+    if policy not in _SAVED_OPS:
+        raise ValueError(f"unknown remat_policy {policy!r} (expected full|dots|dots_all)")
+    saved = _SAVED_OPS[policy]
+    if not saved:
+        return ckpt.noop_context_fn
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             functools.partial(_save_products, saved))
 
 
 class Attention(nn.Module):
@@ -181,6 +221,7 @@ class SpaceTimeTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             SpaceTimeBlock(cfg, device, generator) for _ in range(cfg.depth))
         self.norm = LayerNorm(d, LN_EPS, device)
+        self._remat_ctx = remat_context_fn(cfg.remat_policy) if cfg.remat else None
 
     def embed(self, video: torch.Tensor) -> torch.Tensor:
         """video (B, F, H, W, C) NHWC → tokens (B, 1 + F·N, D), CLS first, with
@@ -205,10 +246,56 @@ class SpaceTimeTransformer(nn.Module):
         per cfg.pooling, patches=(B, F·N, D) after the final norm)."""
         f = video.shape[1]
         x = self.embed(video)
+        remat = self._remat_ctx is not None and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, f)
+            if remat:
+                x = ckpt.checkpoint(blk, x, f, use_reentrant=False,
+                                    context_fn=self._remat_ctx)
+            else:
+                x = blk(x, f)
         x = self.norm(x)
         cls, patches = x[:, 0], x[:, 1:]
         if self.cfg.pooling == "cls_mean_half":
             cls = 0.5 * cls + 0.5 * patches.mean(dim=1)
         return {"cls": cls, "patches": patches}
+
+
+def inflate_spatial_embed(pos_embed: torch.Tensor, target_patches: int) -> torch.Tensor:
+    """pos_embed (1, 1 + n, D) → (1, 1 + target_patches, D): the (g, g) grid
+    resized bilinearly (jax.image.resize's, antialiased when it shrinks), the
+    CLS row kept (oatx :413-429)."""
+    n = pos_embed.shape[1] - 1
+    if n == target_patches:
+        return pos_embed
+    g_src, g_dst = round(n ** 0.5), round(target_patches ** 0.5)
+    if g_src * g_src != n or g_dst * g_dst != target_patches:
+        raise ValueError(f"non-square patch grids: {n} → {target_patches}")
+    cls, grid = pos_embed[:, :1], pos_embed[:, 1:]
+    grid = grid.reshape(1, g_src, g_src, -1).permute(0, 3, 1, 2).float()
+    grid = F.interpolate(grid, size=(g_dst, g_dst), mode="bilinear",
+                         align_corners=False, antialias=g_dst < g_src)
+    grid = grid.permute(0, 2, 3, 1).reshape(1, target_patches, -1).to(pos_embed.dtype)
+    return torch.cat([cls, grid], dim=1)
+
+
+def inflate_temporal_embed(temporal_embed: torch.Tensor, target_frames: int,
+                           mode: str = "zeros") -> torch.Tensor:
+    """temporal_embed (1, F, D) → (1, target_frames, D) (oatx :432-454, the
+    reference's _inflate_positional_embeds): a shrink truncates; a growth pads
+    with zeros ('zeros'), repeats the nearest frame ('interp') or interpolates
+    linearly ('bilinear')."""
+    src = temporal_embed
+    load_frames = src.shape[1]
+    if load_frames == target_frames:
+        return src
+    if load_frames > target_frames:
+        return src[:, :target_frames]
+    if mode == "zeros":
+        pad = src.new_zeros(src.shape[0], target_frames - load_frames, src.shape[2])
+        return torch.cat([src, pad], dim=1)
+    if mode in ("interp", "bilinear"):
+        kw = (dict(mode="nearest-exact") if mode == "interp"
+              else dict(mode="linear", align_corners=False))
+        out = F.interpolate(src.transpose(1, 2).float(), size=target_frames, **kw)
+        return out.transpose(1, 2).to(src.dtype)
+    raise NotImplementedError(f"temporal fix mode {mode!r}")

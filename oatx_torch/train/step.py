@@ -11,15 +11,21 @@ counterpart of oatx donating its state), and the step returns a new
               variant of oatx `loss_fn` (:54-69, 143-155)
     accum     `accum_steps` micro-batches, each with its own negatives,
               gradients averaged before one update (:323-345)
+    fwd_chunk the tower forwards run on chunk-sized sub-batches, each under
+              torch.utils.checkpoint, and the loss spans the FULL batch
+              (oatx loss_fn :72-141 without a mesh): exact large-batch
+              negatives in the memory of one chunk, for a second forward
     skip      `skip_nonfinite`: a step whose loss or gradient norm is not
               finite leaves params, moments and step untouched, skipped = 1
     metrics   loss, grad_norm (global norm of the unclipped gradients) and,
               with skip_nonfinite, skipped; 0-d tensors on the device
 
-Not ported yet (they need torch.utils.checkpoint or torch.distributed; queued
-in ROADMAP A): `fwd_chunk`, `mesh`, `manual_axes`, `grad_reduce_dtype`, the
-video tower's remat and scanned blocks, the train-time augmentation, the
-object NCE terms and the other variants. Each raises.
+`make_augmenter` is oatx's (:182-205): uint8 frames → train_augment (or the
+eval transform) on the device, from the step's generator.
+
+Not ported yet (they need torch.distributed; queued in ROADMAP A): `mesh`,
+`manual_axes`, `grad_reduce_dtype`, the object NCE terms and the other
+variants. Each raises.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.data import transforms as T
@@ -72,16 +79,26 @@ def _embed_pair_loss(text_e: torch.Tensor, video_e: torch.Tensor,
     return _pair_loss(C.sim_matrix(text_e, video_e), loss_cfg)
 
 
-def loss_fn(model: DualTower, loss_cfg: LossConfig,
-            batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _embeds(model: DualTower, batch: Batch) -> Dict[str, torch.Tensor]:
+    return {"text": model.compute_text(batch["input_ids"], batch.get("attention_mask")),
+            "video": model.compute_video(batch["video"])["cls"]}
+
+
+def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
+            fwd_chunk: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of the baseline variant on a batch of tensors on the
     model's device: 'video' (B, F, H, W, C) normalized frames, 'input_ids'
-    (B, L) and optional 'attention_mask'."""
+    (B, L) and optional 'attention_mask'. `fwd_chunk`: the tower forwards
+    run checkpointed on sub-batches of that size (B must divide by it), the
+    loss over all B."""
     if loss_cfg.object_nce_weight > 0:
         raise NotImplementedError("object NCE terms: the object tower is not ported yet")
-    text_e = model.compute_text(batch["input_ids"], batch.get("attention_mask"))
-    video_e = model.compute_video(batch["video"])["cls"]
-    loss = _embed_pair_loss(text_e, video_e, loss_cfg)
+    if fwd_chunk:
+        out = scan_chunked(lambda mb: ckpt.checkpoint(_embeds, model, mb, use_reentrant=False),
+                           fwd_chunk)(batch)
+    else:
+        out = _embeds(model, batch)
+    loss = _embed_pair_loss(out["text"], out["video"], loss_cfg)
     return loss, {"loss": loss.detach()}
 
 
@@ -96,13 +113,32 @@ def _step_seed(base_seed: int, step: int) -> int:
     return int(np.random.SeedSequence([base_seed, step]).generate_state(1)[0])
 
 
-def _check_ported(cfg: TowerConfig, **unported) -> None:
+def _check_ported(**unported) -> None:
     for name, value in unported.items():
         if value:
             raise NotImplementedError(f"make_train_step({name}=...) is not ported yet")
-    for name in ("remat", "scan_blocks"):
-        if getattr(cfg.video, name):
-            raise NotImplementedError(f"SpaceTimeViTConfig.{name} is not ported yet")
+
+
+def make_augmenter(transform_cfg: Optional[T.TransformConfig] = None, train: bool = True,
+                   tower_cfg: Optional[TowerConfig] = None):
+    """`augment(generator, batch) → batch`: uint8 'video' / 'object_frame'
+    become normalized f32 on the batch's device, through train_augment (from
+    the generator) or the eval transform. The output resolution follows the
+    tower's img_size when tower_cfg is given (oatx make_augmenter)."""
+    if transform_cfg is None:
+        res = tower_cfg.video.img_size if tower_cfg is not None else 224
+        transform_cfg = T.TransformConfig(input_res=res)
+    tcfg = transform_cfg
+
+    def augment(gen: torch.Generator, batch: Dict[str, torch.Tensor]):
+        out = dict(batch)
+        for key in ("video", "object_frame"):
+            if key in out and out[key].dtype == torch.uint8:
+                out[key] = (T.train_augment(gen, out[key], tcfg) if train
+                            else T.eval_transform(out[key], tcfg))
+        return out
+
+    return augment
 
 
 def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
@@ -119,9 +155,9 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
     `device` (CUDA unless the caller passes another). `augment(generator,
     batch)`, if given, runs first with a generator seeded from
     (base_seed, state.step). accum_steps > 1 splits the batch into that many
-    micro-batches (negatives then span a micro-batch, as in oatx)."""
-    _check_ported(cfg, fwd_chunk=fwd_chunk, mesh=mesh, manual_axes=manual_axes,
-                  grad_reduce_dtype=grad_reduce_dtype)
+    micro-batches (negatives then span a micro-batch, as in oatx);
+    `fwd_chunk` keeps full-batch negatives (loss_fn)."""
+    _check_ported(mesh=mesh, manual_axes=manual_axes, grad_reduce_dtype=grad_reduce_dtype)
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: Batch):
@@ -142,7 +178,7 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
         opt.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
         for mb in micro:
-            loss, m = loss_fn(model, loss_cfg, mb)
+            loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk)
             loss.backward()
             for k, v in m.items():
                 sums[k] = sums[k] + v if k in sums else v

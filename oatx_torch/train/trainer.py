@@ -1,0 +1,474 @@
+"""Epoch engine on one device (port of oatx/train/trainer.py:45-704; the
+reference's Multi_BaseTrainer_dist + Multi_Trainer_dist, base_trainer.py:7-244,
+trainer_dist.py:57-291).
+
+Per epoch, as oatx's: alternating multi-loader batches (`MultiLoader`), the
+epoch cut at `max_samples_per_epoch` or fixed at `len_epoch` cycles, the LR
+schedule over the optimizer's step count, `init_val`, validation every
+`val_period` epochs (and at the last), a monitored best with early stop, and
+`checkpoint-epoch{N}` / `model_best` snapshots (train/checkpoint.py).
+Beyond the reference, as oatx: SIGTERM / SIGUSR1 request a snapshot at the
+next step boundary, which a resume continues mid-epoch (the loaders skip the
+completed cycles by index arithmetic); a step watchdog; an EMA of the
+parameters validated in their place; a torch.profiler window
+(`profile_epoch`, `profile_start_step`, `profile_steps`).
+
+Validation embeds every sample in chunks of 8 (`make_eval_step`), then takes
+the t2v / v2t metrics and NormSoftmax over the full corpus similarity matrix.
+
+One device: `zero1` and `dp_mode: auto` have nothing to shard or reduce and
+are no-ops, as in oatx on one chip. `model_parallel` > 1, `fsdp`, `pipeline`,
+`dcn_slices` > 1 and `dp_mode: manual` need several devices and raise
+NotImplementedError (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import signal
+import threading
+import time
+import weakref
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from oatx_torch import DeviceLike, resolve_device
+from oatx_torch.config.registry import METRICS
+from oatx_torch.config.schema import ExperimentCfg, build_tower_config, precision_dtype
+from oatx_torch.data.loader import MultiLoader, ShardedLoader, device_prefetch, padded_batches
+from oatx_torch.data.transforms import TransformConfig
+from oatx_torch.losses import contrastive as C
+from oatx_torch.metrics.retrieval import REQUIRES_QUERY_MASKS
+from oatx_torch.models.towers import DualTower
+from oatx_torch.train import checkpoint as ckptlib
+from oatx_torch.train import optim as optimlib
+from oatx_torch.train import step as steplib
+from oatx_torch.utils.logging import setup_logging
+from oatx_torch.utils.tb import TensorboardWriter
+from oatx_torch.utils.watchdog import StepWatchdog
+
+
+def verbose(epoch: int, metrics: Dict[str, float], name: str, mode: str = "t2v") -> str:
+    """The reference's metric line (trainer_dist.py:495-500)."""
+    return (f"[{mode}] epoch {epoch}, {name}: "
+            f"R@1 {metrics['R1']:.1f} R@5 {metrics['R5']:.1f} "
+            f"R@10 {metrics['R10']:.1f} R@50 {metrics['R50']:.1f} "
+            f"MedR {metrics['MedR']:g} MeanR {metrics['MeanR']:.1f}")
+
+
+def _check_one_device(t) -> None:
+    for name, on in (("model_parallel > 1", t.model_parallel > 1), ("fsdp", t.fsdp),
+                     ("pipeline", t.pipeline), ("dcn_slices > 1", t.dcn_slices > 1),
+                     ("dp_mode 'manual'", t.dp_mode == "manual")):
+        if on:
+            raise NotImplementedError(f"trainer.{name} needs several devices; the "
+                                      "port trains on one (multi-GPU is not ported yet)")
+    if (t.dp_mode or "auto") not in ("auto", "gspmd", "manual"):
+        raise ValueError(f"unknown trainer.dp_mode {t.dp_mode!r}")
+
+
+class Trainer:
+    def __init__(self, exp: ExperimentCfg, train_loaders: List[ShardedLoader],
+                 valid_loaders: Optional[List[ShardedLoader]] = None,
+                 save_dir: Optional[str | Path] = None,
+                 log_dir: Optional[str | Path] = None, linear_eval: bool = False,
+                 resume: Optional[str] = None, tracker=None, device: DeviceLike = None):
+        self.exp = exp
+        t = exp.trainer
+        _check_one_device(t)
+        self.device = dev = resolve_device(device)
+        self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity)
+        self.writer = TensorboardWriter(log_dir)
+        self.profile_dir = Path(log_dir or save_dir or ".") / "profile"
+        self._profiler = None
+        self._profile_done = False
+        self._profile_stop = 0
+        self.tracker = tracker
+        self.save_dir = Path(save_dir) if save_dir else None
+        self.train_loaders = train_loaders
+        self.valid_loaders = valid_loaders or []
+
+        self.tower_cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(t.precision))
+        self.loss_cfg = steplib.LossConfig(
+            name=exp.loss.type, temperature=exp.loss.temperature,
+            margin=exp.loss.margin, region_bce_weight=exp.loss.region_bce_weight,
+            chunked=exp.loss.chunked, chunk_size=exp.loss.chunk_size,
+            object_nce_weight=exp.loss.object_nce_weight)
+
+        # steps per epoch for the LR schedule (oatx :127-140)
+        cycle_batches = sum(l.batch_size for l in train_loaders) or 1
+        steps_per_cycle = len(train_loaders) or 1
+        if t.len_epoch is not None and t.len_epoch <= 0:
+            raise ValueError(f"trainer.len_epoch must be positive, got {t.len_epoch}")
+        if t.len_epoch:  # iteration-based: fixed cycles, loaders cycle endlessly
+            n_cycles = t.len_epoch
+        else:
+            agg = max if t.cycle_shorter else min
+            n_cycles = agg(len(l) for l in train_loaders) if train_loaders else 0
+            if t.max_samples_per_epoch:
+                n_cycles = min(n_cycles, t.max_samples_per_epoch // cycle_batches)
+        self.cycles_per_epoch = max(1, n_cycles)
+        steps_per_epoch = self.cycles_per_epoch * steps_per_cycle
+
+        self.lr_schedule = optimlib.make_schedule(
+            exp.optimizer.lr, steps_per_epoch, t.epochs, kind=exp.optimizer.schedule,
+            milestones=exp.optimizer.milestones, gamma=exp.optimizer.gamma,
+            warmup_steps=exp.optimizer.warmup_steps, lr_min=exp.optimizer.lr_min)
+        self.optimizer = optimlib.make_optimizer(
+            lr=self.lr_schedule, weight_decay=exp.optimizer.weight_decay,
+            grad_clip=exp.optimizer.grad_clip,
+            trainable_filter=optimlib.linear_probe_filter if linear_eval else None,
+            ema_decay=t.ema_decay or None, kind=exp.optimizer.type)
+
+        # fresh init → optional reference-checkpoint import → AdamW over it
+        model = DualTower(self.tower_cfg, dev, torch.Generator(dev).manual_seed(t.seed))
+        if exp.arch.load_checkpoint:
+            self.logger.info("importing initial weights from %s", exp.arch.load_checkpoint)
+            ckptlib.import_initial_weights(exp.arch.load_checkpoint, model,
+                                           temporal_fix=exp.arch.load_temporal_fix)
+        self.state = steplib.TrainState(model, self.optimizer(model.named_parameters()), 0)
+
+        self.start_epoch = 1
+        self._resume_cycle = 0
+        self.monitor_mode, self.monitor_metric = self._parse_monitor(t.monitor)
+        self.monitor_best = np.inf if self.monitor_mode == "min" else -np.inf
+        if resume:
+            self.state, meta = ckptlib.restore_checkpoint(resume, self.state, dev)
+            if meta.get("cycles_done") is not None and \
+                    int(meta["cycles_done"]) < self.cycles_per_epoch:
+                # a mid-epoch preemption snapshot: continue inside that epoch
+                self.start_epoch = meta["epoch"]
+                self._resume_cycle = int(meta["cycles_done"])
+                self.logger.info("resumed mid-epoch from %s (epoch %d, cycle %d)",
+                                 resume, meta["epoch"], self._resume_cycle)
+            else:
+                self.start_epoch = meta["epoch"] + 1
+                self.logger.info("resumed from %s at epoch %d", resume, meta["epoch"])
+            if meta["has_meta"] and "monitor_best" in meta:
+                mb = meta["monitor_best"]
+                # a lost sidecar reads +inf, which would disable max-mode monitoring
+                if not (self.monitor_mode == "max" and mb == float("inf")):
+                    self.monitor_best = mb
+
+        precropped = [getattr(l.dataset, "train_crop", "device_canonical")
+                      == "reference_full_frame" for l in train_loaders]
+        if any(precropped) and not all(precropped):
+            raise ValueError("train_crop='reference_full_frame' must be set on ALL "
+                             "train loaders (the device augmenter is shared)")
+        self.augment = steplib.make_augmenter(
+            transform_cfg=TransformConfig(input_res=self.tower_cfg.video.img_size,
+                                          host_precropped=any(precropped)),
+            train=True, tower_cfg=self.tower_cfg)
+        fwd_chunk = t.fwd_chunk or None
+        if fwd_chunk and t.accum_steps > 1:
+            raise ValueError("fwd_chunk and accum_steps are mutually exclusive "
+                             "(full-batch vs micro-batch negative semantics)")
+        if t.grad_reduce_dtype:
+            self.logger.warning("trainer.grad_reduce_dtype=%r ignored: one device has "
+                                "no gradient reduce", t.grad_reduce_dtype)
+        self.train_step = steplib.make_train_step(
+            self.tower_cfg, self.loss_cfg, augment=self.augment, base_seed=t.seed + 1,
+            accum_steps=t.accum_steps, skip_nonfinite=t.skip_nonfinite,
+            fwd_chunk=fwd_chunk, device=dev)
+        vb = max((l.batch_size for l in self.valid_loaders), default=1)
+        self.eval_step = steplib.make_eval_step(
+            self.tower_cfg, chunk=8 if vb <= 8 or vb % 8 == 0 else None, device=dev)
+        self.not_improved = 0
+        self.init_val_log: Dict[str, float] = {}
+
+        # preemption: SIGTERM / SIGUSR1 request a snapshot at the next step
+        self._preempted = False
+        self._preempt_saved = False
+        self._install_preemption_handler()
+        self.watchdog = StepWatchdog(timeout_s=900.0, logger=self.logger)
+
+    def _install_preemption_handler(self) -> None:
+        if threading.current_thread() is not threading.main_thread():
+            return
+        ref = weakref.ref(self)  # the handler outlives the run; the Trainer need not
+
+        def handler(signum, frame):
+            trainer = ref()
+            if trainer is not None:
+                trainer._preempted = True
+
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            try:
+                signal.signal(sig, handler)
+            except (ValueError, OSError):
+                pass
+
+    @staticmethod
+    def _parse_monitor(monitor: str):
+        if monitor in ("off", ""):
+            return "off", ""
+        mode, metric = monitor.split(" ", 1)
+        if mode not in ("min", "max"):
+            raise ValueError(f"monitor mode {mode!r}")
+        return mode, metric
+
+    def _snapshot(self, epoch: int, cycles_done: int) -> None:
+        if self.save_dir:
+            ckptlib.save_checkpoint(self.save_dir, f"preempt-epoch{epoch}", self.state,
+                                    epoch, self.monitor_best,
+                                    extra_meta={"cycles_done": cycles_done})
+            self._preempt_saved = True
+
+    # ------------------------------------------------------------------ train
+
+    def train(self) -> Dict[int, Dict[str, Any]]:
+        t = self.exp.trainer
+        history: Dict[int, Dict[str, Any]] = {}
+        if t.init_val and self.valid_loaders:
+            val_log = self.init_val_log = self._valid_epoch(self.start_epoch - 1)
+            self.logger.info("init_val: %s", {k: round(v, 4) for k, v in val_log.items()
+                                              if isinstance(v, float)})
+        for epoch in range(self.start_epoch, t.epochs + 1):
+            if self._preempted:
+                # the signal landed outside the step loop (validation, a save)
+                self._snapshot(epoch - 1, self.cycles_per_epoch)
+                self.logger.warning("preemption signal between epochs: checkpoint "
+                                    "saved, exiting")
+                break
+            log: Dict[str, Any] = {"epoch": epoch}
+            start_cycle = self._resume_cycle if epoch == self.start_epoch else 0
+            log.update(self._train_epoch(epoch, start_cycle))
+            if self._preempted:
+                if not self._preempt_saved:
+                    # the flag raced the end of the epoch: snapshot it as complete
+                    self._snapshot(epoch, self.cycles_per_epoch)
+                self.logger.warning("stopping after preemption checkpoint (epoch %d)", epoch)
+                break
+            val_period = max(int(t.val_period), 1)
+            if self.valid_loaders and (epoch % val_period == 0 or epoch == t.epochs):
+                log.update(self._valid_epoch(epoch))
+            history[epoch] = log
+            for k, v in log.items():
+                if isinstance(v, (int, float)):
+                    self.logger.info("    %-24s: %s", k, v)
+            if self.tracker is not None:
+                self.tracker.log_metrics(epoch, {k: v for k, v in log.items()
+                                                 if isinstance(v, (int, float))}, mode="epoch")
+            best = False
+            if self.monitor_mode != "off" and self.monitor_metric in log:
+                value = log[self.monitor_metric]
+                improved = (value <= self.monitor_best if self.monitor_mode == "min"
+                            else value >= self.monitor_best)
+                if improved:
+                    self.monitor_best, best, self.not_improved = value, True, 0
+                else:
+                    self.not_improved += 1
+                if self.not_improved > t.early_stop:
+                    self.logger.info("early stop after %d stale epochs", self.not_improved)
+                    break
+            if self.save_dir and (epoch % t.save_period == 0 or best):
+                self._save(epoch, best)
+        ckptlib.wait_for_async_saves()
+        self.watchdog.stop()
+        return history
+
+    def _train_epoch(self, epoch: int, start_cycle: int = 0) -> Dict[str, float]:
+        """start_cycle > 0 resumes mid-epoch: the loaders skip the completed
+        cycles by index arithmetic (MultiLoader.iter_from), so the remaining
+        cycles see the batches of the uninterrupted run. The epoch's loss is
+        the mean over every step, summed on the device and read once."""
+        t = self.exp.trainer
+        for l in self.train_loaders:
+            l.set_epoch(epoch)
+        multi = MultiLoader(self.train_loaders, cycle_shorter=t.cycle_shorter,
+                            endless=bool(t.len_epoch))
+        dev = self.device
+        n_loaders = len(self.train_loaders)
+        loss_sums = [torch.zeros((), device=dev) for _ in range(n_loaders)]
+        valid_sums = [torch.zeros((), device=dev) for _ in range(n_loaders)]
+        # the console/TB line fetches the loss, a sync: every sqrt(batch) steps
+        # per loader (the reference's log_step, trainer_dist.py:87)
+        log_step = max(1, int(np.sqrt(self.train_loaders[0].batch_size)))
+        steps_per_loader = [0] * n_loaders
+        t0 = time.time()
+        cycles_done = start_cycle
+        last_metrics = None
+        self.watchdog.start()
+        # time blocked on the input pipeline (decode + collate + copy not
+        # hidden by the prefetch) against the epoch's wall time
+        prefetch_iter = iter(device_prefetch(multi.iter_from(start_cycle), dev))
+        data_wait = 0.0
+        wall_start = time.perf_counter()
+        try:
+            while True:
+                if self._preempted and last_metrics is not None:
+                    float(last_metrics["loss"])
+                    self._snapshot(epoch, cycles_done)
+                    self.logger.warning("preemption signal: checkpoint saved at cycle %d, "
+                                        "exiting epoch", cycles_done)
+                    break
+                w0 = time.perf_counter()
+                try:
+                    loader_idx, batch = next(prefetch_iter)
+                except StopIteration:
+                    break
+                data_wait += time.perf_counter() - w0
+                batch.pop("meta", None)
+                self.state, metrics = self.train_step(self.state, batch)
+                last_metrics = metrics
+                loss_sums[loader_idx] += metrics["loss"]
+                valid_sums[loader_idx] += 1.0 - metrics.get("skipped", 0.0)
+                steps_per_loader[loader_idx] += 1
+                self.watchdog.beat()
+                self._profile_hook(epoch, sum(steps_per_loader), metrics)
+                if loader_idx == n_loaders - 1:
+                    cycles_done += 1
+                if self._preempted:
+                    float(metrics["loss"])
+                    self._snapshot(epoch, cycles_done)
+                    self.logger.warning("preemption signal: checkpoint saved at cycle %d, "
+                                        "exiting epoch", cycles_done)
+                    break
+                if (steps_per_loader[loader_idx] - 1) % log_step == 0:
+                    loss = float(metrics["loss"])
+                    self.writer.set_step((epoch - 1) * self.cycles_per_epoch + cycles_done)
+                    self.writer.add_scalar(f"loss_train_{loader_idx}", loss)
+                    self.writer.add_scalar("lr", float(self.lr_schedule(
+                        self.state.optimizer.param_groups[0]["count"])))
+                    self.logger.info("Train Epoch: %d %d/%d Loss[%d]: %.6f (%.2fs)",
+                                     epoch, cycles_done, self.cycles_per_epoch, loader_idx,
+                                     loss, time.time() - t0)
+                    t0 = time.time()
+                if cycles_done >= self.cycles_per_epoch:
+                    break
+        finally:
+            prefetch_iter.close()
+        if self._profiler is not None:
+            self._finish_profile()  # the epoch ended inside the capture window
+        if last_metrics is not None:
+            float(last_metrics["loss"])  # drain the device queue
+        wall = time.perf_counter() - wall_start
+        out: Dict[str, float] = {"epoch_time": wall}
+        if wall > 0 and sum(steps_per_loader):
+            out["input_wait"] = data_wait / wall
+            self.writer.add_scalar("input_wait", out["input_wait"])
+        for i, (s, v, n) in enumerate(zip(loss_sums, valid_sums, steps_per_loader)):
+            nv = float(v) if n else 0.0
+            out[f"loss_{i}"] = float(s) / nv if nv else float("nan")
+            if n and nv < n:
+                self.logger.warning("loader %d: %d/%d steps skipped (non-finite)",
+                                    i, n - int(nv), n)
+        return out
+
+    # ------------------------------------------------------------- profiling
+
+    def _profile_hook(self, epoch: int, total_steps: int, metrics) -> None:
+        """A torch.profiler capture of steps [profile_start_step,
+        + profile_steps) of `profile_epoch`, written to <log_dir>/profile."""
+        t = self.exp.trainer
+        if self._profile_done or not t.profile_epoch or epoch != t.profile_epoch:
+            return
+        if self._profiler is None and total_steps >= t.profile_start_step:
+            float(metrics["loss"])  # fence: earlier steps stay out
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.__enter__()
+            self._profile_stop = total_steps + t.profile_steps
+        elif self._profiler is not None and total_steps >= self._profile_stop:
+            self._finish_profile()
+
+    def _finish_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.__exit__(None, None, None)
+        self._profile_done = True
+        self.profile_dir.mkdir(parents=True, exist_ok=True)
+        path = self.profile_dir / "trace.json"
+        prof.export_chrome_trace(str(path))
+        self.logger.info("profiler trace captured → %s", path)
+        key = "device_time_total" if self.device.type == "cuda" else "cpu_time_total"
+        for ev in prof.key_averages().table(sort_by=key, row_limit=5).splitlines():
+            self.logger.info("  trace: %s", ev)
+
+    # ------------------------------------------------------------------ valid
+
+    @contextlib.contextmanager
+    def _ema_swapped(self):
+        """The model holds the EMA parameters inside the context."""
+        ema = self.state.optimizer.named_state()["ema"]
+        params = dict(self.state.model.named_parameters())
+        saved = {n: p.detach().clone() for n, p in params.items()}
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(ema[n])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(saved[n])
+
+    def _valid_epoch(self, epoch: int) -> Dict[str, float]:
+        t = self.exp.trainer
+        if t.ema_decay and t.ema_eval:
+            with self._ema_swapped():  # validate and monitor the EMA model
+                return self._validate(epoch)
+        return self._validate(epoch)
+
+    def _validate(self, epoch: int) -> Dict[str, float]:
+        log: Dict[str, float] = {}
+        model = self.state.model
+        multiple = max((l.batch_size for l in self.valid_loaders), default=1)
+        for vi, loader in enumerate(self.valid_loaders):
+            texts, vids = [], []
+            for batch, n_valid in device_prefetch(padded_batches(iter(loader), multiple),
+                                                  self.device):
+                batch.pop("meta", None)
+                out = self.eval_step(model, batch)
+                texts.append(out["text_embeds"][:n_valid].float())
+                vids.append(out["video_embeds"][:n_valid].float())
+                self.watchdog.beat()  # a long validation is not a hang
+            if not texts:
+                continue
+            sims_t = C.sim_matrix(torch.cat(texts), torch.cat(vids))
+            val_loss = float(C.norm_softmax_loss(sims_t, self.loss_cfg.temperature))
+            sims = sims_t.cpu().numpy()
+            log[f"val_loss_{vi}"] = val_loss
+            if vi == 0:
+                log["val_loss"] = val_loss
+            self.writer.set_step(epoch, mode="valid")
+            for metric_name in self.exp.metrics:
+                if metric_name in REQUIRES_QUERY_MASKS:
+                    self.logger.warning("metric %s needs query_masks (label matrix): "
+                                        "skipped during validation", metric_name)
+                    continue
+                res = METRICS.get(metric_name)(sims)
+                short = {"t2v_metrics": "t2v", "v2t_metrics": "v2t"}.get(metric_name,
+                                                                        metric_name)
+                if "R1" in res:
+                    self.logger.info(verbose(epoch, res, loader.dataset_name, short))
+                else:
+                    self.logger.info("[%s] epoch %d, %s: %s", short, epoch,
+                                     loader.dataset_name,
+                                     {k: round(float(v), 3) for k, v in res.items()})
+                for k, v in res.items():
+                    log[f"val_{vi}_{short}_{k}"] = float(v)
+                    self.writer.add_scalar(f"val_{vi}_{short}_{k}", float(v), epoch)
+            self.writer.set_step(epoch, mode="train")
+        return log
+
+    # ------------------------------------------------------------------ save
+
+    def _save(self, epoch: int, best: bool) -> None:
+        async_save = bool(self.exp.trainer.async_checkpoint)
+        path = ckptlib.save_checkpoint(self.save_dir, f"checkpoint-epoch{epoch}", self.state,
+                                       epoch, self.monitor_best, keep=3,
+                                       async_save=async_save)
+        self.logger.info("saved %s%s", path, " (async)" if async_save else "")
+        if best:
+            ckptlib.save_checkpoint(self.save_dir, "model_best", self.state, epoch,
+                                    self.monitor_best, async_save=async_save)
+            self.logger.info("saved model_best (epoch %d)", epoch)

@@ -292,3 +292,85 @@ def test_train_step_through_the_kernels(card, fused_qkv):
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
         if ".blocks." in n and n.endswith("weight"):  # the params behind the kernels
             assert not torch.equal(p.detach(), before[n]), n
+
+
+def _tower_cfg(depth=2, frames=2, **video):
+    """ViT-B widths (D 768, 12 heads of 64) over 224² frames, few blocks; a
+    small DistilBERT."""
+    return ptowers.TowerConfig(
+        video=pvst.SpaceTimeViTConfig(depth=depth, num_frames=frames, time_init="random",
+                                      **video),
+        text=pdb.DistilBertConfig(vocab_size=100, dim=64, hidden_dim=128, n_layers=1,
+                                  n_heads=4),
+        projection_dim=32, compute_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots", "dots_all"])
+def test_remat_gradients_through_the_kernels_match_remat_off(card, policy):
+    """2 blocks at 224², B = 2: each remat policy runs kernels 1 and 2 again in
+    the backward (2 forward launches a block, 1 backward) and gives the
+    gradients of the same step without remat."""
+    g = torch.Generator(card).manual_seed(5)
+    batch = {"video": torch.randn(2, 2, 224, 224, 3, device=card, generator=g),
+             "input_ids": torch.randint(0, 100, (2, 6), device=card, generator=g)}
+
+    def grads(cfg):
+        model = ptowers.DualTower(cfg, device=card, generator=torch.Generator(card).manual_seed(0))
+        before = (plm.ln_mlp.launches, psa.space_attention.launches,
+                  psa.space_attention_backward.launches)
+        loss, _ = pstep.loss_fn(model, pstep.LossConfig(), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (plm.ln_mlp.launches - before[0], psa.space_attention.launches - before[1],
+                  psa.space_attention_backward.launches - before[2])
+        return counts, {n: p.grad for n, p in model.named_parameters()}
+
+    off_counts, want = grads(_tower_cfg())
+    counts, got = grads(_tower_cfg(remat=True, remat_policy=policy))
+    assert off_counts == (2, 2, 2) and counts == (4, 4, 2)
+    for n, w in want.items():
+        assert got[n] is not None and bool(torch.isfinite(got[n]).all()), n
+        assert _rel(got[n], w) <= GRAD_REL, (n, _rel(got[n], w))
+
+
+@pytest.mark.cuda
+def test_space_attention_forward_is_bitwise_repeatable(card):
+    """Kernel 2's blocks take units from an atomic counter, so which block
+    computes which unit changes from call to call; the output must not (a
+    remat recompute must give the forward's values). 20 calls at B = 4."""
+    q, k, v = _qkv_views(card, 4, 4, 196, 11)
+    first, lse = psa._launch(q, k, v, 4, with_lse=True)
+    for _ in range(19):
+        out, lse2 = psa._launch(q, k, v, 4, with_lse=True)
+        assert torch.equal(out, first) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_delivers_batches_while_the_card_works(card):
+    """8 batches through pinned memory and the side stream, each equal to its
+    host copy, while the consumer runs kernel 1 on the default stream."""
+    import numpy as np
+
+    from oatx_torch.data.loader import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [{"video": rng.integers(0, 256, (8, 4, 256, 256, 3), dtype=np.uint8),
+             "input_ids": rng.integers(0, 30522, (8, 30)).astype(np.int64),
+             "meta": [i]} for i in range(8)]
+    g = torch.Generator(card).manual_seed(2)
+    x = torch.randn(6280, 768, device=card, generator=g).to(torch.bfloat16)
+    w1 = (torch.randn(3072, 768, device=card, generator=g) / 28).to(torch.bfloat16)
+    w2 = (torch.randn(768, 3072, device=card, generator=g) / 55).to(torch.bfloat16)
+    ones, zeros = torch.ones(768, device=card), torch.zeros(768, device=card)
+    got = []
+    for i, batch in enumerate(device_prefetch(iter(host), card)):
+        for _ in range(4):  # keep the default stream busy behind the copies
+            x = plm.ln_mlp(x, ones, zeros, w1, torch.zeros(3072, device=card), w2, zeros)
+        assert batch["meta"] == [i] and batch["video"].is_cuda
+        got.append({k: batch[k].clone() for k in ("video", "input_ids")})
+    torch.cuda.synchronize()
+    assert len(got) == 8 and bool(torch.isfinite(x.float()).all())
+    for h, b in zip(host, got):
+        for k, v in b.items():
+            assert torch.equal(v.cpu(), torch.from_numpy(h[k])), k

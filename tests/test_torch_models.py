@@ -249,7 +249,7 @@ def test_init_is_seeded():
 
 
 @pytest.mark.parametrize("change", [
-    dict(video=dict(remat=True)), dict(video=dict(scan_blocks=True)),
+    dict(variant="region_mem"), dict(text_family="clip"),
     dict(video=dict(pipeline_stages=2)), dict(video=dict(sequence_parallel=True)),
     dict(video=dict(region_tap_layer=1)),
     dict(video=dict(fused_mlp=False)), dict(variant="global_local"),

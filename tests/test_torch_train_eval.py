@@ -78,13 +78,13 @@ def test_eval_step_matches_oatx(params):
 
 def test_unported_train_options_raise():
     _, pcfg = cfgs()
-    for kw in (dict(fwd_chunk=2), dict(mesh=object()), dict(manual_axes=("data",)),
+    for kw in (dict(mesh=object()), dict(manual_axes=("data",)),
                dict(grad_reduce_dtype=torch.bfloat16)):
         with pytest.raises(NotImplementedError):
             pstep.make_train_step(pcfg, pstep.LossConfig(), device="cpu", **kw)
+    # remat and fwd_chunk are ported (tests/test_torch_remat.py)
     remat = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video, remat=True))
-    with pytest.raises(NotImplementedError):
-        pstep.make_train_step(remat, pstep.LossConfig(), device="cpu")
+    pstep.make_train_step(remat, pstep.LossConfig(), fwd_chunk=2, device="cpu")
     with pytest.raises(NotImplementedError):
         pstep.loss_fn(None, pstep.LossConfig(object_nce_weight=1.0), {})
 

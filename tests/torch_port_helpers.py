@@ -124,3 +124,29 @@ def oatx_loss_grads(params, jcfg, batch):
     f = jax.jit(jax.value_and_grad(jstep.loss_fn, has_aux=True), static_argnums=(1, 2))
     (loss, _), grads = f(params, jcfg, jstep.LossConfig(), jax_batch(batch))
     return float(loss), grads
+
+
+# ------------------------------------------------------------ trainer data
+class MemoryClips:
+    """A map-style dataset held in memory: n seeded uint8 clips (n, F, canon,
+    canon, 3) and a distinct caption each. `get_sample(i, rng)` is the
+    loaders' interface; with `roll`, the sample's generator also shifts the
+    clip's frames, so a test sees that each sample gets its own generator."""
+
+    dataset_name = "MemoryClips"
+
+    def __init__(self, n: int = 16, frames: int = 2, canon: int = 32, seed: int = 0,
+                 roll: bool = False):
+        rng = np.random.default_rng(seed)
+        self.videos = rng.integers(0, 256, (n, frames, canon, canon, 3), dtype=np.uint8)
+        self.captions = [f"clip {i} shows thing{i} and more{i % 3}" for i in range(n)]
+        self.roll = roll
+
+    def __len__(self) -> int:
+        return len(self.captions)
+
+    def get_sample(self, i: int, rng: np.random.Generator):
+        video = self.videos[i]
+        if self.roll:
+            video = np.roll(video, int(rng.integers(0, video.shape[0])), axis=0)
+        return {"video": video, "text": self.captions[i], "meta": {"index": i}}
