@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
-                          [--only-trainer]
+                          [--only-trainer] [--only-objects]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -11,26 +11,30 @@ the kernels phase then also checks it and times it in turns with this
 tree's kernel (parent, this, this, parent), alone and under forward +
 backward, at the train step's shape. --parent-ln-mlp does the same for an
 earlier csrc/ln_mlp.cu with the one-kernel C interface (8 pointers, 4 ints,
-eps, stream), at R = 785, 3140 and 6280. --parent-space-attention does it
+eps, stream), at each R of LN_MLP_ROWS. --parent-space-attention does it
 for an earlier csrc/space_attention.cu with the one-launch C interface
 (4 pointers, 12 strides, 4 ints, stream; no log-sum-exp, so its forward +
-backward takes the plain backward, as that tree did), at B = 1, 4 and 8.
---sweep-query-splits also times kernel 2's forward at 1-4 blocks per frame
-group at each B, the choice that `_query_split` encodes. --only-trainer
-builds the kernels and runs phase 5 alone (no record, no `ok` line).
+backward takes the plain backward, as that tree did), at each shape of
+SA_SHAPES. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
+per frame group at each shape, the choice that `_query_split` encodes.
+--only-trainer builds the kernels and runs phase 5 alone, --only-objects
+phase 6 (no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
   1. environment — the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the nvcc build of every kernel in oatx_torch/csrc;
   2. kernels — each hand-written kernel against its plain PyTorch version on
-     the card (bf16): kernel 1 (ln_mlp) at R = 785, 3140 and 6280 rows (its
+     the card (bf16): kernel 1 (ln_mlp) at R = 785, 3140, 3152 and 6280 rows
+     (3152: the object-aware recipes' 1-frame object frame at batch 16; its
      record at bucket 4's 3140, with the ms of each split of its second
      product), kernel 2 (space_attention) and its backward kernels
      (space_attention_bwd, against autograd of the plain version and, not
      checked, both against the exact f64 gradient) at B = 1, 4 and 8 of the
-     serving shapes and over SA_TAIL_DRAWS more draws at B = 4 (records at
-     bucket 4, `by_batch` for each B), kernel 3 (ln_linear) at the
+     serving shapes (4 frames, T = 785), at B = 16 over one frame (T = 197,
+     the object frame; `by_batch` key "16_F1") and over SA_TAIL_DRAWS more
+     draws at B = 4 (records at bucket 4, `by_batch` for each shape),
+     kernel 3 (ln_linear) at the
      train step's LN→qkv shape, each with its time (CUDA events, and device
      busy time from traces that must hold every kernel launched), achieved
      TFLOP/s, ptxas registers and spills, the plain version's time, one
@@ -81,6 +85,25 @@ printed):
      if it fits. Each run's launches are counted around it and must equal
      the counts derived from the code (want_launches); step ms, clips/s,
      MFU, idle share and peak memory are printed for every setting.
+  6. objects — the paper's object-aware pretraining through
+     Trainer.train(): configs/pt/cc3m_webvid/local_region_loss.json
+     (global_local) and configs/pt/webvid/region_mem.json (region_mem), each
+     with its model at full width (remat off), its AdamW and its per-GPU
+     batch of 16, over the trainer phase's 32 clips with object extras
+     through the port's `_add_object_extras` (object_corpus: a 1-frame
+     object frame and a BUTD npz of 10-36 boxes per clip; no vocab file,
+     the seeded region bank): init_val, TRAINER_EPOCHS epochs of
+     OBJECTS_LEN_EPOCH steps, validation and a checkpoint after each. Every
+     loss term must be finite and the loss must fall; launches must equal
+     want_launches with two video streams (the clip and the object frame);
+     one step's gradients on a fixed batch through the kernels must be
+     finite and non-zero for every parameter (the variant heads and
+     region_norm included) and agree with the plain versions by grad_check;
+     a Trainer resumed from checkpoint-epoch1 restores bitwise and repeats
+     epoch 2's loss terms within RESUME_LOSS_RTOL (a 2-step trace inside its
+     loop gives device busy by group and the idle share). Step ms, clips/s,
+     MFU (object_flops_per_clip_step), peak memory, each loss term's first
+     and last value and t2v / v2t R@1 per validation are printed per recipe.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -91,6 +114,7 @@ import argparse
 import base64
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import io
 import json
@@ -253,7 +277,9 @@ def check_close(name, got, want, atol, allow=None):
     return rec
 
 
-LN_MLP_ROWS = (785, 3140, 6280)  # serving buckets 1 and 4; bucket 16's halves, the train step
+# serving buckets 1 and 4; the object-aware recipes' object frame at batch 16
+# (16·197); bucket 16's halves and the train step
+LN_MLP_ROWS = (785, 3140, 3152, 6280)
 LN_MLP_RECORD_ROWS = 3140        # the record's ms, errors and bound
 LN_MLP_SPLITS = (1, 2, 3, 6)     # K ranges of the second product, timed at each R
 LN_MLP_EXPECT = (("ln_mlp_", 1),)  # device kernels a call launches at least (device_trace)
@@ -388,8 +414,10 @@ def kernel_ln_mlp(dev, g, parent=None):
     }
 
 
-# serving bucket 1, bucket 4 (the record), bucket 16's halves and the train step
-SA_BATCHES = (1, 4, 8)
+# (batch, frames): serving bucket 1, bucket 4 (the record), bucket 16's halves
+# and the train step at 4 frames; the object-aware recipes' 1-frame object
+# frame at their batch of 16 (T = 197)
+SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1))
 SA_RECORD_BATCH = 4       # the record's ms, errors and bound (serving bucket 4)
 SA_SPLITS = (1, 2, 3, 4)  # blocks per frame group, timed at each batch (--sweep-query-splits)
 SA_FWD_EXPECT = (("space_attention_kernel", 1),)
@@ -569,9 +597,14 @@ def space_attention_tail(dev, parent=None):
             for name, u in used.items() if u}
 
 
+def sa_key(b, frames):
+    """The `by_batch` key of a kernel 2 shape: B at 4 frames, "B_F1" at 1."""
+    return b if frames == 4 else f"{b}_F{frames}"
+
+
 def kernel_space_attention(dev, g, parent=None, sweep=False):
-    """Kernel 2 at each of SA_BATCHES (ViT-B/16 over 4 frames of 224²: T =
-    785, 12 heads): the forward's errors against the plain version, ms,
+    """Kernel 2 at each of SA_SHAPES (ViT-B/16 over F frames of 224²: T =
+    1 + 196·F, 12 heads): the forward's errors against the plain version, ms,
     device ms, bound, library ms (SDPA) and TFLOP/s, with `sweep` also ms
     at each of SA_SPLITS query splits;
     the backward kernels' errors against autograd of the plain version, ms,
@@ -583,11 +616,12 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
     SA_RECORD_BATCH."""
     from oatx_torch.ops.kernels import space_attention as psa
 
-    Fr, N, Hh, Dh = 4, 196, 12, 64
-    T = 1 + Fr * N
+    N, Hh, Dh = 196, 12, 64
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     fwd, bwd = {}, {}
-    for B in SA_BATCHES:
+    for B, Fr in SA_SHAPES:
+        T = 1 + Fr * N
+        tag = f"B={B}" + ("" if Fr == 4 else f" F={Fr}")
         qkv = torch.randn(B, T, 3, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
         q = qkv[:, :, 0] * Dh ** -0.5  # as ops.attention.qkv_heads gives them
         k, v = qkv[:, :, 1], qkv[:, :, 2]
@@ -595,7 +629,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         torch.cuda.synchronize()
         want = psa.space_attention_plain(q, k, v, Fr)
         allow = space_attention_flip_allowance(q, k, v, Fr)
-        rec = check_close(f"space_attention B={B}", got, want, SPACE_ATTENTION_ATOL, allow)
+        rec = check_close(f"space_attention {tag}", got, want, SPACE_ATTENTION_ATOL, allow)
 
         # yardstick: SDPA over the (B·F, H, 196, 197) groups plus the CLS row,
         # on inputs gathered into its layout beforehand (not timed)
@@ -633,14 +667,14 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
             try:
                 for sp in SA_SPLITS:
                     psa._query_split = lambda *_, sp=sp: sp
-                    check_close(f"space_attention B={B} split={sp}", call(), want,
+                    check_close(f"space_attention {tag} split={sp}", call(), want,
                                 SPACE_ATTENTION_ATOL, allow)
                     splits[sp] = (time_ms(call), device_trace(call, 20, expect=SA_FWD_EXPECT)[0])
             finally:
                 psa._query_split = rule
             rec["ms_by_split"] = {sp: t[0] for sp, t in splits.items()}
             rec["device_ms_by_split"] = {sp: t[1] for sp, t in splits.items()}
-        if B == SA_RECORD_BATCH:
+        if (B, Fr) == (SA_RECORD_BATCH, 4):
             rec["plain_ms"] = time_ms(lambda: psa.space_attention_plain(q, k, v, Fr), iters=5)
 
         # the backward kernels alone, from the forward's log-sum-exp
@@ -648,7 +682,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         _, lse = psa._launch(qd, k, v, Fr, with_lse=True)
         dout = torch.randn(B, T, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
         bcall = lambda: psa.space_attention_backward(qd, k, v, dout, Fr, lse)  # noqa: E731
-        brec = grad_errors(f"space_attention backward B={B}", bcall(),
+        brec = grad_errors(f"space_attention backward {tag}", bcall(),
                            space_attention_plain_vjp(qd, k, v, dout, Fr),
                            space_attention_plain_vjp(*(a.double() for a in (qd, k, v, dout)), Fr))
         # dV, dP, dQ, dK and S recomputed: 5 products of the forward's 2;
@@ -660,7 +694,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         brec["device_ms"] = device_trace(bcall, 20, expect=SA_BWD_EXPECT)[0]
         brec["tflops"] = bflops / brec["ms"] / 1e9
         brec["device_tflops"] = bflops / brec["device_ms"] / 1e9
-        if B == SA_RECORD_BATCH:
+        if (B, Fr) == (SA_RECORD_BATCH, 4):
             brec["plain_ms"] = time_ms(
                 lambda: space_attention_plain_vjp(qd, k, v, dout, Fr), iters=5)
         # SDPA's backward: its forward + backward under autograd, minus its forward
@@ -683,7 +717,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         rec["fwd_bwd_device_ms"] = device_trace(fb, 5, expect=SA_FWD_BWD_EXPECT)[0]
         if parent is not None:
             with space_attention_library(parent):
-                perr = check_close(f"space_attention B={B} (parent)", call(), want,
+                perr = check_close(f"space_attention {tag} (parent)", call(), want,
                                    SPACE_ATTENTION_ATOL, allow)
             turns = {"ms": [], "device_ms": [], "fwd_bwd_ms": [], "fwd_bwd_device_ms": []}
             for lib in (parent, None, None, parent):
@@ -696,10 +730,11 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
             rec["parent"] = {**{f"{k_}_turns": t for k_, t in turns.items()},
                              **{k_: perr[k_] for k_ in ("max_abs_err", "tol_used",
                                                         "tol_used_bare")}}
-        fwd[B], bwd[B] = rec, brec
+        fwd[sa_key(B, Fr)], bwd[sa_key(B, Fr)] = rec, brec
     top, btop = fwd[SA_RECORD_BATCH], bwd[SA_RECORD_BATCH]
     top["tol_tail"] = space_attention_tail(dev, parent)
-    # the forward kernel's residency at this shape, as launched
+    # the forward kernel's residency at the record's shape, as launched
+    Fr, T = 4, 1 + 4 * N
     lib, blocks, smem = psa._lib(), ctypes.c_int(), ctypes.c_int()
     occ = lib.space_attention_fwd_occupancy
     occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
@@ -783,13 +818,15 @@ def kernel_ln_linear(dev, g, parent=None):
     nbytes = R * K * 2 + N * K * 2 + R * N * 2 + (2 * K + N) * 4
     flops = 2 * R * K * N
     bound, by = bound_ms(nbytes, flops)
+    call = lambda: ln_linear(*args)  # noqa: E731
     rec = {
         "name": "ln_linear", "route": "cuda", "source": "oatx_torch/csrc/ln_linear.cu",
         "replaces": "oatx/ops/pallas/ln_linear.py:58", **errs,
-        "ms": time_ms(lambda: ln_linear(*args)),
+        "ms": time_ms(call),
+        "device_ms": device_trace(call, 20, expect=(("ln_linear_kernel", 1),))[0],
         "plain_ms": time_ms(lambda: ln_linear_plain(*args), iters=5),
         "bound_ms": bound, "bound_by": by, "flops": flops,
-        "library_ms": time_ms(library),
+        "library_ms": time_ms(library), "library_device_ms": device_trace(library, 20)[0],
         "shape": f"x ({R}, {K}) bf16 -> ({R}, {N})",
     }
     if parent is not None:
@@ -986,17 +1023,22 @@ def device_trace(fn, n, top_of="other", expect=()):
               file=sys.stderr, flush=True)
     else:
         raise AssertionError(f"device_trace: every one of {TRACE_ATTEMPTS} traces lost records")
-    busy_us = busy_union_us(iv)
+    groups, top = group_ms(iv, n, top_of)
+    return busy_union_us(iv) / 1e3 / n, len(iv) / n, groups, top
+
+
+def group_ms(recs, n, top_of="other"):
+    """Device ms per call of n calls' records by KERNEL_GROUPS, and the
+    TOP_OTHER largest kernels of the group `top_of` by ms."""
     groups: dict = {}
     other: dict = {}
-    for s, e, name in iv:
+    for s, e, name in recs:
         low = name.lower()
         g = next((g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + (e - s) / 1e3 / n
         if g == top_of:
             other[name[:80]] = other.get(name[:80], 0.0) + (e - s) / 1e3 / n
-    top = sorted(other.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
-    return busy_us / 1e3 / n, len(iv) / n, groups, top
+    return groups, sorted(other.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
 
 
 def bucket_latency(url, svc, payload_v, payload_t):
@@ -1410,22 +1452,35 @@ def counted(out):
     out.update({name: k.launches for name, k in ks.items()})
 
 
-def want_launches(depth, steps, remat, chunks=None, forwards=0):
-    """Launches derived from the code. A step without remat runs kernels 1 and
-    2 once a block in the forward and kernel 2's backward once a block; per-
-    block remat runs the forward again in the backward (2·depth). fwd_chunk
-    runs each of its `chunks` sub-batches under a checkpoint of its own, whose
-    recompute runs the chunk's forward again (2·depth a chunk) and, with
-    per-block remat inside it, each block once more in its own recompute
-    (3·depth a chunk); the backward runs once a chunk. Eval forwards
-    (`forwards`) launch kernels 1 and 2 once a block and no backward."""
+def want_launches(depth, steps, remat, chunks=None, forwards=0, backward_depths=None):
+    """Launches derived from the code. `backward_depths` holds, per video
+    stream of a step, how many of its blocks the loss reaches (default one
+    stream, all blocks): the object-aware variants send the clip and the
+    1-frame object frame through the tower, (depth, depth) for global_local
+    and (depth, K) for region_mem, whose object frame feeds the loss only
+    through the layer-K tap, so autograd never reaches its later blocks. A
+    step without remat runs kernels 1 and 2 once a block of each stream in
+    the forward and kernel 2's backward once a reached block; per-block remat
+    runs a block's forward again before its backward. fwd_chunk (one stream)
+    runs each of its `chunks` sub-batches under a checkpoint of its own,
+    whose recompute runs the chunk's forward again (2·depth a chunk) and,
+    with per-block remat inside it, each block once more in its own
+    recompute (3·depth a chunk); the backward runs once a chunk. Eval
+    forwards (`forwards`) launch kernels 1 and 2 once a block of each stream
+    and no backward."""
+    reached = tuple(backward_depths or (depth,))
+    streams = len(reached)
     if chunks is None:
-        fwd = depth * (2 if remat else 1)
+        fwd = streams * depth + (sum(reached) if remat else 0)
+        bwd = sum(reached)
     else:
+        if streams != 1 or reached != (depth,):
+            raise ValueError("fwd_chunk launches are derived for one full stream")
         fwd = depth * chunks * (3 if remat else 2)
-    return {"ln_mlp": steps * fwd + forwards * depth,
-            "space_attention": steps * fwd + forwards * depth,
-            "space_attention_bwd": steps * depth * (chunks or 1), "ln_linear": 0}
+        bwd = depth * chunks
+    per_eval = forwards * depth * streams
+    return {"ln_mlp": steps * fwd + per_eval, "space_attention": steps * fwd + per_eval,
+            "space_attention_bwd": steps * bwd, "ln_linear": 0}
 
 
 def eval_forwards(validations, clips, batch):
@@ -1450,7 +1505,7 @@ class StepRecorder:
 
     def __init__(self, trainer, trace_at=None, expect=()):
         self.step, self.trainer = trainer.train_step, trainer
-        self.events, self.losses = [], []
+        self.events, self.losses, self.terms = [], [], []
         self.trace_at, self.expect, self.trace = trace_at, expect, None
         trainer.train_step = self
 
@@ -1468,6 +1523,7 @@ class StepRecorder:
         ev.record()
         self.events.append(ev)
         self.losses.append(m["loss"])
+        self.terms.append({k: v for k, v in m.items() if k.startswith("loss")})
         if self.trace_at is not None and i == self.trace_at + PROFILED_STEPS - 1:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - self._t0) * 1e3
@@ -1480,7 +1536,8 @@ class StepRecorder:
             busy = busy_union_us(recs) / 1e3
             self.trace = {"wall_ms": wall_ms / PROFILED_STEPS,
                           "device_busy_ms": busy / PROFILED_STEPS,
-                          "idle_share": 1 - busy / wall_ms}
+                          "idle_share": 1 - busy / wall_ms,
+                          "device_ms_by_group": group_ms(recs, PROFILED_STEPS)[0]}
         return state, m
 
     def step_ms(self, per_epoch):
@@ -1495,6 +1552,10 @@ class StepRecorder:
 
     def loss_values(self):
         return [float(v) for v in self.losses]
+
+    def term_values(self):
+        """{term: [value per step]} of every loss metric the steps returned."""
+        return {k: [float(m[k]) for m in self.terms] for k in self.terms[0]}
 
 
 def speed(ms_list, batch, flops_per_clip):
@@ -1530,7 +1591,6 @@ def state_equal(a, b):
 def norm_recipe(tmp, smi, dev, ds):
     """norm.json at its per-GPU batch of 16 through Trainer.train(), then a
     Trainer resumed from its epoch-1 checkpoint running epoch 2 again."""
-    from oatx_torch.train import checkpoint as ckptlib
     from oatx_torch.train.trainer import Trainer
 
     exp = recipe(NORM_CONFIG, epochs=TRAINER_EPOCHS, len_epoch=TRAINER_LEN_EPOCH,
@@ -1572,36 +1632,53 @@ def norm_recipe(tmp, smi, dev, ds):
         raise AssertionError(f"trainer norm@{batch}: t2v R@1 {r1_init} at init_val, "
                              f"{r1_end} after epoch {TRAINER_EPOCHS}: no gain")
 
-    # ---- resume from the epoch-1 checkpoint: epoch 2 again ----
-    ckpt = os.path.join(tmp, "norm", "checkpoint-epoch1")
-    snap = torch.load(os.path.join(ckpt, ckptlib.STATE_FILE), map_location="cpu",
-                      weights_only=True)
     del tr
-    train, valid = corpus_loaders(ds, batch)
-    tr2 = Trainer(exp, train, valid, resume=ckpt, device=dev)
-    restored = (state_equal(tr2.state.model.state_dict(), snap["model"])
-                and state_equal(tr2.state.optimizer.named_state(), snap["optimizer"])
-                and tr2.state.step == snap["step"] == TRAINER_LEN_EPOCH)
-    if not restored or tr2.start_epoch != 2:
-        raise AssertionError("resume: the restored state is not the saved one "
-                             f"(start epoch {tr2.start_epoch}, step {tr2.state.step})")
     expect = [("ln_mlp_", depth), ("space_attention_kernel", depth),
               ("space_attention_bwd_kernel", depth)]
-    rec2 = StepRecorder(tr2, trace_at=3, expect=expect)
-    launches2 = {}
-    with counted(launches2):  # ---- the main path, counted ----
-        tr2.train()
-    check_launches("trainer resume", launches2, want_launches(
-        depth, TRAINER_LEN_EPOCH, False, forwards=eval_forwards(2, len(ds), batch)))
-    again, first = rec2.loss_values(), losses[TRAINER_LEN_EPOCH:]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(again, first))
-    out["resume"] = {"restored_bitwise": restored, "losses": again, "max_rel_diff": rel,
-                     "bitwise": again == first}
-    out.update(rec2.trace)
-    if rel > RESUME_LOSS_RTOL:
-        raise AssertionError(f"resume: epoch 2's losses {again} vs {first} (rel {rel:.2e})")
+    out["resume"], launches2, trace = resume_epoch2(
+        f"trainer norm@{batch}", exp, lambda: corpus_loaders(ds, batch),
+        os.path.join(tmp, "norm", "checkpoint-epoch1"), dev, TRAINER_LEN_EPOCH, expect,
+        want_launches(depth, TRAINER_LEN_EPOCH, False, forwards=eval_forwards(2, len(ds), batch)),
+        rec.term_values())
+    out.update(trace)
     print(f"trainer norm@{batch} ({smi}): " + json.dumps(out), flush=True)
     return out, [launches, launches2]
+
+
+def resume_epoch2(tag, exp, loaders, ckpt, dev, len_epoch, expect, want, terms):
+    """A Trainer resumed from `ckpt` (a run's checkpoint-epoch1, over
+    `loaders()`) must hold the saved state bitwise and start at epoch 2; its
+    run is counted against `want` and must repeat `terms` ({loss term:
+    values per step of the uninterrupted run}) from step len_epoch on,
+    within RESUME_LOSS_RTOL. A CUDA-only trace of 2 steps inside its loop
+    (`expect` as device_trace's) gives the loop's idle share. Returns the
+    resume record, the launches and the trace's record."""
+    from oatx_torch.train import checkpoint as ckptlib
+    from oatx_torch.train.trainer import Trainer
+
+    snap = torch.load(os.path.join(ckpt, ckptlib.STATE_FILE), map_location="cpu",
+                      weights_only=True)
+    train, valid = loaders()
+    tr = Trainer(exp, train, valid, resume=ckpt, device=dev)
+    restored = (state_equal(tr.state.model.state_dict(), snap["model"])
+                and state_equal(tr.state.optimizer.named_state(), snap["optimizer"])
+                and tr.state.step == snap["step"] == len_epoch)
+    if not restored or tr.start_epoch != 2:
+        raise AssertionError(f"{tag} resume: the restored state is not the saved one "
+                             f"(start epoch {tr.start_epoch}, step {tr.state.step})")
+    rec = StepRecorder(tr, trace_at=3, expect=expect)
+    launches = {}
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    check_launches(f"{tag} resume", launches, want)
+    again = rec.term_values()
+    first = {k: v[len_epoch:] for k, v in terms.items()}
+    rel = max(abs(a - b) / abs(b) for k, v in first.items() for a, b in zip(again[k], v))
+    if rel > RESUME_LOSS_RTOL:
+        raise AssertionError(f"{tag} resume: epoch 2's loss terms {again} vs {first} "
+                             f"(rel {rel:.2e})")
+    return ({"restored_bitwise": restored, "losses": again["loss"], "max_rel_diff": rel,
+             "bitwise": again == first}, launches, rec.trace)
 
 
 def remat_runs(smi, dev, ds):
@@ -1726,6 +1803,203 @@ def large_batch_recipe(smi, dev):
     return out, all_launches
 
 
+# ------------------------------------------------------------------ objects
+OBJECT_CONFIGS = {  # the object-aware recipes: variant → config
+    "global_local": os.path.join(HERE, "configs", "pt", "cc3m_webvid", "local_region_loss.json"),
+    "region_mem": os.path.join(HERE, "configs", "pt", "webvid", "region_mem.json"),
+}
+OBJECTS_LEN_EPOCH = 8    # steps per epoch of each object-aware recipe
+OBJECT_BOXES = (10, 36)  # boxes in a clip's BUTD npz, drawn inclusive
+
+
+def object_corpus(base, object_dir, options, seed=0):
+    """`base`'s clips and captions (MemoryClips) as a dataset of the port's
+    `ObjectAwareDataset` with `options`' extras: each clip's frame indices
+    are 0..3 of a 4-frame source, so its aligned extraction slot is 0 and its
+    1-frame object frame is its first frame; clip i's slot-0 BUTD npz under
+    object_dir holds 10-36 boxes on the 256² frame, class ids in
+    [0, 1600), confidences and 2048-d features, from `seed`."""
+    from oatx_torch.data.datasets.base import ObjectAwareDataset
+
+    class ObjectClips(ObjectAwareDataset):
+        dataset_name = "ObjectClips"
+        captions = base.captions
+
+        def __len__(self):
+            return len(base)
+
+        def _get_object_path(self, rec, frame_index=0):
+            return os.path.join(object_dir, f"clip{rec}", f"{frame_index}.npz")
+
+        def _decode_object_frame(self, rec, frame_index):
+            return base.videos[rec][frame_index:frame_index + 1]
+
+        def get_sample(self, i, rng):
+            sample = base.get_sample(i, rng)
+            self._add_object_extras(sample, i, list(range(CORPUS_FRAMES)), CORPUS_FRAMES, rng)
+            return sample
+
+    ds = ObjectClips(options)
+    rng = np.random.default_rng(seed)
+    for i in range(len(base)):
+        n = int(rng.integers(OBJECT_BOXES[0], OBJECT_BOXES[1] + 1))
+        x1, y1 = rng.uniform(0, CANON - 32, (2, n))
+        x2 = np.minimum(x1 + rng.uniform(16, 128, n), CANON)
+        y2 = np.minimum(y1 + rng.uniform(16, 128, n), CANON)
+        os.makedirs(os.path.join(object_dir, f"clip{i}"), exist_ok=True)
+        np.savez(ds._get_object_path(i, 0),
+                 x=rng.standard_normal((n, 2048)).astype(np.float32),
+                 bbox=np.stack([x1, y1, x2, y2], axis=1).astype(np.float32),
+                 info={"objects_id": rng.integers(0, 1600, n),
+                       "objects_conf": rng.uniform(0.1, 1.0, n).astype(np.float32),
+                       "image_w": float(CANON), "image_h": float(CANON)})
+    return ds
+
+
+def object_flops_per_clip_step(cfg, pad_len):
+    """Model FLOPs of one clip's train step (3× the forward) at each stream's
+    shape, from train/flops.py's formula: the 4-frame clip with its caption
+    (TEXT_LEN tokens), plus the 1-frame object frame with, for global_local,
+    the caption + tags stream (pad_len tokens; the formula's text part at
+    seq_len 0 is its projection alone, taken off for region_mem)."""
+    from oatx_torch.train.flops import flops_forward_per_clip
+
+    frame = dataclasses.replace(cfg.video, num_frames=1)
+    second = (flops_forward_per_clip(frame, cfg.text, pad_len) if cfg.variant == "global_local"
+              else flops_forward_per_clip(frame, cfg.text, 0) - 2 * cfg.text.dim * 256)
+    return 3.0 * (flops_forward_per_clip(cfg.video, cfg.text, TEXT_LEN) + second)
+
+
+def objects_recipe(variant, tmp, smi, dev, base):
+    """One object-aware recipe through Trainer.train() at its per-GPU batch
+    (module docstring, phase 6); returns its record and launch counts."""
+    from oatx_torch.data import factory
+    from oatx_torch.data.loader import Collator, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.train import step as steplib
+    from oatx_torch.train.trainer import Trainer
+
+    exp = recipe(OBJECT_CONFIGS[variant], epochs=TRAINER_EPOCHS, len_epoch=OBJECTS_LEN_EPOCH,
+                 save_period=1, verbosity=1)
+    dl = exp.data_loaders[0]
+    batch = dl.batch_size
+    opts = factory.object_options_for_variant(variant, dl, factory.load_region_bank(exp))
+    ds = object_corpus(base, os.path.join(tmp, "objects"), opts)
+    tok = WordPieceTokenizer.build_from_corpus(ds.captions + [f"obj{i}" for i in range(1600)])
+    col = Collator(tok, max_text_len=TEXT_LEN,
+                   tag_token_lens=factory.tag_token_lens_for(ds, tok) if opts.tags else None)
+
+    def loaders():
+        return ([ShardedLoader(ds, batch, col, seed=0, num_workers=4)],
+                [ShardedLoader(ds, batch, col, shuffle=False, drop_last=False,
+                               num_workers=4)])
+
+    tag = f"objects {variant}@{batch}"
+    train, valid = loaders()
+    held = fresh_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(exp, train, valid, save_dir=os.path.join(tmp, variant), device=dev)
+    cfg = tr.tower_cfg
+    depth = cfg.video.depth
+    # the blocks of (clip, object frame) the loss reaches: region_mem's object
+    # frame only through the layer-K tap
+    reached = (depth, depth if variant == "global_local" else cfg.video.region_tap_layer)
+    print(f"{tag}: Trainer built in {time.perf_counter() - t0:.1f} s ({cfg.variant}, "
+          f"region tap {cfg.video.region_tap_layer}, pooling {cfg.video.pooling}, "
+          f"remat {cfg.video.remat})", flush=True)
+    rec = StepRecorder(tr)
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        hist = tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = TRAINER_EPOCHS * OBJECTS_LEN_EPOCH
+    check_launches(tag, launches, want_launches(
+        depth, steps, False, forwards=eval_forwards(1 + TRAINER_EPOCHS, len(ds), batch),
+        backward_depths=reached))
+    terms = rec.term_values()
+    losses = terms["loss"]
+    bad = [k for k, v in terms.items() if not all(np.isfinite(v))]
+    if bad or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"{tag}: a loss term not finite ({bad}) or the loss not "
+                             f"falling: {terms}")
+    log = [tr.init_val_log] + [hist[e] for e in range(1, TRAINER_EPOCHS + 1)]
+    out = {"recipe": os.path.basename(OBJECT_CONFIGS[variant]), "variant": variant,
+           "batch": batch, "remat": cfg.video.remat, "backward_blocks": reached,
+           "terms_first_last": {k: [v[0], v[-1]] for k, v in terms.items()},
+           "losses": losses, "val_loss": [e["val_loss_0"] for e in log],
+           "t2v_R1": [e["val_0_t2v_R1"] for e in log], "v2t_R1": [e["val_0_v2t_R1"] for e in log],
+           "input_wait": [hist[e]["input_wait"] for e in range(1, TRAINER_EPOCHS + 1)],
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
+           "launches": launches, "launches_per_step": {
+               k: v for k, v in want_launches(depth, 1, False,
+                                              backward_depths=reached).items() if v},
+           **speed(rec.step_ms(OBJECTS_LEN_EPOCH), batch,
+                   object_flops_per_clip_step(cfg, col.max_pad_text_len))}
+
+    # one step's gradients on a fixed batch, kernels vs plain versions (not counted)
+    host = next(iter(train[0]))
+    host.pop("meta")
+    fixed = steplib.make_augmenter(train=False, tower_cfg=cfg)(
+        None, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+    model = tr.state.model
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = steplib.loss_fn(model, tr.loss_cfg, fixed)
+        loss.backward()
+        return {n: (p.grad.detach().clone() if p.grad is not None else None)
+                for n, p in model.named_parameters()}
+
+    got = grads()
+    with plain_versions():
+        ref = grads()
+    model.zero_grad(set_to_none=True)
+    missing = [n for n, g in got.items()
+               if g is None or not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    if missing:
+        raise AssertionError(f"{tag}: {len(missing)} parameters without a finite, non-zero "
+                             f"gradient through the kernels, e.g. {missing[:5]}")
+    heads = [n for n in got if n.startswith(("video_model.region_norm", "txt_proj_2",
+                                             "text_local_proj", "vid_local_proj"))]
+    out.update(grad_check(got, ref), head_tensors=len(heads))
+    if out["grad_tol_used"] > 1 or out["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+            or out["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+        raise AssertionError(f"{tag}: gradients through the kernels disagree with the "
+                             f"plain versions: {out['grad_worst']}")
+    del got, ref, fixed
+
+    del tr, model
+    expect = [("ln_mlp_", 2 * depth), ("space_attention_kernel", 2 * depth),
+              ("space_attention_bwd_kernel", sum(reached))]
+    out["resume"], launches2, trace = resume_epoch2(
+        tag, exp, loaders, os.path.join(tmp, variant, "checkpoint-epoch1"), dev,
+        OBJECTS_LEN_EPOCH, expect,
+        want_launches(depth, OBJECTS_LEN_EPOCH, False, forwards=eval_forwards(2, len(ds), batch),
+                      backward_depths=reached), terms)
+    out.update(trace)
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    return out, [launches, launches2]
+
+
+def objects_phase(smi, dev):
+    """The object-aware recipes through Trainer.train() (module docstring,
+    phase 6)."""
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    runs, launches = {}, []
+    for variant in OBJECT_CONFIGS:
+        with tempfile.TemporaryDirectory() as tmp:
+            runs[variant], more = objects_recipe(variant, tmp, smi, dev, base)
+        launches += more
+    print(f"objects summary ({smi}): " + json.dumps({
+        v: {k: r[k] for k in ("step_ms", "step_ms_spread", "clips_per_s", "mfu",
+                              "device_busy_ms", "idle_share", "peak_mem_gib", "t2v_R1",
+                              "v2t_R1", "terms_first_last")}
+        for v, r in runs.items()}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
 def trainer_phase(smi, dev):
     """Trainer.train() at full width (module docstring, phase 5)."""
     ds = MemoryClips(CORPUS_CLIPS, seed=0)
@@ -1760,6 +2034,9 @@ def main() -> int:
     ap.add_argument("--only-trainer", action="store_true",
                     help="build the kernels and run the trainer phase alone (no record, "
                          "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-objects", action="store_true",
+                    help="build the kernels and run the objects phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1787,6 +2064,10 @@ def main() -> int:
     if opts.only_trainer:
         trainer_phase(smi, dev)
         print("chip_smoke: --only-trainer ran the trainer phase alone", flush=True)
+        return 0
+    if opts.only_objects:
+        objects_phase(smi, dev)
+        print("chip_smoke: --only-objects ran the objects phase alone", flush=True)
         return 0
     parent = None
     if opts.parent_ln_linear:
@@ -1841,6 +2122,7 @@ def main() -> int:
         phases = {"serve": serve_phase(tmp, smi)}
     phases["train"] = train_phase(smi, dev)
     phases["trainer"] = trainer_phase(smi, dev)
+    phases["objects"] = objects_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",

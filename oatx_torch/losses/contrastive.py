@@ -1,5 +1,4 @@
-"""Contrastive losses of the baseline train step (port of
-oatx/losses/contrastive.py:29-148).
+"""Contrastive losses (port of oatx/losses/contrastive.py:29-251).
 
   * `l2_normalize`, `sim_matrix` — cosine similarities with the norm clamped
     at eps (:29-39);
@@ -8,13 +7,21 @@ oatx/losses/contrastive.py:29-148).
   * `norm_softmax_loss_chunked` — the same loss from the embeddings, key
     chunk by key chunk with a running logsumexp, so the full matrix never
     exists (:74-130);
-  * `max_margin_ranking_loss` — the bidirectional hinge (:133-148).
+  * `max_margin_ranking_loss` — the bidirectional hinge (:133-148);
+  * the object-aware variants' losses (:151-251): cross entropy, NCE with
+    the positive at column 0, softmax KL / MSE consistency, BCE on
+    probabilities and on logits, `region_bce` (summed over patches, mean
+    over (batch, region) rows), the MoCo queue as an explicit state object,
+    and the fine-grained region ↔ tag NCE that global_local trains with.
 
-The global-negative gather, the object-aware losses and MoCo belong to later
-slices (ROADMAP A).
+All in f32. The global-negative gather belongs to multi-GPU (ROADMAP A8).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,3 +83,104 @@ def max_margin_ranking_loss(sims: torch.Tensor, margin: float = 1.0,
         keep = 1.0 - torch.eye(n, dtype=sims.dtype, device=sims.device)
         return ((hinge_r * keep).sum() + (hinge_c * keep).sum()) / (2.0 * keep.sum())
     return 0.5 * (hinge_r.mean() + hinge_c.mean())
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy with integer targets."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[:, None]).mean()
+
+
+def nce_softmax_loss(logits: torch.Tensor) -> torch.Tensor:
+    """Cross entropy with the positive at column 0."""
+    return -F.log_softmax(logits.float(), dim=-1)[:, 0].mean()
+
+
+def softmax_kl_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """Σ KL(softmax(target) ‖ softmax(input)) over dim 1; no gradient to the
+    targets."""
+    target = target_logits.detach().float()
+    logp = F.log_softmax(input_logits.float(), dim=1)
+    q = F.softmax(target, dim=1)
+    logq = F.log_softmax(target, dim=1)
+    return (q * (logq - logp)).sum()
+
+
+def softmax_mse_loss(input_logits: torch.Tensor, target_logits: torch.Tensor) -> torch.Tensor:
+    """Σ squared difference of the logits; no gradient to the targets."""
+    diff = input_logits.float() - target_logits.detach().float()
+    return (diff * diff).sum()
+
+
+def binary_cross_entropy(probs: torch.Tensor, targets: torch.Tensor,
+                         eps: float = 1e-7) -> torch.Tensor:
+    """Mean BCE on probabilities, clamped to [eps, 1 − eps] (torch BCELoss's
+    guard)."""
+    p = probs.float().clamp(eps, 1.0 - eps)
+    t = targets.float()
+    return -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p)).mean()
+
+
+def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    x, t = logits.float(), targets.float()
+    return x.clamp_min(0) - x * t + torch.log1p(torch.exp(-x.abs()))
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean BCE with logits, in oatx's stable form."""
+    return _bce_with_logits(logits, targets).mean()
+
+
+def region_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Region-map BCE with the reference's reduction: summed over the patch
+    axis, mean over the (batch, region) rows, N× the element mean."""
+    return _bce_with_logits(logits, targets).sum(dim=-1).mean()
+
+
+@dataclasses.dataclass
+class MoCoQueue:
+    """MoCo negative queue as explicit state: memory (K, D) and the next
+    write position."""
+
+    memory: torch.Tensor  # (K, D) f32
+    index: int = 0
+
+
+def moco_queue_init(generator: torch.Generator, queue_size: int, dim: int,
+                    device: Optional[torch.device] = None) -> MoCoQueue:
+    """memory ~ U(−stdv, stdv), stdv = 1 / sqrt(dim / 3), from `generator`
+    (on its device unless `device` names one)."""
+    stdv = 1.0 / math.sqrt(dim / 3.0)
+    dev = generator.device if device is None else device
+    mem = torch.rand(queue_size, dim, generator=generator, device=dev) * (2 * stdv) - stdv
+    return MoCoQueue(memory=mem, index=0)
+
+
+def moco_logits(q: torch.Tensor, k: torch.Tensor, n: torch.Tensor, queue: MoCoQueue,
+                temperature: float = 0.07) -> torch.Tensor:
+    """[positive | queue negatives | extra negative] logits / T; k, n and the
+    queue carry no gradient."""
+    k, n = k.detach(), n.detach()
+    l_pos = (q * k).sum(dim=-1, keepdim=True)
+    l_neg = q @ queue.memory.detach().t()
+    l_neg2 = (q * n).sum(dim=-1, keepdim=True)
+    return torch.cat([l_pos, l_neg, l_neg2], dim=1) / temperature
+
+
+def moco_queue_update(queue: MoCoQueue, k: torch.Tensor) -> MoCoQueue:
+    """A new queue with the batch of keys written into the ring buffer at
+    the write position (wrapping), and the position advanced."""
+    size = queue.memory.shape[0]
+    ids = (torch.arange(k.shape[0], device=queue.memory.device) + queue.index) % size
+    memory = queue.memory.clone()
+    memory[ids] = k.detach().to(memory.dtype)
+    return MoCoQueue(memory=memory, index=(queue.index + k.shape[0]) % size)
+
+
+def fine_grained_region_tag_loss(region_embeds: torch.Tensor, tag_embeds: torch.Tensor,
+                                 temperature: float = 0.05) -> torch.Tensor:
+    """NormSoftmax between the mean-pooled tags (rows) and the mean-pooled
+    regions (columns) of each sample: global_local's fine-grained term."""
+    r = region_embeds.mean(dim=1)
+    t = tag_embeds.mean(dim=1)
+    return norm_softmax_loss(sim_matrix(t, r), temperature)

@@ -4,8 +4,9 @@
 arrays, transformer blocks stacked on a leading depth axis) to the reference
 FrozenInTime state_dict that `DualTower` loads with strict=True. It is the
 port's own copy of the mapping in oatx/models/convert.py:321-384
-(`frozen_in_time_to_torch` with `_export_distilbert_text`): linear kernels
-(in, out) → weights (out, in), conv kernels HWIO → OIHW.
+(`frozen_in_time_to_torch` with `_export_distilbert_text`), variant heads
+included: linear kernels (in, out) → weights (out, in), conv kernels
+HWIO → OIHW.
 
 `opt_state_from_optax` carries an optax AdamW state (oatx's `make_optimizer`
 chain) across through the same key map, so a JAX run can continue in the
@@ -56,8 +57,9 @@ def _ln(sd, key: str, p: Params) -> None:
 
 
 def state_dict_from_oatx(params: Params, tower_cfg) -> Dict[str, torch.Tensor]:
-    """oatx dual-tower params (baseline, distilbert) → the reference-schema
-    state_dict the port loads (CPU f32 tensors)."""
+    """oatx dual-tower params (distilbert; any variant: `region_norm`,
+    `txt_proj_2`, `txt_local_proj` and `vid_local_proj` when present) → the
+    reference-schema state_dict the port loads (CPU f32 tensors)."""
     if tower_cfg.text_family != "distilbert":
         raise NotImplementedError(f"text family {tower_cfg.text_family!r}")
     sd: Dict[str, np.ndarray] = {}
@@ -97,11 +99,14 @@ def state_dict_from_oatx(params: Params, tower_cfg) -> Dict[str, torch.Tensor]:
         _dense(sd, f"{p}.ffn.lin2", lp["ffn"]["lin2"])
         _ln(sd, f"{p}.output_layer_norm", lp["out_ln"])
 
-    # txt_proj = Sequential(ReLU, Linear) → index 1; vid_proj = Sequential(Linear)
-    if "txt_proj" in params:
-        _dense(sd, "txt_proj.1", params["txt_proj"])
-    if "vid_proj" in params:
-        _dense(sd, "vid_proj.0", params["vid_proj"])
+    # txt_proj = Sequential(ReLU, Linear) → index 1; vid_proj = Sequential(Linear);
+    # the variant heads as oatx's converter names them (:375-384)
+    for name, key in (("txt_proj", "txt_proj.1"), ("vid_proj", "vid_proj.0"),
+                      ("txt_proj_2", "txt_proj_2.1"),
+                      ("txt_local_proj", "text_local_proj.1"),
+                      ("vid_local_proj", "vid_local_proj.0")):
+        if name in params:
+            _dense(sd, key, params[name])
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}  # writable copies
 
 

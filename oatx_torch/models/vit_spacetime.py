@@ -1,5 +1,5 @@
 """SpaceTimeTransformer — divided space-time ViT video tower
-(port of oatx/models/vit_spacetime.py:25-354).
+(port of oatx/models/vit_spacetime.py:25-358).
 
 Block wiring (:166-188):
     u = x + time_attn(norm3(x))
@@ -28,11 +28,17 @@ call per ATen op in the forward and its recompute; on the H100 that host
 time outweighs what they save (PERF.md §5). `scan_blocks` is a compile-time
 choice in JAX; here it is the same loop over the blocks.
 
+With `region_tap_layer` = K the tower also returns `region`, the patch
+tokens after block K through their own `region_norm` (oatx :311-341, the
+object-aware variants' layer-K tap; the CLS row is left out). The tap sits
+between blocks, outside any block's checkpoint, so every remat policy and
+`fwd_chunk`'s outer checkpoint recompute it as they recompute the blocks.
+
 The config accepts every oatx key. The layout knobs (`cls_position`,
 `split_cls_stream`) leave outputs unchanged and are ignored: the port has one
-token order, CLS first. Pipeline stages, sequence parallelism and region taps
-are not ported yet, and the unfused MLP (`fused_mlp=False`) is not ported: the
-tower raises on them.
+token order, CLS first. Pipeline stages and sequence parallelism are not
+ported yet, and the unfused MLP (`fused_mlp=False`) is not ported: the tower
+raises on them.
 
 `inflate_spatial_embed` / `inflate_temporal_embed` (oatx :413-454) resize the
 positional embeddings of a checkpoint with another patch or frame count.
@@ -95,8 +101,6 @@ def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
         return "pipeline_stages"
     if cfg.sequence_parallel:
         return "sequence_parallel"
-    if cfg.region_tap_layer is not None:
-        return "region_tap_layer"
     if not cfg.fused_mlp:
         return "fused_mlp=False (the port runs kernel 1 in every block)"
     return None
@@ -221,6 +225,8 @@ class SpaceTimeTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             SpaceTimeBlock(cfg, device, generator) for _ in range(cfg.depth))
         self.norm = LayerNorm(d, LN_EPS, device)
+        if cfg.region_tap_layer is not None:
+            self.region_norm = LayerNorm(d, LN_EPS, device)
         self._remat_ctx = remat_context_fn(cfg.remat_policy) if cfg.remat else None
 
     def embed(self, video: torch.Tensor) -> torch.Tensor:
@@ -243,21 +249,28 @@ class SpaceTimeTransformer(nn.Module):
 
     def forward(self, video: torch.Tensor) -> Dict[str, torch.Tensor]:
         """video (B, F, H, W, C) in the compute dtype → dict(cls=(B, D) pooled
-        per cfg.pooling, patches=(B, F·N, D) after the final norm)."""
+        per cfg.pooling, patches=(B, F·N, D) after the final norm, and with
+        region_tap_layer K, region=(B, F·N, D): block K's patch tokens
+        through region_norm)."""
         f = video.shape[1]
         x = self.embed(video)
         remat = self._remat_ctx is not None and torch.is_grad_enabled()
-        for blk in self.blocks:
+        k = self.cfg.region_tap_layer
+        out: Dict[str, torch.Tensor] = {}
+        for i, blk in enumerate(self.blocks):
             if remat:
                 x = ckpt.checkpoint(blk, x, f, use_reentrant=False,
                                     context_fn=self._remat_ctx)
             else:
                 x = blk(x, f)
+            if k is not None and i == k - 1:
+                out["region"] = self.region_norm(x[:, 1:])
         x = self.norm(x)
         cls, patches = x[:, 0], x[:, 1:]
         if self.cfg.pooling == "cls_mean_half":
             cls = 0.5 * cls + 0.5 * patches.mean(dim=1)
-        return {"cls": cls, "patches": patches}
+        out["cls"], out["patches"] = cls, patches
+        return out
 
 
 def inflate_spatial_embed(pos_embed: torch.Tensor, target_patches: int) -> torch.Tensor:

@@ -1,14 +1,19 @@
-"""The train step of the baseline dual tower (port of oatx/train/step.py:33-433).
+"""The train step of the dual tower (port of oatx/train/step.py:33-433).
 
-One step: forward both towers on the batch, the contrastive loss over the
-batch's (text, video) similarity matrix, backward, AdamW
-(train/optim.py). oatx jits a pure function of (params, opt_state); here the
-model and its optimizer are updated in place (PyTorch's idiom, and the
-counterpart of oatx donating its state), and the step returns a new
+One step: forward both towers on the batch, the variant's loss, backward,
+AdamW (train/optim.py). oatx jits a pure function of (params, opt_state);
+here the model and its optimizer are updated in place (PyTorch's idiom, and
+the counterpart of oatx donating its state), and the step returns a new
 `TrainState` whose `step` counts the updates made.
 
-    loss      NormSoftmax(sim(text, video)) (or max-margin), the baseline
-              variant of oatx `loss_fn` (:54-69, 143-155)
+    loss      oatx `loss_fn` per variant (:54-69, 143-178), each term also a
+              metric:
+              baseline      NormSoftmax(sim(text, video)) (or max-margin)
+              global_local  pair(text, video) + pair(pad_text, video)
+                            + fine-grained NormSoftmax(mean tags, mean regions)
+                            (loss_st2sv, loss_lt2sv, loss_fine)
+              region_mem    pair(text, video) + w·region_bce(region logits,
+                            patch masks) (loss_nce, loss_region)
     accum     `accum_steps` micro-batches, each with its own negatives,
               gradients averaged before one update (:323-345)
     fwd_chunk the tower forwards run on chunk-sized sub-batches, each under
@@ -20,12 +25,15 @@ counterpart of oatx donating its state), and the step returns a new
     metrics   loss, grad_norm (global norm of the unclipped gradients) and,
               with skip_nonfinite, skipped; 0-d tensors on the device
 
-`make_augmenter` is oatx's (:182-205): uint8 frames → train_augment (or the
-eval transform) on the device, from the step's generator.
+`make_augmenter` is oatx's (:182-205): uint8 'video' and 'object_frame'
+→ train_augment (or the eval transform) on the device, each key from a
+generator of its own derived from the step's (oatx folds the key's index
+into the step's key). `make_eval_step` returns every `*_embeds` output of
+the variant's forward (:408-414).
 
-Not ported yet (they need torch.distributed; queued in ROADMAP A): `mesh`,
-`manual_axes`, `grad_reduce_dtype`, the object NCE terms and the other
-variants. Each raises.
+Not ported yet: `mesh`, `manual_axes` and `grad_reduce_dtype` (they need
+torch.distributed, ROADMAP A8) and the object NCE terms (the object tower,
+ROADMAP A6). Each raises.
 """
 
 from __future__ import annotations
@@ -79,27 +87,51 @@ def _embed_pair_loss(text_e: torch.Tensor, video_e: torch.Tensor,
     return _pair_loss(C.sim_matrix(text_e, video_e), loss_cfg)
 
 
-def _embeds(model: DualTower, batch: Batch) -> Dict[str, torch.Tensor]:
-    return {"text": model.compute_text(batch["input_ids"], batch.get("attention_mask")),
-            "video": model.compute_video(batch["video"])["cls"]}
+def _outputs(model: DualTower, batch: Batch) -> Dict[str, torch.Tensor]:
+    """The variant's forward as a dict (baseline: text_embeds, video_embeds)."""
+    out = model(batch)
+    if model.cfg.variant == "baseline":
+        return {"text_embeds": out[0], "video_embeds": out[1]}
+    return out
 
 
 def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
             fwd_chunk: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, metrics) of the baseline variant on a batch of tensors on the
+    """(loss, metrics) of the model's variant on a batch of tensors on the
     model's device: 'video' (B, F, H, W, C) normalized frames, 'input_ids'
-    (B, L) and optional 'attention_mask'. `fwd_chunk`: the tower forwards
-    run checkpointed on sub-batches of that size (B must divide by it), the
-    loss over all B."""
+    (B, L), optional 'attention_mask', and the variant's extras
+    (DualTower.forward_*). `fwd_chunk`: the tower forwards run checkpointed
+    on sub-batches of that size (B must divide by it), the loss over all
+    B."""
     if loss_cfg.object_nce_weight > 0:
         raise NotImplementedError("object NCE terms: the object tower is not ported yet")
     if fwd_chunk:
-        out = scan_chunked(lambda mb: ckpt.checkpoint(_embeds, model, mb, use_reentrant=False),
+        out = scan_chunked(lambda mb: ckpt.checkpoint(_outputs, model, mb, use_reentrant=False),
                            fwd_chunk)(batch)
     else:
-        out = _embeds(model, batch)
-    loss = _embed_pair_loss(out["text"], out["video"], loss_cfg)
-    return loss, {"loss": loss.detach()}
+        out = _outputs(model, batch)
+    variant = model.cfg.variant
+    if variant == "baseline":
+        loss = _embed_pair_loss(out["text_embeds"], out["video_embeds"], loss_cfg)
+        return loss, {"loss": loss.detach()}
+    if variant == "global_local":
+        terms = {
+            "loss_st2sv": _pair_loss(C.sim_matrix(out["text_embeds"], out["video_embeds"]),
+                                     loss_cfg),
+            "loss_lt2sv": _pair_loss(C.sim_matrix(out["pad_text_embeds"],
+                                                  out["video_embeds"]), loss_cfg),
+            "loss_fine": C.fine_grained_region_tag_loss(out["region_feat"], out["tags_feat"],
+                                                        loss_cfg.temperature),
+        }
+        loss = terms["loss_st2sv"] + terms["loss_lt2sv"] + terms["loss_fine"]
+    else:  # region_mem
+        terms = {
+            "loss_nce": _pair_loss(C.sim_matrix(out["text_embeds"], out["video_embeds"]),
+                                   loss_cfg),
+            "loss_region": C.region_bce(out["region_sim_logits"], batch["patch_masks"]),
+        }
+        loss = terms["loss_nce"] + loss_cfg.region_bce_weight * terms["loss_region"]
+    return loss, {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
 
 
 def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -119,12 +151,27 @@ def _check_ported(**unported) -> None:
             raise NotImplementedError(f"make_train_step({name}=...) is not ported yet")
 
 
+FRAME_KEYS = ("video", "object_frame")  # uint8 frame tensors the augmenter transforms
+
+
+def key_generator(gen: torch.Generator, i: int) -> torch.Generator:
+    """The generator of FRAME_KEYS[i] from the step's generator (oatx's
+    fold_in(rng, i)): key 0 draws from `gen` itself, key i > 0 from a
+    generator seeded from (gen's seed, i), so no key's draws depend on
+    whether or in what order the others were drawn."""
+    if i == 0:
+        return gen
+    seed = np.random.SeedSequence([gen.initial_seed(), i]).generate_state(1)[0]
+    return torch.Generator(gen.device).manual_seed(int(seed))
+
+
 def make_augmenter(transform_cfg: Optional[T.TransformConfig] = None, train: bool = True,
                    tower_cfg: Optional[TowerConfig] = None):
     """`augment(generator, batch) → batch`: uint8 'video' / 'object_frame'
     become normalized f32 on the batch's device, through train_augment (from
-    the generator) or the eval transform. The output resolution follows the
-    tower's img_size when tower_cfg is given (oatx make_augmenter)."""
+    `key_generator(generator, i)`) or the eval transform. The output
+    resolution follows the tower's img_size when tower_cfg is given (oatx
+    make_augmenter)."""
     if transform_cfg is None:
         res = tower_cfg.video.img_size if tower_cfg is not None else 224
         transform_cfg = T.TransformConfig(input_res=res)
@@ -132,9 +179,9 @@ def make_augmenter(transform_cfg: Optional[T.TransformConfig] = None, train: boo
 
     def augment(gen: torch.Generator, batch: Dict[str, torch.Tensor]):
         out = dict(batch)
-        for key in ("video", "object_frame"):
+        for i, key in enumerate(FRAME_KEYS):
             if key in out and out[key].dtype == torch.uint8:
-                out[key] = (T.train_augment(gen, out[key], tcfg) if train
+                out[key] = (T.train_augment(key_generator(gen, i), out[key], tcfg) if train
                             else T.eval_transform(out[key], tcfg))
         return out
 
@@ -222,23 +269,20 @@ def scan_chunked(fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]
 
 def make_eval_step(cfg: TowerConfig, augment: Optional[Callable] = None,
                    chunk: Optional[int] = None, device: DeviceLike = None) -> Callable:
-    """`eval_step(model, batch) → {'text_embeds', 'video_embeds'}`, no
-    gradients. By default a uint8 'video' goes through the eval transform
-    at the tower's img_size (oatx make_augmenter(train=False))."""
+    """`eval_step(model, batch) → {'text_embeds', 'video_embeds', ...}`: every
+    `*_embeds` output of the variant's forward, no gradients. By default a
+    uint8 'video' or 'object_frame' goes through the eval transform at the
+    tower's img_size (oatx make_augmenter(train=False))."""
     dev = resolve_device(device)
     if augment is None:
-        tcfg = T.TransformConfig(input_res=cfg.video.img_size)
+        eval_augment = make_augmenter(train=False, tower_cfg=cfg)
 
         def augment(batch):
-            if batch["video"].dtype == torch.uint8:
-                batch = {**batch, "video": T.eval_transform(batch["video"], tcfg)}
-            return batch
+            return eval_augment(None, batch)
 
     def body(model: DualTower, batch: Dict[str, torch.Tensor]):
-        batch = augment(batch)
-        return {"text_embeds": model.compute_text(batch["input_ids"],
-                                                  batch.get("attention_mask")),
-                "video_embeds": model.compute_video(batch["video"])["cls"]}
+        out = _outputs(model, augment(batch))
+        return {k: v for k, v in out.items() if k.endswith("_embeds")}
 
     @torch.no_grad()
     def eval_step(model: DualTower, batch: Batch):

@@ -13,8 +13,13 @@ completed cycles by index arithmetic); a step watchdog; an EMA of the
 parameters validated in their place; a torch.profiler window
 (`profile_epoch`, `profile_start_step`, `profile_steps`).
 
-Validation embeds every sample in chunks of 8 (`make_eval_step`), then takes
-the t2v / v2t metrics and NormSoftmax over the full corpus similarity matrix.
+The model's variant comes from `arch.variant` (baseline, global_local or
+region_mem; oatx :638-690 validates each the same way): its batches carry
+the object extras (data/datasets/base.py), and global_local's collator needs
+`tag_token_lens` (data/factory.tag_token_lens_for). Validation embeds every
+sample in chunks of 8 (`make_eval_step`), then takes the t2v / v2t metrics
+and NormSoftmax between the eval step's `text_embeds` and `video_embeds`
+over the full corpus similarity matrix.
 
 One device: `zero1` and `dp_mode: auto` have nothing to shard or reduce and
 are no-ops, as in oatx on one chip. `model_parallel` > 1, `fsdp`, `pipeline`,

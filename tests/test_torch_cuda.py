@@ -47,13 +47,16 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d,hidden", [
     (6280, 768, 3072), (3140, 768, 3072), (785, 768, 3072), (33, 768, 3072), (1, 768, 3072),
-    (300, 128, 512), (1, 128, 512), (50, 48, 192), (129, 1024, 4096)])
+    (300, 128, 512), (1, 128, 512), (50, 48, 192), (129, 1024, 4096),
+    (3152, 768, 3072), (12560, 768, 3072)])
 def test_ln_mlp_kernel_matches_plain(card, rows, d, hidden):
     """The ViT-B MLP at the serving and train row counts (6280 = 49·128 + 8,
     785 = 6·128 + 17: the second product split over the hidden dimension at
     785, 33 and 1 rows), the small train step's widths (hidden 512 and out
     128, which the 256-column tile does not divide), D under one 64-column
-    chunk (48) and ViT-L's 1024 → 4096 → 1024."""
+    chunk (48), ViT-L's 1024 → 4096 → 1024, and the object-aware recipes'
+    batch of 16: the 1-frame object frame (3152 = 24·128 + 80 rows) and the
+    4-frame clip (12560)."""
     g = torch.Generator(card).manual_seed(rows)
     bf = torch.bfloat16
     x = torch.randn(rows, d, device=card, generator=g).to(bf)
@@ -93,6 +96,26 @@ def test_space_attention_kernel_matches_plain(card, b, frames, n):
     assert psa.space_attention.launches == before + 1
     torch.testing.assert_close(got.float(), psa.space_attention_plain(q, k, v, frames).float(),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_space_attention_at_the_object_frame_shape(card):
+    """Forward and backward at the object-aware recipes' object frame: B 16,
+    one frame, T = 197 (192 frame groups, 192 CLS units each over one
+    frame's partial). The forward against the plain version; the backward's
+    dq, dk, dv against autograd of it (the CLS row's per-frame partials
+    with F = 1)."""
+    q, k, v = _qkv_views(card, 16, 1, 196, 1601)
+    before = (psa.space_attention.launches, psa.space_attention_backward.launches)
+    got = psa.space_attention(q, k, v, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), psa.space_attention_plain(q, k, v, 1).float(),
+                               atol=ATOL, rtol=0)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    _grads_match(lambda a, b, c: psa.space_attention(a, b, c, 1),
+                 lambda a, b, c: psa.space_attention_plain(a, b, c, 1), leaves, ("q", "k", "v"))
+    assert (psa.space_attention.launches, psa.space_attention_backward.launches) == \
+        (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda
@@ -374,3 +397,55 @@ def test_device_prefetch_delivers_batches_while_the_card_works(card):
     for h, b in zip(host, got):
         for k, v in b.items():
             assert torch.equal(v.cpu(), torch.from_numpy(h[k])), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["global_local", "region_mem"])
+def test_variant_loss_through_the_kernels(card, variant, monkeypatch):
+    """The object-aware variants at ViT-B widths (2 blocks, 224², B = 2, the
+    region tap after block 1): the clip (2 frames) and the 1-frame object
+    frame each launch kernels 1 and 2 once a block, kernel 2's backward runs
+    once a block the loss reaches (region_mem's object frame reaches it only
+    through the tap: its block 2 has no backward), every parameter gets a
+    finite gradient, and the gradients agree with the same step on the
+    plain versions."""
+    cfg = _tower_cfg(**({"region_tap_layer": 1} if variant == "region_mem" else {}))
+    cfg = ptowers.TowerConfig(**{**cfg.__dict__, "variant": variant})
+    g = torch.Generator(card).manual_seed(6)
+    b, objects = 2, 3
+    batch = {"video": torch.randn(b, 2, 224, 224, 3, device=card, generator=g),
+             "object_frame": torch.randn(b, 1, 224, 224, 3, device=card, generator=g),
+             "input_ids": torch.randint(0, 100, (b, 6), device=card, generator=g),
+             "attention_mask": torch.ones(b, 6, dtype=torch.int32, device=card),
+             "patch_masks": (torch.rand(b, objects, 196, device=card, generator=g) > 0.7)
+             .float()}
+    if variant == "global_local":
+        batch.update(pad_input_ids=torch.randint(0, 100, (b, 12), device=card, generator=g),
+                     pad_attention_mask=torch.ones(b, 12, dtype=torch.int32, device=card),
+                     object_token_masks=torch.tensor([[1, 3, 4], [2, 2, 5]], device=card))
+    else:
+        batch["text_region_embedding"] = 0.02 * torch.randn(b, objects, 512, device=card,
+                                                            generator=g)
+
+    def grads():
+        model = ptowers.DualTower(cfg, device=card, generator=torch.Generator(card).manual_seed(0))
+        before = (plm.ln_mlp.launches, psa.space_attention.launches,
+                  psa.space_attention_backward.launches)
+        loss, metrics = pstep.loss_fn(model, pstep.LossConfig(), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (plm.ln_mlp.launches - before[0], psa.space_attention.launches - before[1],
+                  psa.space_attention_backward.launches - before[2])
+        assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+        return counts, {n: p.grad for n, p in model.named_parameters()}
+
+    counts, got = grads()
+    assert counts == (4, 4, 4 if variant == "global_local" else 3)
+    monkeypatch.setattr(pvst, "ln_mlp", plm.ln_mlp_plain)
+    monkeypatch.setattr(patt, "space_attention", psa.space_attention_plain)
+    _, want = grads()
+    total = float(torch.sqrt(sum(w.float().square().sum() for w in want.values())))
+    for n, w in want.items():
+        assert got[n] is not None and bool(torch.isfinite(got[n]).all()), n
+        err = float((got[n].float() - w.float()).norm())
+        assert err <= 0.1 * float(w.float().norm()) + 0.02 * total, (n, err)

@@ -249,10 +249,10 @@ def test_init_is_seeded():
 
 
 @pytest.mark.parametrize("change", [
-    dict(variant="region_mem"), dict(text_family="clip"),
+    dict(object_tower=object()), dict(text_family="clip"),
     dict(video=dict(pipeline_stages=2)), dict(video=dict(sequence_parallel=True)),
-    dict(video=dict(region_tap_layer=1)),
-    dict(video=dict(fused_mlp=False)), dict(variant="global_local"),
+    dict(projection="mlp"),
+    dict(video=dict(fused_mlp=False)), dict(variant="global_local", text_family="bert"),
     dict(text_family="bert"),
 ])
 def test_unported_options_raise(change):

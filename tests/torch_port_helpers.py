@@ -4,6 +4,7 @@ and oatx params go through oatx (JAX, CPU) and the port (PyTorch, CPU)."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,8 @@ from oatx.models import distilbert as jdb
 from oatx.models import towers as jtowers
 from oatx.models import vit_spacetime as jvst
 from oatx.train import step as jstep
+from oatx_torch.data.datasets.base import ObjectAwareDataset
+from oatx_torch.data.sampling import sample_frames
 from oatx_torch.models import distilbert as pdb
 from oatx_torch.models import towers as ptowers
 from oatx_torch.models import vit_spacetime as pvst
@@ -127,26 +130,119 @@ def oatx_loss_grads(params, jcfg, batch):
 
 
 # ------------------------------------------------------------ trainer data
-class MemoryClips:
+OBJECT_SLOTS = 8     # the offline extractor's grid (ObjectOptions.extraction_frames)
+OBJECT_VLEN = 16     # source-video length the clip's frame indices are drawn from
+
+
+def write_object_npz(path: str, rng: np.random.Generator, n_boxes: int,
+                     image_w: float = 320.0, image_h: float = 240.0) -> None:
+    """A BUTD-layout npz (oatx/data/objects.py:59-88): x (n, 2048) features,
+    bbox (n, 4) pixel boxes inside the image, info with objects_id in
+    [0, 1600), objects_conf and the image size."""
+    x1 = rng.uniform(0, image_w * 0.8, n_boxes)
+    y1 = rng.uniform(0, image_h * 0.8, n_boxes)
+    x2 = np.minimum(x1 + rng.uniform(4, image_w * 0.6, n_boxes), image_w)
+    y2 = np.minimum(y1 + rng.uniform(4, image_h * 0.6, n_boxes), image_h)
+    info = {"objects_id": rng.integers(0, 1600, n_boxes),
+            "objects_conf": rng.uniform(0.1, 1.0, n_boxes).astype(np.float32),
+            "image_w": image_w, "image_h": image_h}
+    np.savez(path, x=rng.standard_normal((n_boxes, 2048)).astype(np.float32),
+             bbox=np.stack([x1, y1, x2, y2], axis=1).astype(np.float32), info=info)
+
+
+class MemoryClips(ObjectAwareDataset):
     """A map-style dataset held in memory: n seeded uint8 clips (n, F, canon,
     canon, 3) and a distinct caption each. `get_sample(i, rng)` is the
     loaders' interface; with `roll`, the sample's generator also shifts the
-    clip's frames, so a test sees that each sample gets its own generator."""
+    clip's frames, so a test sees that each sample gets its own generator.
+
+    With `object_dir`, each clip also gets a seeded 1-frame object frame and
+    one BUTD npz per extraction slot under object_dir/clip{i}/{slot}.npz
+    (clip i has (7·i) mod 23 boxes: empty and short lists included; clip 1
+    misses its slot-0 file), and samples carry the extras `object_options`
+    selects, through the port's `_add_object_extras` after the clip's frame
+    indices are drawn from a 16-frame source (`sample_frames`)."""
 
     dataset_name = "MemoryClips"
 
     def __init__(self, n: int = 16, frames: int = 2, canon: int = 32, seed: int = 0,
-                 roll: bool = False):
+                 roll: bool = False, object_dir: str = None, object_options=None,
+                 object_vocab=None):
+        super().__init__(object_options, object_vocab)
         rng = np.random.default_rng(seed)
         self.videos = rng.integers(0, 256, (n, frames, canon, canon, 3), dtype=np.uint8)
         self.captions = [f"clip {i} shows thing{i} and more{i % 3}" for i in range(n)]
         self.roll = roll
+        self.object_dir = object_dir
+        if object_dir is not None:
+            self.object_frames = rng.integers(0, 256, (n, 1, canon, canon, 3), dtype=np.uint8)
+            for i in range(n):
+                os.makedirs(os.path.join(object_dir, f"clip{i}"), exist_ok=True)
+                for slot in range(OBJECT_SLOTS):
+                    if (i, slot) != (1, 0):
+                        write_object_npz(self._get_object_path(i, slot), rng, (7 * i) % 23)
 
     def __len__(self) -> int:
         return len(self.captions)
 
-    def get_sample(self, i: int, rng: np.random.Generator):
+    def _get_object_path(self, rec, frame_index: int = 0) -> str:
+        return os.path.join(self.object_dir, f"clip{rec}", f"{frame_index}.npz")
+
+    def _decode_object_frame(self, rec, frame_index: int) -> np.ndarray:
+        return self.object_frames[rec]
+
+    def base_sample(self, i: int, rng: np.random.Generator):
         video = self.videos[i]
         if self.roll:
             video = np.roll(video, int(rng.integers(0, video.shape[0])), axis=0)
         return {"video": video, "text": self.captions[i], "meta": {"index": i}}
+
+    def get_sample(self, i: int, rng: np.random.Generator):
+        sample = self.base_sample(i, rng)
+        if self.object_dir is not None:
+            idxs = sample_frames(self.videos.shape[1], OBJECT_VLEN, rng=rng)
+            self._add_object_extras(sample, i, idxs, OBJECT_VLEN, rng)
+        return sample
+
+
+class OatxMemoryClips:
+    """The same clips and object files with oatx's object extras: oatx's
+    `TextVideoDataset._add_object_extras` (and its frame sampler) on a bare
+    instance, the object frame served by `decode_indices`, which the caller
+    patches with `patch_oatx_decode`."""
+
+    dataset_name = "MemoryClips"
+
+    def __init__(self, clips: MemoryClips, object_options):
+        from oatx.data.datasets.base import TextVideoDataset
+
+        self.clips = clips
+        ds = object.__new__(TextVideoDataset)
+        ds.opts = object_options
+        ds.object_vocab = clips.object_vocab
+        ds.canon = clips.videos.shape[2]
+        ds._get_object_path = clips._get_object_path
+        ds._get_video_path = lambda rec: (f"memory:{rec}", f"memory:{rec}")
+        self.ds = ds
+
+    def __len__(self) -> int:
+        return len(self.clips)
+
+    def get_sample(self, i: int, rng: np.random.Generator):
+        from oatx.data.sampling import sample_frames as jsample_frames
+
+        sample = self.clips.base_sample(i, rng)
+        idxs = jsample_frames(self.clips.videos.shape[1], OBJECT_VLEN, rng=rng)
+        self.ds._add_object_extras(sample, i, idxs, OBJECT_VLEN, rng)
+        return sample
+
+
+def patch_oatx_decode(monkeypatch, clips: MemoryClips) -> None:
+    """oatx's object-frame decode (`video_reader.decode_indices`) serves
+    `clips`' object frames for the paths OatxMemoryClips names."""
+    from oatx.data.datasets import base as jbase
+
+    def decode(path, indices, short_side=0):
+        return clips.object_frames[int(path.split(":")[1])]
+
+    monkeypatch.setattr(jbase.vr, "decode_indices", decode)
