@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
-                          [--only-trainer] [--only-objects]
+                          [--only-trainer] [--only-objects] [--only-data]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -18,7 +18,7 @@ backward takes the plain backward, as that tree did), at each shape of
 SA_SHAPES. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
-phase 6 (no record, no `ok` line).
+phase 6, --only-data phase 7 (no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -104,6 +104,28 @@ printed):
      loop gives device busy by group and the idle share). Step ms, clips/s,
      MFU (object_flops_per_clip_step), peak memory, each loss term's first
      and last value and t2v / v2t R@1 per validation are printed per recipe.
+  7. data — the file-backed data plane and the two CLIs, in a temp dir. The
+     port's writer (seeded apart, 8 threads) writes a WebVid layout (TSVs,
+     DATA_CLIPS train / val MJPEG clips at 320×240, 64 frames, under the
+     adapter's `.mp4` names), a CC3M layout (DATA_STILLS JPEG stills at
+     400×300) and an MSR-VTT layout (MSR_VTT.json, the jsfusion lists and
+     caption index, DATA_MSRVTT clips). The decode rate: ms per clip of
+     probe + 4-frame decode at short side 256 on one thread and on the
+     loader's num_workers threads. Then `oatx_torch.cli.train.main` on a copy
+     of norm.json pointed at the corpora, both loaders strict (a file that
+     fails to decode raises), trainer cut to TRAINER_EPOCHS
+     epochs of DATA_CYCLES cycles (a CC3M 1-frame step and a WebVid 4-frame
+     step each) with a checkpoint per epoch, full width, bf16, batch 16:
+     every loss term finite, each loader's loss falling, vocab.txt and
+     checkpoint-epoch2 written, launches as want_launches derives,
+     input_wait, step ms per loader (the intervals ending at its steps),
+     clips/s and MFU over a cycle of both, peak memory, and a CUDA-only
+     trace of the last CC3M and WebVid steps (device busy, idle share,
+     device ms by group) printed. Then `oatx_torch.cli.test.main` on
+     zsl/normal.json from that checkpoint with --sliding_window_stride
+     DATA_WINDOW_STRIDE: the windows ensemble to one row per video, the
+     embeddings and t2v / v2t metrics are finite (R@1 printed, not
+     checked), 12 launches of kernels 1 and 2 per video-tower forward.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -2018,6 +2040,325 @@ def trainer_phase(smi, dev):
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
+# -------------------------------------------------------------------- data
+DATA_CLIPS = (64, 16)       # WebVid train / val clips (tools/bench_train_e2e.py's geometry)
+DATA_CLIP_SIZE = (320, 240, 64)
+DATA_STILLS = (64, 16)      # CC3M train / val JPEG stills
+DATA_STILL_SIZE = (400, 300)
+DATA_MSRVTT = 32            # MSR-VTT test clips (jsfusion cut)
+DATA_MSRVTT_FRAMES = 32
+DATA_CYCLES = 4             # cycles (one CC3M + one WebVid step) per epoch
+DATA_WINDOW_STRIDE = 2
+DATA_DECODE_PASSES = 2      # passes over the WebVid train clips per decode-rate reading
+
+
+def data_caption(kind, i):
+    """Six words no other caption shares (as MemoryClips' captions)."""
+    return " ".join(f"{w}{kind}{i}" for w in WORDS)
+
+
+def write_corpora(root):
+    """The WebVid, CC3M and MSR-VTT layouts the adapters read (oatx's adapter
+    tests' layouts), each clip / still seeded apart (fixture_seeded), written
+    by the port's writer on 8 threads. MJPEG-in-AVI content sits under the
+    adapters' `.mp4` names. → seconds spent."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+
+    from oatx_torch.data import video_reader as vr
+
+    jobs = []
+    w, h, nf = DATA_CLIP_SIZE
+    web = os.path.join(root, "webvid")
+    for split, n, tsv, base in (("train", DATA_CLIPS[0], "webvid_training_success_full.tsv", 1),
+                                ("val", DATA_CLIPS[1], "webvid_validation_success_full.tsv",
+                                 1000)):
+        os.makedirs(os.path.join(web, split), exist_ok=True)
+        os.makedirs(os.path.join(web, "meta_data"), exist_ok=True)
+        rows = ["caption\tvideoid"]
+        for i in range(n):
+            vid = str(base + i)
+            rows.append(f"{data_caption('w', base + i)}\t{vid}")
+            jobs.append((vr.write_test_video, (os.path.join(web, split, vid + ".mp4"), w, h, nf, 8,
+                                              base + i)))
+        with open(os.path.join(web, "meta_data", tsv), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    cc = os.path.join(root, "cc3m")
+    sw, shh = DATA_STILL_SIZE
+    for split, sub, n, tsv, base in (("train", "training", DATA_STILLS[0],
+                                      "cc3m_training_success_full.tsv", 2000),
+                                     ("val", "validation", DATA_STILLS[1],
+                                      "cc3m_validation_success_full.tsv", 3000)):
+        os.makedirs(os.path.join(cc, sub), exist_ok=True)
+        os.makedirs(os.path.join(cc, "meta_data"), exist_ok=True)
+        rows = ["caption\tfile"]
+        for i in range(n):
+            rows.append(f"{data_caption('c', base + i)}\timg{base + i}.jpg")
+            jobs.append((vr.write_test_image, (os.path.join(cc, sub, f"img{base + i}.jpg"), sw, shh,
+                                              base + i)))
+        with open(os.path.join(cc, "meta_data", tsv), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    ms = os.path.join(root, "msrvtt")
+    sdir = os.path.join(ms, "high-quality", "structured-symlinks")
+    os.makedirs(sdir, exist_ok=True)
+    os.makedirs(os.path.join(ms, "annotation"), exist_ok=True)
+    os.makedirs(os.path.join(ms, "videos", "all"), exist_ok=True)
+    vids = [f"video{i}" for i in range(DATA_MSRVTT)]
+    anns = [{"image_id": v, "caption": data_caption(f"m{c}x", i)}
+            for i, v in enumerate(vids) for c in range(3)]
+    with open(os.path.join(ms, "annotation", "MSR_VTT.json"), "w") as f:
+        json.dump({"annotations": anns}, f)
+    with open(os.path.join(sdir, "train_list_jsfusion.txt"), "w") as f:
+        f.write("\n".join(vids[:4]) + "\n")
+    with open(os.path.join(sdir, "val_list_jsfusion.txt"), "w") as f:
+        f.write("\n".join(vids) + "\n")
+    with open(os.path.join(sdir, "jsfusion_val_caption_idx.pkl"), "wb") as f:
+        pickle.dump({v: i % 3 for i, v in enumerate(vids)}, f)
+    for i, v in enumerate(vids):
+        jobs.append((vr.write_test_video, (os.path.join(ms, "videos", "all", v + ".mp4"), w, h,
+                                          DATA_MSRVTT_FRAMES, 8, 4000 + i)))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        for fut in [pool.submit(fn, *args) for fn, args in jobs]:
+            fut.result()
+    return time.perf_counter() - t0, len(jobs)
+
+
+def decode_rate(root, workers):
+    """ms per clip of probe + 4-frame decode at short side 256 (read_frames,
+    the dataset's call) over the WebVid train clips, on one thread and on
+    `workers` threads (wall time over clips: the loader's throughput)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from oatx_torch.data import video_reader as vr
+
+    paths = sorted(os.path.join(root, "webvid", "train", p)
+                   for p in os.listdir(os.path.join(root, "webvid", "train")))
+    work = paths * DATA_DECODE_PASSES
+
+    def one(i_path):
+        i, p = i_path
+        frames, _, _ = vr.read_frames(p, 4, rng=np.random.default_rng(i), short_side=256)
+        assert frames.shape == (4, 256, 340, 3), frames.shape
+
+    one((0, paths[0]))  # the build, outside the timing
+    t0 = time.perf_counter()
+    for item in enumerate(work):
+        one(item)
+    single = (time.perf_counter() - t0) / len(work) * 1e3
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(one, enumerate(work)))
+    multi = (time.perf_counter() - t0) / len(work) * 1e3
+    return {"clips": len(work), "ms_per_clip_1_thread": single,
+            f"ms_per_clip_{workers}_threads": multi, "clips_per_s": 1e3 / multi,
+            "threads": workers, "decoder": vr.native_version()}
+
+
+def mixed_flops_per_clip_step(cfg):
+    """A step's FLOPs per clip averaged over norm.json's alternation of a
+    1-frame CC3M batch and a 4-frame WebVid batch."""
+    one = dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, num_frames=1))
+    return (flops_per_clip_step(one) + flops_per_clip_step(cfg)) / 2
+
+
+@contextlib.contextmanager
+def recorded_trainers(out, trace_at=None):
+    """Every Trainer built inside gets a StepRecorder (appended to `out` with
+    the Trainer's history when train() returns), tracing PROFILED_STEPS
+    steps from `trace_at` on."""
+    from oatx_torch.train import trainer as trainer_mod
+
+    cls = trainer_mod.Trainer
+    init, train = cls.__init__, cls.train
+
+    def rec_init(self, *a, **k):
+        init(self, *a, **k)
+        depth = self.tower_cfg.video.depth
+        expect = [("ln_mlp_", depth), ("space_attention_kernel", depth),
+                  ("space_attention_bwd_kernel", depth)]
+        out.append({"trainer": self, "rec": StepRecorder(self, trace_at, expect)})
+
+    def rec_train(self):
+        hist = train(self)
+        next(r for r in out if r["trainer"] is self)["hist"] = hist
+        return hist
+
+    cls.__init__, cls.train = rec_init, rec_train
+    try:
+        yield
+    finally:
+        cls.__init__, cls.train = init, train
+
+
+def data_train(root, tmp, smi, dev):
+    """cli.train on norm.json over the written corpora (phase 7, step 2)."""
+    from oatx_torch.cli import train as cli_train
+
+    with open(NORM_CONFIG) as f:
+        raw = json.load(f)
+    for dl, name in zip(raw["data_loader"], ("cc3m", "webvid")):
+        dl["args"].update(data_dir=os.path.join(root, name), metadata_dir=os.path.join(root, name))
+        # strict: a file the decoder fails on raises instead of being replaced
+        dl["args"]["video_params"]["loading"] = "strict"
+    batch = raw["data_loader"][0]["args"]["batch_size"]
+    raw["trainer"].update(epochs=TRAINER_EPOCHS, save_period=1, verbosity=1,
+                          save_dir=os.path.join(tmp, "exps"),
+                          max_samples_per_epoch=DATA_CYCLES * batch * len(raw["data_loader"]))
+    cfg = os.path.join(tmp, "norm_data.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    made = []
+    held = fresh_peak(dev)
+    launches = {}
+    steps = TRAINER_EPOCHS * DATA_CYCLES * len(raw["data_loader"])
+    trace_at = steps - PROFILED_STEPS + 1  # the run's last CC3M and WebVid steps
+    t0 = time.perf_counter()
+    with recorded_trainers(made, trace_at), counted(launches):  # ---- the main path ----
+        rc = cli_train.main(["-c", cfg, "--no_timestamp"])
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if rc != 0 or len(made) != 1 or "hist" not in made[0]:
+        raise AssertionError(f"data train: cli.train returned {rc}, {len(made)} trainers")
+    tr, rec, hist = made[0]["trainer"], made[0]["rec"], made[0]["hist"]
+    depth = tr.tower_cfg.video.depth
+    val_forwards = sum(eval_forwards(1 + TRAINER_EPOCHS, len(l.dataset), l.batch_size)
+                       for l in tr.valid_loaders)
+    check_launches("data train", launches, want_launches(depth, steps, False,
+                                                         forwards=val_forwards))
+    save_dir = os.path.join(tmp, "exps", "models", raw["name"])
+    for name in ("vocab.txt", f"checkpoint-epoch{TRAINER_EPOCHS}"):
+        if not os.path.exists(os.path.join(save_dir, name)):
+            raise AssertionError(f"data train: {name} not written in {save_dir}")
+    losses = rec.loss_values()
+    per_loader = [losses[i::2] for i in range(2)]
+    terms = rec.term_values()
+    if not all(np.isfinite(v).all() for v in terms.values()):
+        raise AssertionError(f"data train: a loss term is not finite: {terms}")
+    for i, ls in enumerate(per_loader):
+        if not np.mean(ls[-2:]) < np.mean(ls[:2]):
+            raise AssertionError(f"data train: loader {i}'s loss does not fall: {ls}")
+    waits = [hist[e]["input_wait"] for e in sorted(hist)]
+    # the interval between the events of steps i - 1 and i times step i
+    # (1-based), which is loader (i - 1) % 2's; an epoch's first step and
+    # the traced steps are left out
+    per_epoch = DATA_CYCLES * len(raw["data_loader"])
+    torch.cuda.synchronize()
+    by_loader = [[], []]
+    for i in range(2, trace_at):
+        if (i - 1) % per_epoch:
+            by_loader[(i - 1) % 2].append(rec.events[i - 2].elapsed_time(rec.events[i - 1]))
+    cycle_ms = sum(float(np.median(b)) for b in by_loader)
+    flops = mixed_flops_per_clip_step(tr.tower_cfg)
+    out = {"config": "norm.json", "loaders": [l.dataset.dataset_name for l in tr.train_loaders],
+           "batch": batch, "steps": steps, "losses_cc3m": per_loader[0],
+           "losses_webvid": per_loader[1], "input_wait": waits,
+           "val_loss": [hist[e]["val_loss_0"] for e in sorted(hist)],
+           "t2v_R1": [hist[e]["val_0_t2v_R1"] for e in sorted(hist)],
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
+           "launches": launches,
+           "step_ms_cc3m": speed(by_loader[0], batch, flops),
+           "step_ms_webvid": speed(by_loader[1], batch, flops),
+           "cycle_ms": cycle_ms, "clips_per_s": 2 * batch / cycle_ms * 1e3,
+           "mfu": 2 * batch / cycle_ms * 1e3 * flops / PEAK_BF16_FLOPS,
+           "trace_cc3m_webvid": rec.trace}
+    for rec_ in (out["step_ms_cc3m"], out["step_ms_webvid"]):
+        del rec_["clips_per_s"], rec_["mfu"]  # per-loader speeds are not the run's
+    print(f"data train ({smi}): input_wait {waits}, step ms CC3M 1-frame "
+          f"{out['step_ms_cc3m']['step_ms']:.1f}, WebVid 4-frame "
+          f"{out['step_ms_webvid']['step_ms']:.1f}, clips/s {out['clips_per_s']:.1f}, idle "
+          f"share {rec.trace['idle_share']:.3f}, peak {peak:.2f} GiB: " + json.dumps(out),
+          flush=True)
+    del tr, made
+    return out, launches, os.path.join(save_dir, f"checkpoint-epoch{TRAINER_EPOCHS}")
+
+
+def data_test(root, tmp, smi, dev, ckpt):
+    """cli.test on zsl/normal.json with sliding windows over the MSR-VTT
+    corpus, from the trained checkpoint (phase 7, step 3)."""
+    from oatx_torch.cli import test as cli_test
+    from oatx_torch.config.schema import ExperimentCfg, build_tower_config
+    from oatx_torch.eval import retrieval_eval
+
+    with open(CONFIG) as f:  # configs/ft/msrvtt/zsl/normal.json
+        raw = json.load(f)
+    raw["data_loader"]["args"].update(data_dir=os.path.join(root, "msrvtt"))
+    cfg = os.path.join(tmp, "zsl_data.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    seen = {}
+    evaluate = retrieval_eval.evaluate
+
+    def keep(*a, **k):
+        seen["result"] = r = evaluate(*a, **k)
+        seen["loader"] = a[2]
+        return r
+
+    retrieval_eval.evaluate = keep
+    launches = {}
+    t0 = time.perf_counter()
+    try:
+        with counted(launches):  # ---- the main path, counted ----
+            rc = cli_test.main(["-c", cfg, "-r", ckpt,
+                                "--sliding_window_stride", str(DATA_WINDOW_STRIDE)])
+    finally:
+        retrieval_eval.evaluate = evaluate
+    wall_s = time.perf_counter() - t0
+    if rc != 0 or "result" not in seen:
+        raise AssertionError(f"data test: cli.test returned {rc}")
+    res, loader = seen["result"], seen["loader"]
+    rows = len(loader.dataset)
+    if res.video_embeds.shape[0] != DATA_MSRVTT or res.sims.shape != (DATA_MSRVTT, DATA_MSRVTT) \
+            or rows <= DATA_MSRVTT:
+        raise AssertionError(f"data test: {rows} window rows gave {res.video_embeds.shape[0]} "
+                             f"videos, sims {res.sims.shape}")
+    forwards = -(-rows // loader.batch_size) * -(-loader.batch_size // 8)
+    depth = build_tower_config(ExperimentCfg.from_dict(raw).arch).video.depth
+    check_launches("data test", launches, {"ln_mlp": forwards * depth,
+                                           "space_attention": forwards * depth,
+                                           "space_attention_bwd": 0, "ln_linear": 0})
+    if not (np.isfinite(res.text_embeds).all() and np.isfinite(res.video_embeds).all()):
+        raise AssertionError("data test: embeddings not finite")
+    for name, m in res.metrics.items():
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"data test: {name} not finite: {m}")
+    out = {"config": "zsl/normal.json", "videos": DATA_MSRVTT, "window_rows": rows,
+           "stride": DATA_WINDOW_STRIDE, "forwards": forwards, "launches": launches,
+           "t2v_R1": res.metrics["t2v_metrics"]["R1"],
+           "v2t_R1": res.metrics["v2t_metrics"]["R1"], "wall_s": wall_s}
+    print(f"data test ({smi}): " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def data_phase(smi, dev):
+    """The file-backed data plane and the CLIs (module docstring, phase 7)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "corpora")
+        t0 = time.perf_counter()
+        from oatx_torch.data import video_reader as vr
+
+        vr.native_version()  # the decoder's build (c++), timed apart
+        build_s = time.perf_counter() - t0
+        write_s, files = write_corpora(root)
+        rate = decode_rate(root, json.load(open(NORM_CONFIG))["data_loader"][1]["args"]
+                           ["num_workers"])
+        print(f"data corpora ({smi}): decoder built in {build_s:.1f} s; {files} files written "
+              f"in {write_s:.1f} s; decode rate: " + json.dumps(rate), flush=True)
+        train, l_train, ckpt = data_train(root, tmp, smi, dev)
+        test, l_test = data_test(root, tmp, smi, dev, ckpt)
+        print(f"data summary ({smi}): " + json.dumps({
+            "decode_ms_per_clip": [rate["ms_per_clip_1_thread"],
+                                   rate[f"ms_per_clip_{rate['threads']}_threads"]],
+            "input_wait": train["input_wait"],
+            "step_ms_cc3m_webvid": [train["step_ms_cc3m"]["step_ms"],
+                                    train["step_ms_webvid"]["step_ms"]],
+            "clips_per_s": train["clips_per_s"], "mfu": train["mfu"],
+            "idle_share": train["trace_cc3m_webvid"]["idle_share"],
+            "peak_mem_gib": train["peak_mem_gib"],
+            "t2v_R1": test["t2v_R1"], "phase_s": time.perf_counter() - t0}), flush=True)
+    return {name: l_train[name] + l_test[name] for name in l_train}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -2036,6 +2377,9 @@ def main() -> int:
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--only-objects", action="store_true",
                     help="build the kernels and run the objects phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-data", action="store_true",
+                    help="build the kernels and run the data phase alone (no record, "
                          "no ok line): the quick loop on that phase")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2068,6 +2412,10 @@ def main() -> int:
     if opts.only_objects:
         objects_phase(smi, dev)
         print("chip_smoke: --only-objects ran the objects phase alone", flush=True)
+        return 0
+    if opts.only_data:
+        data_phase(smi, dev)
+        print("chip_smoke: --only-data ran the data phase alone", flush=True)
         return 0
     parent = None
     if opts.parent_ln_linear:
@@ -2123,6 +2471,7 @@ def main() -> int:
     phases["train"] = train_phase(smi, dev)
     phases["trainer"] = trainer_phase(smi, dev)
     phases["objects"] = objects_phase(smi, dev)
+    phases["data"] = data_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",

@@ -1,4 +1,5 @@
-"""Shared CLI wiring: tokenizer resolution (port of oatx/cli/common.py:12-60)."""
+"""Shared CLI wiring: tokenizer resolution and the dataset captions it may
+build a vocab from (port of oatx/cli/common.py)."""
 
 from __future__ import annotations
 
@@ -51,3 +52,30 @@ def resolve_tokenizer(
     raise FileNotFoundError(
         "no tokenizer vocab: set config key tokenizer.vocab or make "
         "arch.text_params.model a directory containing vocab.txt")
+
+
+def dataset_captions(exp: ExperimentCfg, split: str = "train",
+                     limit: int = 200_000) -> List[str]:
+    """Captions of the configured datasets (the hermetic tokenizer corpus)."""
+    import logging
+
+    import numpy as np
+
+    from oatx_torch.data.factory import build_dataset
+
+    texts: List[str] = []
+    for dl in exp.data_loaders:
+        try:
+            ds = build_dataset(dl, "baseline", split)
+        except Exception as e:
+            logging.getLogger("oatx_torch").warning(
+                "dataset_captions: could not build %s (%s) — corpus may be partial; a "
+                "later 'no tokenizer vocab' error originates HERE", dl.dataset_name, e)
+            continue
+        rng = np.random.default_rng(0)
+        for rec in ds.metadata[: limit // max(1, len(exp.data_loaders))]:
+            try:
+                texts.append(ds._get_caption(rec, rng))
+            except (KeyError, IndexError, TypeError):  # a record without a caption
+                pass
+    return texts

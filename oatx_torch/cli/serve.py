@@ -42,7 +42,7 @@ from oatx_torch import resolve_device
 def build_service(argv, device=None):
     """Parse serve flags + the experiment config → (service, tokenizer,
     index or None, parsed flags). `device` overrides --device."""
-    from oatx_torch.cli.common import resolve_tokenizer
+    from oatx_torch.cli.common import dataset_captions, resolve_tokenizer
     from oatx_torch.config.parser import load_experiment
     from oatx_torch.config.schema import build_tower_config, precision_dtype
     from oatx_torch.models.convert import load_checkpoint
@@ -70,9 +70,9 @@ def build_service(argv, device=None):
     exp = load_experiment(rest, test=True)
     ckpt = str(exp.resume) if exp.resume else exp.cfg.arch.load_checkpoint
     search = [pathlib.Path(ckpt).parent] if ckpt else []
-    # the port reads no dataset captions yet: the hermetic vocab is oatx's
-    # fallback corpus; ship a vocab.txt (tokenizer.vocab) for real weights
-    tokenizer = resolve_tokenizer(exp.cfg, corpus=["a video"], search_dirs=search)
+    tokenizer = resolve_tokenizer(
+        exp.cfg, corpus=lambda: dataset_captions(exp.cfg) or ["a video"],
+        search_dirs=search)
     tower_cfg = build_tower_config(
         exp.cfg.arch, compute_dtype=precision_dtype(exp.cfg.trainer.precision))
     model = DualTower(tower_cfg, device=dev,

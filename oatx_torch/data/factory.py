@@ -1,15 +1,17 @@
-"""Config → object-aware data options (port of oatx/data/factory.py:22-58,
-60-72 and 91-97).
+"""Config → datasets and loaders (port of oatx/data/factory.py; the
+reference's dataset_loader / dataset_object_loader facades,
+data_loader/data_loader.py:11-240).
 
   * `object_options_for_variant` — the extras each variant's samples carry;
   * `load_object_vocab` — the BUTD class names, when the config names a file;
   * `load_region_bank` — region_mem's CLIP memory bank: a `.npy` when the
     config names one, else oatx's seeded (1600, dim) bank, bit for bit;
   * `tag_token_lens_for` — per-class tag token lengths for global_local's
-    collator, with oatx's `obj{cid}` fallback names.
-
-`build_dataset` and `build_loaders` need the file-backed datasets of the
-decode data plane and are not ported yet (ROADMAP A2).
+    collator, with oatx's `obj{cid}` fallback names;
+  * `build_dataset` — the registered adapter of a data_loader entry with
+    its variant's object options;
+  * `build_loaders` — one ShardedLoader + Collator per data_loader entry
+    (the trainer alternates them through MultiLoader).
 """
 
 from __future__ import annotations
@@ -19,10 +21,13 @@ from typing import List, Optional
 
 import numpy as np
 
+from oatx_torch.config.registry import DATASETS
 from oatx_torch.config.schema import DataLoaderCfg, ExperimentCfg
 from oatx_torch.data import objects as obj
+from oatx_torch.data.datasets import adapters as _adapters  # noqa: F401 (registers them)
 from oatx_torch.data.datasets.base import ObjectOptions
-from oatx_torch.data.loader import build_tag_token_lens
+from oatx_torch.data.loader import Collator, ShardedLoader, build_tag_token_lens
+from oatx_torch.data.tokenizer import WordPieceTokenizer
 
 
 def object_options_for_variant(variant: str, dl: DataLoaderCfg,
@@ -84,3 +89,32 @@ def tag_token_lens_for(ds, tokenizer) -> np.ndarray:
     names = ds.object_vocab[1:] if getattr(ds, "object_vocab", None) else [
         f"obj{i}" for i in range(1600)]
     return build_tag_token_lens(tokenizer, names)
+
+
+def build_dataset(dl: DataLoaderCfg, variant: str = "baseline", split: Optional[str] = None,
+                  region_bank: Optional[obj.RegionMemoryBank] = None,
+                  sliding_window_stride: int = -1, seed: int = 0):
+    cls = DATASETS.get(dl.dataset_name)
+    opts = object_options_for_variant(variant, dl, region_bank)
+    return cls(dl, split=split, object_options=opts, object_vocab=load_object_vocab(dl),
+               sliding_window_stride=sliding_window_stride, seed=seed)
+
+
+def build_loaders(exp: ExperimentCfg, tokenizer: WordPieceTokenizer,
+                  split: Optional[str] = None, seed: int = 0) -> List[ShardedLoader]:
+    """One loader per data_loader entry: shuffled, drop_last and echoed on
+    the train split, in order otherwise."""
+    region_bank = load_region_bank(exp)
+    loaders = []
+    tag_lens = None
+    for dl in exp.data_loaders:
+        ds = build_dataset(dl, exp.arch.variant, split, region_bank, seed=seed)
+        if exp.arch.variant == "global_local" and tag_lens is None:
+            tag_lens = tag_token_lens_for(ds, tokenizer)
+        collate = Collator(tokenizer, tag_token_lens=tag_lens)
+        train = (split or dl.split) == "train"
+        loaders.append(ShardedLoader(
+            ds, batch_size=dl.batch_size, collate=collate,
+            shuffle=dl.shuffle if train else False, drop_last=train,
+            num_workers=dl.num_workers, seed=seed, echo_factor=dl.echo_factor if train else 1))
+    return loaders

@@ -449,3 +449,55 @@ def test_variant_loss_through_the_kernels(card, variant, monkeypatch):
         assert got[n] is not None and bool(torch.isfinite(got[n]).all()), n
         err = float((got[n].float() - w.float()).norm())
         assert err <= 0.1 * float(w.float().norm()) + 0.02 * total, (n, err)
+
+
+# ------------------------------------------------------------- data plane
+
+@pytest.mark.cuda
+def test_decoder_builds_and_round_trips_its_writer(card, tmp_path):
+    """On the card's machine (no FFmpeg) the decoder builds from
+    oatx_torch/native/decode.cpp with the host compiler, and reads back its
+    writer's clip and still: probe, index order from the stamp, clamping,
+    and the pattern within JPEG's loss of the written planes."""
+    import subprocess
+
+    import numpy as np
+
+    from oatx_torch.data import video_reader as pvr
+
+    clip, still = str(tmp_path / "c.mp4"), str(tmp_path / "s.jpg")
+    pvr.write_test_video(clip, 320, 240, 16, 8, seed=3)
+    pvr.write_test_image(still, 400, 300, seed=3, frame_index=5)
+    ldd = subprocess.run(["ldd", str(pvr.library_path())], capture_output=True, text=True)
+    assert "libav" not in ldd.stdout and "libjpeg" not in ldd.stdout
+    assert pvr.probe(clip) == (16, 8.0, 320, 240)
+    assert pvr.probe(still) == (1, 25.0, 400, 300)
+    frames = pvr.decode_indices(clip, list(range(16)) + [99])
+    stamp = [float(f[2:6, 2:6, 1].mean()) for f in frames]
+    assert all(b - a > 3.0 for a, b in zip(stamp[:16], stamp[1:16]))
+    assert np.array_equal(frames[16], frames[15])
+    assert pvr.decode_indices(clip, [2], 256).shape == (1, 256, 340, 3)
+    s = pvr.decode_indices(still, [0])[0].astype(np.int32)
+    d = np.abs(s[:4, :4] - frames[5][:4, :4].astype(np.int32)).mean()  # frame 5's stamp
+    assert s.shape == (300, 400, 3) and d < 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cli", ["train", "test"])
+def test_cli_refuses_the_cpu_without_device_flag(card, cli, tmp_path, monkeypatch):
+    """Without a card and without --device cpu the entry points raise
+    (the card is hidden here); they never drop to the CPU on their own."""
+    import importlib
+    import json
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = os.path.join(here, "..", "configs", "smoke", "synthetic.json")
+    raw = json.load(open(cfg))
+    raw["trainer"]["save_dir"] = str(tmp_path / "exps")
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(raw))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        importlib.import_module(f"oatx_torch.cli.{cli}").main(["-c", str(path)])
+    assert not (tmp_path / "exps").exists()

@@ -258,13 +258,35 @@ def test_object_vocab_and_tag_token_lens_match_oatx(tmp_path):
 
 
 def test_object_frame_from_a_file_raises_until_the_decode_slice(tmp_path):
+    """The decode slice landed: a dataset without video files still raises
+    for an object frame; the file-backed TextVideoDataset decodes it (black
+    frames when the clip is missing, as oatx)."""
+    from oatx_torch.config.schema import DataLoaderCfg
+    from oatx_torch.data import video_reader as pvr
+    from oatx_torch.data.datasets.base import TextVideoDataset
+
     class FileBacked(ObjectAwareDataset):
         def _get_object_path(self, rec, frame_index=0):
             return str(tmp_path / "none.npz")
 
     ds = FileBacked(ObjectOptions(object_frame=True))
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="holds no video files"):
         ds._add_object_extras({"text": "t"}, 0, [0], 4, np.random.default_rng(0))
+
+    class Clips(TextVideoDataset):
+        def _load_metadata(self):
+            self.metadata = ["c0", "missing"]
+
+        def _get_video_path(self, rec):
+            return str(tmp_path / f"{rec}.avi"), f"{rec}.avi"
+
+    pvr.write_test_video(str(tmp_path / "c0.avi"), 96, 64, 8, 8, seed=2)
+    clips = Clips(DataLoaderCfg(data_dir=str(tmp_path)), canon=32)
+    frame = clips._decode_object_frame("c0", 3)
+    assert frame.shape == (1, 32, 32, 3)
+    np.testing.assert_array_equal(
+        frame, pvr.decode_indices(str(tmp_path / "c0.avi"), [3], 32)[:, :, 8:40])
+    assert not clips._decode_object_frame("missing", 0).any()
     sample = {"text": "t"}
     FileBacked(ObjectOptions())._add_object_extras(sample, 0, [0], 4, np.random.default_rng(0))
     assert sample == {"text": "t"}  # no extras asked for: nothing read

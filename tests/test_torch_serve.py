@@ -335,8 +335,9 @@ def test_cli_serves_oatx_checkpoint_like_oatx(tmp_path):
 
 def test_port_imports_no_jax_and_no_oatx():
     """A fresh interpreter (isolated: no site hooks) imports the serving,
-    train-step and trainer entry points without pulling in jax or the oatx
-    package."""
+    train-step, trainer, data-plane and CLI entry points without pulling in
+    jax or the oatx package, nor pandas, PIL or cv2 (the card's machine has
+    none of them)."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import oatx_torch.serve.embed_service, oatx_torch.cli.serve, "
             "oatx_torch.serve.retrieval_index, oatx_torch.models.convert, "
@@ -348,9 +349,45 @@ def test_port_imports_no_jax_and_no_oatx():
             "oatx_torch.data.transforms, oatx_torch.config.parser, "
             "oatx_torch.config.registry, oatx_torch.metrics.retrieval, "
             "oatx_torch.utils.logging, oatx_torch.utils.tb, oatx_torch.utils.tracking, "
-            "oatx_torch.utils.watchdog; "
+            "oatx_torch.utils.watchdog, oatx_torch.cli.train, oatx_torch.cli.test, "
+            "oatx_torch.cli.common, oatx_torch.data.datasets.adapters, "
+            "oatx_torch.data.factory, oatx_torch.data.video_reader, "
+            "oatx_torch.data.host_transforms, oatx_torch.eval.retrieval_eval; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench')); print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench', 'pandas', 'PIL', 'cv2')); "
+            "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-I", "-c", code, REPO], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_serve_vocab_from_dataset_captions_matches_oatx(tmp_path, monkeypatch):
+    """With no vocab file, both servers build their tokenizer from the
+    config's dataset captions (oatx/cli/serve.py:80): the same vocabulary."""
+    from oatx.serve import embed_service as jes_mod
+    from oatx_torch.serve import embed_service as pes_mod
+
+    class NoService:
+        def __init__(self, *a, **k):
+            pass
+
+        def warmup(self, *a, **k):
+            pass
+
+    monkeypatch.setattr(jes_mod, "EmbedService", NoService)
+    monkeypatch.setattr(pes_mod, "EmbedService", NoService)
+    with open(os.path.join(REPO, "configs", "smoke", "synthetic.json")) as f:
+        raw = json.load(f)
+    raw["data_loader"][0]["args"].update(data_dir=str(tmp_path / "videos"), object_dir="")
+    raw["data_loader"][0]["args"]["video_params"]["num_videos"] = 4
+    raw["arch"]["args"]["video_params"].update(embed_dim=32, depth=1, num_heads=2)
+    raw["arch"]["args"]["text_params"].update(dim=32, hidden_dim=64, n_layers=1, n_heads=2)
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps(raw))
+    vocab = {}
+    for name, build, kw in (("oatx", jserve.build_service, {}),
+                            ("port", pserve.build_service, {"device": "cpu"})):
+        _, tok, _, _ = build(["-c", str(cfg)], **kw)
+        vocab[name] = tok.save_vocab(str(tmp_path / f"{name}.txt"))
+    got, want = (open(vocab[n]).read() for n in ("port", "oatx"))
+    assert got == want and "scene" in got.split()

@@ -246,3 +246,58 @@ def patch_oatx_decode(monkeypatch, clips: MemoryClips) -> None:
         return clips.object_frames[int(path.split(":")[1])]
 
     monkeypatch.setattr(jbase.vr, "decode_indices", decode)
+
+
+class OatxBackedHandle:
+    """The port's `VideoHandle` interface served by oatx's FFmpeg reader:
+    patched in (`patch_port_decode`), the port's datasets decode exactly
+    the frames oatx's do, so their samples compare exactly. oatx's
+    DecodeError becomes the port's, which the port's lax loading catches."""
+
+    def __init__(self, path: str):
+        from oatx.data import video_reader as jvr
+        from oatx_torch.data import video_reader as pvr
+
+        self._err = pvr.DecodeError
+        try:
+            self._h = jvr.VideoHandle(path)
+        except jvr.DecodeError as e:
+            raise pvr.DecodeError(str(e)) from e
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._h.close()
+
+    def info(self):
+        return self._h.info()
+
+    def out_size(self, short_side: int = 0):
+        return self._h.out_size(short_side)
+
+    def decode(self, indices, short_side: int = 0):
+        from oatx.data import video_reader as jvr
+
+        try:
+            return self._h.decode(indices, short_side)
+        except jvr.DecodeError as e:
+            raise self._err(str(e)) from e
+
+
+def pil_decode_jpeg_bytes(data: bytes) -> np.ndarray:
+    """What oatx's tar path decodes a member with (PIL, native size)."""
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"), np.uint8)
+
+
+def patch_port_decode(monkeypatch) -> None:
+    """The port's reader serves oatx's decoded frames (files through oatx's
+    FFmpeg reader, tar members through PIL, as oatx's tar path does)."""
+    from oatx_torch.data import video_reader as pvr
+
+    monkeypatch.setattr(pvr, "VideoHandle", OatxBackedHandle)
+    monkeypatch.setattr(pvr, "decode_jpeg_bytes", pil_decode_jpeg_bytes)
