@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
+                          [--only-towers]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -18,7 +19,8 @@ backward takes the plain backward, as that tree did), at each shape of
 SA_SHAPES. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
-phase 6, --only-data phase 7 (no record, no `ok` line).
+phase 6, --only-data phase 7, --only-towers phase 8 (no record, no `ok`
+line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -126,6 +128,37 @@ printed):
      DATA_WINDOW_STRIDE: the windows ensemble to one row per video, the
      embeddings and t2v / v2t metrics are finite (R@1 printed, not
      checked), 12 launches of kernels 1 and 2 per video-tower forward.
+  8. towers — every tower a config can name, through the entry points, at
+     full width, bf16, batch 16, random weights from seed 0; each run's
+     launches are counted around it and must equal want_launches, and its
+     step ms (untraced steps), clips/s, MFU by each stream's FLOPs at its
+     own shape (towers_flops_per_clip_step; train/flops.py's count beside
+     it where its formula applies) and peak memory are printed:
+     (1) stream 3: norm.json with arch.stream 3 and object_nce_weight
+     STREAM3_NCE_WEIGHT through Trainer.train() over the trainer phase's 32
+     clips with BUTD npz files (object_corpus; the loader's input_objects,
+     top_k STREAM3_TOP_K), TRAINER_EPOCHS epochs of TOWERS_LEN_EPOCH steps:
+     loss and loss_object finite and falling, every object-tower tensor
+     moved, a 2-step trace at the end (device ms by group, idle share), then
+     retrieval_eval.evaluate over the same clips with their features (o2v /
+     o2t finite, R@1 printed); the same run at weight 0 must leave
+     object_tower.* and obj_proj.* bitwise unchanged after every step;
+     (2) BERT: norm.json with bert-base-uncased (12 × 768) through
+     Trainer.train(), the same epochs: loss falling, a 2-step trace;
+     (3) CLIP text: oatx_torch.cli.train on norm.json with CLIP_TEXT_MODEL
+     (12 × 512, 8 heads, context 77, the byte-level BPE learned from the
+     captions) over phase 7's corpora, 1 epoch of TOWERS_CLIP_CYCLES
+     cycles: clip_bpe.txt.gz beside the checkpoint, the loss falling; then
+     oatx_torch.cli.test on zsl/normal.json with the same text model from
+     that checkpoint: the tokenizer it resolves is that file (the same ids
+     for the same captions), finite metrics;
+     (4) the region bank: oatx_torch.cli.build_region_memory --backend clip
+     on the card over REGION_CLASSES names (random init, synthetic merges):
+     a finite (1600, 512) float32 bank labelled random-init; then
+     region_mem.json as shipped with region_memory_path at that file, 1
+     epoch of TOWERS_LEN_EPOCH steps over the 32 clips with object extras:
+     the dataset serves the file's rows, every loss term (the region BCE
+     too) finite, launches with backward_depths (12, 6).
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -2162,6 +2195,27 @@ def mixed_flops_per_clip_step(cfg):
     return (flops_per_clip_step(one) + flops_per_clip_step(cfg)) / 2
 
 
+def cycle_speed(rec, trace_at, per_epoch, batch, flops):
+    """Speeds of a run that alternates a 1-frame CC3M and a 4-frame WebVid
+    loader (`flops`: per clip, averaged over the cycle). The interval
+    between the events of steps i - 1 and i times step i (1-based), which
+    is loader (i - 1) % 2's; an epoch's first step and the traced steps
+    (from `trace_at` on) are left out. Per-loader speeds carry no clips/s
+    or MFU: those are the cycle's."""
+    torch.cuda.synchronize()
+    by_loader = [[], []]
+    for i in range(2, trace_at):
+        if (i - 1) % per_epoch:
+            by_loader[(i - 1) % 2].append(rec.events[i - 2].elapsed_time(rec.events[i - 1]))
+    cycle_ms = sum(float(np.median(b)) for b in by_loader)
+    per = [speed(b, batch, flops) for b in by_loader]
+    for r in per:
+        del r["clips_per_s"], r["mfu"]
+    return {"step_ms_cc3m": per[0], "step_ms_webvid": per[1], "cycle_ms": cycle_ms,
+            "clips_per_s": 2 * batch / cycle_ms * 1e3,
+            "mfu": 2 * batch / cycle_ms * 1e3 * flops / PEAK_BF16_FLOPS}
+
+
 @contextlib.contextmanager
 def recorded_trainers(out, trace_at=None):
     """Every Trainer built inside gets a StepRecorder (appended to `out` with
@@ -2239,17 +2293,6 @@ def data_train(root, tmp, smi, dev):
         if not np.mean(ls[-2:]) < np.mean(ls[:2]):
             raise AssertionError(f"data train: loader {i}'s loss does not fall: {ls}")
     waits = [hist[e]["input_wait"] for e in sorted(hist)]
-    # the interval between the events of steps i - 1 and i times step i
-    # (1-based), which is loader (i - 1) % 2's; an epoch's first step and
-    # the traced steps are left out
-    per_epoch = DATA_CYCLES * len(raw["data_loader"])
-    torch.cuda.synchronize()
-    by_loader = [[], []]
-    for i in range(2, trace_at):
-        if (i - 1) % per_epoch:
-            by_loader[(i - 1) % 2].append(rec.events[i - 2].elapsed_time(rec.events[i - 1]))
-    cycle_ms = sum(float(np.median(b)) for b in by_loader)
-    flops = mixed_flops_per_clip_step(tr.tower_cfg)
     out = {"config": "norm.json", "loaders": [l.dataset.dataset_name for l in tr.train_loaders],
            "batch": batch, "steps": steps, "losses_cc3m": per_loader[0],
            "losses_webvid": per_loader[1], "input_wait": waits,
@@ -2257,13 +2300,9 @@ def data_train(root, tmp, smi, dev):
            "t2v_R1": [hist[e]["val_0_t2v_R1"] for e in sorted(hist)],
            "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
            "launches": launches,
-           "step_ms_cc3m": speed(by_loader[0], batch, flops),
-           "step_ms_webvid": speed(by_loader[1], batch, flops),
-           "cycle_ms": cycle_ms, "clips_per_s": 2 * batch / cycle_ms * 1e3,
-           "mfu": 2 * batch / cycle_ms * 1e3 * flops / PEAK_BF16_FLOPS,
+           **cycle_speed(rec, trace_at, DATA_CYCLES * len(raw["data_loader"]), batch,
+                         mixed_flops_per_clip_step(tr.tower_cfg)),
            "trace_cc3m_webvid": rec.trace}
-    for rec_ in (out["step_ms_cc3m"], out["step_ms_webvid"]):
-        del rec_["clips_per_s"], rec_["mfu"]  # per-loader speeds are not the run's
     print(f"data train ({smi}): input_wait {waits}, step ms CC3M 1-frame "
           f"{out['step_ms_cc3m']['step_ms']:.1f}, WebVid 4-frame "
           f"{out['step_ms_webvid']['step_ms']:.1f}, clips/s {out['clips_per_s']:.1f}, idle "
@@ -2359,6 +2398,454 @@ def data_phase(smi, dev):
     return {name: l_train[name] + l_test[name] for name in l_train}
 
 
+# ------------------------------------------------------------------ towers
+TOWERS_LEN_EPOCH = 4        # steps per epoch of phase 8's Trainer runs (2 epochs; region 1)
+TOWERS_CLIP_CYCLES = 4      # cli.train cycles (a CC3M and a WebVid step) of the CLIP run, 1 epoch
+STREAM3_NCE_WEIGHT = 0.5    # oatx's tests/test_object_tower.py:177; no shipped config sets one
+STREAM3_TOP_K = 10
+CLIP_TEXT_MODEL = "openai/clip-vit-base-patch32"  # a clip* name: CLIP ViT-B's text tower
+REGION_CLASSES = 1600       # BUTD classes after __background__
+TOWER_EXPECT = (("ln_mlp_", 12), ("space_attention_kernel", 12),
+                ("space_attention_bwd_kernel", 12))  # one 12-block stream per traced step
+
+
+def text_flops(tcfg, family, seq_len):
+    """Matmul FLOPs of one caption's text-tower forward at `seq_len` tokens,
+    txt_proj (→ 256) included: (distil)bert as train/flops.py counts its
+    text part (bert adds its pooler); CLIP text with its 4·W MLP and the EOT
+    row's text_projection."""
+    if family == "clip":
+        w, e = tcfg.width, tcfg.embed_dim
+        block = 8 * seq_len * w * w + 16 * seq_len * w * w + 4 * seq_len * seq_len * w
+        return tcfg.layers * block + 2 * w * e + 2 * e * 256
+    d = tcfg.dim
+    block = 8 * seq_len * d * d + 4 * seq_len * d * tcfg.hidden_dim + 4 * seq_len * seq_len * d
+    return tcfg.n_layers * block + (2 * d * d if family == "bert" else 0) + 2 * d * 256
+
+
+def object_flops(ocfg, slots):
+    """Matmul FLOPs of the object tower's forward over `slots` objects, its
+    embedding, attention pooling and obj_proj (→ 256) included."""
+    d = ocfg.dim
+    block = 8 * slots * d * d + 4 * slots * d * ocfg.hidden_dim + 4 * slots * slots * d
+    return 2 * slots * ocfg.feature_dim * d + ocfg.n_layers * block + 4 * slots * d + 2 * d * 256
+
+
+def towers_flops_per_clip_step(cfg, seq_len, slots=0):
+    """3× the forward of one clip at each stream's own shape: the video tower
+    (train/flops.py's video part), the text tower at `seq_len`, and the
+    object tower over `slots` objects when the loss runs it."""
+    import types
+
+    from oatx_torch.train.flops import flops_forward_per_clip
+
+    video = flops_forward_per_clip(cfg.video, types.SimpleNamespace(dim=0, hidden_dim=0,
+                                                                    n_layers=0), 0)
+    obj = object_flops(cfg.object_tower, slots) if slots else 0.0
+    return 3.0 * (video + text_flops(cfg.text, cfg.text_family, seq_len) + obj)
+
+
+def tower_speed(rec, per_epoch, batch, cfg, seq_len, slots=0):
+    """`speed` by the per-stream count over the run's untraced steps, with
+    train/flops.py's count beside it where its formula applies (a text
+    config with dim / hidden_dim / n_layers; it counts no object tower)."""
+    flops = towers_flops_per_clip_step(cfg, seq_len, slots)
+    ms = rec.step_ms(per_epoch)
+    if rec.trace_at is not None:  # the traced steps close the run
+        ms = ms[:-PROFILED_STEPS]
+    out = {**speed(ms, batch, flops), "flops_per_clip_step": flops}
+    old = flops_per_clip_step(cfg) if hasattr(cfg.text, "dim") else None
+    out["flops_py_per_clip_step"] = old
+    out["mfu_flops_py"] = out["mfu"] * old / flops if old else None
+    return out
+
+
+def norm_raw(**trainer):
+    """norm.json as a dict, its trainer keys set for phase 8 (no init_val,
+    no monitor, no checkpoint)."""
+    with open(NORM_CONFIG) as f:
+        raw = json.load(f)
+    raw["trainer"].update(init_val=False, monitor="off", verbosity=1, **trainer)
+    return raw
+
+
+class FrozenCheck:
+    """Wraps a Trainer's train_step: after every step each tensor named under
+    `roots` must equal its value before the run, bitwise."""
+
+    def __init__(self, trainer, roots):
+        self.step, self.roots, self.steps = trainer.train_step, roots, 0
+        self.before = {n: p.detach().clone() for n, p in trainer.state.model.named_parameters()
+                       if n.startswith(roots)}
+        trainer.train_step = self
+
+    def __call__(self, state, batch):
+        state, m = self.step(state, batch)
+        moved = [n for n, p in state.model.named_parameters()
+                 if n in self.before and not torch.equal(p.detach(), self.before[n])]
+        if moved or len(self.before) == 0:
+            raise AssertionError(f"frozen {self.roots} changed at step {self.steps + 1}: "
+                                 f"{moved[:5]} of {len(self.before)}")
+        self.steps += 1
+        return state, m
+
+
+def stream3_run(weight, tmp, smi, dev, base):
+    """norm.json's towers with arch.stream 3 (object_nce_weight `weight`)
+    through Trainer.train() over the 32 clips with BUTD features (phase 8,
+    run 1); at weight 0 the object tower must stay bitwise frozen, at 0.5 it
+    must move, and retrieval_eval.evaluate reports its o2v / o2t streams."""
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data import factory
+    from oatx_torch.data.loader import Collator, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.eval import retrieval_eval
+    from oatx_torch.train.trainer import Trainer
+
+    raw = norm_raw(epochs=TRAINER_EPOCHS, len_epoch=TOWERS_LEN_EPOCH, save_period=100)
+    raw["arch"]["stream"] = 3
+    raw["arch"]["args"]["object_params"].update(input_objects=True, top_k=STREAM3_TOP_K)
+    raw["data_loader"][0]["args"]["object_params"] = {"input_objects": True,
+                                                      "top_k": STREAM3_TOP_K}
+    raw["loss"]["args"]["object_nce_weight"] = weight
+    exp = ExperimentCfg.from_dict(raw)
+    dl = exp.data_loaders[0]
+    batch = dl.batch_size
+    opts = factory.object_options_for_variant("baseline", dl)
+    if not (opts.features and opts.features_top_k == STREAM3_TOP_K):
+        raise AssertionError(f"stream 3: the loader's options serve no features: {opts}")
+    ds = object_corpus(base, os.path.join(tmp, "objects"), opts)
+    col = Collator(WordPieceTokenizer.build_from_corpus(ds.captions), max_text_len=TEXT_LEN)
+    tag = f"towers stream3 w{weight}@{batch}"
+    held = fresh_peak(dev)
+    tr = Trainer(exp, [ShardedLoader(ds, batch, col, seed=0, num_workers=4)],
+                 save_dir=os.path.join(tmp, f"stream3_{weight}"), device=dev)
+    cfg = tr.tower_cfg
+    model = tr.state.model
+    if cfg.object_tower is None or not hasattr(model, "object_tower"):
+        raise AssertionError(f"{tag}: no object tower built from arch.stream 3")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(("object_tower", "obj_proj"))}
+    frozen = FrozenCheck(tr, ("object_tower", "obj_proj")) if not weight else None
+    steps = TRAINER_EPOCHS * TOWERS_LEN_EPOCH
+    rec = StepRecorder(tr, trace_at=None if frozen else steps - PROFILED_STEPS + 1,
+                       expect=TOWER_EXPECT)
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    depth = cfg.video.depth
+    check_launches(tag, launches, want_launches(depth, steps, False))
+    terms = rec.term_values()
+    want_terms = ["loss", "loss_object"] if weight else ["loss"]
+    if sorted(terms) != want_terms or not all(np.isfinite(v).all() for v in terms.values()):
+        raise AssertionError(f"{tag}: loss terms {sorted(terms)} (want {want_terms}) or not "
+                             f"finite: {terms}")
+    for k, v in terms.items():
+        if not np.mean(v[-2:]) < np.mean(v[:2]):
+            raise AssertionError(f"{tag}: {k} does not fall: {v}")
+    moved = [n for n, p in model.named_parameters()
+             if n in before and not torch.equal(p.detach(), before[n])]
+    if weight and len(moved) != len(before):
+        raise AssertionError(f"{tag}: {len(before) - len(moved)} object-tower tensors did not "
+                             f"move")
+    if not weight and (moved or frozen.steps != steps):
+        raise AssertionError(f"{tag}: frozen tensors moved {moved[:5]}, or checked "
+                             f"{frozen.steps} of {steps} steps")
+    out = {"config": "norm.json + arch.stream 3", "object_nce_weight": weight, "batch": batch,
+           "slots": STREAM3_TOP_K, "terms_first_last": {k: [v[0], v[-1]] for k, v in terms.items()},
+           "losses": terms["loss"], "object_tensors": len(before),
+           "object_tensors_moved": len(moved), "train_wall_s": wall_s, "peak_mem_gib": peak,
+           "mem_held_gib": held, "launches": launches,
+           **tower_speed(rec, TOWERS_LEN_EPOCH, batch, cfg, TEXT_LEN,
+                         STREAM3_TOP_K if weight else 0)}
+    if frozen:
+        out["frozen_bitwise_steps"] = frozen.steps
+    else:
+        out.update(rec.trace)
+        # the o2v / o2t eval streams over the same clips with their features
+        valid = ShardedLoader(ds, batch, col, shuffle=False, drop_last=False, num_workers=4)
+        l_eval = {}
+        with counted(l_eval):  # ---- the main path, counted ----
+            res = retrieval_eval.evaluate(model, cfg, valid, exp.metrics, device=dev)
+        fwd = eval_forwards(1, len(ds), batch)
+        check_launches(f"{tag} evaluate", l_eval, want_launches(depth, 0, False, forwards=fwd))
+        if sorted(res.object_streams) != ["o2t", "o2v"] or res.object_embeds.shape != (
+                len(ds), cfg.projection_dim) or not np.isfinite(res.object_embeds).all():
+            raise AssertionError(f"{tag} evaluate: streams {sorted(res.object_streams)}, "
+                                 f"object embeds {res.object_embeds.shape}")
+        for s, ms in res.object_streams.items():
+            for name, m in ms.items():
+                if not all(np.isfinite(v) for v in m.values()):
+                    raise AssertionError(f"{tag} evaluate: {s} {name} not finite: {m}")
+        out["eval_R1"] = {f"{s}_{n.split('_')[0]}": ms[n]["R1"]
+                          for s, ms in res.object_streams.items() for n in ms}
+        out["eval_R1"].update(t2v=res.metrics["t2v_metrics"]["R1"])
+        launches = {k: launches[k] + l_eval[k] for k in launches}
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def bert_run(tmp, smi, dev, base):
+    """norm.json with BERT-base text (bert-base-uncased: 12 × 768, post-LN,
+    tanh pooler) through Trainer.train() (phase 8, run 2)."""
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.train.trainer import Trainer
+
+    raw = norm_raw(epochs=TRAINER_EPOCHS, len_epoch=TOWERS_LEN_EPOCH, save_period=100)
+    raw["arch"]["args"]["text_params"]["model"] = "bert-base-uncased"
+    exp = ExperimentCfg.from_dict(raw)
+    batch = exp.data_loaders[0].batch_size
+    train, _ = corpus_loaders(base, batch, with_valid=False)
+    tag = f"towers bert@{batch}"
+    held = fresh_peak(dev)
+    tr = Trainer(exp, train, save_dir=os.path.join(tmp, "bert"), device=dev)
+    cfg = tr.tower_cfg
+    t = cfg.text
+    if (cfg.text_family, t.dim, t.n_layers, t.n_heads, t.hidden_dim) != ("bert", 768, 12, 12,
+                                                                         3072):
+        raise AssertionError(f"{tag}: text tower {cfg.text_family} {t}")
+    steps = TRAINER_EPOCHS * TOWERS_LEN_EPOCH
+    rec = StepRecorder(tr, trace_at=steps - PROFILED_STEPS + 1, expect=TOWER_EXPECT)
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_launches(tag, launches, want_launches(cfg.video.depth, steps, False))
+    losses = rec.loss_values()
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"{tag}: loss not finite or not falling: {losses}")
+    out = {"config": "norm.json + bert-base-uncased", "batch": batch, "losses": losses,
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
+           "launches": launches, **tower_speed(rec, TOWERS_LEN_EPOCH, batch, cfg, TEXT_LEN),
+           **rec.trace}
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def clip_run(root, tmp, smi, dev):
+    """cli.train on norm.json with CLIP's text tower over the written corpora,
+    then cli.test on zsl/normal.json with the same text model from that
+    checkpoint (phase 8, run 3)."""
+    from oatx_torch.cli import test as cli_test
+    from oatx_torch.cli import train as cli_train
+    from oatx_torch.config.schema import ExperimentCfg, build_tower_config
+    from oatx_torch.data.clip_tokenizer import ClipBatchTokenizer
+    from oatx_torch.eval import retrieval_eval
+
+    raw = norm_raw()
+    raw["arch"]["args"]["text_params"]["model"] = CLIP_TEXT_MODEL
+    for dl, name in zip(raw["data_loader"], ("cc3m", "webvid")):
+        dl["args"].update(data_dir=os.path.join(root, name), metadata_dir=os.path.join(root, name))
+        dl["args"]["video_params"]["loading"] = "strict"
+    batch = raw["data_loader"][0]["args"]["batch_size"]
+    raw["trainer"].update(epochs=1, save_period=1, save_dir=os.path.join(tmp, "exps"),
+                          max_samples_per_epoch=TOWERS_CLIP_CYCLES * batch * 2)
+    cfg_path = os.path.join(tmp, "norm_clip.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    tag = f"towers clip train@{batch}"
+    made, launches = [], {}
+    steps = TOWERS_CLIP_CYCLES * 2
+    trace_at = steps - PROFILED_STEPS + 1  # the run's last CC3M and WebVid steps
+    held = fresh_peak(dev)
+    t0 = time.perf_counter()
+    with recorded_trainers(made, trace_at), counted(launches):
+        rc = cli_train.main(["-c", cfg_path, "--no_timestamp"])  # ---- the main path ----
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if rc != 0 or len(made) != 1 or "hist" not in made[0]:
+        raise AssertionError(f"{tag}: cli.train returned {rc}, {len(made)} trainers")
+    tr, rec = made[0]["trainer"], made[0]["rec"]
+    cfg = tr.tower_cfg
+    if (cfg.text_family, cfg.text.width, cfg.text.layers, cfg.text.heads,
+            cfg.text.context_length) != ("clip", 512, 12, 8, 77):
+        raise AssertionError(f"{tag}: text tower {cfg.text_family} {cfg.text}")
+    depth = cfg.video.depth
+    val_fwd = sum(eval_forwards(1, len(l.dataset), l.batch_size) for l in tr.valid_loaders)
+    check_launches(tag, launches, want_launches(depth, steps, False, forwards=val_fwd))
+    save_dir = os.path.join(tmp, "exps", "models", raw["name"])
+    bpe = os.path.join(save_dir, "clip_bpe.txt.gz")
+    ckpt = os.path.join(save_dir, "checkpoint-epoch1")
+    if not (os.path.exists(bpe) and os.path.exists(ckpt)):
+        raise AssertionError(f"{tag}: clip_bpe.txt.gz or checkpoint-epoch1 not in {save_dir}")
+    losses = rec.loss_values()
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"{tag}: loss not finite or not falling: {losses}")
+    train_tok = tr.train_loaders[0].collate.tokenizer
+    if not isinstance(train_tok, ClipBatchTokenizer):
+        raise AssertionError(f"{tag}: tokenizer {type(train_tok).__name__}")
+    cycle_flops = sum(towers_flops_per_clip_step(
+        dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, num_frames=f)), TEXT_LEN)
+        for f in (1, 4)) / 2  # a 1-frame CC3M and a 4-frame WebVid step
+    out = {"config": f"norm.json + {CLIP_TEXT_MODEL}", "batch": batch, "steps": steps,
+           "losses": losses, "merges": len(train_tok.tok.rank),
+           "vocab_size": train_tok.vocab_size, "train_wall_s": wall_s, "peak_mem_gib": peak,
+           "mem_held_gib": held, "launches": launches,
+           **cycle_speed(rec, trace_at, steps, batch, cycle_flops),
+           "flops_per_clip_step": cycle_flops, "flops_py_per_clip_step": None, **rec.trace}
+    del tr, made
+
+    # cli.test from that checkpoint: the persisted tokenizer, the metrics
+    with open(CONFIG) as f:  # configs/ft/msrvtt/zsl/normal.json
+        zraw = json.load(f)
+    zraw["data_loader"]["args"].update(data_dir=os.path.join(root, "msrvtt"))
+    zraw["arch"]["args"]["text_params"]["model"] = CLIP_TEXT_MODEL
+    zcfg = os.path.join(tmp, "zsl_clip.json")
+    with open(zcfg, "w") as f:
+        json.dump(zraw, f)
+    seen, evaluate = {}, retrieval_eval.evaluate
+
+    def keep(*a, **k):
+        seen["result"] = r = evaluate(*a, **k)
+        seen["loader"] = a[2]
+        return r
+
+    retrieval_eval.evaluate = keep
+    l_test = {}
+    try:
+        with counted(l_test):  # ---- the main path, counted ----
+            rc = cli_test.main(["-c", zcfg, "-r", ckpt])
+    finally:
+        retrieval_eval.evaluate = evaluate
+    if rc != 0 or "result" not in seen:
+        raise AssertionError(f"towers clip test: cli.test returned {rc}")
+    res, loader = seen["result"], seen["loader"]
+    test_tok = loader.collate.tokenizer
+    captions = [data_caption(f"m{c}x", i) for i in range(DATA_MSRVTT) for c in range(3)] + \
+        [data_caption("w", 1 + i) for i in range(DATA_CLIPS[0])]
+    same = (isinstance(test_tok, ClipBatchTokenizer) and test_tok.bpe_path == bpe
+            and np.array_equal(test_tok(captions, max_length=TEXT_LEN)["input_ids"],
+                               train_tok(captions, max_length=TEXT_LEN)["input_ids"]))
+    if not same:
+        raise AssertionError(f"towers clip test: cli.test did not resolve {bpe} "
+                             f"({type(test_tok).__name__}, {getattr(test_tok, 'bpe_path', None)})")
+    rows = len(loader.dataset)
+    forwards = -(-rows // loader.batch_size) * -(-loader.batch_size // 8)
+    zdepth = build_tower_config(ExperimentCfg.from_dict(zraw).arch).video.depth
+    check_launches("towers clip test", l_test, want_launches(zdepth, 0, False, forwards=forwards))
+    if not (np.isfinite(res.text_embeds).all() and np.isfinite(res.video_embeds).all()) or \
+            not all(np.isfinite(v) for m in res.metrics.values() for v in m.values()):
+        raise AssertionError(f"towers clip test: embeddings or metrics not finite: {res.metrics}")
+    out["test"] = {"config": f"zsl/normal.json + {CLIP_TEXT_MODEL}", "rows": rows,
+                   "forwards": forwards, "launches": l_test, "tokenizer": "clip_bpe.txt.gz",
+                   "t2v_R1": res.metrics["t2v_metrics"]["R1"],
+                   "v2t_R1": res.metrics["v2t_metrics"]["R1"]}
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    return out, {k: launches[k] + l_test[k] for k in launches}
+
+
+def region_run(tmp, smi, dev, base):
+    """cli.build_region_memory --backend clip on the card over 1600 class
+    names, then region_mem.json as shipped trained from that bank (phase 8,
+    run 4)."""
+    from oatx_torch.cli import build_region_memory
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data import factory
+    from oatx_torch.data.loader import Collator, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.train.trainer import Trainer
+
+    vocab, npy = os.path.join(tmp, "objects_vocab.txt"), os.path.join(tmp, "region_memory.npy")
+    with open(vocab, "w") as f:  # row 0, __background__, is implied by the format
+        f.write("".join(f"obj{i}\n" for i in range(REGION_CLASSES)))
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        rc = build_region_memory.main(["--vocab", vocab, "--out", npy, "--backend", "clip"])
+    build_s = time.perf_counter() - t0
+    bank = np.load(npy)
+    if rc != 0 or bank.shape != (REGION_CLASSES, 512) or bank.dtype != np.float32 or \
+            not np.isfinite(bank).all() or "(random init!)" not in said.getvalue():
+        raise AssertionError(f"towers region: the builder returned {rc}, {bank.shape} "
+                             f"{bank.dtype}: {said.getvalue()!r}")
+    distinct = int(np.unique(bank, axis=0).shape[0])
+
+    with open(OBJECT_CONFIGS["region_mem"]) as f:
+        raw = json.load(f)
+    raw["trainer"].update(epochs=1, len_epoch=TOWERS_LEN_EPOCH, save_period=100, init_val=False,
+                          monitor="off", verbosity=1)
+    raw["data_loader"][0]["args"]["object_params"]["region_memory_path"] = npy
+    exp = ExperimentCfg.from_dict(raw)
+    dl = exp.data_loaders[0]
+    batch = dl.batch_size
+    served = factory.load_region_bank(exp)
+    if not np.array_equal(served.embeddings, bank):
+        raise AssertionError("towers region: load_region_bank did not read the written bank")
+    ds = object_corpus(base, os.path.join(tmp, "objects"),
+                       factory.object_options_for_variant("region_mem", dl, served))
+    rows = {r.tobytes() for r in bank}
+    for i in range(4):
+        got = ds.get_sample(i, np.random.default_rng(i))["text_region_embedding"]
+        if not all(r.tobytes() in rows for r in np.asarray(got, np.float32)):
+            raise AssertionError(f"towers region: clip {i}'s region rows are not the file's")
+    col = Collator(WordPieceTokenizer.build_from_corpus(ds.captions), max_text_len=TEXT_LEN)
+    tag = f"towers region_mem@{batch}"
+    held = fresh_peak(dev)
+    tr = Trainer(exp, [ShardedLoader(ds, batch, col, seed=0, num_workers=4)],
+                 save_dir=os.path.join(tmp, "region"), device=dev)
+    cfg = tr.tower_cfg
+    depth = cfg.video.depth
+    rec = StepRecorder(tr)
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_launches(tag, launches, want_launches(
+        depth, TOWERS_LEN_EPOCH, False, backward_depths=(depth, cfg.video.region_tap_layer)))
+    terms = rec.term_values()
+    if "loss_region" not in terms or not all(np.isfinite(v).all() for v in terms.values()):
+        raise AssertionError(f"{tag}: region BCE missing or a term not finite: {terms}")
+    out = {"config": "region_mem.json + region_memory_path", "batch": batch,
+           "bank": list(bank.shape), "bank_distinct_rows": distinct,
+           "bank_rms": float(np.sqrt(np.mean(np.square(bank)))), "build_s": build_s,
+           "builder": said.getvalue().strip().split(" from ")[-1],
+           "terms_first_last": {k: [v[0], v[-1]] for k, v in terms.items()},
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
+           "launches": launches,
+           **speed(rec.step_ms(TOWERS_LEN_EPOCH), batch,
+                   object_flops_per_clip_step(cfg, col.max_pad_text_len))}
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def towers_phase(smi, dev):
+    """Every tower a config can name, through the entry points (module
+    docstring, phase 8)."""
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    t0 = time.perf_counter()
+    runs, launches = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for weight in (STREAM3_NCE_WEIGHT, 0.0):
+            runs[f"stream3_w{weight}"], more = stream3_run(weight, tmp, smi, dev, base)
+            launches.append(more)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["bert"], more = bert_run(tmp, smi, dev, base)
+        launches.append(more)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "corpora")
+        write_corpora(root)
+        runs["clip"], more = clip_run(root, tmp, smi, dev)
+        launches.append(more)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["region_mem"], more = region_run(tmp, smi, dev, base)
+        launches.append(more)
+    print(f"towers summary ({smi}): " + json.dumps({
+        **{name: {k: r.get(k) for k in ("step_ms", "cycle_ms", "step_ms_spread", "clips_per_s",
+                                        "mfu",
+                                        "mfu_flops_py", "device_busy_ms", "idle_share",
+                                        "device_ms_by_group", "peak_mem_gib")}
+           for name, r in runs.items()},
+        "phase_s": time.perf_counter() - t0}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -2380,6 +2867,9 @@ def main() -> int:
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--only-data", action="store_true",
                     help="build the kernels and run the data phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-towers", action="store_true",
+                    help="build the kernels and run the towers phase alone (no record, "
                          "no ok line): the quick loop on that phase")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2416,6 +2906,10 @@ def main() -> int:
     if opts.only_data:
         data_phase(smi, dev)
         print("chip_smoke: --only-data ran the data phase alone", flush=True)
+        return 0
+    if opts.only_towers:
+        towers_phase(smi, dev)
+        print("chip_smoke: --only-towers ran the towers phase alone", flush=True)
         return 0
     parent = None
     if opts.parent_ln_linear:
@@ -2472,6 +2966,7 @@ def main() -> int:
     phases["trainer"] = trainer_phase(smi, dev)
     phases["objects"] = objects_phase(smi, dev)
     phases["data"] = data_phase(smi, dev)
+    phases["towers"] = towers_phase(smi, dev)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",

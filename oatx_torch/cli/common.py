@@ -21,10 +21,17 @@ def resolve_tokenizer(
       3. a vocab.txt next to arch.text_params.model (HF-layout dir);
       4. hermetic fallback — a vocab built from `corpus` (deterministic).
     oatx also tries a locally cached HF tokenizer between 3 and 4; the port
-    reads vocab files only."""
-    if exp.arch.text_params.family != "distilbert":
-        raise NotImplementedError(
-            f"text family {exp.arch.text_params.family!r} is not ported yet")
+    reads vocab files only. bert uses this WordPiece path as distilbert
+    does; text family 'clip' resolves a CLIP byte-level BPE tokenizer
+    instead: clip_bpe.txt.gz in `search_dirs` → tokenizer.bpe /
+    $OATX_CLIP_BPE / assets → synthetic merges from the corpus
+    (data/clip_tokenizer.load_clip_batch_tokenizer)."""
+    if exp.arch.text_params.family == "clip":
+        from oatx_torch.data.clip_tokenizer import load_clip_batch_tokenizer
+
+        return load_clip_batch_tokenizer(search_dirs=search_dirs,
+                                         bpe_path=exp.raw.get("tokenizer", {}).get("bpe"),
+                                         corpus=corpus)
     for d in search_dirs or []:
         vp = os.path.join(str(d), "vocab.txt")
         if os.path.exists(vp):

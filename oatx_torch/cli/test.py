@@ -11,8 +11,9 @@ asked, and the t2v / v2t metrics printed, with multiple-choice accuracy for
 LSMDC_choice and the four streams of global_local. Runs on CUDA unless
 --device names another. Not in this slice, and refused before anything is
 built: region_mem's region-map export and the HTML retrieval gallery
-(ROADMAP A14, with A11's visualization); the object tower's streams (A6)
-raise in retrieval_eval.
+(ROADMAP A14, with A11's visualization). A stream-3 model also reports
+the o2v / o2t streams (metrics `o2v_t2v_metrics`, ...), as oatx's test.py
+does.
 """
 
 from __future__ import annotations
@@ -95,6 +96,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         else:
             logger.info("[%s] %s: %s", short, ds.dataset_name,
                         {k: round(float(v), 3) for k, v in m.items()})
+    for stream, ms in result.object_streams.items():  # stream 3: o2v / o2t
+        for name, m in ms.items():
+            logger.info(verbose(0, m, f"{ds.dataset_name}[{stream}]",
+                                name.replace("_metrics", "")))
+            result.metrics[f"{stream}_{name}"] = m
 
     if getattr(ds, "is_multiple_choice", False):
         mc = R.evaluate_multiple_choice(model, tower_cfg, loader, tokenizer, device=dev)

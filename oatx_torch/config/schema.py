@@ -351,13 +351,10 @@ def build_tower_config(arch: ArchCfg, compute_dtype: Optional[torch.dtype] = Non
 
     if arch.video_params.model != "SpaceTimeTransformer":
         raise NotImplementedError(f"video model {arch.video_params.model!r}")
-    if arch.text_params.family != "distilbert":
-        raise NotImplementedError(
-            f"text model family {arch.text_params.family!r} is not ported yet")
+    if arch.text_params.family not in ("distilbert", "bert", "clip"):
+        raise NotImplementedError(f"text model family {arch.text_params.family!r}")
     if arch.video_params.arch_config not in ARCH_TABLE:
         raise NotImplementedError(f"arch_config {arch.video_params.arch_config!r}")
-    if arch.object_params.model or arch.stream == 3:
-        raise NotImplementedError("the object tower is not ported yet")
     embed_dim, depth, heads, patch = ARCH_TABLE[arch.video_params.arch_config]
     vp = arch.video_params
     video = vst.SpaceTimeViTConfig(
@@ -375,13 +372,41 @@ def build_tower_config(arch: ArchCfg, compute_dtype: Optional[torch.dtype] = Non
            else {"split_cls_stream": vp.split_cls_stream}),
     )
     tp = arch.text_params
-    text = dbert.DistilBertConfig(
-        vocab_size=tp.vocab_size or 30522,
-        dim=tp.dim or 768,
-        hidden_dim=tp.hidden_dim or 3072,
-        n_layers=tp.n_layers or 6,
-        n_heads=tp.n_heads or 12,
-    )
+    if tp.family == "clip":
+        from oatx_torch.models.clip_text import ClipTextConfig
+
+        # dim → transformer width; the embedding output = width (CLIP ViT-B text)
+        text = ClipTextConfig(
+            vocab_size=tp.vocab_size or 49408,
+            width=tp.dim or 512,
+            heads=tp.n_heads or (tp.dim or 512) // 64,
+            layers=tp.n_layers or 12,
+            embed_dim=tp.dim or 512,
+        )
+    elif tp.family == "bert":
+        from oatx_torch.models.bert import BertConfig
+
+        text = BertConfig(
+            vocab_size=tp.vocab_size or 30522,
+            dim=tp.dim or 768,
+            hidden_dim=tp.hidden_dim or 3072,
+            n_layers=tp.n_layers or 12,
+            n_heads=tp.n_heads or 12,
+        )
+    else:
+        text = dbert.DistilBertConfig(
+            vocab_size=tp.vocab_size or 30522,
+            dim=tp.dim or 768,
+            hidden_dim=tp.hidden_dim or 3072,
+            n_layers=tp.n_layers or 6,
+            n_heads=tp.n_heads or 12,
+        )
+    object_tower = None
+    if arch.object_params.model or arch.stream == 3:
+        # the reference's stream-3 object branch, oatx's working tower
+        from oatx_torch.models.object_tower import ObjectTowerConfig
+
+        object_tower = ObjectTowerConfig(top_k=arch.object_params.top_k)
     return towers.TowerConfig(
         video=video,
         text=text,
@@ -390,4 +415,5 @@ def build_tower_config(arch: ArchCfg, compute_dtype: Optional[torch.dtype] = Non
         projection=arch.projection,
         variant=arch.variant,
         compute_dtype=torch.float32 if compute_dtype is None else compute_dtype,
+        object_tower=object_tower,
     )

@@ -8,9 +8,12 @@ the configured retrieval metrics; `evaluate_multiple_choice` scores
 candidate captions per clip (LSMDC_choice) and `evaluate_streams` the four
 text / clip / object-frame streams of the global_local variant.
 
-Not in this slice: the object tower's o2v / o2t streams (ROADMAP A6;
-`evaluate` raises when the model has an object tower) and the region-map
-export of region_mem (`export_region_maps`, ROADMAP A14).
+With an object tower (stream 3) and batches that carry 'object' features,
+`evaluate` also embeds them (`compute_object`), ensembles them over the same
+window groups, and reports the o2v (object ↔ video) and o2t (text ↔ object)
+streams when their rows match the videos' (oatx :90-159; the reference's
+test.py:287-291). Not in this slice: the region-map export of region_mem
+(`export_region_maps`, ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -79,26 +82,30 @@ def evaluate(model, tower_cfg, loader: ShardedLoader,
              metric_names: Sequence[str] = ("t2v_metrics", "v2t_metrics"),
              query_masks: Optional[np.ndarray] = None, chunk: Optional[int] = 8,
              device: DeviceLike = None) -> EvalResult:
-    if getattr(tower_cfg, "object_tower", None) is not None:
-        raise NotImplementedError("the object tower's eval streams are not ported yet "
-                                  "(ROADMAP A6)")
     dev = resolve_device(device)
     eval_step = steplib.make_eval_step(tower_cfg, chunk=_chunk_for(loader.batch_size, chunk),
                                        device=dev)
-    texts, vids, metas = [], [], []
+    with_objects = getattr(tower_cfg, "object_tower", None) is not None
+    texts, vids, objs, metas = [], [], [], []
     for batch, n_valid in device_prefetch(padded_batches(iter(loader), loader.batch_size),
                                           dev):
         meta = batch.pop("meta", [])
-        batch.pop("object", None)
+        obj_feats = batch.pop("object", None)
         out = eval_step(model, batch)
         texts.append(out["text_embeds"][:n_valid].float().cpu().numpy())
         vids.append(out["video_embeds"][:n_valid].float().cpu().numpy())
+        if with_objects and obj_feats is not None:
+            with torch.no_grad():
+                objs.append(model.compute_object(obj_feats)[:n_valid].cpu().numpy())
         metas.extend(meta[:n_valid])
     text_e = np.concatenate(texts)
     vid_e = np.concatenate(vids)
+    obj_e = np.concatenate(objs) if objs else None
 
     if metas and "window_group" in metas[0]:
         groups = np.asarray([m["window_group"] for m in metas])
+        if obj_e is not None:
+            _, obj_e = ensemble_windows(text_e, obj_e, groups)
         text_e, vid_e = ensemble_windows(text_e, vid_e, groups)
 
     if metas and "caption_group" in metas[0]:
@@ -121,7 +128,17 @@ def evaluate(model, tower_cfg, loader: ShardedLoader,
                 "metric %s needs query_masks (label matrix) — skipped", name)
         else:
             results[name] = fn(sims)
-    return EvalResult(text_e, vid_e, sims, results, metas)
+
+    # the object streams, on the per-row embeds (the full-cut protocol's
+    # caption rows do not match the videos' and get none)
+    object_streams: Dict[str, Dict[str, Dict[str, float]]] = {}
+    if obj_e is not None and obj_e.shape[0] == vid_e.shape[0]:
+        for stream, (a, b) in {"o2v": (obj_e, vid_e), "o2t": (text_e, obj_e)}.items():
+            s = _sims(a, b)
+            object_streams[stream] = {name: METRICS.get(name)(s) for name in metric_names
+                                      if name not in REQUIRES_QUERY_MASKS}
+    return EvalResult(text_e, vid_e, sims, results, metas, object_streams=object_streams,
+                      object_embeds=obj_e)
 
 
 @torch.no_grad()

@@ -13,10 +13,20 @@ chain) across through the same key map, so a JAX run can continue in the
 port: `AdamW.load_named_state(opt_state_from_optax(...))`.
 
 `load_checkpoint` reads a `.pth` in the {'state_dict', 'epoch'} format that
-oatx's `convert.export_torch_checkpoint` writes (and the reference saves).
-A checkpoint with another frame or patch count has its positional embeddings
-inflated to the model's (`inflate_state_dict`, what oatx's
-`spacetime_vit_overlay_torch` does at :131-139) before the strict load.
+oatx's `convert.export_torch_checkpoint` writes (and the reference saves),
+with any text family (:194-199, 363). A checkpoint with another frame or
+patch count has its positional embeddings inflated to the model's
+(`inflate_state_dict`, what oatx's `spacetime_vit_overlay_torch` does at
+:131-139) before the strict load. The reference schema has no object
+tower: a `.pth` without `object_tower.*` / `obj_proj.*` keys leaves the
+model's own (fresh) object tower in place. oatx's import drops the object
+tower from its params instead (`frozen_in_time_from_torch` returns only
+the towers and heads), and its stream-3 forward then fails on the missing
+subtree.
+
+`clip_text_from_torch` and `distilbert_from_torch` take an OpenAI CLIP or
+HF DistilBERT state_dict (bare or prefixed keys) to the port's tower
+(`cli/build_region_memory.py`'s `--clip-ckpt` / `--ckpt`).
 """
 
 from __future__ import annotations
@@ -56,11 +66,90 @@ def _ln(sd, key: str, p: Params) -> None:
     sd[f"{key}.bias"] = _np(p["bias"])
 
 
+def _distilbert_text(sd, t: Params) -> None:
+    """HF DistilBertModel keys under `text_model.` (oatx :229-252)."""
+    e = t["embeddings"]
+    sd["text_model.embeddings.word_embeddings.weight"] = _np(e["word"])
+    sd["text_model.embeddings.position_embeddings.weight"] = _np(e["position"])
+    _ln(sd, "text_model.embeddings.LayerNorm", e["ln"])
+    for i in range(np.asarray(t["layers"]["sa_ln"]["scale"]).shape[0]):
+        lp = _layer(t["layers"], i)
+        p = f"text_model.transformer.layer.{i}"
+        for src, dst in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"),
+                         ("out", "out_lin")):
+            _dense(sd, f"{p}.attention.{dst}", lp["attn"][src])
+        _ln(sd, f"{p}.sa_layer_norm", lp["sa_ln"])
+        _dense(sd, f"{p}.ffn.lin1", lp["ffn"]["lin1"])
+        _dense(sd, f"{p}.ffn.lin2", lp["ffn"]["lin2"])
+        _ln(sd, f"{p}.output_layer_norm", lp["out_ln"])
+
+
+def _bert_text(sd, t: Params) -> None:
+    """HF BertModel keys under `text_model.` (oatx :254-283)."""
+    e = t["embeddings"]
+    sd["text_model.embeddings.word_embeddings.weight"] = _np(e["word"])
+    sd["text_model.embeddings.position_embeddings.weight"] = _np(e["position"])
+    sd["text_model.embeddings.token_type_embeddings.weight"] = _np(e["token_type"])
+    _ln(sd, "text_model.embeddings.LayerNorm", e["ln"])
+    for i in range(np.asarray(t["layers"]["attn_ln"]["scale"]).shape[0]):
+        lp = _layer(t["layers"], i)
+        p = f"text_model.encoder.layer.{i}"
+        for src, dst in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                         ("v", "attention.self.value"), ("out", "attention.output.dense")):
+            _dense(sd, f"{p}.{dst}", lp["attn"][src])
+        _ln(sd, f"{p}.attention.output.LayerNorm", lp["attn_ln"])
+        _dense(sd, f"{p}.intermediate.dense", lp["intermediate"])
+        _dense(sd, f"{p}.output.dense", lp["output"])
+        _ln(sd, f"{p}.output.LayerNorm", lp["out_ln"])
+    _dense(sd, "text_model.pooler.dense", t["pooler"])
+
+
+def _clip_text(sd, t: Params, prefix: str = "text_model.") -> None:
+    """The vendored CLIP's text-side keys (oatx :286-312): the fused (D, 3D)
+    qkv kernel is torch MultiheadAttention's in_proj_weight (3D, D);
+    text_projection stays (D, E), used as x @ W."""
+    sd[f"{prefix}token_embedding.weight"] = _np(t["token_embedding"])
+    sd[f"{prefix}positional_embedding"] = _np(t["positional_embedding"])
+    for i in range(np.asarray(t["blocks"]["ln_1"]["scale"]).shape[0]):
+        bp = _layer(t["blocks"], i)
+        p = f"{prefix}transformer.resblocks.{i}"
+        _ln(sd, f"{p}.ln_1", bp["ln_1"])
+        _ln(sd, f"{p}.ln_2", bp["ln_2"])
+        sd[f"{p}.attn.in_proj_weight"] = _t_out(bp["attn"]["qkv"]["kernel"])
+        sd[f"{p}.attn.in_proj_bias"] = _np(bp["attn"]["qkv"]["bias"])
+        _dense(sd, f"{p}.attn.out_proj", bp["attn"]["out"])
+        _dense(sd, f"{p}.mlp.c_fc", bp["mlp"]["fc1"])
+        _dense(sd, f"{p}.mlp.c_proj", bp["mlp"]["fc2"])
+    _ln(sd, f"{prefix}ln_final", t["ln_final"])
+    sd[f"{prefix}text_projection"] = _np(t["text_projection"])
+
+
+def _object_tower(sd, o: Params) -> None:
+    """oatx's object-tower tree under the port's names (`object_tower.*`)."""
+    _dense(sd, "object_tower.embed", o["embed"])
+    _ln(sd, "object_tower.embed_norm", o["embed_norm"])
+    for i in range(np.asarray(o["layers"]["norm1"]["scale"]).shape[0]):
+        lp = _layer(o["layers"], i)
+        p = f"object_tower.layers.{i}"
+        _ln(sd, f"{p}.norm1", lp["norm1"])
+        _ln(sd, f"{p}.norm2", lp["norm2"])
+        _dense(sd, f"{p}.attn.qkv", lp["attn"]["qkv"])
+        _dense(sd, f"{p}.attn.proj", lp["attn"]["proj"])
+        _dense(sd, f"{p}.mlp.fc1", lp["mlp"]["fc1"])
+        _dense(sd, f"{p}.mlp.fc2", lp["mlp"]["fc2"])
+    _ln(sd, "object_tower.norm", o["norm"])
+    sd["object_tower.pool_query"] = _np(o["pool_query"])
+
+
+TEXT_EXPORTS = {"distilbert": _distilbert_text, "bert": _bert_text, "clip": _clip_text}
+
+
 def state_dict_from_oatx(params: Params, tower_cfg) -> Dict[str, torch.Tensor]:
-    """oatx dual-tower params (distilbert; any variant: `region_norm`,
-    `txt_proj_2`, `txt_local_proj` and `vid_local_proj` when present) → the
-    reference-schema state_dict the port loads (CPU f32 tensors)."""
-    if tower_cfg.text_family != "distilbert":
+    """oatx dual-tower params (any text family and variant: `region_norm`,
+    `txt_proj_2`, `txt_local_proj`, `vid_local_proj`, `object_tower` and
+    `obj_proj` when present) → the state_dict the port loads (CPU f32
+    tensors)."""
+    if tower_cfg.text_family not in TEXT_EXPORTS:
         raise NotImplementedError(f"text family {tower_cfg.text_family!r}")
     sd: Dict[str, np.ndarray] = {}
     v = params["video"]
@@ -83,28 +172,16 @@ def state_dict_from_oatx(params: Params, tower_cfg) -> Dict[str, torch.Tensor]:
         _dense(sd, f"{p}.mlp.fc1", bp["mlp"]["fc1"])
         _dense(sd, f"{p}.mlp.fc2", bp["mlp"]["fc2"])
 
-    t = params["text"]
-    e = t["embeddings"]
-    sd["text_model.embeddings.word_embeddings.weight"] = _np(e["word"])
-    sd["text_model.embeddings.position_embeddings.weight"] = _np(e["position"])
-    _ln(sd, "text_model.embeddings.LayerNorm", e["ln"])
-    for i in range(np.asarray(t["layers"]["sa_ln"]["scale"]).shape[0]):
-        lp = _layer(t["layers"], i)
-        p = f"text_model.transformer.layer.{i}"
-        for src, dst in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"),
-                         ("out", "out_lin")):
-            _dense(sd, f"{p}.attention.{dst}", lp["attn"][src])
-        _ln(sd, f"{p}.sa_layer_norm", lp["sa_ln"])
-        _dense(sd, f"{p}.ffn.lin1", lp["ffn"]["lin1"])
-        _dense(sd, f"{p}.ffn.lin2", lp["ffn"]["lin2"])
-        _ln(sd, f"{p}.output_layer_norm", lp["out_ln"])
+    TEXT_EXPORTS[tower_cfg.text_family](sd, params["text"])
+    if "object_tower" in params:
+        _object_tower(sd, params["object_tower"])
 
     # txt_proj = Sequential(ReLU, Linear) → index 1; vid_proj = Sequential(Linear);
     # the variant heads as oatx's converter names them (:375-384)
     for name, key in (("txt_proj", "txt_proj.1"), ("vid_proj", "vid_proj.0"),
                       ("txt_proj_2", "txt_proj_2.1"),
                       ("txt_local_proj", "text_local_proj.1"),
-                      ("vid_local_proj", "vid_local_proj.0")):
+                      ("vid_local_proj", "vid_local_proj.0"), ("obj_proj", "obj_proj")):
         if name in params:
             _dense(sd, key, params[name])
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}  # writable copies
@@ -155,13 +232,65 @@ def inflate_state_dict(sd: Dict[str, torch.Tensor], video_cfg,
     return out
 
 
-def load_checkpoint(model: nn.Module, path: str, temporal_fix: str = "zeros") -> nn.Module:
-    """Load a reference-format `.pth` ({'state_dict': ..., 'epoch': ...} or a
-    bare state_dict) into a DualTower with strict=True, its positional
-    embeddings inflated to the model's geometry first."""
+def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
+    """A `.pth`'s state_dict ({'state_dict': ...} or bare), without a
+    DataParallel `module.` prefix."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["state_dict"] if isinstance(ckpt, dict) and "state_dict" in ckpt else ckpt
-    sd = {k[len("module."):] if k.startswith("module.") else k: v  # DataParallel
-          for k, v in sd.items()}
-    model.load_state_dict(inflate_state_dict(sd, model.cfg.video, temporal_fix), strict=True)
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
+OBJECT_KEYS = ("object_tower.", "obj_proj.")
+
+
+def load_checkpoint(model: nn.Module, path: str, temporal_fix: str = "zeros") -> nn.Module:
+    """Load a reference-format `.pth` into a DualTower with strict=True, its
+    positional embeddings inflated to the model's geometry first; a model
+    with an object tower keeps its own when the file has none (module
+    docstring)."""
+    sd = inflate_state_dict(load_torch_state(path), model.cfg.video, temporal_fix)
+    if not any(k.startswith(OBJECT_KEYS) for k in sd):
+        sd.update({k: v for k, v in model.state_dict().items() if k.startswith(OBJECT_KEYS)})
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _strip_prefix(sd: Dict[str, Any], prefixes, probe: str) -> Dict[str, Any]:
+    """Keys under the first of `prefixes` whose `probe` key exists, with the
+    prefix taken off (oatx's converters accept bare and prefixed keys)."""
+    for pfx in prefixes:
+        if pfx + probe in sd:
+            return {k[len(pfx):]: v for k, v in sd.items() if k.startswith(pfx)}
+    return sd
+
+
+def clip_text_from_torch(sd: Dict[str, Any], device=None):
+    """An OpenAI / vendored-CLIP state_dict (full, text side only, or under
+    `text_model.`) → (ClipText, ClipTextConfig), the geometry inferred as
+    oatx's `clip_text_from_torch` infers it (:489-536): heads = width / 64."""
+    from oatx_torch.models import clip_text as ct
+
+    sd = _strip_prefix(sd, ("text_model.",), "token_embedding.weight")
+    n_layers = len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")})
+    width = int(sd["ln_final.weight"].shape[0])
+    cfg = ct.ClipTextConfig(vocab_size=int(sd["token_embedding.weight"].shape[0]),
+                            context_length=int(sd["positional_embedding"].shape[0]),
+                            width=width, heads=width // 64, layers=n_layers,
+                            embed_dim=int(sd["text_projection"].shape[1]))
+    model = ct.ClipText(cfg, device)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()
+                           if not k.startswith("visual.") and k in model.state_dict()},
+                          strict=True)
+    return model, cfg
+
+
+def distilbert_from_torch(sd: Dict[str, Any], cfg, device=None):
+    """An HF DistilBertModel state_dict (bare, `distilbert.` or
+    `text_model.` keys) → the port's DistilBert of `cfg`."""
+    from oatx_torch.models import distilbert as dbert
+
+    sd = _strip_prefix(sd, ("distilbert.", "text_model."), "embeddings.word_embeddings.weight")
+    model = dbert.DistilBert(cfg, device)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()
+                           if k in model.state_dict()}, strict=True)
     return model

@@ -16,10 +16,20 @@ oatx/models/towers.py:38-324): the `baseline` variant and the object-aware
            CLIP memory rows → txt_proj_2 (ReLU → Linear 512 → 256); region
            logits = text rows · object-frame region tokens
 
+The text tower by family (:70-117, 148-175): distilbert pools its CLS
+row; bert its tanh pooler (f32, cast to the compute dtype); clip (CLIP's
+text transformer) its EOT row @ text_projection, so txt_proj reads
+embed_dim features and `return_tokens` runs the tower again for the
+normalized per-token projections. global_local pools CLS + mean for the
+non-clip families, and clip with global_local raises, as in oatx (:84-90).
+With an object tower (`object_tower`, stream 3), `compute_object` maps
+(B, K, 2054) BUTD features through it and `obj_proj` (Linear, f32) into the
+shared space (:190-202).
+
 Module names follow the reference state_dict (`video_model.*`,
 `text_model.*`, `txt_proj.1`, `vid_proj.0`, `txt_proj_2.1`,
-`text_local_proj.1`, `vid_local_proj.0`). The other text families and the
-object tower are not ported yet and raise.
+`text_local_proj.1`, `vid_local_proj.0`); the object tower, which the
+reference lacks, is `object_tower.*` and `obj_proj`.
 """
 
 from __future__ import annotations
@@ -31,7 +41,10 @@ import torch
 import torch.nn as nn
 
 from oatx_torch import DeviceLike, resolve_device
+from oatx_torch.models import bert as bert_mod
+from oatx_torch.models import clip_text as ct
 from oatx_torch.models import distilbert as dbert
+from oatx_torch.models import object_tower as objt
 from oatx_torch.models import vit_spacetime as vst
 from oatx_torch.ops.layers import Linear
 
@@ -60,6 +73,12 @@ class TowerConfig:
 
 
 VARIANTS = ("baseline", "global_local", "region_mem")
+TEXT_TOWERS = {"distilbert": dbert.DistilBert, "bert": bert_mod.Bert, "clip": ct.ClipText}
+
+
+def text_out_dim(cfg: TowerConfig) -> int:
+    """Width of the pooled text feature txt_proj reads (oatx :70-75)."""
+    return cfg.text.embed_dim if cfg.text_family == "clip" else cfg.text.dim
 
 
 def tag_token_masks(text_lens: torch.Tensor, tag_end_offsets: torch.Tensor,
@@ -85,11 +104,13 @@ class DualTower(nn.Module):
         super().__init__()
         if cfg.variant not in VARIANTS:
             raise ValueError(f"unknown variant {cfg.variant!r}")
-        if cfg.text_family != "distilbert":
+        if cfg.text_family not in TEXT_TOWERS:
+            raise NotImplementedError(f"text family {cfg.text_family!r}")
+        if cfg.text_family == "clip" and cfg.variant == "global_local":
+            # global_local pools per-token hidden features in the text width;
+            # the CLIP tower pools through its projection
             raise NotImplementedError(
-                f"text family {cfg.text_family!r} is not ported yet")
-        if cfg.object_tower is not None:
-            raise NotImplementedError("the object tower is not ported yet")
+                "text_family='clip' supports variants 'baseline'/'region_mem'")
         if cfg.projection not in ("minimal", ""):
             raise NotImplementedError(f"projection {cfg.projection!r}")
         if cfg.variant != "baseline" and cfg.projection != "minimal":
@@ -100,10 +121,10 @@ class DualTower(nn.Module):
             generator = torch.Generator(device).manual_seed(0)
         self.cfg = cfg
         self.video_model = vst.SpaceTimeTransformer(cfg.video, device, generator)
-        self.text_model = dbert.DistilBert(cfg.text, device, generator)
+        self.text_model = TEXT_TOWERS[cfg.text_family](cfg.text, device, generator)
         if cfg.projection == "minimal":
             self.txt_proj = nn.Sequential(
-                nn.ReLU(), Linear(cfg.text.dim, cfg.projection_dim, device, generator))
+                nn.ReLU(), Linear(text_out_dim(cfg), cfg.projection_dim, device, generator))
             self.vid_proj = nn.Sequential(
                 Linear(cfg.video.embed_dim, cfg.projection_dim, device, generator))
         else:
@@ -117,6 +138,10 @@ class DualTower(nn.Module):
             self.txt_proj_2 = nn.Sequential(
                 nn.ReLU(), Linear(cfg.region_embed_dim, cfg.projection_dim, device,
                                   generator))
+        if cfg.object_tower is not None:
+            self.object_tower = objt.ObjectTower(cfg.object_tower, device, generator)
+            self.obj_proj = Linear(cfg.object_tower.dim, cfg.projection_dim, device,
+                                   generator)
 
     @property
     def device(self) -> torch.device:
@@ -128,9 +153,18 @@ class DualTower(nn.Module):
                      ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Token ids (B, L) → text embedding (B, projection_dim), f32; with
         return_tokens also the hidden states (B, L, dim) in the compute
-        dtype."""
-        hidden = self.text_model(input_ids, attention_mask, dtype=self.cfg.compute_dtype)
-        pooled = hidden[:, 0]
+        dtype (clip: the normalized per-token projections)."""
+        dt = self.cfg.compute_dtype
+        if self.cfg.text_family == "clip":
+            emb = self.txt_proj(self.text_model.encode_text(input_ids, dt).float())
+            return (emb, self.text_model.encode_text_tokens(input_ids, dt)) \
+                if return_tokens else emb
+        if self.cfg.text_family == "bert":
+            hidden, pooled = self.text_model(input_ids, attention_mask, dtype=dt)
+            pooled = pooled.to(dt)
+        else:
+            hidden = self.text_model(input_ids, attention_mask, dtype=dt)
+            pooled = hidden[:, 0]
         if self.cfg.variant == "global_local":
             pooled = hidden[:, 0] + hidden[:, 1:].mean(dim=1)
         emb = self.txt_proj(pooled.float())
@@ -143,6 +177,14 @@ class DualTower(nn.Module):
         out = self.video_model(video.to(self.cfg.compute_dtype))
         out["cls"] = self.vid_proj(out["cls"].float())
         return out
+
+    def compute_object(self, objects: torch.Tensor) -> torch.Tensor:
+        """BUTD features (B, K, 2054) → object embedding (B, projection_dim),
+        f32: the tower in the compute dtype, obj_proj in f32."""
+        if self.cfg.object_tower is None:
+            raise ValueError("object tower not configured")
+        pooled = self.object_tower(objects, dtype=self.cfg.compute_dtype)
+        return self.obj_proj(pooled.float())
 
     def forward_baseline(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(text_embeds, video_embeds)."""

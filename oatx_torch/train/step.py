@@ -8,7 +8,11 @@ the counterpart of oatx donating its state), and the step returns a new
 
     loss      oatx `loss_fn` per variant (:54-69, 143-178), each term also a
               metric:
-              baseline      NormSoftmax(sim(text, video)) (or max-margin)
+              baseline      NormSoftmax(sim(text, video)) (or max-margin);
+                            with an object tower, object_nce_weight > 0 and
+                            an 'object' batch key, + w·(pair(object, video)
+                            + pair(text, object)) (loss_object, :148-154),
+                            the object tower outside fwd_chunk's chunks
               global_local  pair(text, video) + pair(pad_text, video)
                             + fine-grained NormSoftmax(mean tags, mean regions)
                             (loss_st2sv, loss_lt2sv, loss_fine)
@@ -32,8 +36,7 @@ into the step's key). `make_eval_step` returns every `*_embeds` output of
 the variant's forward (:408-414).
 
 Not ported yet: `mesh`, `manual_axes` and `grad_reduce_dtype` (they need
-torch.distributed, ROADMAP A8) and the object NCE terms (the object tower,
-ROADMAP A6). Each raises.
+torch.distributed, ROADMAP A8). Each raises.
 """
 
 from __future__ import annotations
@@ -103,8 +106,6 @@ def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
     (DualTower.forward_*). `fwd_chunk`: the tower forwards run checkpointed
     on sub-batches of that size (B must divide by it), the loss over all
     B."""
-    if loss_cfg.object_nce_weight > 0:
-        raise NotImplementedError("object NCE terms: the object tower is not ported yet")
     if fwd_chunk:
         out = scan_chunked(lambda mb: ckpt.checkpoint(_outputs, model, mb, use_reentrant=False),
                            fwd_chunk)(batch)
@@ -112,7 +113,15 @@ def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
         out = _outputs(model, batch)
     variant = model.cfg.variant
     if variant == "baseline":
-        loss = _embed_pair_loss(out["text_embeds"], out["video_embeds"], loss_cfg)
+        text_e, video_e = out["text_embeds"], out["video_embeds"]
+        loss = _embed_pair_loss(text_e, video_e, loss_cfg)
+        if loss_cfg.object_nce_weight > 0 and model.cfg.object_tower is not None \
+                and "object" in batch:
+            obj_e = model.compute_object(batch["object"])
+            l_obj = (_embed_pair_loss(obj_e, video_e, loss_cfg)
+                     + _embed_pair_loss(text_e, obj_e, loss_cfg))
+            loss = loss + loss_cfg.object_nce_weight * l_obj
+            return loss, {"loss": loss.detach(), "loss_object": l_obj.detach()}
         return loss, {"loss": loss.detach()}
     if variant == "global_local":
         terms = {

@@ -16,7 +16,11 @@ parameters validated in their place; a torch.profiler window
 The model's variant comes from `arch.variant` (baseline, global_local or
 region_mem; oatx :638-690 validates each the same way): its batches carry
 the object extras (data/datasets/base.py), and global_local's collator needs
-`tag_token_lens` (data/factory.tag_token_lens_for). Validation embeds every
+`tag_token_lens` (data/factory.tag_token_lens_for). With an object tower
+(`arch.stream: 3`) it trains only under the baseline variant with
+`loss.args.object_nce_weight` > 0 and a train loader whose dataset serves
+object features; otherwise the optimizer leaves `object_tower` / `obj_proj`
+untouched (no update, no weight decay). Validation embeds every
 sample in chunks of 8 (`make_eval_step`), then takes the t2v / v2t metrics
 and NormSoftmax between the eval step's `text_embeds` and `video_embeds`
 over the full corpus similarity matrix.
@@ -122,10 +126,27 @@ class Trainer:
             exp.optimizer.lr, steps_per_epoch, t.epochs, kind=exp.optimizer.schedule,
             milestones=exp.optimizer.milestones, gamma=exp.optimizer.gamma,
             warmup_steps=exp.optimizer.warmup_steps, lr_min=exp.optimizer.lr_min)
+        tf = optimlib.linear_probe_filter if linear_eval else None
+        if self.tower_cfg.object_tower is not None:
+            # the object NCE terms fire only on batches that carry object
+            # features (step.loss_fn checks 'object'): the object tower
+            # trains only when the loss asks for it and a train loader
+            # supplies them, and is frozen otherwise, or AdamW's weight decay
+            # would erode its untrained weights (oatx :150-168)
+            object_in_data = any(
+                getattr(getattr(l, "dataset", None), "opts", None) is not None
+                and l.dataset.opts.features for l in train_loaders)
+            trains_object = (self.tower_cfg.variant == "baseline"
+                             and self.loss_cfg.object_nce_weight > 0 and object_in_data)
+            if self.loss_cfg.object_nce_weight > 0 and not object_in_data:
+                self.logger.warning(
+                    "loss.object_nce_weight > 0 but no train loader supplies object "
+                    "features (object_params.input_objects) — the object tower stays FROZEN")
+            if not trains_object:
+                tf = optimlib.exclude_subtrees(tf, ("object_tower", "obj_proj"))
         self.optimizer = optimlib.make_optimizer(
             lr=self.lr_schedule, weight_decay=exp.optimizer.weight_decay,
-            grad_clip=exp.optimizer.grad_clip,
-            trainable_filter=optimlib.linear_probe_filter if linear_eval else None,
+            grad_clip=exp.optimizer.grad_clip, trainable_filter=tf,
             ema_decay=t.ema_decay or None, kind=exp.optimizer.type)
 
         # fresh init → optional reference-checkpoint import → AdamW over it

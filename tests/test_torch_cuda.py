@@ -501,3 +501,116 @@ def test_cli_refuses_the_cpu_without_device_flag(card, cli, tmp_path, monkeypatc
     with pytest.raises(RuntimeError, match="CUDA"):
         importlib.import_module(f"oatx_torch.cli.{cli}").main(["-c", str(path)])
     assert not (tmp_path / "exps").exists()
+
+
+# ------------------------------------------------------------- the new towers
+
+def _small_tower(kind, device):
+    """BERT, CLIP text or the object tower at a small size, random from seed 0."""
+    from oatx_torch.models import bert as pbert
+    from oatx_torch.models import clip_text as pclip
+    from oatx_torch.models import object_tower as pobjt
+
+    g = torch.Generator(device).manual_seed(0)
+    if kind == "bert":
+        return pbert.Bert(pbert.BertConfig(vocab_size=100, dim=128, hidden_dim=256,
+                                           n_layers=2, n_heads=2), device, g)
+    if kind == "clip":
+        return pclip.ClipText(pclip.ClipTextConfig(vocab_size=100, width=128, heads=2,
+                                                   layers=2, embed_dim=64), device, g)
+    return pobjt.ObjectTower(pobjt.ObjectTowerConfig(dim=128, n_heads=2, hidden_dim=256),
+                             device, g)
+
+
+def _tower_inputs(kind, device):
+    g = torch.Generator("cpu").manual_seed(1)
+    if kind == "object":
+        x = torch.randn(4, 10, 2054, generator=g)
+        x[0, 6:] = 0.0  # padding slots
+        x[2] = 0.0      # a sample without objects
+        return (x.to(device),)
+    ids = torch.randint(1, 98, (4, 30), generator=g)
+    ids[:, 0], mask = 98, torch.ones(4, 30, dtype=torch.int32)
+    for i, n in enumerate((29, 12, 20, 5)):  # <|endoftext|> (the top id), zeros after
+        ids[i, n], ids[i, n + 1:], mask[i, n + 1:] = 99, 0, 0
+    return (ids.to(device),) if kind == "clip" else (ids.to(device), mask.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bert", "clip", "object"])
+def test_new_towers_on_the_card_match_the_cpu(card, kind):
+    """The BERT and CLIP text towers and the object tower in bf16 on the
+    card against the same module (same weights, same inputs) in f32 on the
+    CPU: within 5e-2 of the output's largest entry (bf16 through 2 layers)."""
+    cpu = _small_tower(kind, "cpu")
+    dev = _small_tower(kind, "cpu").to(card)
+    dev.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        if kind == "clip":
+            want = cpu.encode_text(*_tower_inputs(kind, "cpu"))
+            got = dev.encode_text(*_tower_inputs(kind, card), dtype=torch.bfloat16)
+        elif kind == "bert":  # every hidden row, then the pooler output
+            h, pooled = cpu(*_tower_inputs(kind, "cpu"))
+            want = torch.cat([h.reshape(-1, h.shape[-1]), pooled])
+            h, pooled = dev(*_tower_inputs(kind, card), dtype=torch.bfloat16)
+            assert pooled.dtype == torch.float32
+            got = torch.cat([h.float().reshape(-1, h.shape[-1]), pooled])
+        else:
+            want = cpu(*_tower_inputs(kind, "cpu"))
+            got = dev(*_tower_inputs(kind, card), dtype=torch.bfloat16)
+    assert got.dtype in (torch.bfloat16, torch.float32) and got.shape == want.shape
+    got = got.float().cpu()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max()), kind
+
+
+@pytest.mark.cuda
+def test_frozen_object_tower_is_bitwise_unchanged_on_the_card(card):
+    """AdamW steps with weight decay on the card, the object NCE terms on
+    (gradients reach the object tower) but `object_tower` / `obj_proj`
+    excluded from the optimizer, as the Trainer freezes them: those tensors
+    stay bitwise equal while the video blocks move."""
+    from oatx_torch.models import object_tower as pobjt
+
+    cfg = ptowers.TowerConfig(
+        video=pvst.SpaceTimeViTConfig(img_size=32, embed_dim=128, depth=2, num_heads=2,
+                                      num_frames=2, time_init="random"),
+        text=pdb.DistilBertConfig(vocab_size=100, dim=64, hidden_dim=128, n_layers=1,
+                                  n_heads=4),
+        projection_dim=32, compute_dtype=torch.bfloat16,
+        object_tower=pobjt.ObjectTowerConfig(dim=64, n_heads=2, hidden_dim=128))
+    frozen = ("object_tower", "obj_proj")
+    opt = poptim.make_optimizer(lr=1e-3, weight_decay=0.05,
+                                trainable_filter=poptim.exclude_subtrees(None, frozen))
+    state = pstep.init_state(cfg, opt, device=card, generator=torch.Generator(card).manual_seed(0))
+    step = pstep.make_train_step(cfg, pstep.LossConfig(object_nce_weight=0.5), device=card)
+    g = torch.Generator(card).manual_seed(2)
+    before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    for _ in range(3):
+        batch = {"video": torch.randn(4, 2, 32, 32, 3, device=card, generator=g),
+                 "input_ids": torch.randint(0, 100, (4, 5), device=card, generator=g),
+                 "object": torch.randn(4, 10, 2054, device=card, generator=g)}
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(metrics["loss_object"]))
+    for n, p in state.model.named_parameters():
+        if n.startswith(frozen):
+            assert p.grad is not None and bool(p.grad.abs().sum() > 0), n
+            assert torch.equal(p.detach(), before[n]), n
+        elif ".blocks." in n and n.endswith("weight"):
+            assert not torch.equal(p.detach(), before[n]), n
+
+
+@pytest.mark.cuda
+def test_build_region_memory_refuses_the_cpu_without_device_flag(card, tmp_path,
+                                                                  monkeypatch):
+    """cli.build_region_memory raises without a card and without --device
+    cpu (the card is hidden here), before it writes anything."""
+    from oatx_torch.cli import build_region_memory as pbrm
+
+    vocab = tmp_path / "objects_vocab.txt"
+    vocab.write_text("dog\ncat\n")  # __background__ is row 0 implicitly
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pbrm.main(["--vocab", str(vocab), "--out", str(tmp_path / "bank.npy")])
+    assert not (tmp_path / "bank.npy").exists()

@@ -27,6 +27,7 @@ from oatx_torch.data import transforms as ptr
 from oatx_torch.models import convert as pconvert
 from oatx_torch.models import towers as ptowers
 from oatx_torch.models import vit_spacetime as pvst
+from oatx_torch.models.bert import BertConfig
 from torch_port_helpers import oatx_cfg, oatx_params, port_cfg, port_model, t, \
     to_numpy
 
@@ -249,13 +250,17 @@ def test_init_is_seeded():
 
 
 @pytest.mark.parametrize("change", [
-    dict(object_tower=object()), dict(text_family="clip"),
+    dict(text_family="t5"), dict(text_family="clip", variant="global_local"),
     dict(video=dict(pipeline_stages=2)), dict(video=dict(sequence_parallel=True)),
     dict(projection="mlp"),
-    dict(video=dict(fused_mlp=False)), dict(variant="global_local", text_family="bert"),
-    dict(text_family="bert"),
+    dict(video=dict(fused_mlp=False)),
+    dict(text=dataclasses.replace(port_cfg().text, scan_layers=True)),
+    dict(text_family="bert", text=BertConfig(n_layers=1, scan_layers=True)),
 ])
 def test_unported_options_raise(change):
+    """Options the port does not run raise NotImplementedError (the object
+    tower and the bert and clip families are ported: tests/
+    test_torch_towers.py and test_torch_object_tower.py)."""
     cfg = port_cfg()
     if "video" in change:
         cfg = dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, **change["video"]))

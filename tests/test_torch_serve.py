@@ -335,8 +335,9 @@ def test_cli_serves_oatx_checkpoint_like_oatx(tmp_path):
 
 def test_port_imports_no_jax_and_no_oatx():
     """A fresh interpreter (isolated: no site hooks) imports the serving,
-    train-step, trainer, data-plane and CLI entry points without pulling in
-    jax or the oatx package, nor pandas, PIL or cv2 (the card's machine has
+    train-step, trainer, data-plane and CLI entry points, every tower and
+    the CLIP tokenizer without pulling in jax or the oatx package, nor
+    pandas, PIL, cv2, regex, ftfy or transformers (the card's machine has
     none of them)."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import oatx_torch.serve.embed_service, oatx_torch.cli.serve, "
@@ -352,9 +353,13 @@ def test_port_imports_no_jax_and_no_oatx():
             "oatx_torch.utils.watchdog, oatx_torch.cli.train, oatx_torch.cli.test, "
             "oatx_torch.cli.common, oatx_torch.data.datasets.adapters, "
             "oatx_torch.data.factory, oatx_torch.data.video_reader, "
-            "oatx_torch.data.host_transforms, oatx_torch.eval.retrieval_eval; "
+            "oatx_torch.data.host_transforms, oatx_torch.eval.retrieval_eval, "
+            "oatx_torch.models.bert, oatx_torch.models.clip_text, "
+            "oatx_torch.models.object_tower, oatx_torch.models.prompt_learner, "
+            "oatx_torch.data.clip_tokenizer, oatx_torch.cli.build_region_memory; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench', 'pandas', 'PIL', 'cv2')); "
+            "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench', 'pandas', 'PIL', 'cv2', "
+            "'regex', 'ftfy', 'transformers')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-I", "-c", code, REPO], capture_output=True,
                        text=True, timeout=300)

@@ -85,8 +85,7 @@ def test_unported_train_options_raise():
     # remat and fwd_chunk are ported (tests/test_torch_remat.py)
     remat = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video, remat=True))
     pstep.make_train_step(remat, pstep.LossConfig(), fwd_chunk=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pstep.loss_fn(None, pstep.LossConfig(object_nce_weight=1.0), {})
+    # the object NCE terms are ported (tests/test_torch_object_tower.py)
 
 
 def test_flops_copy_matches_bench():

@@ -154,10 +154,22 @@ def recipe_raw(variant):
 
 
 def test_object_tower_still_raises():
+    """Stream 3 on the global_local recipe builds oatx's object tower (the
+    Trainer then keeps it frozen: tests/test_torch_object_tower.py); what
+    still raises, as in oatx (towers.py:84-90), is the clip text family
+    under global_local."""
     raw = recipe_raw("global_local")
     raw["arch"]["stream"] = 3
-    with pytest.raises(NotImplementedError, match="object tower"):
-        pbuild(PExp.from_dict(raw).arch)
+    from oatx.config.schema import build_tower_config as jbuild
+
+    cfg = pbuild(PExp.from_dict(raw).arch)
+    jcfg = jbuild(JExp.from_dict(raw).arch)
+    assert dataclasses.asdict(cfg.object_tower) == dataclasses.asdict(jcfg.object_tower)
+    raw["arch"]["args"]["text_params"]["model"] = "openai/clip-vit-base-patch32"
+    small = dataclasses.replace(pbuild(PExp.from_dict(raw).arch), object_tower=None,
+                                video=dataclasses.replace(cfg.video, depth=1))
+    with pytest.raises(NotImplementedError, match="clip"):
+        ptowers.DualTower(small, device="cpu")
 
 
 # ------------------------------------------------------------------ masks

@@ -228,6 +228,11 @@ class OatxMemoryClips:
     def __len__(self) -> int:
         return len(self.clips)
 
+    @property
+    def opts(self):
+        """The object options (oatx's Trainer reads `dataset.opts.features`)."""
+        return self.ds.opts
+
     def get_sample(self, i: int, rng: np.random.Generator):
         from oatx.data.sampling import sample_frames as jsample_frames
 
