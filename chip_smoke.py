@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
-                          [--only-towers]
+                          [--only-towers] [--only-wide]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -13,14 +13,15 @@ tree's kernel (parent, this, this, parent), alone and under forward +
 backward, at the train step's shape. --parent-ln-mlp does the same for an
 earlier csrc/ln_mlp.cu with the one-kernel C interface (8 pointers, 4 ints,
 eps, stream), at each R of LN_MLP_ROWS. --parent-space-attention does it
-for an earlier csrc/space_attention.cu with the one-launch C interface
-(4 pointers, 12 strides, 4 ints, stream; no log-sum-exp, so its forward +
-backward takes the plain backward, as that tree did), at each shape of
-SA_SHAPES. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
+for an earlier csrc/space_attention.cu with the Dh-64 C interface that
+this tree keeps (space_attention_fwd_bf16 / space_attention_bwd_bf16,
+with log-sum-exp and the backward kernels), forward, backward and both,
+at each shape of SA_SHAPES, and holds its outputs bitwise against this
+tree's. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
-phase 6, --only-data phase 7, --only-towers phase 8 (no record, no `ok`
-line).
+phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9
+(no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -159,6 +160,30 @@ printed):
      epoch of TOWERS_LEN_EPOCH steps over the 32 clips with object extras:
      the dataset serves the file's rows, every loss term (the region BCE
      too) finite, launches with backward_depths (12, 6).
+  9. wide — the repo's two demanding configurations, ViT-L/16 (24 × 1024,
+     16 heads of 64) and ViT-H/14 (32 × 1280, 16 heads of 80, 257 keys a
+     frame group), full width and depth. First the kernels at their shapes
+     against the plain versions on the card: kernel 2's forward and backward
+     at (4 and 8, 1025, 16, 80) over 4 frames (the forward within
+     SPACE_ATTENTION_ATOL + 2^-7·|ref| + the flip allowance, the backward
+     by relative L2 and by grad_check) and at Dh 64 (B 4, T 785, 12 heads,
+     the serving record's shape), kernel 1 at WIDE_MLP and kernel 3 at WIDE_QKV, each with
+     ms (events and device), bound, plain ms and the library's (SDPA and its
+     backward; the cuBLAS chain). Then configs/pt/cc3m_webvid/
+     vit_large_pod.json (batch 16, remat off; 2 epochs of 4 steps) and
+     vit_huge_pod.json (batch 8 as 2 micro-batches of 4, remat dots_all; 6
+     steps) with `model_parallel` 1 (the only change: one card cannot hold
+     a model axis of 4) through Trainer.train() over the trainer phase's 32
+     4-frame clips, one loader (the recipes' CC3M loader is cut), init_val
+     and a validation each epoch, no checkpoints: every loss term finite
+     (the loss is printed, not checked: warm-up is 2500 steps), launches as
+     want_launches derives them with accum_steps, one step's gradients on a
+     fixed batch at full depth through the kernels against the plain
+     versions (grad_check over the tensors whose exact gradient is not 0)
+     and both against the same step in f32 (WIDE_F32_RATIO's note), step ms
+     (the untraced intervals), clips/s, MFU
+     (train/flops.py), peak memory, and from a CUDA-only trace of the last
+     2 steps the idle share and device ms by group.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -180,6 +205,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -245,6 +271,8 @@ LAT_ROUNDS = 3         # rounds per bucket: the p50's spread inside one call
 LAT_WARMUP = 5
 PROFILED_REQUESTS = 10
 TRACE_ATTEMPTS = 3     # traces of one measurement before lost records fail the run
+TRACE_PAD_LAUNCHES = 256  # throwaway launches at either end of a device trace
+TRACE_PAD_S = 0.05        # and the wait after them
 # device kernels by name, for the per-group breakdown of a video request
 KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_",)),
                  ("space_attention_bwd", ("space_attention_bwd", "space_attention_cls_bwd",
@@ -500,27 +528,30 @@ SA_GRAD_REL = 2e-2
 
 def load_parent_space_attention(path):
     """The library at `path`, built from an earlier csrc/space_attention.cu
-    with the one-launch C interface space_attention_fwd_bf16(q, k, v, o, 12
-    strides, B, T, H, F, stream), as a drop-in for space_attention's
-    `_launch` (it writes no log-sum-exp: the parent tree's backward is
-    autograd of the plain version)."""
+    with the Dh-64 C interface (space_attention_fwd_bf16: 6 pointers, 12
+    strides, B, T, H, F, split, stream; space_attention_bwd_bf16: 9
+    pointers, 15 strides, B, T, H, F, stream; Dh 64 only), set up to stand
+    in for this tree's library in space_attention's `_lib()`: its forward
+    and its backward kernels then run under this tree's wrapper."""
     lib = ctypes.CDLL(os.path.abspath(path))
-    f = lib.space_attention_fwd_bf16
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 + \
+    fwd, bwd = lib.space_attention_fwd_bf16, lib.space_attention_bwd_bf16
+    fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
-    f.restype = ctypes.c_int
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
 
-    def launch(q, k, v, num_frames, with_lse=False):
-        b, t, h, dh = q.shape
-        out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
-        strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
-        err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides, b, t, h,
-                num_frames, torch.cuda.current_stream(q.device).cuda_stream)
-        if err:
-            raise RuntimeError(f"parent space_attention: CUDA error {err}")
-        return out, None
+    def dh64(fn):
+        def call(*args):  # (..., head_dim, stream) -> (..., stream)
+            if args[-2] != 64:
+                raise ValueError(f"the parent space_attention takes Dh 64, got {args[-2]}")
+            return fn(*args[:-2], args[-1])
+        return call
 
-    return launch
+    return types.SimpleNamespace(
+        space_attention_fwd_bf16_hd=dh64(fwd), space_attention_bwd_bf16_hd=dh64(bwd),
+        max_tokens=lib.space_attention_max_tokens(),
+        oatx_cuda_error_string=lib.oatx_cuda_error_string)
 
 
 def space_attention_plain_vjp(q, k, v, dout, num_frames):
@@ -534,20 +565,18 @@ def space_attention_plain_vjp(q, k, v, dout, num_frames):
 
 @contextlib.contextmanager
 def space_attention_library(parent):
-    """space_attention's Function launches `parent`'s forward and takes the
-    parent tree's backward (autograd of the plain version) instead of its
-    own kernels (None: its own)."""
+    """space_attention's Function launches `parent`'s forward and backward
+    kernels (load_parent_space_attention) instead of its own (None: its
+    own)."""
     from oatx_torch.ops.kernels import space_attention as psa
 
-    saved = psa._launch, psa._launch_backward
+    saved = psa._lib
     if parent is not None:
-        psa._launch = parent
-        psa._launch_backward = lambda q, k, v, dout, lse, f: \
-            space_attention_plain_vjp(q, k, v, dout, f)
+        psa._lib = lambda: parent
     try:
         yield
     finally:
-        psa._launch, psa._launch_backward = saved
+        psa._lib = saved
 
 
 def _rel_l2(got, want):
@@ -652,6 +681,43 @@ def space_attention_tail(dev, parent=None):
             for name, u in used.items() if u}
 
 
+def sdpa_inputs(q, k, v, frames):
+    """Kernel 2's yardstick's inputs: SDPA over the (B·F, H, N, N + 1) frame
+    groups plus the CLS row over all T keys, gathered into its layout
+    beforehand (not timed)."""
+    b, t, h, dh = q.shape
+    n = (t - 1) // frames
+    qh, kh, vh = (a.permute(0, 2, 1, 3) for a in (q, k, v))  # (B, H, T, Dh)
+
+    def groups(a):
+        p = a[:, :, 1:].reshape(b, h, frames, n, dh).permute(0, 2, 1, 3, 4)
+        return p.reshape(b * frames, h, n, dh)
+
+    def with_cls(a):
+        c = a[:, :, :1].unsqueeze(1).expand(b, frames, h, 1, dh).reshape(b * frames, h, 1, dh)
+        return torch.cat([c, groups(a)], dim=2).contiguous()
+
+    return [groups(qh).contiguous(), with_cls(kh), with_cls(vh),
+            qh[:, :, :1].contiguous(), kh.contiguous(), vh.contiguous()]
+
+
+def sdpa(lib_in):
+    """The yardstick: one SDPA call over the frame groups, one over the CLS row."""
+    return (F.scaled_dot_product_attention(*lib_in[:3], scale=1.0),
+            F.scaled_dot_product_attention(*lib_in[3:], scale=1.0))
+
+
+def sdpa_backward_ms(lib_in):
+    """SDPA's backward: its forward + backward under autograd, minus its
+    forward, by CUDA events and by device busy time."""
+    leaves = [t.detach().requires_grad_() for t in lib_in]
+    douts = [o.detach().clone() for o in sdpa(lib_in)]
+    fb = lambda: torch.autograd.grad(sdpa(leaves), leaves, douts)  # noqa: E731
+    f = lambda: sdpa(leaves)  # noqa: E731
+    return {"library_ms": time_ms(fb) - time_ms(f),
+            "library_device_ms": device_trace(fb, 20)[0] - device_trace(f, 20)[0]}
+
+
 def sa_key(b, frames):
     """The `by_batch` key of a kernel 2 shape: B at 4 frames, "B_F1" at 1."""
     return b if frames == 4 else f"{b}_F{frames}"
@@ -686,25 +752,8 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         allow = space_attention_flip_allowance(q, k, v, Fr)
         rec = check_close(f"space_attention {tag}", got, want, SPACE_ATTENTION_ATOL, allow)
 
-        # yardstick: SDPA over the (B·F, H, 196, 197) groups plus the CLS row,
-        # on inputs gathered into its layout beforehand (not timed)
-        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, T, Dh)
-
-        def groups(t):
-            p = t[:, :, 1:].reshape(B, Hh, Fr, N, Dh).permute(0, 2, 1, 3, 4)
-            return p.reshape(B * Fr, Hh, N, Dh)
-
-        def with_cls(t):
-            c = t[:, :, :1].unsqueeze(1).expand(B, Fr, Hh, 1, Dh).reshape(B * Fr, Hh, 1, Dh)
-            return torch.cat([c, groups(t)], dim=2).contiguous()
-
-        lib_in = [groups(qh).contiguous(), with_cls(kh), with_cls(vh),
-                  qh[:, :, :1].contiguous(), kh.contiguous(), vh.contiguous()]
-
-        def library():
-            return (F.scaled_dot_product_attention(*lib_in[:3], scale=1.0),
-                    F.scaled_dot_product_attention(*lib_in[3:], scale=1.0))
-
+        lib_in = sdpa_inputs(q, k, v, Fr)
+        library = lambda: sdpa(lib_in)  # noqa: E731
         nbytes = 4 * B * T * Hh * Dh * 2
         flops = 2 * 2 * B * Hh * (T + Fr * N * (N + 1)) * Dh
         rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
@@ -752,16 +801,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         if (B, Fr) == (SA_RECORD_BATCH, 4):
             brec["plain_ms"] = time_ms(
                 lambda: space_attention_plain_vjp(qd, k, v, dout, Fr), iters=5)
-        # SDPA's backward: its forward + backward under autograd, minus its forward
-        lib_leaves = [t.detach().requires_grad_() for t in lib_in]
-        douts = [o.detach().clone() for o in library()]
-        lib_fb = lambda: torch.autograd.grad(  # noqa: E731
-            (F.scaled_dot_product_attention(*lib_leaves[:3], scale=1.0),
-             F.scaled_dot_product_attention(*lib_leaves[3:], scale=1.0)), lib_leaves, douts)
-        lib_f = lambda: (F.scaled_dot_product_attention(*lib_leaves[:3], scale=1.0),  # noqa: E731
-                         F.scaled_dot_product_attention(*lib_leaves[3:], scale=1.0))
-        brec["library_ms"] = time_ms(lib_fb) - time_ms(lib_f)
-        brec["library_device_ms"] = device_trace(lib_fb, 20)[0] - device_trace(lib_f, 20)[0]
+        brec.update(sdpa_backward_ms(lib_in))
 
         # forward + backward through the Function (the train step's use)
         leaf = qkv.detach().requires_grad_()
@@ -774,28 +814,42 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
             with space_attention_library(parent):
                 perr = check_close(f"space_attention {tag} (parent)", call(), want,
                                    SPACE_ATTENTION_ATOL, allow)
-            turns = {"ms": [], "device_ms": [], "fwd_bwd_ms": [], "fwd_bwd_device_ms": []}
+                pberr = grad_errors(f"space_attention backward {tag} (parent)", bcall(),
+                                    space_attention_plain_vjp(qd, k, v, dout, Fr),
+                                    space_attention_plain_vjp(*(a.double() for a in
+                                                                (qd, k, v, dout)), Fr))
+            turns = {"ms": [], "device_ms": [], "bwd_ms": [], "bwd_device_ms": [],
+                     "fwd_bwd_ms": [], "fwd_bwd_device_ms": []}
             for lib in (parent, None, None, parent):
-                fb_expect = SA_FWD_EXPECT if lib is not None else SA_FWD_BWD_EXPECT
                 with space_attention_library(lib):
                     turns["ms"].append(time_ms(call))
                     turns["device_ms"].append(device_trace(call, 20, expect=SA_FWD_EXPECT)[0])
+                    turns["bwd_ms"].append(time_ms(bcall))
+                    turns["bwd_device_ms"].append(device_trace(bcall, 20,
+                                                               expect=SA_BWD_EXPECT)[0])
                     turns["fwd_bwd_ms"].append(time_ms(fb, iters=10))
-                    turns["fwd_bwd_device_ms"].append(device_trace(fb, 5, expect=fb_expect)[0])
+                    turns["fwd_bwd_device_ms"].append(device_trace(fb, 5,
+                                                                   expect=SA_FWD_BWD_EXPECT)[0])
+            with space_attention_library(parent):
+                pout, pgrads = call(), bcall()
             rec["parent"] = {**{f"{k_}_turns": t for k_, t in turns.items()},
                              **{k_: perr[k_] for k_ in ("max_abs_err", "tol_used",
-                                                        "tol_used_bare")}}
+                                                        "tol_used_bare")},
+                             "bwd_grad_rel": pberr["grad_rel"],
+                             "fwd_bitwise": torch.equal(pout, call()),
+                             "bwd_bitwise": all(torch.equal(a, b_) for a, b_ in
+                                                zip(pgrads, bcall()))}
         fwd[sa_key(B, Fr)], bwd[sa_key(B, Fr)] = rec, brec
     top, btop = fwd[SA_RECORD_BATCH], bwd[SA_RECORD_BATCH]
     top["tol_tail"] = space_attention_tail(dev, parent)
     # the forward kernel's residency at the record's shape, as launched
     Fr, T = 4, 1 + 4 * N
     lib, blocks, smem = psa._lib(), ctypes.c_int(), ctypes.c_int()
-    occ = lib.space_attention_fwd_occupancy
-    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    occ = lib.space_attention_fwd_occupancy_hd
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     with torch.cuda.device(dev):
-        if occ(T, Fr, ctypes.byref(blocks), ctypes.byref(smem)):
-            raise RuntimeError("space_attention_fwd_occupancy failed")
+        if occ(T, Fr, Dh, ctypes.byref(blocks), ctypes.byref(smem)):
+            raise RuntimeError("space_attention_fwd_occupancy_hd failed")
     top["occupancy"] = {"blocks_per_sm": blocks.value, "warps_per_sm": 4 * blocks.value,
                         "smem_bytes_per_block": smem.value}
     shape = f"q/k/v ({SA_RECORD_BATCH}, {T}, {Hh}, {Dh}) bf16, {Fr} frames"
@@ -1035,41 +1089,69 @@ def busy_union_us(recs):
     return busy_us + cur_e - cur_s
 
 
-def device_trace(fn, n, top_of="other", expect=()):
-    """Trace n calls of fn with CUDA activity only (no host-side tracing to
-    slow the host-bound path). Returns per call: device busy ms (the union of
-    kernel and copy intervals), device activities, device ms by group, and
-    the TOP_OTHER largest kernels of the group `top_of` by ms.
+def trace_pad():
+    """Throwaway work at either end of a trace (`cuda_trace`)."""
+    x = torch.empty(1, device="cuda")
+    for _ in range(TRACE_PAD_LAUNCHES):
+        x.fill_(1.0)
+    torch.cuda.synchronize()
+    time.sleep(TRACE_PAD_S)
 
-    The profiler drops device records now and then, most often just after
-    it starts: so one untimed call of fn runs first inside the trace, then a
-    marker kernel (ATen's spin_kernel), and only records that start after
-    the marker count. `expect`: (name substring, device kernels per call)
-    pairs; the trace must hold at least n times that many kernels of each
-    name, and some device activity in any case. A trace that lost records is
-    taken again, up to TRACE_ATTEMPTS times, then the call raises, so a lost
-    record never shrinks a device time."""
+
+@contextlib.contextmanager
+def cuda_trace(warm=None):
+    """A torch.profiler trace of CUDA activity only (no host-side tracing to
+    slow the host-bound path) around the block. Late in this script the
+    profiler kept no device record of a trace's first launches (some
+    tens, whatever the wait before them), and it dropped records near
+    either end of a trace whose device timestamps ran milliseconds off the
+    host's. So the trace opens with `trace_pad`, `warm` (an untimed call)
+    and a marker kernel (ATen's spin_kernel), and closes with a second
+    marker and `trace_pad`. Yields a namespace whose `recs`, after the
+    block, holds the device records between the markers, or None if a
+    marker is missing."""
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(1, TRACE_ATTEMPTS + 1):
+    out = types.SimpleNamespace(recs=None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_pad()
+        if warm is not None:
+            warm()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1000)  # the marker
-            torch.cuda.synchronize()
+        torch.cuda._sleep(1000)  # the first marker
+        torch.cuda.synchronize()
+        yield out
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)  # the second marker
+        trace_pad()
+    recs = device_records(prof)
+    marks = [(s, e) for s, e, name in recs if "spin_kernel" in name]
+    if len(marks) == 2:
+        out.recs = [r for r in recs if marks[0][1] <= r[0] and r[1] <= marks[1][0]]
+
+
+def device_trace(fn, n, top_of="other", expect=()):
+    """Trace n calls of fn (`cuda_trace`, with one untimed call of fn
+    first). Returns per call: device busy ms (the union of kernel and copy
+    intervals), device activities, device ms by group, and the TOP_OTHER
+    largest kernels of the group `top_of` by ms.
+
+    `expect`: (name substring, device kernels per call) pairs; the trace
+    must hold at least n times that many kernels of each name, and some
+    device activity in any case. A trace that lost records is taken again,
+    up to TRACE_ATTEMPTS times, then the call raises, so a lost record
+    never shrinks a device time."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with cuda_trace(warm=fn) as trace:
             for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
-        recs = device_records(prof)
-        marks = [end for _, end, name in recs if "spin_kernel" in name]
-        t0 = max(marks, default=float("inf"))
-        iv = [r for r in recs if r[0] >= t0]
+        iv = trace.recs or []
         lost = [f"{sum(key in name for _, _, name in iv)} '{key}' kernels of {per_call * n}"
                 for key, per_call in expect
                 if sum(key in name for _, _, name in iv) < per_call * n]
-        if not marks:
-            lost.append("no marker")
+        if trace.recs is None:
+            lost.append("a marker missing")
         elif not iv:
             lost.append("no device activity")
         if not lost:
@@ -1248,17 +1330,23 @@ def serve_phase(tmp, smi):
         th.join(timeout=10)
 
 
+def tensor_used(got, ref):
+    """grad_check's reading per tensor: (‖g − r‖, ‖r‖, the global ‖r‖,
+    ‖g − r‖ / (GRAD_RTOL·‖r‖ + GRAD_ATOL·‖r‖_all)) by name."""
+    d = {n: float((got[n].double() - ref[n].double()).norm()) for n in ref}
+    r = {n: float(ref[n].double().norm()) for n in ref}
+    total = float(np.sqrt(sum(v * v for v in r.values())))
+    return d, r, total, {n: d[n] / (GRAD_RTOL * r[n] + GRAD_ATOL * total) for n in ref}
+
+
 def grad_check(got, ref):
     """Per-tensor agreement of two gradient sets: ‖g − r‖ ≤ GRAD_RTOL·‖r‖ +
     GRAD_ATOL·‖r‖_all, where ‖r‖_all is the global norm (the absolute part
     covers tensors whose gradient is rounding noise in both: at time_init
     'zeros' the time branch adds a constant to every channel, which norm1
     removes, so its true gradient is 0). Returns the record's grad_* keys."""
-    d = {n: float((got[n].double() - ref[n].double()).norm()) for n in ref}
-    r = {n: float(ref[n].double().norm()) for n in ref}
-    total = float(np.sqrt(sum(v * v for v in r.values())))
+    d, r, total, used = tensor_used(got, ref)
     gnorm = float(np.sqrt(sum(float(g.double().square().sum()) for g in got.values())))
-    used = {n: d[n] / (GRAD_RTOL * r[n] + GRAD_ATOL * total) for n in ref}
     dot = sum(float((got[n].double() * ref[n].double()).sum()) for n in ref)
     worst = sorted(used, key=used.get, reverse=True)[:6]
     return {"grad_norm": gnorm, "plain_grad_norm": total,
@@ -1507,8 +1595,11 @@ def counted(out):
     out.update({name: k.launches for name, k in ks.items()})
 
 
-def want_launches(depth, steps, remat, chunks=None, forwards=0, backward_depths=None):
-    """Launches derived from the code. `backward_depths` holds, per video
+def want_launches(depth, steps, remat, chunks=None, forwards=0, backward_depths=None,
+                  accum_steps=1):
+    """Launches derived from the code. With `accum_steps` > 1 a step runs
+    that many micro-batches, each a forward and a backward as a step
+    without accumulation does. `backward_depths` holds, per video
     stream of a step, how many of its blocks the loss reaches (default one
     stream, all blocks): the object-aware variants send the clip and the
     1-frame object frame through the tower, (depth, depth) for global_local
@@ -1534,6 +1625,7 @@ def want_launches(depth, steps, remat, chunks=None, forwards=0, backward_depths=
         fwd = depth * chunks * (3 if remat else 2)
         bwd = depth * chunks
     per_eval = forwards * depth * streams
+    steps *= accum_steps
     return {"ln_mlp": steps * fwd + per_eval, "space_attention": steps * fwd + per_eval,
             "space_attention_bwd": steps * bwd, "ln_linear": 0}
 
@@ -1553,10 +1645,9 @@ class StepRecorder:
     """Wraps a Trainer's train_step: after each step a CUDA event and the loss
     tensor, no sync (a step's time is the interval between consecutive
     events: the device's view of the trainer loop, host stalls included).
-    With `trace_at` = k, steps k and k + 1 run inside a CUDA-only
-    torch.profiler window fenced by syncs, whose device records give the
-    loop's device idle share (1 − busy / the window's wall time); `expect`
-    as device_trace's."""
+    With `trace_at` = k, steps k and k + 1 run inside a `cuda_trace`,
+    whose device records between its markers give the loop's device idle
+    share (1 − busy / the window's wall time); `expect` as device_trace's."""
 
     def __init__(self, trainer, trace_at=None, expect=()):
         self.step, self.trainer = trainer.train_step, trainer
@@ -1565,13 +1656,10 @@ class StepRecorder:
         trainer.train_step = self
 
     def __call__(self, state, batch):
-        from torch.profiler import ProfilerActivity, profile
-
         i = len(self.losses) + 1
         if i == self.trace_at:
-            torch.cuda.synchronize()
-            self._prof = profile(activities=[ProfilerActivity.CUDA])
-            self._prof.__enter__()
+            self._trace_cm = cuda_trace()
+            self._trace = self._trace_cm.__enter__()
             self._t0 = time.perf_counter()
         state, m = self.step(state, batch)
         ev = torch.cuda.Event(enable_timing=True)
@@ -1582,8 +1670,10 @@ class StepRecorder:
         if self.trace_at is not None and i == self.trace_at + PROFILED_STEPS - 1:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - self._t0) * 1e3
-            self._prof.__exit__(None, None, None)
-            recs = device_records(self._prof)
+            self._trace_cm.__exit__(None, None, None)
+            recs = self._trace.recs
+            if recs is None:
+                raise AssertionError("trainer trace lost a marker")
             lost = [key for key, per in self.expect
                     if sum(key in r[2] for r in recs) < per * PROFILED_STEPS]
             if lost or not recs:
@@ -2846,6 +2936,334 @@ def towers_phase(smi, dev):
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
+# -------------------------------------------------------------------- wide
+WIDE_CONFIGS = {  # the pod recipes, run with model_parallel 1 on one card
+    "vit_large_pod": os.path.join(HERE, "configs", "pt", "cc3m_webvid", "vit_large_pod.json"),
+    "vit_huge_pod": os.path.join(HERE, "configs", "pt", "cc3m_webvid", "vit_huge_pod.json"),
+}
+WIDE_RUNS = {"vit_large_pod": (2, 4), "vit_huge_pod": (1, 6)}  # (epochs, steps an epoch)
+# kernel 2 at ViT-H/14's (B, 1 + 4·256, 16, 80) at B 4 (the micro-batch) and
+# 8 (the per-GPU batch), and at ViT-B/16's Dh 64, B 4, 4 frames (the record's)
+WIDE_SA_SHAPES = ((4, 4, 256, 16, 80), (8, 4, 256, 16, 80), (4, 4, 196, 12, 64))
+WIDE_MLP = ((12560, 1024, 4096), (4100, 1280, 5120))  # kernel 1: ViT-L at 16, ViT-H at 4
+WIDE_QKV = ((12560, 1024, 3072), (4100, 1280, 3840))  # kernel 3: LN → qkv, the same
+# One step's gradients in the wide runs, at full depth: through the kernels
+# (bf16), through the plain versions (bf16), and through the plain versions
+# in f32 (the exact gradient up to f32 rounding). Every tensor whose exact
+# gradient is not zero passes grad_check against the plain versions, and
+# its grad_check reading against the f32 step is at most max(1,
+# WIDE_F32_RATIO x the plain versions'); over the whole gradient the
+# kernels' relative L2 distance from the f32 step is at most WIDE_F32_RATIO
+# x the plain versions'. A tensor whose f32 gradient is under WIDE_ZERO_GRAD
+# of the whole has an exact gradient of 0: block 0's time-branch qkv at
+# time_init zeros, whose constant norm1 removes. Its bf16 value is rounding
+# noise in every version, 0.34-1.49 % of the whole gradient's norm by
+# version and batch (ViT-H/14; ViT-L/16's plain versions 1.37 % where the
+# kernels give 0.81 %; NVIDIA H100 80GB HBM3, 700 W), up to 2.6 % apart
+# between two versions, past grad_check's absolute term: such tensors are
+# held to WIDE_NOISE_BOUND of the whole gradient's norm instead. Through
+# ViT-H's 32 bf16 blocks both versions land 5-10 % from the f32 step.
+WIDE_F32_RATIO = 1.25
+WIDE_ZERO_GRAD = 1e-3
+WIDE_NOISE_BOUND = 2 * GRAD_ATOL
+
+
+def wide_space_attention(dev, g):
+    """Kernel 2's forward and backward at WIDE_SA_SHAPES against the plain
+    version: the forward within SPACE_ATTENTION_ATOL + 2^-7·|ref| + the
+    flip allowance, the backward by relative L2 (SA_GRAD_REL, with both
+    versions' distance from the exact f64 gradient) and by grad_check; ms by
+    events, device ms, bound, plain ms and SDPA's (forward and backward).
+    Returns (forward records, backward records) by shape."""
+    from oatx_torch.ops.kernels import space_attention as psa
+
+    fwd, bwd = {}, {}
+    for B, Fr, N, Hh, Dh in WIDE_SA_SHAPES:
+        T, key = 1 + Fr * N, f"B{B}_T{1 + Fr * N}_H{Hh}_Dh{Dh}"
+        qkv = torch.randn(B, T, 3, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0] * Dh ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+        call = lambda: psa.space_attention(q, k, v, Fr)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        want = psa.space_attention_plain(q, k, v, Fr)
+        rec = check_close(f"space_attention {key}", got, want, SPACE_ATTENTION_ATOL,
+                          space_attention_flip_allowance(q, k, v, Fr))
+        flops = 2 * 2 * B * Hh * (T + Fr * N * (N + 1)) * Dh
+        rec["bound_ms"], rec["bound_by"] = bound_ms(4 * B * T * Hh * Dh * 2, flops)
+        lib_in = sdpa_inputs(q, k, v, Fr)
+        rec.update(ms=time_ms(call), device_ms=device_trace(call, 20, expect=SA_FWD_EXPECT)[0],
+                   plain_ms=time_ms(lambda: psa.space_attention_plain(q, k, v, Fr), iters=5),
+                   library_ms=time_ms(lambda: sdpa(lib_in)),
+                   library_device_ms=device_trace(lambda: sdpa(lib_in), 20)[0],
+                   split_rule=psa._query_split(B * Fr * Hh, -(-N // 16),
+                                               torch.cuda.get_device_properties(dev)
+                                               .multi_processor_count,
+                                               psa._blocks_per_sm(Dh, N)))
+        rec["tflops"] = flops / rec["device_ms"] / 1e9
+
+        qd = q.detach()
+        _, lse = psa._launch(qd, k, v, Fr, with_lse=True)
+        dout = torch.randn(B, T, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
+        bcall = lambda: psa.space_attention_backward(qd, k, v, dout, Fr, lse)  # noqa: E731
+        gk = bcall()
+        gp = space_attention_plain_vjp(qd, k, v, dout, Fr)
+        brec = grad_errors(f"space_attention backward {key}", gk, gp,
+                           space_attention_plain_vjp(*(a.double() for a in (qd, k, v, dout)),
+                                                     Fr))
+        gc_rec = grad_check(dict(zip("qkv", gk)), dict(zip("qkv", gp)))
+        if gc_rec["grad_tol_used"] > 1 or gc_rec["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+            raise AssertionError(f"space_attention backward {key}: grad_check {gc_rec}")
+        brec.update({f"grad_check_{k_}": gc_rec[k_] for k_ in
+                     ("grad_tol_used", "grad_norm_rel_diff", "grad_global_cosine")})
+        bflops = flops * 5 // 2
+        brec["bound_ms"], brec["bound_by"] = bound_ms(7 * B * T * Hh * Dh * 2, bflops)
+        brec.update(ms=time_ms(bcall),
+                    device_ms=device_trace(bcall, 20, expect=SA_BWD_EXPECT)[0],
+                    plain_ms=time_ms(lambda: space_attention_plain_vjp(qd, k, v, dout, Fr),
+                                     iters=5),
+                    **sdpa_backward_ms(lib_in))
+        brec["tflops"] = bflops / brec["device_ms"] / 1e9
+        fwd[key], bwd[key] = rec, brec
+        del qkv, q, k, v, got, want, gk, gp, lse, dout, lib_in
+    return fwd, bwd
+
+
+def wide_ln_mlp(dev, g):
+    """Kernel 1 at WIDE_MLP against the plain version (LN_MLP_ATOL +
+    2^-7·|ref|); ms, device ms, bound, plain ms and the cuBLAS chain's
+    (layer_norm → linear → gelu → linear)."""
+    from oatx_torch.ops.kernels import ln_mlp as plm
+
+    out, bf = {}, torch.bfloat16
+    for R, D, H in WIDE_MLP:
+        x = torch.randn(R, D, device=dev, generator=g).to(bf)
+        gamma = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
+        beta = 0.1 * torch.randn(D, device=dev, generator=g)
+        w1 = (0.02 * torch.randn(H, D, device=dev, generator=g)).to(bf)
+        b1 = 0.02 * torch.randn(H, device=dev, generator=g)
+        w2 = (0.02 * torch.randn(D, H, device=dev, generator=g)).to(bf)
+        b2 = 0.02 * torch.randn(D, device=dev, generator=g)
+        args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+        gb, bb, b1b, b2b = (t.to(bf) for t in (gamma, beta, b1, b2))
+        call = lambda: plm.ln_mlp(*args)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        rec = check_close(f"ln_mlp {R}x{D}->{H}", got, plm.ln_mlp_plain(*args), LN_MLP_ATOL)
+
+        def library():
+            z = F.layer_norm(x, (D,), gb, bb, 1e-6)
+            return F.linear(F.gelu(F.linear(z, w1, b1b)), w2, b2b)
+
+        flops = 2 * R * D * H * 2
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            2 * R * D * 2 + 2 * D * H * 2 + (2 * D + H + D) * 4, flops)
+        rec.update(ms=time_ms(call), device_ms=device_trace(call, 20, expect=LN_MLP_EXPECT)[0],
+                   plain_ms=time_ms(lambda: plm.ln_mlp_plain(*args), iters=5),
+                   library_ms=time_ms(library), library_device_ms=device_trace(library, 20)[0])
+        rec["tflops"] = flops / rec["device_ms"] / 1e9
+        out[f"{R}x{D}->{H}"] = rec
+    return out
+
+
+def wide_ln_linear(dev, g):
+    """Kernel 3 at WIDE_QKV against the plain version (LN_LINEAR_ATOL +
+    2^-7·|ref|); ms, device ms, bound, plain ms and cuBLAS's layer_norm →
+    linear."""
+    from oatx_torch.ops.kernels.ln_linear import ln_linear, ln_linear_plain
+
+    out, bf = {}, torch.bfloat16
+    for R, K, N in WIDE_QKV:
+        x = torch.randn(R, K, device=dev, generator=g).to(bf)
+        gamma = 1 + 0.1 * torch.randn(K, device=dev, generator=g)
+        beta = 0.1 * torch.randn(K, device=dev, generator=g)
+        w = (0.02 * torch.randn(N, K, device=dev, generator=g)).to(bf)
+        b = 0.02 * torch.randn(N, device=dev, generator=g)
+        args = (x, gamma, beta, w, b, 1e-6)
+        gb, bb, bbf = (t.to(bf) for t in (gamma, beta, b))
+        call = lambda: ln_linear(*args)  # noqa: E731
+        library = lambda: F.linear(F.layer_norm(x, (K,), gb, bb, 1e-6), w, bbf)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        rec = check_close(f"ln_linear {R}x{K}->{N}", got, ln_linear_plain(*args),
+                          LN_LINEAR_ATOL)
+        flops = 2 * R * K * N
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            R * K * 2 + N * K * 2 + R * N * 2 + (2 * K + N) * 4, flops)
+        rec.update(ms=time_ms(call),
+                   device_ms=device_trace(call, 20, expect=(("ln_linear_kernel", 1),))[0],
+                   plain_ms=time_ms(lambda: ln_linear_plain(*args), iters=5),
+                   library_ms=time_ms(library), library_device_ms=device_trace(library, 20)[0])
+        rec["tflops"] = flops / rec["device_ms"] / 1e9
+        out[f"{R}x{K}->{N}"] = rec
+    return out
+
+
+@contextlib.contextmanager
+def f32_compute(model):
+    """The model's towers compute in f32 (its weights are f32 already)."""
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, compute_dtype=torch.float32)
+    try:
+        yield
+    finally:
+        model.cfg = saved
+
+
+def wide_grads(tag, model, loss_cfg, fixed):
+    """One step's gradients of `model` on `fixed` through the kernels (bf16),
+    the plain versions (bf16) and the plain versions in f32, checked as
+    WIDE_F32_RATIO's note says: grad_check's keys over the tensors whose
+    exact gradient is not zero, `grad_zero_tensors` (each version's norm of
+    the others, over the whole f32 gradient's), `grad_f32_*` (grad_check's
+    reading of each version against the f32 step, and the relative L2
+    distance of the whole gradient from it)."""
+    from oatx_torch.train import step as steplib
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = steplib.loss_fn(model, loss_cfg, fixed)
+        loss.backward()
+        return {n: (p.grad.detach().clone() if p.grad is not None else None)
+                for n, p in model.named_parameters()}
+
+    got = grads()
+    with plain_versions():
+        ref = grads()
+        with f32_compute(model):
+            exact = grads()
+    model.zero_grad(set_to_none=True)
+    missing = [n for n, gr in got.items() if gr is None or not bool(torch.isfinite(gr).all())]
+    if missing:
+        raise AssertionError(f"{tag}: {len(missing)} parameters without a finite gradient "
+                             f"through the kernels, e.g. {missing[:5]}")
+    _, r, norm, uk = tensor_used(got, exact)
+    *_, up = tensor_used(ref, exact)
+    zero = {n for n in exact if r[n] < WIDE_ZERO_GRAD * norm}
+    rec = grad_check({n: got[n] for n in exact if n not in zero},
+                     {n: ref[n] for n in exact if n not in zero})
+    rec["grad_zero_tensors"] = {n: {v: float(g[n].double().norm()) / norm
+                                    for v, g in (("kernels", got), ("plain", ref))}
+                                for n in sorted(zero)}
+    over = {n: uk[n] / max(1.0, WIDE_F32_RATIO * up[n]) for n in exact if n not in zero}
+    worst = sorted(over, key=over.get, reverse=True)[:6]
+    rec["grad_f32_tol_used"] = {"kernels": max(uk[n] for n in over),
+                                "plain": max(up[n] for n in over)}
+    rec["grad_f32_worst"] = [(n, round(uk[n], 4), round(up[n], 4), r[n] / norm) for n in worst]
+    rec["grad_rel_f32"] = {
+        v: float(np.sqrt(sum(float((g[n].double() - exact[n].double()).square().sum())
+                             for n in exact))) / norm
+        for v, g in (("kernels", got), ("plain", ref))}
+    f32 = rec["grad_rel_f32"]
+    noisy = [n for n, v in rec["grad_zero_tensors"].items() if v["kernels"] > WIDE_NOISE_BOUND]
+    if rec["grad_tol_used"] > 1 or rec["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+            or over[worst[0]] > 1 or f32["kernels"] > WIDE_F32_RATIO * f32["plain"] or noisy:
+        raise AssertionError(f"{tag}: gradients through the kernels disagree with the "
+                             f"plain versions: {rec}")
+    return rec
+
+
+def wide_recipe(name, smi, dev, ds):
+    """One pod recipe through Trainer.train() on one card (module docstring,
+    phase 9); returns its record and launch counts."""
+    from oatx_torch.train import step as steplib
+    from oatx_torch.train.trainer import Trainer
+
+    epochs, len_epoch = WIDE_RUNS[name]
+    exp = recipe(WIDE_CONFIGS[name], model_parallel=1, epochs=epochs, len_epoch=len_epoch,
+                 verbosity=1)
+    t = exp.trainer
+    batch = exp.data_loaders[0].batch_size
+    tag = f"wide {name}@{batch}"
+    train, valid = corpus_loaders(ds, batch)
+    held = fresh_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(exp, train, valid, device=dev)  # no save_dir: no checkpoints
+    cfg = tr.tower_cfg
+    v = cfg.video
+    depth, accum, steps = v.depth, t.accum_steps, epochs * len_epoch
+    print(f"{tag}: Trainer built in {time.perf_counter() - t0:.1f} s ({v.embed_dim} x "
+          f"{depth}, {v.num_heads} heads of {v.head_dim}, patch {v.patch_size}, "
+          f"{v.patches_per_frame + 1} keys a frame group, remat "
+          f"{v.remat_policy if v.remat else 'off'}, accum_steps {accum}, fsdp {t.fsdp}, "
+          f"sequence_parallel {v.sequence_parallel}, chunked loss {exp.loss.chunked})",
+          flush=True)
+    per_step = depth * accum
+    rec = StepRecorder(tr, trace_at=steps - 1, expect=[
+        ("ln_mlp_", per_step * (2 if v.remat else 1)),
+        ("space_attention_kernel", per_step * (2 if v.remat else 1)),
+        ("space_attention_bwd_kernel", per_step)])
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        hist = tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    validations = (1 if t.init_val else 0) + epochs
+    check_launches(tag, launches, want_launches(
+        depth, steps, v.remat, forwards=eval_forwards(validations, len(ds), batch),
+        accum_steps=accum))
+    terms = rec.term_values()
+    bad = [k for k, vals in terms.items() if not all(np.isfinite(vals))]
+    if bad:
+        raise AssertionError(f"{tag}: loss terms not finite: {bad}: {terms}")
+    # step intervals inside each epoch, without those the trace of the last
+    # two steps touches (its syncs and the profiler's start and stop)
+    torch.cuda.synchronize()
+    ms = [rec.events[i - 2].elapsed_time(rec.events[i - 1]) for i in range(2, steps + 1)
+          if (i - 1) % len_epoch and i < steps - 1]
+    out = {"recipe": os.path.basename(WIDE_CONFIGS[name]), "batch": batch,
+           "accum_steps": accum, "micro_batch": batch // accum,
+           "remat": v.remat_policy if v.remat else "off", "embed_dim": v.embed_dim,
+           "depth": depth, "heads": v.num_heads, "head_dim": v.head_dim,
+           "tokens": 1 + v.num_frames * v.patches_per_frame, "steps": steps,
+           "terms": terms, "val_loss": [tr.init_val_log["val_loss_0"]] +
+           [hist[e]["val_loss_0"] for e in range(1, epochs + 1)],
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
+           "launches": launches,
+           "launches_per_step": {k: n for k, n in want_launches(
+               depth, 1, v.remat, accum_steps=accum).items() if n},
+           **speed(ms, batch, flops_per_clip_step(cfg)), **(rec.trace or {})}
+
+    # one step's gradients on a fixed batch at full depth, the loader's batch
+    # in one pass: kernels vs plain versions and both vs the f32 step (not
+    # counted)
+    host = next(iter(train[0]))
+    host.pop("meta")
+    fixed = steplib.make_augmenter(train=False, tower_cfg=cfg)(
+        None, {k: torch.from_numpy(a).to(dev) for k, a in host.items()})
+    out.update(wide_grads(tag, tr.state.model, tr.loss_cfg, fixed))
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    del fixed, tr, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def wide_phase(smi, dev):
+    """Kernels 1-3 at the ViT-L/16 and ViT-H/14 widths, then both pod
+    recipes through Trainer.train() (module docstring, phase 9). Returns
+    the launch counts of the recipes' runs and the kernels' records."""
+    t0 = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(9)
+    sa_fwd, sa_bwd = wide_space_attention(dev, g)
+    kernels = {"space_attention": sa_fwd, "space_attention_bwd": sa_bwd,
+               "ln_mlp": wide_ln_mlp(dev, g), "ln_linear": wide_ln_linear(dev, g)}
+    for name, recs in kernels.items():
+        print(f"wide kernels {name} ({smi}): " + json.dumps(recs), flush=True)
+    ds = MemoryClips(CORPUS_CLIPS, seed=0)
+    runs, launches = {}, []
+    for name in WIDE_CONFIGS:
+        runs[name], more = wide_recipe(name, smi, dev, ds)
+        launches.append(more)
+    print(f"wide summary ({smi}): " + json.dumps({
+        name: {k: r.get(k) for k in ("batch", "accum_steps", "remat", "step_ms",
+                                     "step_ms_spread", "clips_per_s", "mfu", "device_busy_ms",
+                                     "idle_share", "device_ms_by_group", "peak_mem_gib",
+                                     "grad_tol_used", "grad_global_cosine")}
+        for name, r in runs.items()}) + f", phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -2854,8 +3272,8 @@ def main() -> int:
                     help="library built from an earlier csrc/ln_mlp.cu (one-kernel C "
                          "interface), timed beside this one")
     ap.add_argument("--parent-space-attention", metavar="LIB",
-                    help="library built from an earlier csrc/space_attention.cu (one-launch "
-                         "C interface without log-sum-exp), timed beside this one")
+                    help="library built from an earlier csrc/space_attention.cu (the "
+                         "Dh-64 C interface), forward and backward timed beside this one")
     ap.add_argument("--sweep-query-splits", action="store_true",
                     help="also time kernel 2's forward at each of 1-4 blocks per frame "
                          "group (the choice behind _query_split)")
@@ -2870,6 +3288,9 @@ def main() -> int:
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--only-towers", action="store_true",
                     help="build the kernels and run the towers phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-wide", action="store_true",
+                    help="build the kernels and run the wide phase alone (no record, "
                          "no ok line): the quick loop on that phase")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2910,6 +3331,10 @@ def main() -> int:
     if opts.only_towers:
         towers_phase(smi, dev)
         print("chip_smoke: --only-towers ran the towers phase alone", flush=True)
+        return 0
+    if opts.only_wide:
+        wide_phase(smi, dev)
+        print("chip_smoke: --only-wide ran the wide phase alone", flush=True)
         return 0
     parent = None
     if opts.parent_ln_linear:
@@ -2967,11 +3392,14 @@ def main() -> int:
     phases["objects"] = objects_phase(smi, dev)
     phases["data"] = data_phase(smi, dev)
     phases["towers"] = towers_phase(smi, dev)
+    phases["wide"], wide = wide_phase(smi, dev)
+    for name, recs in wide.items():
+        by_name[name]["wide"] = recs
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",
             "fwd_bwd_device_ms", "ptxas", "occupancy", "launches_by_phase", "parent", "by_rows",
-            "by_batch")
+            "by_batch", "wide")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}

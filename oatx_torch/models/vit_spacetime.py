@@ -36,9 +36,10 @@ between blocks, outside any block's checkpoint, so every remat policy and
 
 The config accepts every oatx key. The layout knobs (`cls_position`,
 `split_cls_stream`) leave outputs unchanged and are ignored: the port has one
-token order, CLS first. Pipeline stages and sequence parallelism are not
-ported yet, and the unfused MLP (`fused_mlp=False`) is not ported: the tower
-raises on them.
+token order, CLS first. `sequence_parallel` shards activations over a model
+axis that one device does not have: oatx's `_sp_constrain` (:270-282) then
+returns its input, and so the port ignores the key. Pipeline stages and the
+unfused MLP (`fused_mlp=False`) are not ported: the tower raises on them.
 
 `inflate_spatial_embed` / `inflate_temporal_embed` (oatx :413-454) resize the
 positional embeddings of a checkpoint with another patch or frame count.
@@ -83,7 +84,7 @@ class SpaceTimeViTConfig:
     pipeline_stages: int = 1
     pipeline_microbatches: int = 4
     fused_qkv: bool = False
-    sequence_parallel: bool = False
+    sequence_parallel: bool = False   # one device: no model axis, a no-op
     split_cls_stream: bool = True     # layout only; the port keeps one stream
     fused_mlp: bool = True            # LN→fc1→GELU→fc2 through kernel 1, always
 
@@ -99,8 +100,6 @@ class SpaceTimeViTConfig:
 def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
     if cfg.pipeline_stages != 1:
         return "pipeline_stages"
-    if cfg.sequence_parallel:
-        return "sequence_parallel"
     if not cfg.fused_mlp:
         return "fused_mlp=False (the port runs kernel 1 in every block)"
     return None

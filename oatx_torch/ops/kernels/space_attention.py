@@ -6,7 +6,9 @@ computes what its `_space_attention_reference` (:87-110) computes. q, k, v
 are (B, T, H, Dh) with T = 1 + F·N and q pre-scaled by Dh^-0.5: the CLS
 query attends over all T keys; each frame's N patch queries attend over
 [CLS key + that frame's N keys]; softmax in f32 and p cast to the input dtype
-before P·V.
+before P·V. The kernels take Dh 64 and 80 (every head dim of the ViT table:
+B/16 and L/16 have 64, H/14 has 80) and frame groups of up to 272 keys (17
+tiles of 16: ViT-H/14 at 224² and ViT-L/16 at 256² have 257).
 
 What bounds it on an H100: bytes. At serving bucket 4 (B = 4, T = 785,
 H = 12, Dh = 64) q, k, v and the output are 19.3 MB, 5.8 µs at 3.35 TB/s;
@@ -16,8 +18,10 @@ tensors (20 µs at B = 8) for ≈ 2.5× the forward's products.
 Forward design (csrc/space_attention.cu, one launch): blocks take units in
 the order they start. First the frame groups': a range of 16-query tiles of
 one (frame, head, batch) group. The group's K and V (CLS row + N frame
-rows, padded to 16·KT) go once into XOR-swizzled shared memory (61 KB at
-N = 196: 3 blocks, 12 warps, per SM), and per warp S = Q·Kᵀ by `mma.sync`
+rows, padded to 16·KT) go once into shared memory, XOR-swizzled at Dh 64
+(61 KB at N = 196: 3 blocks, 12 warps, per SM) and at a padded pitch of 88
+at Dh 80 (107 KB at N = 256: 2 blocks, as past 256 keys at Dh 64;
+`_blocks_per_sm`), and per warp S = Q·Kᵀ by `mma.sync`
 m16n8k16 into registers, padded keys at −∞, the row max and sum over quad
 shuffles, p = bf16(e / sum) packed straight into the A fragments of O = P·V
 (V by `ldmatrix.trans`), and O out as 16-byte stores. S and P never leave
@@ -62,10 +66,9 @@ import torch
 
 from oatx_torch.ops.kernels import _build
 
-_HEAD_DIM = 64
-_MAX_KEYS = 256       # a frame group's N + 1 keys (csrc MAX_KT · 16)
-_BLOCKS_PER_SM = 3    # frame-group blocks resident on one SM (__launch_bounds__)
-_MAX_SPLIT = 4        # blocks per group: one 16-query tile a warp at N = 196
+_HEAD_DIMS = (64, 80)  # every head dim of the ViT table (B/16, L/16: 64; H/14: 80)
+_MAX_KEYS = 272       # a frame group's N + 1 keys (csrc MAX_KT · 16)
+_MAX_SPLIT = 4        # blocks per group: one 16-query tile a warp at N = 196 and 256
 _count_lock = threading.Lock()
 _sm_counts: dict = {}
 
@@ -92,14 +95,14 @@ def space_attention_plain(q, k, v, num_frames: int):
 
 def _lib():
     lib = _build.load("space_attention")
-    f = lib.space_attention_fwd_bf16
+    f = lib.space_attention_fwd_bf16_hd
     if f.argtypes is None:
         f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        g = lib.space_attention_bwd_bf16
+        g = lib.space_attention_bwd_bf16_hd
         g.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 15 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_int] * 5 + [ctypes.c_void_p]
         g.restype = ctypes.c_int
         lib.max_tokens = lib.space_attention_max_tokens()
     return lib
@@ -114,18 +117,25 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
-def _query_split(groups: int, query_tiles: int, sms: int) -> int:
+def _blocks_per_sm(head_dim: int, n: int) -> int:
+    """Frame-group blocks resident on one SM, as the forward kernel's
+    __launch_bounds__ sets them: 3 at Dh 64 up to 256 keys a group, else 2
+    (the tiles' shared memory and S's 8 registers per key tile)."""
+    return 3 if head_dim == 64 and n + 1 <= 256 else 2
+
+
+def _query_split(groups: int, query_tiles: int, sms: int, blocks_per_sm: int = 3) -> int:
     """Blocks that share one frame group's 16-query tiles: as many as keep
-    all the groups' blocks in one wave of _BLOCKS_PER_SM per SM, at most
+    all the groups' blocks in one wave of `blocks_per_sm` per SM, at most
     _MAX_SPLIT (each warp then has one tile at N = 196) and at least 1. More
     blocks per group put more warps to work at a small batch; one block per
     group reads the group's K and V once."""
-    return max(1, min(_MAX_SPLIT, query_tiles, sms * _BLOCKS_PER_SM // groups))
+    return max(1, min(_MAX_SPLIT, query_tiles, sms * blocks_per_sm // groups))
 
 
 def _check_inputs(q, k, v, num_frames: int):
-    """The kernels' limits: bf16, Dh = 64, N + 1 <= 256 keys a group,
-    16-byte aligned rows. Returns N."""
+    """The kernels' limits: bf16, Dh in _HEAD_DIMS, N + 1 <= _MAX_KEYS keys
+    a group, 16-byte aligned rows. Returns N."""
     b, t, h, dh = q.shape
     f = num_frames
     if f < 1 or (t - 1) % f:
@@ -141,8 +151,8 @@ def _check_inputs(q, k, v, num_frames: int):
                 or a.data_ptr() % 16:
             raise ValueError(f"space_attention: {name} strides {a.stride()} "
                              "are not 16-byte aligned rows")
-    if dh != _HEAD_DIM:
-        raise ValueError(f"space_attention kernel takes Dh={_HEAD_DIM}, got {dh}")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"space_attention kernel takes Dh in {_HEAD_DIMS}, got {dh}")
     n = (t - 1) // f
     if n + 1 > _MAX_KEYS:
         raise ValueError(f"space_attention kernel: N={n} patches per frame; a frame "
@@ -166,14 +176,15 @@ def _launch(q, k, v, num_frames: int, with_lse: bool = False):
     # and 1 + 2·B·H counters
     ws = torch.empty(b * h * (-(-t // 4) * 4 + num_frames * dh + 2) + 1,
                      dtype=torch.float32, device=q.device)
-    split = _query_split(b * h * num_frames, -(-n // 16), _sm_count(q.device))
+    split = _query_split(b * h * num_frames, -(-n // 16), _sm_count(q.device),
+                         _blocks_per_sm(dh, n))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
     with torch.cuda.device(q.device):
-        err = lib.space_attention_fwd_bf16(
+        err = lib.space_attention_fwd_bf16_hd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None, ws.data_ptr(),
-            *strides, b, t, h, num_frames, split, stream)
+            *strides, b, t, h, num_frames, split, dh, stream)
     _build.check(lib, err, "space_attention")
     with _count_lock:
         space_attention.launches += 1
@@ -204,10 +215,10 @@ def _launch_backward(q, k, v, dout, lse, num_frames: int):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for a in (q, k, v, dout, grads[0]) for s in a.stride()[:3]]
     with torch.cuda.device(q.device):
-        err = lib.space_attention_bwd_bf16(
+        err = lib.space_attention_bwd_bf16_hd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             *(g.data_ptr() for g in grads), ws.data_ptr(), *strides, b, t, h,
-            num_frames, stream)
+            num_frames, dh, stream)
     _build.check(lib, err, "space_attention backward")
     with _count_lock:
         space_attention_backward.launches += 1

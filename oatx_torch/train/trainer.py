@@ -25,10 +25,11 @@ sample in chunks of 8 (`make_eval_step`), then takes the t2v / v2t metrics
 and NormSoftmax between the eval step's `text_embeds` and `video_embeds`
 over the full corpus similarity matrix.
 
-One device: `zero1` and `dp_mode: auto` have nothing to shard or reduce and
-are no-ops, as in oatx on one chip. `model_parallel` > 1, `fsdp`, `pipeline`,
-`dcn_slices` > 1 and `dp_mode: manual` need several devices and raise
-NotImplementedError (ROADMAP A8).
+One device (parallel/mesh.py): `fsdp`, `zero1` and `dp_mode: auto` shard
+or reduce over a 1-wide data axis and are no-ops, as in oatx on a 1-device
+mesh. `model_parallel` > 1, `pipeline`, `dcn_slices` > 1 and `dp_mode:
+manual` need several devices and raise NotImplementedError (ROADMAP A8a,
+A8b).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from oatx_torch.data.transforms import TransformConfig
 from oatx_torch.losses import contrastive as C
 from oatx_torch.metrics.retrieval import REQUIRES_QUERY_MASKS
 from oatx_torch.models.towers import DualTower
+from oatx_torch.parallel import mesh as meshlib
 from oatx_torch.train import checkpoint as ckptlib
 from oatx_torch.train import optim as optimlib
 from oatx_torch.train import step as steplib
@@ -68,17 +70,6 @@ def verbose(epoch: int, metrics: Dict[str, float], name: str, mode: str = "t2v")
             f"MedR {metrics['MedR']:g} MeanR {metrics['MeanR']:.1f}")
 
 
-def _check_one_device(t) -> None:
-    for name, on in (("model_parallel > 1", t.model_parallel > 1), ("fsdp", t.fsdp),
-                     ("pipeline", t.pipeline), ("dcn_slices > 1", t.dcn_slices > 1),
-                     ("dp_mode 'manual'", t.dp_mode == "manual")):
-        if on:
-            raise NotImplementedError(f"trainer.{name} needs several devices; the "
-                                      "port trains on one (multi-GPU is not ported yet)")
-    if (t.dp_mode or "auto") not in ("auto", "gspmd", "manual"):
-        raise ValueError(f"unknown trainer.dp_mode {t.dp_mode!r}")
-
-
 class Trainer:
     def __init__(self, exp: ExperimentCfg, train_loaders: List[ShardedLoader],
                  valid_loaders: Optional[List[ShardedLoader]] = None,
@@ -87,7 +78,7 @@ class Trainer:
                  resume: Optional[str] = None, tracker=None, device: DeviceLike = None):
         self.exp = exp
         t = exp.trainer
-        _check_one_device(t)
+        meshlib.check_layout(t)
         self.device = dev = resolve_device(device)
         self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity)
         self.writer = TensorboardWriter(log_dir)

@@ -33,6 +33,9 @@ from oatx_torch.train import step as pstep
 
 ATOL = 2e-2
 GRAD_REL = 2e-2
+# At the ViT-L / ViT-H widths outputs reach |y| ≈ 4, where one bf16 ulp
+# (2^-7·|y|, 0.031 at 4) is past ATOL: those tests add one ulp of |y|.
+BF16_ULP = 2.0 ** -7
 
 
 @pytest.fixture
@@ -71,14 +74,14 @@ def test_ln_mlp_kernel_matches_plain(card, rows, d, hidden):
     torch.testing.assert_close(got.float(), plm.ln_mlp_plain(*args).float(), atol=ATOL, rtol=0)
 
 
-def _qkv_views(card, b, frames, n, seed, heads=12):
-    """q, k, v of a (b, 1 + frames·n, 3, heads, 64) bf16 qkv tensor: k and v
-    strided views of it, q a fresh tensor (the view times 0.125), as the
+def _qkv_views(card, b, frames, n, seed, heads=12, dh=64):
+    """q, k, v of a (b, 1 + frames·n, 3, heads, dh) bf16 qkv tensor: k and v
+    strided views of it, q a fresh tensor (the view times dh^-0.5), as the
     towers give them."""
     g = torch.Generator(card).manual_seed(seed)
-    qkv = torch.randn(b, 1 + frames * n, 3, heads, 64, device=card, generator=g)
+    qkv = torch.randn(b, 1 + frames * n, 3, heads, dh, device=card, generator=g)
     qkv = qkv.to(torch.bfloat16)
-    return qkv[:, :, 0] * 0.125, qkv[:, :, 1], qkv[:, :, 2]
+    return qkv[:, :, 0] * dh ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
 
 
 @pytest.mark.cuda
@@ -90,6 +93,24 @@ def test_space_attention_kernel_matches_plain(card, b, frames, n):
     frames (T = 3137 CLS logits), N = 4 (one query tile, 11 padded keys),
     one frame (T = 197, the 1-frame image batches) and N = 48."""
     q, k, v = _qkv_views(card, b, frames, n, b * 100 + n)
+    before = psa.space_attention.launches
+    got = psa.space_attention(q, k, v, frames)
+    torch.cuda.synchronize()
+    assert psa.space_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), psa.space_attention_plain(q, k, v, frames).float(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,frames,n,heads,dh", [
+    (4, 4, 256, 16, 80), (8, 4, 256, 16, 80), (2, 1, 256, 16, 80), (2, 4, 196, 16, 80),
+    (3, 2, 4, 2, 80), (1, 2, 271, 2, 80), (2, 4, 256, 16, 64), (1, 2, 271, 2, 64)])
+def test_space_attention_kernel_at_dh80_and_257_keys(card, b, frames, n, heads, dh):
+    """ViT-H/14 over 4×224² (Dh 80, 16 heads, N = 256: 257 keys, 17 key
+    tiles) at B 4 and 8 and over one frame, Dh 80 at ViT-B's 197 keys and at
+    N = 4 (15 padded keys), the new limit of 272 keys at both head dims, and
+    ViT-L/16 over 4×256² (Dh 64, 257 keys)."""
+    q, k, v = _qkv_views(card, b, frames, n, b * 100 + n + dh, heads, dh)
     before = psa.space_attention.launches
     got = psa.space_attention(q, k, v, frames)
     torch.cuda.synchronize()
@@ -150,6 +171,60 @@ def test_space_attention_backward_kernel_gradients(card, frames, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("frames,n,dh", [(1, 256, 80), (2, 256, 80), (4, 256, 80),
+                                         (2, 4, 80), (2, 256, 64), (2, 271, 80)])
+def test_space_attention_backward_kernel_gradients_at_dh80(card, frames, n, dh):
+    """The backward kernels at ViT-H/14's Dh 80 and 257 keys (F = 1, 2, 4),
+    at N = 4, at Dh 64 with 257 keys (ViT-L/16 over 256²) and at the 272-key
+    limit, against autograd of the plain version."""
+    q, k, v = _qkv_views(card, 2, frames, n, 50 + frames + n, 4, dh)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (psa.space_attention.launches, psa.space_attention_backward.launches)
+    _grads_match(lambda a, b, c: psa.space_attention(a, b, c, frames),
+                 lambda a, b, c: psa.space_attention_plain(a, b, c, frames),
+                 leaves, ("q", "k", "v"))
+    assert (psa.space_attention.launches, psa.space_attention_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_space_attention_kernels_are_deterministic_at_dh80(card):
+    """ViT-H/14's shape, (4, 1025, 16, 80): the forward 10 times and the
+    backward twice, bitwise the same."""
+    q, k, v = _qkv_views(card, 4, 4, 256, 9, 16, 80)
+    first, lse = psa._launch(q, k, v, 4, with_lse=True)
+    for _ in range(9):
+        out, lse2 = psa._launch(q, k, v, 4, with_lse=True)
+        assert torch.equal(out, first) and torch.equal(lse2, lse)
+    dout = torch.randn(first.shape, device=card,
+                       generator=torch.Generator(card).manual_seed(10)).to(torch.bfloat16)
+    g1 = psa.space_attention_backward(q, k, v, dout, 4, lse)
+    g2 = psa.space_attention_backward(q, k, v, dout, 4, lse)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,hidden", [(12560, 1024, 4096), (4100, 1280, 5120)])
+def test_ln_mlp_kernel_at_vit_large_and_huge(card, rows, d, hidden):
+    """Kernel 1 at the pod recipes' shapes: ViT-L/16 at batch 16 over 4×224²
+    (12560 rows, 1024 → 4096 → 1024) and ViT-H/14's micro-batch of 4 (4100
+    rows, 1280 → 5120 → 1280)."""
+    g = torch.Generator(card).manual_seed(rows)
+    bf = torch.bfloat16
+    x = torch.randn(rows, d, device=card, generator=g).to(bf)
+    w1 = (torch.randn(hidden, d, device=card, generator=g) / d ** 0.5).to(bf)
+    w2 = (torch.randn(d, hidden, device=card, generator=g) / hidden ** 0.5).to(bf)
+    small = [0.1 * torch.randn(n, device=card, generator=g) for n in (d, d, hidden, d)]
+    args = (x, 1 + small[0], small[1], w1, small[2], w2, small[3], 1e-6)
+    before = plm.ln_mlp.launches
+    got = plm.ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert plm.ln_mlp.launches == before + 1
+    torch.testing.assert_close(got.float(), plm.ln_mlp_plain(*args).float(), atol=ATOL,
+                               rtol=BF16_ULP)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows,k,n", [(6280, 768, 2304), (33, 768, 2304), (1, 768, 2304),
                                       (50, 48, 128), (300, 128, 384), (129, 2048, 264)])
 def test_ln_linear_kernel_matches_plain(card, rows, k, n):
@@ -169,6 +244,26 @@ def test_ln_linear_kernel_matches_plain(card, rows, k, n):
     assert pll.ln_linear.launches == before + 1
     torch.testing.assert_close(got.float(), pll.ln_linear_plain(*args).float(),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n", [(12560, 1024, 3072), (4100, 1280, 3840)])
+def test_ln_linear_kernel_at_vit_large_and_huge(card, rows, k, n):
+    """Kernel 3 at the LN→qkv shapes of ViT-L/16 at batch 16 over 4×224²
+    (12560 rows, 1024 → 3072) and of ViT-H/14's micro-batch of 4 (4100
+    rows, 1280 → 3840)."""
+    g = torch.Generator(card).manual_seed(rows + k)
+    bf = torch.bfloat16
+    x = torch.randn(rows, k, device=card, generator=g).to(bf)
+    w = (torch.randn(n, k, device=card, generator=g) / k ** 0.5).to(bf)
+    small = [0.1 * torch.randn(m, device=card, generator=g) for m in (k, k, n)]
+    args = (x, 1 + small[0], small[1], w, small[2], 1e-6)
+    before = pll.ln_linear.launches
+    got = pll.ln_linear(*args)
+    torch.cuda.synchronize()
+    assert pll.ln_linear.launches == before + 1
+    torch.testing.assert_close(got.float(), pll.ln_linear_plain(*args).float(),
+                               atol=ATOL, rtol=BF16_ULP)
 
 
 def _rel(got, want):
@@ -246,8 +341,8 @@ def test_kernels_refuse_what_they_cannot_take(card):
     q = torch.zeros(1, 9, 2, 32, device=card, dtype=torch.bfloat16)  # Dh 32
     with pytest.raises(ValueError, match="Dh"):
         psa.space_attention(q, q, q, 2)
-    q = torch.zeros(1, 1 + 2 * 256, 2, 64, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="N=256"):  # N + 1 keys of a group > 256
+    q = torch.zeros(1, 1 + 2 * 272, 2, 80, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="N=272"):  # N + 1 keys of a group > 272
         psa.space_attention(q, q, q, 2)
     w = torch.zeros(256, 128, device=card)
     with pytest.raises(ValueError, match="bf16"):

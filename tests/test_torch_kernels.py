@@ -16,11 +16,14 @@ code its kernels are differentiated with). Tolerances, per gradient tensor:
     (measured ≤ 3.2e-3 of the max).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from oatx.ops import attention as jatt
 from oatx.ops.pallas import ln_linear as jll
@@ -204,6 +207,23 @@ def test_space_attention_plain_matches_oatx_reference():
 
 
 @pytest.mark.parametrize("frames", [1, 2, 4])
+def test_space_attention_plain_matches_oatx_pallas_at_dh80(frames, monkeypatch):
+    """ViT-H/14's space-attention shape at a tiny width: Dh 80, N = 256
+    (257 keys a group), F = 1, 2, 4. The plain version against oatx's Pallas
+    kernel run in interpret mode (`pl.pallas_call(..., interpret=True)`) and
+    against its XLA reference, f32, atol 1e-5."""
+    monkeypatch.setattr(jsa.pl, "pallas_call", functools.partial(pl.pallas_call,
+                                                                 interpret=True))
+    q, k, v, f = _qkv_problem(b=1, f=frames, n=256, h=2, dh=80, seed=80 + frames)
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    got = psa.space_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), f).numpy()
+    np.testing.assert_allclose(got, np.asarray(jsa._space_attention_fwd_pallas(*args, f)),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(jsa._space_attention_reference(*args, f)),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("frames", [1, 2, 4])
 def test_space_attention_matches_oatx_divided_attention(frames):
     """Port divided_attention(space) — kernel 2's plain version inside — vs
     oatx divided_attention(mode='space', cls_pos='first') on the same x and
@@ -223,6 +243,24 @@ def test_space_attention_matches_oatx_divided_attention(frames):
     got = patt.divided_attention(T(x), T(wq.T.copy()), T(bq), T(wp.T.copy()), T(bp),
                                  heads, frames, "space")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("frames", [1, 2, 4])
+def test_space_attention_backward_at_dh80_matches_oatx_vjp(frames, dtype):
+    """The backward at Dh 80, N = 256 (F = 1, 2, 4) against jax.vjp of oatx
+    `_space_attention_reference` (its custom VJP's backward), f32 and
+    bf16."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, f = _qkv_problem(b=1, f=frames, n=256, h=2, dh=80, seed=90 + frames)
+    dout = np.random.default_rng(frames).standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jsa._space_attention_reference(a, b, c, f),
+                     *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(dout).astype(jdt))
+    got = psa.space_attention_backward(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                                       torch.from_numpy(dout).to(tdt), f)
+    assert all(g.dtype == tdt for g in got)
+    _close_grads(got, want, ("q", "k", "v"), dtype)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -293,13 +331,16 @@ def _blocked_backward(q, k, v, dout, f):
     return tuple(a.to(dt) for a in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("frames,n", [(1, 4), (2, 4), (4, 196)])
+@pytest.mark.parametrize("frames,n", [(1, 4), (2, 4), (4, 196), (1, 256), (2, 256),
+                                      (4, 256)])
 def test_space_attention_blocked_backward_matches_oatx_vjp(frames, n):
     """The backward kernels' decomposition (per-group recompute from the
     log-sum-exp, the CLS row's pass, the CLS key summed from F + 1 places)
     against jax.vjp of oatx `_space_attention_reference` in f32, at 1e-5 of
-    each gradient's max, and against `space_attention_backward`."""
-    q, k, v, f = _qkv_problem(b=2, f=frames, n=n, h=1, dh=16, seed=frames + n)
+    each gradient's max, and against `space_attention_backward`. The N = 256
+    cases run at ViT-H/14's Dh 80 (257 keys a group)."""
+    dh = 80 if n == 256 else 16
+    q, k, v, f = _qkv_problem(b=2, f=frames, n=n, h=1, dh=dh, seed=frames + n)
     dout = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
     _, vjp = jax.vjp(lambda a, b, c: jsa._space_attention_reference(a, b, c, f),
                      *(jnp.asarray(a) for a in (q, k, v)))
@@ -419,6 +460,33 @@ def test_space_attention_query_split_fills_the_card(batch, want):
 
 def test_space_attention_query_split_keeps_a_tile_per_block():
     assert psa._query_split(12, 1, 132) == 1  # N = 4: one query tile
+
+
+@pytest.mark.parametrize("dh,n,batch,want", [
+    (64, 196, 2, 3),   # ViT-L/16 at 224²: 3 blocks per SM, as before (396 slots)
+    (64, 256, 4, 1),   # ViT-L/16 at 256²: 257 keys take 17 tiles, 2 blocks per SM
+    (80, 256, 1, 4),   # ViT-H/14: 64 groups x 4 blocks of the 264 slots
+    (80, 256, 4, 1),   # the pod recipe's micro-batch of 4: 256 groups, one block each
+    (80, 256, 8, 1),
+])
+def test_space_attention_query_split_at_dh80(dh, n, batch, want):
+    groups = batch * 4 * 16  # 4 frames x 16 heads of ViT-L/16 and H/14
+    bps = psa._blocks_per_sm(dh, n)
+    assert bps == (3 if (dh, n) == (64, 196) else 2)
+    assert psa._query_split(groups, -(-n // 16), 132, bps) == want
+
+
+@pytest.mark.parametrize("dh,n,match", [(32, 4, "Dh"), (96, 4, "Dh"), (80, 272, "N=272"),
+                                        (64, 272, "N=272")])
+def test_space_attention_kernel_limits(dh, n, match):
+    """The kernel takes Dh 64 and 80 (every head dim of the ViT table) and at
+    most 272 keys a frame group: the wrapper's check refuses the rest, with
+    the limit in the message, before anything reaches a device."""
+    q = torch.zeros(1, 1 + 2 * n, 2, dh, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=match):
+        psa._check_inputs(q, q, q, 2)
+    ok = torch.zeros(1, 1 + 2 * 271, 2, 80, dtype=torch.bfloat16, device="meta")
+    assert psa._check_inputs(ok, ok, ok, 2) == 271
 
 
 def test_build_rehashes_when_a_shared_header_changes(tmp_path, monkeypatch):

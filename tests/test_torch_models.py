@@ -260,12 +260,26 @@ def test_init_is_seeded():
 def test_unported_options_raise(change):
     """Options the port does not run raise NotImplementedError (the object
     tower and the bert and clip families are ported: tests/
-    test_torch_towers.py and test_torch_object_tower.py)."""
+    test_torch_towers.py and test_torch_object_tower.py). The video tower's
+    `sequence_parallel` is a no-op on one device, as oatx's `_sp_constrain`
+    is without a model axis: that tower builds, with the same weights and
+    outputs as one without the key (tests/test_torch_pod.py holds a Dh-80
+    tower with it against oatx's `apply`)."""
     cfg = port_cfg()
     if "video" in change:
         cfg = dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, **change["video"]))
     else:
         cfg = dataclasses.replace(cfg, **change)
+    if change == dict(video=dict(sequence_parallel=True)):
+        g = lambda: torch.Generator().manual_seed(5)  # noqa: E731
+        got = ptowers.DualTower(cfg, "cpu", g()).eval()
+        want = ptowers.DualTower(port_cfg(), "cpu", g()).eval()
+        video = torch.from_numpy(
+            np.random.default_rng(2).standard_normal((2, 2, 32, 32, 3)).astype(np.float32))
+        with torch.no_grad():
+            out, ref = got.video_model(video), want.video_model(video)
+        assert sorted(out) == sorted(ref) and all(torch.equal(out[k], ref[k]) for k in ref)
+        return
     with pytest.raises(NotImplementedError):
         ptowers.DualTower(cfg, device="cpu")
 

@@ -193,8 +193,23 @@ def test_sigterm_snapshot_resumes_mid_epoch_to_the_same_parameters(tmp_path, kee
                                        ("pipeline", True), ("dp_mode", "manual"),
                                        ("dcn_slices", 2)])
 def test_multi_device_modes_raise(tmp_path, key, value):
-    with pytest.raises(NotImplementedError, match="several devices"):
-        PTrainer(PExp.from_dict(_raw(tmp_path, **{key: value})), [], device="cpu")
+    """The layouts one device cannot give raise, naming their ROADMAP item
+    (A8a data parallelism, A8b tensor and pipeline parallelism). `fsdp` on
+    one device shards over a 1-wide data axis, that is, replicates, as
+    oatx's shard_params_fsdp does on a 1-device mesh: that Trainer builds
+    and holds the same parameters as one without it."""
+    raw = _raw(tmp_path, **{key: value})
+    raw["arch"]["args"]["load_checkpoint"] = ""
+    if key == "fsdp":
+        got = PTrainer(PExp.from_dict(raw), [], device="cpu").state.model.state_dict()
+        raw["trainer"]["fsdp"] = False
+        want = PTrainer(PExp.from_dict(raw), [], device="cpu").state.model.state_dict()
+        assert sorted(got) == sorted(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        return
+    item = "A8b" if key in ("model_parallel", "pipeline") else "A8a"
+    with pytest.raises(NotImplementedError, match=f"several devices.*{item}"):
+        PTrainer(PExp.from_dict(raw), [], device="cpu")
 
 
 def test_fwd_chunk_with_accum_steps_raises(tmp_path):
