@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
-                          [--only-towers] [--only-wide]
+                          [--only-towers] [--only-wide] [--only-dp] [--dp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -20,8 +20,9 @@ at each shape of SA_SHAPES, and holds its outputs bitwise against this
 tree's. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
-phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9
-(no record, no `ok` line).
+phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
+--only-dp phase 10 (no record, no `ok` line). --dp-nccl runs phase 10
+(b) alone with one rank per visible card over NCCL (2 or more cards).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -184,6 +185,31 @@ printed):
      (the untraced intervals), clips/s, MFU
      (train/flops.py), peak memory, and from a CUDA-only trace of the last
      2 steps the idle share and device ms by group.
+ 10. dp — data parallelism across processes (train/step.py,
+     parallel/collectives.py). (a) `oatx_torch.cli.train` on norm.json over
+     phase 7's corpora (written again) under OATX_MULTIHOST=1 with oatx's
+     three variables at a world of 1 (NCCL, cuda:0), DP_CYCLES cycles, then
+     the same run without OATX_MULTIHOST: every loss term and the final
+     parameters bitwise equal, the group torn down, launches as
+     want_launches derives. (b) DP_WORLD ranks, this script started again
+     with --dp-rank (a gloo group over a file:// rendezvous; NCCL refuses two
+     ranks on one card), both on cuda:0: first a probe that gloo takes CUDA
+     tensors for all_gather, all_reduce (f32, bf16) and broadcast (if not,
+     (b) waits and says so); then through Trainer.train() over the trainer
+     phase's 32 clips, each rank its shard at batch DP_RANK_BATCH: norm.json
+     DP_NORM_STEPS steps, local_region_loss.json (global_local) and
+     region_mem.json one step each over the objects phase's corpus. Each
+     held against one process at batch DP_WORLD·DP_RANK_BATCH on the same
+     global batch (GlobalBatches, as many steps): step 1's loss terms within
+     DP_LOSS_RTOL relative, the reduced gradients by grad_check, global
+     norms within GRAD_NORM_RTOL, cosine ≥ GRAD_MIN_GLOBAL_COSINE, every
+     rank's gradients and loss terms equal, the gradient all-reduce exactly
+     the trainable f32 bytes a step, launches per rank as want_launches
+     derives. Printed: the all-reduce and all-gather bytes and calls a step
+     by purpose, step ms and peak memory per rank and of the one process
+     (the ranks' step ms is not a data-parallel speed here: they share one
+     card and gloo stages CUDA tensors through the host; with --dp-nccl it
+     is).
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -3264,6 +3290,341 @@ def wide_phase(smi, dev):
     return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
 
 
+# ---------------------------------------------------------------------- dp
+DP_WORLD = 2             # ranks of (b), both on cuda:0 over gloo
+DP_RANK_BATCH = 8        # per rank: norm.json's per-GPU 16 as a global batch
+DP_NORM_STEPS = 4        # norm.json steps of (b); the object recipes take 1
+DP_CYCLES = 2            # (a): cycles of cli.train (a CC3M and a WebVid step each)
+DP_LOSS_RTOL = 2e-3      # (b) step 1's loss terms against one process at batch 16
+DP_RANK_TIMEOUT_S = 600
+DP_RECIPES = ("norm", "global_local", "region_mem")
+
+
+def dp_recipe(name, steps):
+    """norm.json or an object-aware recipe for phase 10: one epoch of
+    `steps` steps, no init_val, no checkpoint."""
+    path = NORM_CONFIG if name == "norm" else OBJECT_CONFIGS[name]
+    return recipe(path, epochs=1, len_epoch=steps, init_val=False, save_period=10 ** 6,
+                  verbosity=1)
+
+
+def dp_steps(name):
+    return DP_NORM_STEPS if name == "norm" else 1
+
+
+def dp_data(name, exp, base, tmp):
+    """(dataset, collator) of recipe `name` over `base`'s clips (the object
+    recipes with object_corpus' extras, files under `tmp`)."""
+    from oatx_torch.data import factory
+    from oatx_torch.data.loader import Collator
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+
+    if name == "norm":
+        return base, Collator(WordPieceTokenizer.build_from_corpus(base.captions),
+                              max_text_len=TEXT_LEN)
+    dl = exp.data_loaders[0]
+    opts = factory.object_options_for_variant(name, dl, factory.load_region_bank(exp))
+    ds = object_corpus(base, os.path.join(tmp, "objects"), opts)
+    tok = WordPieceTokenizer.build_from_corpus(ds.captions + [f"obj{i}" for i in range(1600)])
+    return ds, Collator(tok, max_text_len=TEXT_LEN,
+                        tag_token_lens=factory.tag_token_lens_for(ds, tok) if opts.tags else None)
+
+
+class FirstGrads:
+    """Wraps a Trainer's train_step: the model's gradients after its first
+    step (under data parallelism the reduced ones), kept on the card."""
+
+    def __init__(self, trainer):
+        self.step, self.model, self.grads = trainer.train_step, trainer.state.model, None
+        trainer.train_step = self
+
+    def __call__(self, state, batch):
+        state, m = self.step(state, batch)
+        if self.grads is None:
+            self.grads = {n: p.grad.detach().clone() for n, p in self.model.named_parameters()
+                          if p.grad is not None}
+        return state, m
+
+
+def dp_probe(dev, rank, world):
+    """Whether the group takes CUDA tensors between the ranks: all_gather
+    into a list, all_reduce in f32 and bf16, broadcast, each checked."""
+    import torch.distributed as dist
+
+    try:
+        x = torch.full((4,), rank + 1.0, device=dev)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        s = x.clone()
+        dist.all_reduce(s)
+        h = x.to(torch.bfloat16)
+        dist.all_reduce(h)
+        b = x.clone()
+        dist.broadcast(b, 0)
+        want = float(sum(range(1, world + 1)))
+        ok = ([float(p[0]) for p in parts] == [r + 1.0 for r in range(world)]
+              and float(s[0]) == want and float(h[0]) == want and float(b[0]) == 1.0
+              and all(t.device == dev for t in (parts[0], s, h, b)))
+        return {"ok": ok, "device": str(dev), "all_gather": [float(p[0]) for p in parts],
+                "all_reduce_f32": float(s[0]), "all_reduce_bf16": float(h[0]),
+                "broadcast": float(b[0])}
+    except Exception as e:  # the probe's answer, not a failure of the port
+        return {"ok": False, "error": f"{type(e).__name__}: {e}"}
+
+
+def dp_run(name, trainer_of, steps, dev):
+    """Trainer.train() over `steps` steps of recipe `name` → the record of
+    the run (loss terms, launches, collectives' traffic a step, step ms,
+    peak memory) and its first step's gradients on the host."""
+    from oatx_torch.parallel import collectives as coll
+
+    held = fresh_peak(dev)
+    tr = trainer_of()
+    cfg = tr.tower_cfg
+    reached = ((cfg.video.depth,) if name == "norm" else
+               (cfg.video.depth, cfg.video.depth if name == "global_local"
+                else cfg.video.region_tap_layer))
+    rec = StepRecorder(tr)
+    first = FirstGrads(tr)
+    launches = {}
+    coll.reset_traffic()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    traffic = {k: {q: v / steps for q, v in t.items()} for k, t in coll.TRAFFIC.items()}
+    check_launches(f"dp {name}", launches,
+                   want_launches(cfg.video.depth, steps, False, backward_depths=reached))
+    grads = {n: g.float().cpu() for n, g in first.grads.items()}
+    return {"steps": steps, "terms": rec.term_values(), "launches": launches,
+            "traffic_per_step": traffic, "step_ms": rec.step_ms(steps), "mem_held_gib": held,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "trainable_f32_bytes": 4 * sum(g.numel() for g in grads.values())}, grads
+
+
+def dp_rank_main(rank, world, url, out, backend):
+    """One rank of phase 10 (b), started by dp_ranks: a `backend` group over
+    `url` (gloo: every rank on cuda:0; nccl: cuda:rank), the probe, then each
+    recipe through Trainer.train() over this rank's shard; its record →
+    out/rank{rank}.json, rank 0's first step's gradients →
+    out/grads_{recipe}.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from oatx_torch.data.loader import ShardedLoader
+    from oatx_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=url, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT_S))
+    try:
+        record = {"probe": dp_probe(dev, rank, world), "runs": {}}
+        if record["probe"]["ok"]:
+            base = MemoryClips(CORPUS_CLIPS, seed=0)
+            for name in DP_RECIPES:
+                exp = dp_recipe(name, dp_steps(name))
+                ds, col = dp_data(name, exp, base, os.path.join(out, f"rank{rank}"))
+                train = [ShardedLoader(ds, DP_RANK_BATCH, col, seed=0, num_workers=4,
+                                       shard_id=rank, num_shards=world)]
+                run, grads = dp_run(name, lambda: Trainer(exp, train, [], device=dev),
+                                    dp_steps(name), dev)
+                if rank == 0:
+                    torch.save(grads, os.path.join(out, f"grads_{name}.pt"))
+                run["grad_sums"] = [[float(g.double().sum()), float(g.double().square().sum())]
+                                    for g in grads.values()]
+                record["runs"][name] = run
+                del grads
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_reference(name, base, tmp, dev, world):
+    """One process at batch world·DP_RANK_BATCH over the ranks' global
+    batches (GlobalBatches: the shards' batches in rank order), as many
+    steps as the ranks took: its record and its first step's gradients."""
+    from oatx_torch.data.loader import GlobalBatches, ShardedLoader
+    from oatx_torch.train.trainer import Trainer
+
+    exp = dp_recipe(name, dp_steps(name))
+    ds, col = dp_data(name, exp, base, os.path.join(tmp, "reference"))
+    train = [GlobalBatches([ShardedLoader(ds, DP_RANK_BATCH, col, seed=0, num_workers=4,
+                                          shard_id=r, num_shards=world)
+                            for r in range(world)])]
+    return dp_run(name, lambda: Trainer(exp, train, [], device=dev), dp_steps(name), dev)
+
+
+def dp_ranks(smi, dev, world=DP_WORLD, backend="gloo"):
+    """Phase 10 (b): `world` ranks, this script started again with
+    --dp-rank (gloo: all on cuda:0; nccl: one card each), each recipe
+    against one process on the same global batch. → (record, launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = "one card over gloo" if backend == "gloo" else f"{world} cards over NCCL"
+    with tempfile.TemporaryDirectory() as tmp:
+        url = "file://" + os.path.join(tmp, "store")
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                                   "--dp-world", str(world), "--dp-init", url,
+                                   "--dp-backend", backend, "--dp-out", tmp],
+                                  stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=DP_RANK_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            for r, log in enumerate(logs):
+                print(f"dp rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
+            raise AssertionError(f"dp (b): ranks exited {[p.returncode for p in procs]}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+        print(f"dp (b) {backend} on CUDA tensors, probe ({smi}): "
+              + json.dumps([r["probe"] for r in ranks]), flush=True)
+        if not all(r["probe"]["ok"] for r in ranks):
+            print(f"dp (b) waits: {backend} refused CUDA tensors between the ranks", flush=True)
+            return {"probe": [r["probe"] for r in ranks]}, []
+        base = MemoryClips(CORPUS_CLIPS, seed=0)
+        out = {"backend": backend, "world": world, "ranks_wall_s": wall_s, "runs": {}}
+        for name in DP_RECIPES:
+            runs = [r["runs"][name] for r in ranks]
+            if any(r["grad_sums"] != runs[0]["grad_sums"] or r["terms"] != runs[0]["terms"]
+                   for r in runs):
+                raise AssertionError(f"dp (b) {name}: the ranks disagree")
+            one, ref = dp_reference(name, base, tmp, dev, world)
+            got = torch.load(os.path.join(tmp, f"grads_{name}.pt"))
+            rel = {k: abs(runs[0]["terms"][k][0] - v[0]) / abs(v[0])
+                   for k, v in one["terms"].items()}
+            check = grad_check(got, ref)
+            del got, ref
+            rec = {"steps": runs[0]["steps"], "rank_batch": DP_RANK_BATCH,
+                   "global_batch": world * DP_RANK_BATCH, "step1_terms": {
+                       k: [runs[0]["terms"][k][0], v[0]] for k, v in one["terms"].items()},
+                   "step1_rel_diff": rel, "losses": runs[0]["terms"]["loss"],
+                   "one_process_losses": one["terms"]["loss"],
+                   "launches_per_rank": runs[0]["launches"],
+                   "traffic_per_step": runs[0]["traffic_per_step"],
+                   "trainable_f32_bytes": runs[0]["trainable_f32_bytes"],
+                   "rank_step_ms": [r["step_ms"] for r in runs],
+                   "one_process_step_ms": one["step_ms"],
+                   "peak_mem_gib": [r["peak_mem_gib"] for r in runs],
+                   "one_process_peak_mem_gib": one["peak_mem_gib"],
+                   "mem_held_gib": [r["mem_held_gib"] for r in runs],
+                   **{k: check[k] for k in ("grad_norm", "plain_grad_norm", "grad_norm_rel_diff",
+                                            "grad_global_cosine", "grad_tol_used",
+                                            "grad_tensors", "grad_worst")}}
+            out["runs"][name] = rec
+            note = (" (rank step ms NOT a data-parallel speed: the ranks share one card and "
+                    "gloo stages CUDA tensors through the host)" if backend == "gloo" else "")
+            print(f"dp (b) {name}, {world} ranks x batch {DP_RANK_BATCH} on {where} "
+                  f"({smi}){note}: " + json.dumps(rec), flush=True)
+            grad_bytes = rec["traffic_per_step"]["grad"]["bytes"]
+            if max(rel.values()) > DP_LOSS_RTOL or rec["grad_tol_used"] > 1 \
+                    or rec["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+                    or rec["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE \
+                    or grad_bytes != rec["trainable_f32_bytes"]:
+                raise AssertionError(f"dp (b) {name}: {world} ranks disagree with one "
+                                     f"process: {rel}, {rec['grad_worst']}, all-reduced "
+                                     f"{grad_bytes} of {rec['trainable_f32_bytes']} bytes")
+    launches = [r["runs"][name]["launches"] for r in ranks for name in r["runs"]]
+    return out, launches
+
+
+def dp_world1(root, tmp, smi, dev):
+    """Phase 10 (a): cli.train on norm.json over phase 7's corpora under
+    OATX_MULTIHOST=1 at a world of 1 (NCCL, cuda:0), then the same run
+    without it: every loss term and the final parameters bitwise equal.
+    → (record, launches of both runs)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from oatx_torch.cli import train as cli_train
+
+    with open(NORM_CONFIG) as f:
+        raw = json.load(f)
+    for dl, name in zip(raw["data_loader"], ("cc3m", "webvid")):
+        dl["args"].update(data_dir=os.path.join(root, name), metadata_dir=os.path.join(root, name))
+        dl["args"]["video_params"]["loading"] = "strict"
+    batch = raw["data_loader"][0]["args"]["batch_size"]
+    raw["trainer"].update(epochs=1, init_val=False, save_period=1, verbosity=1,
+                          max_samples_per_epoch=DP_CYCLES * batch * len(raw["data_loader"]))
+    steps = DP_CYCLES * len(raw["data_loader"])
+    runs, launches = {}, []
+    for mode in ("multihost", "plain"):
+        raw["trainer"]["save_dir"] = os.path.join(tmp, mode)
+        cfg = os.path.join(tmp, f"dp_{mode}.json")
+        with open(cfg, "w") as f:
+            json.dump(raw, f)
+        env = {}
+        if mode == "multihost":
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            env = {"OATX_MULTIHOST": "1", "OATX_COORDINATOR": f"localhost:{port}",
+                   "OATX_NUM_PROCESSES": "1", "OATX_PROCESS_ID": "0"}
+        os.environ.update(env)
+        made, counts = [], {}
+        t0 = time.perf_counter()
+        try:
+            with recorded_trainers(made), counted(counts):  # ---- the main path ----
+                rc = cli_train.main(["-c", cfg, "--no_timestamp"])
+        finally:
+            for k in env:
+                del os.environ[k]
+        if rc != 0 or len(made) != 1 or dist.is_initialized():
+            raise AssertionError(f"dp (a) {mode}: rc {rc}, {len(made)} trainers, group left "
+                                 f"{dist.is_initialized()}")
+        tr = made[0]["trainer"]
+        val = sum(eval_forwards(1, len(l.dataset), l.batch_size) for l in tr.valid_loaders)
+        check_launches(f"dp (a) {mode}", counts, want_launches(tr.tower_cfg.video.depth, steps,
+                                                               False, forwards=val))
+        runs[mode] = {"terms": made[0]["rec"].term_values(), "wall_s": time.perf_counter() - t0,
+                      "params": {k: v.detach().cpu().clone()
+                                 for k, v in tr.state.model.state_dict().items()}}
+        launches.append(counts)
+        del tr, made
+    same_terms = runs["multihost"]["terms"] == runs["plain"]["terms"]
+    same_params = state_equal(runs["multihost"]["params"], runs["plain"]["params"])
+    out = {"config": "norm.json", "steps": steps, "backend": "nccl", "world": 1,
+           "losses": runs["multihost"]["terms"]["loss"], "terms_bitwise": same_terms,
+           "params_bitwise": same_params, "tensors": len(runs["plain"]["params"]),
+           "wall_s": [runs[m]["wall_s"] for m in runs], "launches": launches[0]}
+    print(f"dp (a) cli.train under OATX_MULTIHOST=1, world 1, NCCL, against the plain run "
+          f"({smi}): " + json.dumps(out), flush=True)
+    if not (same_terms and same_params):
+        raise AssertionError("dp (a): the world-1 run is not bitwise the plain run")
+    return out, launches
+
+
+def dp_phase(smi, dev):
+    """Data parallelism across processes (module docstring, phase 10)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "corpora")
+        write_corpora(root)
+        a, launches = dp_world1(root, tmp, smi, dev)
+    b, more = dp_ranks(smi, dev)
+    launches += more
+    print(f"dp summary ({smi}): " + json.dumps({
+        "a_bitwise": a["terms_bitwise"] and a["params_bitwise"], "a_wall_s": a["wall_s"],
+        "b": {name: {k: r[k] for k in ("step1_rel_diff", "grad_norm_rel_diff",
+                                       "grad_global_cosine", "grad_tol_used",
+                                       "traffic_per_step", "rank_step_ms", "peak_mem_gib")}
+              for name, r in b.get("runs", {}).items()},
+        "b_probe": b.get("probe"), "phase_s": time.perf_counter() - t0}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -3292,11 +3653,26 @@ def main() -> int:
     ap.add_argument("--only-wide", action="store_true",
                     help="build the kernels and run the wide phase alone (no record, "
                          "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-dp", action="store_true",
+                    help="build the kernels and run the dp phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--dp-nccl", action="store_true",
+                    help="build the kernels and run phase 10 (b) alone with one rank per "
+                         "visible card over NCCL (needs 2 or more cards; no record, no ok "
+                         "line)")
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)  # phase 10's ranks
+    ap.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-init", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if opts.dp_rank is not None:  # one rank of phase 10 (b), started by dp_ranks
+        return dp_rank_main(opts.dp_rank, opts.dp_world, opts.dp_init, opts.dp_out,
+                            opts.dp_backend)
     from oatx_torch.ops.kernels import _build
 
     # TF32 off: the plain versions and every f32 matmul / convolution on the
@@ -3335,6 +3711,17 @@ def main() -> int:
     if opts.only_wide:
         wide_phase(smi, dev)
         print("chip_smoke: --only-wide ran the wide phase alone", flush=True)
+        return 0
+    if opts.only_dp:
+        dp_phase(smi, dev)
+        print("chip_smoke: --only-dp ran the dp phase alone", flush=True)
+        return 0
+    if opts.dp_nccl:
+        world = torch.cuda.device_count()
+        if world < 2:
+            raise SystemExit(f"--dp-nccl needs 2 or more cards, {world} visible")
+        dp_ranks(smi, dev, world, "nccl")
+        print(f"chip_smoke: --dp-nccl ran phase 10 (b) on {world} cards over NCCL", flush=True)
         return 0
     parent = None
     if opts.parent_ln_linear:
@@ -3393,6 +3780,7 @@ def main() -> int:
     phases["data"] = data_phase(smi, dev)
     phases["towers"] = towers_phase(smi, dev)
     phases["wide"], wide = wide_phase(smi, dev)
+    phases["dp"] = dp_phase(smi, dev)
     for name, recs in wide.items():
         by_name[name]["wide"] = recs
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -19,7 +19,7 @@ import dataclasses
 import json
 from datetime import datetime
 from pathlib import Path
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 from oatx_torch.config.schema import ExperimentCfg
 
@@ -91,7 +91,12 @@ class Experiment:
 
 def load_experiment(argv: Optional[Sequence[str]] = None,
                     custom_args: Sequence[CustomArg] = (), test: bool = False,
-                    timestamp: bool = True) -> Experiment:
+                    timestamp: Union[bool, str] = True, write_config: bool = True) -> Experiment:
+    """argv → Experiment. `timestamp`: True names the run directory by the
+    time now, a string names it by that string (every rank of a
+    data-parallel run passes rank 0's), False not at all; --no_timestamp
+    overrides. Unless `test`, the directories are made, and config.json is
+    written when `write_config` (rank 0 alone under data parallelism)."""
     parser = build_argparser(custom_args)
     args = parser.parse_args(argv)
     if args.resume is None:
@@ -119,8 +124,10 @@ def load_experiment(argv: Optional[Sequence[str]] = None,
         raw.setdefault("trainer", {})["save_dir"] = args.save_dir
 
     cfg = ExperimentCfg.from_dict(raw)
-    ts = (datetime.now().strftime(r"%m%d_%H%M%S")
-          if timestamp and not args.no_timestamp else "")
+    if not timestamp or args.no_timestamp:
+        ts = ""
+    else:
+        ts = timestamp if isinstance(timestamp, str) else datetime.now().strftime(r"%m%d_%H%M%S")
     base = Path(cfg.trainer.save_dir)
     save_dir = base / "models" / cfg.name / ts
     log_dir = base / "log" / cfg.name / ts
@@ -128,7 +135,8 @@ def load_experiment(argv: Optional[Sequence[str]] = None,
     if not test:
         save_dir.mkdir(parents=True, exist_ok=True)
         log_dir.mkdir(parents=True, exist_ok=True)
-        with open(save_dir / "config.json", "w") as f:
-            json.dump(raw, f, indent=4, sort_keys=False)
+        if write_config:
+            with open(save_dir / "config.json", "w") as f:
+                json.dump(raw, f, indent=4, sort_keys=False)
     return Experiment(cfg=cfg, save_dir=save_dir, log_dir=log_dir, web_dir=web_dir,
                       resume=resume, args=args)

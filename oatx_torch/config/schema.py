@@ -248,10 +248,10 @@ class LossCfg:
 
 @dataclasses.dataclass
 class TrainerCfg:
-    """The trainer keys (oatx schema.py:263-346). On one device `fsdp`,
-    `zero1` and `dp_mode` have nothing to shard or reduce; `model_parallel`
-    > 1, `pipeline`, `dcn_slices` > 1 and `dp_mode: manual` need several
-    devices and raise in the Trainer (parallel/mesh.py)."""
+    """The trainer keys (oatx schema.py:263-346). What each layout key does
+    with one process and with several (`dp_mode`, `grad_reduce_dtype`,
+    `dcn_slices`, `fsdp`, `zero1`, `model_parallel`, `pipeline`) is
+    parallel/mesh.py's check_layout and the Trainer's gating."""
     epochs: int = 100
     max_samples_per_epoch: int = 1_000_000
     save_dir: str = "exps"

@@ -11,7 +11,8 @@ data_loader/data_loader.py:11-240).
   * `build_dataset` — the registered adapter of a data_loader entry with
     its variant's object options;
   * `build_loaders` — one ShardedLoader + Collator per data_loader entry
-    (the trainer alternates them through MultiLoader).
+    (the trainer alternates them through MultiLoader), each over shard
+    `shard_id` of `num_shards` (a rank's share under data parallelism).
 """
 
 from __future__ import annotations
@@ -101,9 +102,14 @@ def build_dataset(dl: DataLoaderCfg, variant: str = "baseline", split: Optional[
 
 
 def build_loaders(exp: ExperimentCfg, tokenizer: WordPieceTokenizer,
-                  split: Optional[str] = None, seed: int = 0) -> List[ShardedLoader]:
+                  split: Optional[str] = None, shard_id: int = 0, num_shards: int = 1,
+                  seed: int = 0) -> List[ShardedLoader]:
     """One loader per data_loader entry: shuffled, drop_last and echoed on
-    the train split, in order otherwise."""
+    the train split, in order otherwise. Each reads shard `shard_id` of
+    `num_shards` of its dataset (every num_shards-th sample of the epoch's
+    order; oatx feeds them from jax.process_index() / process_count(), the
+    port's cli.train from the rank and world size). `batch_size` is per
+    shard."""
     region_bank = load_region_bank(exp)
     loaders = []
     tag_lens = None
@@ -115,6 +121,7 @@ def build_loaders(exp: ExperimentCfg, tokenizer: WordPieceTokenizer,
         train = (split or dl.split) == "train"
         loaders.append(ShardedLoader(
             ds, batch_size=dl.batch_size, collate=collate,
-            shuffle=dl.shuffle if train else False, drop_last=train,
-            num_workers=dl.num_workers, seed=seed, echo_factor=dl.echo_factor if train else 1))
+            shuffle=dl.shuffle if train else False, shard_id=shard_id, num_shards=num_shards,
+            drop_last=train, num_workers=dl.num_workers, seed=seed,
+            echo_factor=dl.echo_factor if train else 1))
     return loaders

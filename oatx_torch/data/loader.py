@@ -289,6 +289,54 @@ class MultiLoader:
                     close()
 
 
+class GlobalBatches:
+    """The global batches of a data-parallel run, on one process: batch j is
+    the j-th batch of each of `shards` (ShardedLoaders over shards 0..n-1 of
+    one dataset) concatenated in rank order, as the ranks' gathers see them.
+    With the augmenter's draws for the global batch (data/transforms.py) one
+    process then trains as n ranks do. A loader for MultiLoader and the
+    Trainer: batch_size is the sum of the shards'."""
+
+    def __init__(self, shards: Sequence[ShardedLoader]):
+        self.shards = list(shards)
+        self.batch_size = sum(l.batch_size for l in self.shards)
+        self.dataset = self.shards[0].dataset
+
+    @property
+    def dataset_name(self) -> str:
+        return self.shards[0].dataset_name
+
+    @property
+    def _wrap(self) -> int:
+        return self.shards[0]._wrap
+
+    @_wrap.setter
+    def _wrap(self, value: int) -> None:
+        for l in self.shards:
+            l._wrap = value
+
+    def set_epoch(self, epoch: int) -> None:
+        for l in self.shards:
+            l.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return min(len(l) for l in self.shards)
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        return self.iter_batches(0)
+
+    def iter_batches(self, start_batch: int = 0) -> Iterator[Dict[str, Any]]:
+        its = [l.iter_batches(start_batch) for l in self.shards]
+        try:
+            for parts in zip(*its):
+                yield {k: (np.concatenate([p[k] for p in parts])
+                           if isinstance(parts[0][k], np.ndarray)
+                           else [x for p in parts for x in p[k]]) for k in parts[0]}
+        finally:
+            for it in its:  # release the shards' thread pools on early exit
+                it.close()
+
+
 def pad_batch(batch: Dict[str, Any], multiple: int):
     """Pad a ragged batch (the last eval batch) to a multiple by repeating the
     final sample → (padded_batch, n_valid): every eval step keeps one shape."""

@@ -15,7 +15,11 @@ to `center_crop`²); everything after that runs on the tensor's device:
 
 Every random draw comes from an explicit `torch.Generator` on the batch's
 device (the train step seeds one per step); oatx draws from a JAX key, so the
-two packages agree in distribution, not draw for draw. Given the same boxes,
+two packages agree in distribution, not draw for draw. Every draw is per
+clip: with `shard` = (r, n), rank r of n draws for the n·B clips of the
+global batch and keeps rows [r·B, (r + 1)·B), so n ranks augment exactly as
+one process augments their batches concatenated in rank order (oatx
+augments the global batch with one key). Given the same boxes,
 flip mask and jitter factors, the arithmetic is oatx's: `crop_resize` is its
 `_bilinear_crop_resize` (half-pixel centres, clamped corner indices, f32
 weights) batched as per-clip index gathers.
@@ -92,11 +96,24 @@ def crop_resize(video: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     return (top * (1 - wy) + bot * wy).permute(0, 3, 1, 2, 4)  # (B, F, out, out, C)
 
 
-def crop_boxes(gen: torch.Generator, b: int, h: int, w: int, cfg: TransformConfig):
+Shard = Optional[Tuple[int, int]]  # (rank, world): draw for the global batch
+
+
+def _uniform(gen: torch.Generator, lead: Tuple[int, ...], b: int, shard: Shard = None):
+    """U[0, 1) draws of shape lead + (b,); with `shard` (r, n) drawn for n·b
+    clips and cut to the columns of rank r's rows."""
+    if shard is None or shard[1] == 1:
+        return torch.rand(*lead, b, generator=gen, device=gen.device)
+    r, n = shard
+    return torch.rand(*lead, n * b, generator=gen, device=gen.device)[..., r * b:(r + 1) * b]
+
+
+def crop_boxes(gen: torch.Generator, b: int, h: int, w: int, cfg: TransformConfig,
+               shard: Shard = None):
     """One box per clip (oatx :99-114): area U(scale)·H·W, aspect
     exp(U(log ratio)), sides clamped to [8, H] and [8, W], corner uniform
     over the room left → (y0, x0, ch, cw), each (B,) f32."""
-    u = torch.rand(4, b, generator=gen, device=gen.device)
+    u = _uniform(gen, (4,), b, shard)
     lo, hi = cfg.randcrop_scale
     area = (lo + (hi - lo) * u[0]) * (h * w)
     lr0, lr1 = math.log(cfg.randcrop_ratio[0]), math.log(cfg.randcrop_ratio[1])
@@ -107,10 +124,10 @@ def crop_boxes(gen: torch.Generator, b: int, h: int, w: int, cfg: TransformConfi
 
 
 def random_resized_crop(gen: torch.Generator, video: torch.Tensor,
-                        cfg: TransformConfig) -> torch.Tensor:
+                        cfg: TransformConfig, shard: Shard = None) -> torch.Tensor:
     """(B, F, H, W, C) float → (B, F, S, S, C); one crop per clip."""
     b, _, h, w, _ = video.shape
-    return crop_resize(video, *crop_boxes(gen, b, h, w, cfg), cfg.input_res)
+    return crop_resize(video, *crop_boxes(gen, b, h, w, cfg, shard), cfg.input_res)
 
 
 def hflip(video: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
@@ -118,8 +135,8 @@ def hflip(video: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     return torch.where(flip[:, None, None, None, None], video.flip(-2), video)
 
 
-def random_hflip(gen: torch.Generator, video: torch.Tensor) -> torch.Tensor:
-    return hflip(video, torch.rand(video.shape[0], generator=gen, device=gen.device) < 0.5)
+def random_hflip(gen: torch.Generator, video: torch.Tensor, shard: Shard = None) -> torch.Tensor:
+    return hflip(video, _uniform(gen, (), video.shape[0], shard) < 0.5)
 
 
 def jitter(video: torch.Tensor, brightness: Optional[torch.Tensor] = None,
@@ -145,12 +162,12 @@ def jitter(video: torch.Tensor, brightness: Optional[torch.Tensor] = None,
 
 
 def color_jitter(gen: torch.Generator, video: torch.Tensor,
-                 cfg: TransformConfig) -> torch.Tensor:
+                 cfg: TransformConfig, shard: Shard = None) -> torch.Tensor:
     """Brightness/saturation/hue jitter per clip; the identity at (0, 0, 0)."""
     bj, sj, hj = cfg.color_jitter
     if bj == 0 and sj == 0 and hj == 0:
         return video
-    u = torch.rand(3, video.shape[0], generator=gen, device=gen.device)
+    u = _uniform(gen, (3,), video.shape[0], shard)
 
     def between(r, lo, hi):
         return lo + (hi - lo) * r
@@ -163,18 +180,19 @@ def color_jitter(gen: torch.Generator, video: torch.Tensor,
 
 
 def train_augment(gen: torch.Generator, video_u8: torch.Tensor,
-                  cfg: TransformConfig = TransformConfig()) -> torch.Tensor:
+                  cfg: TransformConfig = TransformConfig(), shard: Shard = None) -> torch.Tensor:
     """uint8 canonical frames (B, F, canon, canon, C) → augmented, normalized
-    f32 (B, F, input_res, input_res, C) on the generator's device."""
+    f32 (B, F, input_res, input_res, C) on the generator's device; `shard`
+    (rank, world) draws as for the global batch (module docstring)."""
     x = video_u8.float() / 255.0
     if cfg.host_precropped:
         if x.shape[-2] != cfg.input_res:
             raise ValueError(f"host_precropped expects input_res² frames, got "
                              f"{tuple(x.shape)}")
     else:
-        x = random_resized_crop(gen, x, cfg)
-    x = random_hflip(gen, x)
-    x = color_jitter(gen, x, cfg)
+        x = random_resized_crop(gen, x, cfg, shard)
+    x = random_hflip(gen, x, shard)
+    x = color_jitter(gen, x, cfg, shard)
     return normalize(x, cfg)
 
 

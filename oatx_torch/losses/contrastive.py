@@ -4,6 +4,8 @@
     at eps (:29-39);
   * `norm_softmax_loss` — the symmetric InfoNCE of the reference's
     NormSoftmaxLoss, in f32, over the min(N, M) diagonal (:42-51);
+  * `norm_softmax_loss_global` — the same over every rank's embeddings,
+    gathered by parallel/collectives.all_gather_rows (:54-70);
   * `norm_softmax_loss_chunked` — the same loss from the embeddings, key
     chunk by key chunk with a running logsumexp, so the full matrix never
     exists (:74-130);
@@ -14,7 +16,8 @@
     over (batch, region) rows), the MoCo queue as an explicit state object,
     and the fine-grained region ↔ tag NCE that global_local trains with.
 
-All in f32. The global-negative gather belongs to multi-GPU (ROADMAP A8).
+All in f32. Under data parallelism train/step.py gathers each loss's
+inputs across the ranks before calling these (global negatives).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from oatx_torch.parallel.collectives import all_gather_rows
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-8, dim: int = -1) -> torch.Tensor:
@@ -47,6 +52,18 @@ def norm_softmax_loss(sims: torch.Tensor, temperature: float = 0.05) -> torch.Te
     loss_i = F.log_softmax(s, dim=1).diagonal()[:n].mean()
     loss_j = F.log_softmax(s.t(), dim=1).diagonal()[:n].mean()
     return -loss_i - loss_j
+
+
+def norm_softmax_loss_global(text_embeds: torch.Tensor, video_embeds: torch.Tensor,
+                             temperature: float = 0.05, eps: float = 1e-8) -> torch.Tensor:
+    """NormSoftmax with global negatives: each rank's rows of both embedding
+    sets are gathered across the default process group, in rank order, so
+    the similarity matrix is the cross-replica one (the reference's
+    AllGather_multi). Its gradient reaches each rank's own rows with JAX's
+    transpose semantics (collectives.all_gather_rows). Without a group the
+    plain loss."""
+    return norm_softmax_loss(sim_matrix(all_gather_rows(text_embeds),
+                                        all_gather_rows(video_embeds), eps), temperature)
 
 
 def norm_softmax_loss_chunked(text_embeds: torch.Tensor, video_embeds: torch.Tensor,

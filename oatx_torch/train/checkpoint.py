@@ -13,6 +13,10 @@ a crash mid-write leaves no readable half-snapshot. `async_save=True` copies
 every tensor to host memory before it returns (AdamW updates the parameters
 in place, so the next step must not start before the copy is done) and
 writes the file in a background thread; `wait_for_async_saves` joins it.
+
+Under data parallelism (parallel/mesh.py) the ranks hold the same state:
+rank 0 writes, and every rank waits at a barrier until it has (an async
+write is then in flight on rank 0). Every rank restores the same file.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from oatx_torch import DeviceLike, resolve_device
+from oatx_torch.parallel import collectives as coll
+from oatx_torch.parallel.mesh import process_index
 
 STATE_FILE = "state.pt"
 _SNAP = re.compile(r"checkpoint-epoch(\d+)")
@@ -71,10 +77,19 @@ def save_checkpoint(ckpt_dir: str | Path, name: str, state, epoch: int,
     """Save `state` (train/step.py TrainState) under ckpt_dir/name.
     extra_meta: e.g. {'cycles_done': N} for a mid-epoch preemption snapshot.
     keep: leave only the newest `keep` checkpoint-epoch{N} snapshots."""
-    global _writer
     ckpt_dir = Path(ckpt_dir).resolve()
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = ckpt_dir / name
+    if process_index() == 0:
+        _save(ckpt_dir, path, state, epoch, monitor_best, keep, extra_meta, async_save)
+    coll.barrier()
+    return path
+
+
+def _save(ckpt_dir: Path, path: Path, state, epoch, monitor_best, keep, extra_meta,
+          async_save) -> None:
+    global _writer
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    name = path.name
     payload = _host_copy({"model": state.model.state_dict(),
                           "optimizer": state.optimizer.named_state(),
                           "step": int(state.step)})
@@ -97,7 +112,6 @@ def save_checkpoint(ckpt_dir: str | Path, name: str, state, epoch: int,
     (ckpt_dir / f"{name}.meta.json").write_text(json.dumps(meta))
     if keep is not None:
         _gc_old(ckpt_dir, keep, pending=name)
-    return path
 
 
 def _gc_old(ckpt_dir: Path, keep: int, pending: Optional[str] = None) -> None:

@@ -35,8 +35,21 @@ generator of its own derived from the step's (oatx folds the key's index
 into the step's key). `make_eval_step` returns every `*_embeds` output of
 the variant's forward (:408-414).
 
-Not ported yet: `mesh`, `manual_axes` and `grad_reduce_dtype` (they need
-torch.distributed, ROADMAP A8). Each raises.
+Data parallelism across processes (oatx's manual-DP step, `loss_fn` with
+`gather_axes` and `_manual_dp_grads`, :72-178, 208-267): under a default
+process group of n > 1 ranks (parallel/mesh.py) each rank runs the step on
+its rows of the global batch. `loss_fn` gathers every cross-batch loss
+input across the ranks before the loss (the text and video embeddings,
+stream 3's object embeddings, global_local's pad_text embeddings, region
+and tag features), so negatives span the global batch, and averages
+region_mem's BCE over the ranks instead: every rank computes the same loss,
+bitwise. `fwd_chunk` chunks the rank's own rows and gathers after. With
+`accum_steps` each micro-batch gathers its own global negatives. After the
+backward (and the accumulation) each gradient crosses the ranks once and
+becomes its mean (collectives.reduce_gradients, in `grad_reduce_dtype` on
+the wire when given). The augmenter draws for the global batch
+(data/transforms.py). Without a group, or with one rank, none of this runs:
+the step is the one-device step.
 """
 
 from __future__ import annotations
@@ -52,6 +65,8 @@ from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.data import transforms as T
 from oatx_torch.losses import contrastive as C
 from oatx_torch.models.towers import DualTower, TowerConfig
+from oatx_torch.parallel import collectives as coll
+from oatx_torch.parallel.mesh import current_layout
 from oatx_torch.train.optim import AdamW, global_norm
 
 Batch = Dict[str, Any]
@@ -99,13 +114,17 @@ def _outputs(model: DualTower, batch: Batch) -> Dict[str, torch.Tensor]:
 
 
 def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
-            fwd_chunk: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            fwd_chunk: Optional[int] = None,
+            gather: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of the model's variant on a batch of tensors on the
     model's device: 'video' (B, F, H, W, C) normalized frames, 'input_ids'
     (B, L), optional 'attention_mask', and the variant's extras
     (DualTower.forward_*). `fwd_chunk`: the tower forwards run checkpointed
     on sub-batches of that size (B must divide by it), the loss over all
-    B."""
+    B. `gather` (oatx's gather_axes): the batch is this rank's rows; every
+    cross-batch loss input is gathered across the ranks and region_mem's
+    BCE averaged over them (module docstring)."""
+    g = coll.all_gather_rows if gather else (lambda x: x)
     if fwd_chunk:
         out = scan_chunked(lambda mb: ckpt.checkpoint(_outputs, model, mb, use_reentrant=False),
                            fwd_chunk)(batch)
@@ -113,31 +132,32 @@ def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
         out = _outputs(model, batch)
     variant = model.cfg.variant
     if variant == "baseline":
-        text_e, video_e = out["text_embeds"], out["video_embeds"]
+        text_e, video_e = g(out["text_embeds"]), g(out["video_embeds"])
         loss = _embed_pair_loss(text_e, video_e, loss_cfg)
         if loss_cfg.object_nce_weight > 0 and model.cfg.object_tower is not None \
                 and "object" in batch:
-            obj_e = model.compute_object(batch["object"])
+            obj_e = g(model.compute_object(batch["object"]))
             l_obj = (_embed_pair_loss(obj_e, video_e, loss_cfg)
                      + _embed_pair_loss(text_e, obj_e, loss_cfg))
             loss = loss + loss_cfg.object_nce_weight * l_obj
             return loss, {"loss": loss.detach(), "loss_object": l_obj.detach()}
         return loss, {"loss": loss.detach()}
+    video_e = g(out["video_embeds"])
     if variant == "global_local":
         terms = {
-            "loss_st2sv": _pair_loss(C.sim_matrix(out["text_embeds"], out["video_embeds"]),
+            "loss_st2sv": _pair_loss(C.sim_matrix(g(out["text_embeds"]), video_e), loss_cfg),
+            "loss_lt2sv": _pair_loss(C.sim_matrix(g(out["pad_text_embeds"]), video_e),
                                      loss_cfg),
-            "loss_lt2sv": _pair_loss(C.sim_matrix(out["pad_text_embeds"],
-                                                  out["video_embeds"]), loss_cfg),
-            "loss_fine": C.fine_grained_region_tag_loss(out["region_feat"], out["tags_feat"],
+            "loss_fine": C.fine_grained_region_tag_loss(g(out["region_feat"]),
+                                                        g(out["tags_feat"]),
                                                         loss_cfg.temperature),
         }
         loss = terms["loss_st2sv"] + terms["loss_lt2sv"] + terms["loss_fine"]
     else:  # region_mem
+        l_region = C.region_bce(out["region_sim_logits"], batch["patch_masks"])
         terms = {
-            "loss_nce": _pair_loss(C.sim_matrix(out["text_embeds"], out["video_embeds"]),
-                                   loss_cfg),
-            "loss_region": C.region_bce(out["region_sim_logits"], batch["patch_masks"]),
+            "loss_nce": _pair_loss(C.sim_matrix(g(out["text_embeds"]), video_e), loss_cfg),
+            "loss_region": coll.mean_across_ranks(l_region) if gather else l_region,
         }
         loss = terms["loss_nce"] + loss_cfg.region_bce_weight * terms["loss_region"]
     return loss, {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
@@ -152,12 +172,6 @@ def _step_seed(base_seed: int, step: int) -> int:
     """A per-step seed for the augmentation's generator (oatx folds the step
     into its base key)."""
     return int(np.random.SeedSequence([base_seed, step]).generate_state(1)[0])
-
-
-def _check_ported(**unported) -> None:
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(f"make_train_step({name}=...) is not ported yet")
 
 
 FRAME_KEYS = ("video", "object_frame")  # uint8 frame tensors the augmenter transforms
@@ -180,18 +194,21 @@ def make_augmenter(transform_cfg: Optional[T.TransformConfig] = None, train: boo
     become normalized f32 on the batch's device, through train_augment (from
     `key_generator(generator, i)`) or the eval transform. The output
     resolution follows the tower's img_size when tower_cfg is given (oatx
-    make_augmenter)."""
+    make_augmenter). Under a process group of several ranks each rank draws
+    for the global batch and keeps its rows (data/transforms.py)."""
     if transform_cfg is None:
         res = tower_cfg.video.img_size if tower_cfg is not None else 224
         transform_cfg = T.TransformConfig(input_res=res)
     tcfg = transform_cfg
+    layout = current_layout()
+    shard = (layout.rank, layout.world) if layout.spans_processes else None
 
     def augment(gen: torch.Generator, batch: Dict[str, torch.Tensor]):
         out = dict(batch)
         for i, key in enumerate(FRAME_KEYS):
             if key in out and out[key].dtype == torch.uint8:
-                out[key] = (T.train_augment(key_generator(gen, i), out[key], tcfg) if train
-                            else T.eval_transform(out[key], tcfg))
+                out[key] = (T.train_augment(key_generator(gen, i), out[key], tcfg, shard)
+                            if train else T.eval_transform(out[key], tcfg))
         return out
 
     return augment
@@ -202,8 +219,8 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
                                                Dict[str, torch.Tensor]]] = None,
                     base_seed: int = 0, accum_steps: int = 1,
                     skip_nonfinite: bool = False, fwd_chunk: Optional[int] = None,
-                    mesh: Any = None, manual_axes: Any = None,
-                    grad_reduce_dtype: Any = None, device: DeviceLike = None,
+                    grad_reduce_dtype: Optional[torch.dtype] = None,
+                    device: DeviceLike = None,
                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the train step `step(state, batch) → (state, metrics)`.
 
@@ -212,9 +229,14 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
     batch)`, if given, runs first with a generator seeded from
     (base_seed, state.step). accum_steps > 1 splits the batch into that many
     micro-batches (negatives then span a micro-batch, as in oatx);
-    `fwd_chunk` keeps full-batch negatives (loss_fn)."""
-    _check_ported(mesh=mesh, manual_axes=manual_axes, grad_reduce_dtype=grad_reduce_dtype)
+    `fwd_chunk` keeps full-batch negatives (loss_fn). The process group
+    set up when the step is built (parallel/mesh.py) takes the place of
+    oatx's `mesh` / `manual_axes`: with several ranks the batch is this
+    rank's rows and the step is data-parallel (module docstring), the
+    gradients reduced in `grad_reduce_dtype` when given; with one rank it is
+    unused."""
     dev = resolve_device(device)
+    dp = current_layout().spans_processes
 
     def step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
@@ -234,7 +256,7 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
         opt.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
         for mb in micro:
-            loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk)
+            loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk, gather=dp)
             loss.backward()
             for k, v in m.items():
                 sums[k] = sums[k] + v if k in sums else v
@@ -242,6 +264,8 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if len(micro) > 1:
             torch._foreach_div_(grads, float(len(micro)))
+        if dp:
+            coll.reduce_gradients(model.parameters(), grad_reduce_dtype)
         metrics["grad_norm"] = global_norm(grads)
         if skip_nonfinite:
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"]))

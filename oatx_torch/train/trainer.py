@@ -1,5 +1,5 @@
-"""Epoch engine on one device (port of oatx/train/trainer.py:45-704; the
-reference's Multi_BaseTrainer_dist + Multi_Trainer_dist, base_trainer.py:7-244,
+"""Epoch engine (port of oatx/train/trainer.py:45-704; the reference's
+Multi_BaseTrainer_dist + Multi_Trainer_dist, base_trainer.py:7-244,
 trainer_dist.py:57-291).
 
 Per epoch, as oatx's: alternating multi-loader batches (`MultiLoader`), the
@@ -25,11 +25,24 @@ sample in chunks of 8 (`make_eval_step`), then takes the t2v / v2t metrics
 and NormSoftmax between the eval step's `text_embeds` and `video_embeds`
 over the full corpus similarity matrix.
 
-One device (parallel/mesh.py): `fsdp`, `zero1` and `dp_mode: auto` shard
-or reduce over a 1-wide data axis and are no-ops, as in oatx on a 1-device
-mesh. `model_parallel` > 1, `pipeline`, `dcn_slices` > 1 and `dp_mode:
-manual` need several devices and raise NotImplementedError (ROADMAP A8a,
-A8b).
+Processes (parallel/mesh.py): the Trainer runs under whatever default
+process group the caller set up (cli/train.py under OATX_MULTIHOST=1), one
+rank per device, each over its shard of the loaders with a per-process
+`batch_size`, as oatx's per-process batch. Across ranks the step is data
+parallel (train/step.py: global negatives, one gradient reduction); rank 0's
+parameters and optimizer state are broadcast at the start and after a
+restore; `grad_reduce_dtype` applies under `dp_mode` auto or manual and is
+warned about and ignored otherwise, as oatx's gating (:296-318);
+validation embeds each rank's shard and gathers every rank's rows in rank
+order on every rank (oatx `_gather_valid`); the console, TensorBoard
+writer, tracker, checkpoints and profiler belong to rank 0, and each rank
+logs to info_p{rank}.log; a preemption signal stops every rank at the same
+step (collectives.any_rank). Without a group, or with one rank, this is
+oatx on a 1-device mesh: `fsdp`, `zero1` and `dp_mode: auto` shard or
+reduce over a 1-wide data axis and are no-ops; `model_parallel` > 1 and
+`pipeline` raise NotImplementedError (ROADMAP A8b), as do `fsdp` and
+`zero1` across processes; `dp_mode: manual` with one rank and `dcn_slices`
+that do not divide the ranks raise ValueError, as in oatx.
 """
 
 from __future__ import annotations
@@ -52,7 +65,8 @@ from oatx_torch.data.loader import MultiLoader, ShardedLoader, device_prefetch, 
 from oatx_torch.data.transforms import TransformConfig
 from oatx_torch.losses import contrastive as C
 from oatx_torch.metrics.retrieval import REQUIRES_QUERY_MASKS
-from oatx_torch.models.towers import DualTower
+from oatx_torch.models.towers import DualTower, text_out_dim
+from oatx_torch.parallel import collectives as coll
 from oatx_torch.parallel import mesh as meshlib
 from oatx_torch.train import checkpoint as ckptlib
 from oatx_torch.train import optim as optimlib
@@ -78,15 +92,17 @@ class Trainer:
                  resume: Optional[str] = None, tracker=None, device: DeviceLike = None):
         self.exp = exp
         t = exp.trainer
-        meshlib.check_layout(t)
+        self.layout = layout = meshlib.current_layout()
+        meshlib.check_layout(t, layout.world)
+        lead = layout.rank == 0
         self.device = dev = resolve_device(device)
-        self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity)
-        self.writer = TensorboardWriter(log_dir)
+        self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity, layout.rank)
+        self.writer = TensorboardWriter(log_dir if lead else None)
         self.profile_dir = Path(log_dir or save_dir or ".") / "profile"
         self._profiler = None
-        self._profile_done = False
+        self._profile_done = not lead
         self._profile_stop = 0
-        self.tracker = tracker
+        self.tracker = tracker if lead else None
         self.save_dir = Path(save_dir) if save_dir else None
         self.train_loaders = train_loaders
         self.valid_loaders = valid_loaders or []
@@ -147,6 +163,7 @@ class Trainer:
             ckptlib.import_initial_weights(exp.arch.load_checkpoint, model,
                                            temporal_fix=exp.arch.load_temporal_fix)
         self.state = steplib.TrainState(model, self.optimizer(model.named_parameters()), 0)
+        self._broadcast_state()
 
         self.start_epoch = 1
         self._resume_cycle = 0
@@ -169,6 +186,7 @@ class Trainer:
                 # a lost sidecar reads +inf, which would disable max-mode monitoring
                 if not (self.monitor_mode == "max" and mb == float("inf")):
                     self.monitor_best = mb
+            self._broadcast_state()
 
         precropped = [getattr(l.dataset, "train_crop", "device_canonical")
                       == "reference_full_frame" for l in train_loaders]
@@ -183,13 +201,26 @@ class Trainer:
         if fwd_chunk and t.accum_steps > 1:
             raise ValueError("fwd_chunk and accum_steps are mutually exclusive "
                              "(full-batch vs micro-batch negative semantics)")
-        if t.grad_reduce_dtype:
-            self.logger.warning("trainer.grad_reduce_dtype=%r ignored: one device has "
-                                "no gradient reduce", t.grad_reduce_dtype)
+        # data parallelism: one reduction per gradient after the backward
+        # (step.py); grad_reduce_dtype on the manual path only (oatx :296-318)
+        dp_mode = t.dp_mode or "auto"
+        pure_dp = layout.spans_processes  # check_layout refused sharded params
+        manual = pure_dp and dp_mode != "gspmd"
+        grd = t.grad_reduce_dtype or ""
+        if grd and not manual:
+            self.logger.warning("trainer.grad_reduce_dtype=%r ignored: needs the manual "
+                                "dp_mode path (got dp_mode=%s, pure_dp=%s)", grd, dp_mode,
+                                pure_dp)
+            grd = ""
+        if pure_dp:
+            self.logger.info("data-parallel gradients: one mean over %d ranks%s",
+                             layout.world, f" in {grd}" if grd else "")
         self.train_step = steplib.make_train_step(
             self.tower_cfg, self.loss_cfg, augment=self.augment, base_seed=t.seed + 1,
             accum_steps=t.accum_steps, skip_nonfinite=t.skip_nonfinite,
-            fwd_chunk=fwd_chunk, device=dev)
+            fwd_chunk=fwd_chunk,
+            grad_reduce_dtype={"": None, "bf16": torch.bfloat16, "f32": torch.float32}[grd],
+            device=dev)
         vb = max((l.batch_size for l in self.valid_loaders), default=1)
         self.eval_step = steplib.make_eval_step(
             self.tower_cfg, chunk=8 if vb <= 8 or vb % 8 == 0 else None, device=dev)
@@ -201,6 +232,19 @@ class Trainer:
         self._preempt_saved = False
         self._install_preemption_handler()
         self.watchdog = StepWatchdog(timeout_s=900.0, logger=self.logger)
+
+    def _broadcast_state(self) -> None:
+        """Every rank takes rank 0's parameters, buffers and optimizer state."""
+        if not self.layout.spans_processes:
+            return
+        opt = self.state.optimizer.named_state()
+        coll.broadcast_tensors(list(self.state.model.state_dict().values())
+                               + [t for key in ("mu", "nu", "ema") if key in opt
+                                  for t in opt[key].values()])
+
+    def _stop_requested(self) -> bool:
+        """The preemption flag, agreed over the ranks: all stop at one step."""
+        return coll.any_rank(self._preempted)
 
     def _install_preemption_handler(self) -> None:
         if threading.current_thread() is not threading.main_thread():
@@ -244,7 +288,7 @@ class Trainer:
             self.logger.info("init_val: %s", {k: round(v, 4) for k, v in val_log.items()
                                               if isinstance(v, float)})
         for epoch in range(self.start_epoch, t.epochs + 1):
-            if self._preempted:
+            if self._stop_requested():
                 # the signal landed outside the step loop (validation, a save)
                 self._snapshot(epoch - 1, self.cycles_per_epoch)
                 self.logger.warning("preemption signal between epochs: checkpoint "
@@ -253,7 +297,7 @@ class Trainer:
             log: Dict[str, Any] = {"epoch": epoch}
             start_cycle = self._resume_cycle if epoch == self.start_epoch else 0
             log.update(self._train_epoch(epoch, start_cycle))
-            if self._preempted:
+            if self._stop_requested():
                 if not self._preempt_saved:
                     # the flag raced the end of the epoch: snapshot it as complete
                     self._snapshot(epoch, self.cycles_per_epoch)
@@ -316,7 +360,7 @@ class Trainer:
         wall_start = time.perf_counter()
         try:
             while True:
-                if self._preempted and last_metrics is not None:
+                if last_metrics is not None and self._stop_requested():
                     float(last_metrics["loss"])
                     self._snapshot(epoch, cycles_done)
                     self.logger.warning("preemption signal: checkpoint saved at cycle %d, "
@@ -338,7 +382,7 @@ class Trainer:
                 self._profile_hook(epoch, sum(steps_per_loader), metrics)
                 if loader_idx == n_loaders - 1:
                     cycles_done += 1
-                if self._preempted:
+                if self._stop_requested():
                     float(metrics["loss"])
                     self._snapshot(epoch, cycles_done)
                     self.logger.warning("preemption signal: checkpoint saved at cycle %d, "
@@ -428,6 +472,16 @@ class Trainer:
                 for n, p in params.items():
                     p.copy_(saved[n])
 
+    def _rows(self, parts: List[torch.Tensor], tower: str) -> torch.Tensor:
+        """A rank's embedding rows of one tower; (0, dim) when its shard is
+        empty."""
+        if parts:
+            return torch.cat(parts)
+        cfg = self.tower_cfg
+        dim = (cfg.projection_dim if cfg.projection == "minimal"
+               else text_out_dim(cfg) if tower == "text" else cfg.video.embed_dim)
+        return torch.zeros((0, dim), device=self.device)
+
     def _valid_epoch(self, epoch: int) -> Dict[str, float]:
         t = self.exp.trainer
         if t.ema_decay and t.ema_eval:
@@ -439,6 +493,7 @@ class Trainer:
         log: Dict[str, float] = {}
         model = self.state.model
         multiple = max((l.batch_size for l in self.valid_loaders), default=1)
+        multiple = max(multiple, meshlib.batch_shards())  # oatx :648-649
         for vi, loader in enumerate(self.valid_loaders):
             texts, vids = [], []
             for batch, n_valid in device_prefetch(padded_batches(iter(loader), multiple),
@@ -448,6 +503,12 @@ class Trainer:
                 texts.append(out["text_embeds"][:n_valid].float())
                 vids.append(out["video_embeds"][:n_valid].float())
                 self.watchdog.beat()  # a long validation is not a hang
+            if self.layout.spans_processes:
+                # every rank's valid rows, rank after rank (oatx _gather_valid)
+                texts = [coll.all_gather_ragged(self._rows(texts, "text"))]
+                vids = [coll.all_gather_ragged(self._rows(vids, "video"))]
+                if not len(texts[0]):
+                    texts = []
             if not texts:
                 continue
             sims_t = C.sim_matrix(torch.cat(texts), torch.cat(vids))

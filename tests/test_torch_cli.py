@@ -302,11 +302,41 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path, cli, monkeypatch):
 
 
 def test_cli_train_refuses_multihost(tmp_path, monkeypatch):
+    """OATX_MULTIHOST=1 at a world of one (oatx's three variables, a file://
+    rendezvous, gloo for --device cpu): cli.train joins the group, trains
+    exactly as without it (the checkpoint bitwise, the step is the
+    one-process step) and tears the group down. Two ranks:
+    tests/test_torch_dp_trainer.py."""
+    import torch.distributed as dist
+
     from oatx_torch.cli import train as ptrain
 
-    monkeypatch.setenv("OATX_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ptrain.main(["-c", _write(tmp_path / "c.json", smoke_raw(tmp_path)), "--device", "cpu"])
+    raw = smoke_raw(tmp_path)
+    raw["trainer"].update(epochs=1, init_val=False)
+    snaps = {}
+    for mode in ("multihost", "plain"):
+        r = json.loads(json.dumps(raw))
+        r["trainer"]["save_dir"] = str(tmp_path / mode)
+        if mode == "multihost":
+            monkeypatch.setenv("OATX_MULTIHOST", "1")
+            monkeypatch.setenv("OATX_COORDINATOR", (tmp_path / "store").as_uri())
+            monkeypatch.setenv("OATX_NUM_PROCESSES", "1")
+            monkeypatch.setenv("OATX_PROCESS_ID", "0")
+        else:
+            monkeypatch.delenv("OATX_MULTIHOST")
+        assert ptrain.main(["-c", _write(tmp_path / f"{mode}.json", r), "--no_timestamp",
+                            "--device", "cpu"]) == 0
+        assert not dist.is_initialized()
+        run = tmp_path / mode / "models" / raw["name"]
+        assert (run / "vocab.txt").exists() and (run / "config.json").exists()
+        snaps[mode] = torch.load(run / "checkpoint-epoch1" / "state.pt", weights_only=True)
+    def same(a, b):
+        if isinstance(a, dict):
+            return sorted(a) == sorted(b) and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+    assert same(snaps["multihost"], snaps["plain"])
+    assert snaps["plain"]["step"] == 4
 
 
 @pytest.mark.parametrize("what", ["region_mem", "RetrievalVis"])

@@ -77,11 +77,15 @@ def test_eval_step_matches_oatx(params):
 
 
 def test_unported_train_options_raise():
+    """oatx's `mesh` and `manual_axes` have no counterpart: the process
+    layout (parallel/mesh.py) takes their place, so passing them raises.
+    `grad_reduce_dtype` is ported: it builds, and is unused on one process."""
     _, pcfg = cfgs()
-    for kw in (dict(mesh=object()), dict(manual_axes=("data",)),
-               dict(grad_reduce_dtype=torch.bfloat16)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(mesh=object()), dict(manual_axes=("data",))):
+        with pytest.raises(TypeError):
             pstep.make_train_step(pcfg, pstep.LossConfig(), device="cpu", **kw)
+    pstep.make_train_step(pcfg, pstep.LossConfig(), grad_reduce_dtype=torch.bfloat16,
+                          device="cpu")
     # remat and fwd_chunk are ported (tests/test_torch_remat.py)
     remat = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video, remat=True))
     pstep.make_train_step(remat, pstep.LossConfig(), fwd_chunk=2, device="cpu")

@@ -193,11 +193,13 @@ def test_sigterm_snapshot_resumes_mid_epoch_to_the_same_parameters(tmp_path, kee
                                        ("pipeline", True), ("dp_mode", "manual"),
                                        ("dcn_slices", 2)])
 def test_multi_device_modes_raise(tmp_path, key, value):
-    """The layouts one device cannot give raise, naming their ROADMAP item
-    (A8a data parallelism, A8b tensor and pipeline parallelism). `fsdp` on
-    one device shards over a 1-wide data axis, that is, replicates, as
-    oatx's shard_params_fsdp does on a 1-device mesh: that Trainer builds
-    and holds the same parameters as one without it."""
+    """The layouts one process cannot give raise: tensor and pipeline
+    parallelism name ROADMAP A8b; `dp_mode: manual` with one batch shard and
+    `dcn_slices` that do not divide the processes raise oatx's ValueError
+    (trainer.py:306-309, make_mesh). `fsdp` on one process shards over a
+    1-wide data axis, that is, replicates, as oatx's shard_params_fsdp does
+    on a 1-device mesh: that Trainer builds and holds the same parameters as
+    one without it."""
     raw = _raw(tmp_path, **{key: value})
     raw["arch"]["args"]["load_checkpoint"] = ""
     if key == "fsdp":
@@ -207,9 +209,32 @@ def test_multi_device_modes_raise(tmp_path, key, value):
         assert sorted(got) == sorted(want)
         assert all(torch.equal(got[k], want[k]) for k in want)
         return
-    item = "A8b" if key in ("model_parallel", "pipeline") else "A8a"
-    with pytest.raises(NotImplementedError, match=f"several devices.*{item}"):
+    if key in ("dp_mode", "dcn_slices"):
+        with pytest.raises(ValueError, match="dp_mode='manual'" if key == "dp_mode"
+                           else "not divisible by model_parallel=1 x dcn_slices=2"):
+            PTrainer(PExp.from_dict(raw), [], device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="several devices.*A8b"):
         PTrainer(PExp.from_dict(raw), [], device="cpu")
+
+
+@pytest.mark.parametrize("key,value,error", [
+    ("fsdp", True, "A8b"), ("zero1", True, "A8b"), ("model_parallel", 2, "A8b"),
+    ("pipeline", True, "A8b"), ("dcn_slices", 2, None), ("dcn_slices", 3, "dcn_slices=3"),
+    ("dp_mode", "manual", None)])
+def test_layout_checks_across_two_processes(tmp_path, key, value, error):
+    """At a world of 2 the sharded modes raise naming ROADMAP A8b; dcn
+    slices must divide the world (oatx's make_mesh) and then form one flat
+    data axis with the ranks; dp_mode 'manual' is plain data parallelism."""
+    from oatx_torch.parallel import mesh as pmesh
+
+    t = PExp.from_dict(_raw(tmp_path, **{key: value})).trainer
+    if error is None:
+        pmesh.check_layout(t, world=2)
+        return
+    with pytest.raises(ValueError if key == "dcn_slices" else NotImplementedError,
+                       match=error):
+        pmesh.check_layout(t, world=2)
 
 
 def test_fwd_chunk_with_accum_steps_raises(tmp_path):
