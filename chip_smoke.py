@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--parent-ln-linear LIB] [--parent-ln-mlp LIB]
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
-                          [--only-towers] [--only-wide] [--only-dp] [--dp-nccl]
+                          [--only-towers] [--only-wide] [--only-dp] [--only-shard]
+                          [--dp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -21,8 +22,9 @@ tree's. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
---only-dp phase 10 (no record, no `ok` line). --dp-nccl runs phase 10
-(b) alone with one rank per visible card over NCCL (2 or more cards).
+--only-dp phase 10, --only-shard phase 11 (no record, no `ok` line).
+--dp-nccl runs phase 10 (b) and then phase 11's pod recipes alone with one
+rank per visible card over NCCL (2 or more cards).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -210,6 +212,35 @@ printed):
      (the ranks' step ms is not a data-parallel speed here: they share one
      card and gloo stages CUDA tensors through the host; with --dp-nccl it
      is).
+ 11. shard — sharded training state across ranks (parallel/sharding.py,
+     the fsdp path of train/step.py, AdamW's shares, the placement and
+     snapshots of train/trainer.py and train/checkpoint.py). DP_WORLD ranks
+     on cuda:0 over gloo, this script started again with --dp-rank and
+     --dp-phase shard: phase 10's probe, and that gloo takes
+     reduce_scatter_tensor and all_gather_into_tensor on CUDA tensors (the
+     sharded layouts' collectives; parallel/collectives.py); then
+     norm.json at batch DP_RANK_BATCH a rank through Trainer.train(),
+     SHARD_EPOCHS epochs of SHARD_LEN_EPOCH steps, replicated, under zero1
+     and under fsdp (the zero1 and fsdp runs write a snapshot each epoch,
+     and each save's device memory above what the rank held as it began
+     stays within SAVE_SLACK_TENSORS whole tensors of the largest: the
+     state is gathered one tensor at a time, never whole). Each held
+     against one process at batch DP_WORLD·DP_RANK_BATCH on the same global
+     batches (GlobalBatches): step 1's loss terms within DP_LOSS_RTOL, step
+     1's whole gradients by grad_check; the whole parameters after the last
+     step bitwise the replicated ranks' (the same elements through the same
+     arithmetic); every rank's loss terms equal; each rank's held state
+     bytes (parameters + gradients + moments, from the tensors' storage)
+     exactly sharding.state_bytes and, sharded, below the replicated
+     state's; launches per rank as want_launches derives; the fsdp snapshot
+     of epoch 1 restored in one process repeats the ranks' step 3 within
+     DP_LOSS_RTOL. Printed: the collectives' bytes and calls a step by
+     purpose, step ms and peak memory per rank. With --dp-nccl (a rank on
+     each card): SHARD_NCCL_RUNS, vit_huge_pod.json under fsdp
+     (model_parallel 4 → 1, batch 8 a rank as 2 micro-batches, dots_all, 3
+     steps) and large_batch_pod.json under zero1 (batch 64 a rank,
+     fwd_chunk 8, 2 steps), each with its peak per rank beside one process
+     at the same batch on cuda:0.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -224,6 +255,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -3330,19 +3362,34 @@ def dp_data(name, exp, base, tmp):
                         tag_token_lens=factory.tag_token_lens_for(ds, tok) if opts.tags else None)
 
 
+def whole(model, tensors, to_host):
+    """{name: tensor} of `model`'s parameters (or their gradients), fsdp
+    shares gathered whole (every rank calls it); on the host if `to_host`."""
+    out = {}
+    for n, p in model.named_parameters():
+        t = tensors(p)
+        if t is None:
+            continue
+        spec = getattr(p, "_oatx_shard", None)
+        t = spec.gather(t, "check") if spec is not None else t.detach()
+        out[n] = t.float().cpu() if to_host else None
+    return out
+
+
 class FirstGrads:
     """Wraps a Trainer's train_step: the model's gradients after its first
-    step (under data parallelism the reduced ones), kept on the card."""
+    step (under data parallelism the reduced ones; fsdp shares gathered
+    whole, every rank taking part), on the host where `keep`."""
 
-    def __init__(self, trainer):
-        self.step, self.model, self.grads = trainer.train_step, trainer.state.model, None
+    def __init__(self, trainer, keep=True):
+        self.step, self.model, self.keep, self.grads = trainer.train_step, \
+            trainer.state.model, keep, None
         trainer.train_step = self
 
     def __call__(self, state, batch):
         state, m = self.step(state, batch)
         if self.grads is None:
-            self.grads = {n: p.grad.detach().clone() for n, p in self.model.named_parameters()
-                          if p.grad is not None}
+            self.grads = whole(self.model, lambda p: p.grad, self.keep)
         return state, m
 
 
@@ -3393,7 +3440,7 @@ def dp_run(name, trainer_of, steps, dev):
     traffic = {k: {q: v / steps for q, v in t.items()} for k, t in coll.TRAFFIC.items()}
     check_launches(f"dp {name}", launches,
                    want_launches(cfg.video.depth, steps, False, backward_depths=reached))
-    grads = {n: g.float().cpu() for n, g in first.grads.items()}
+    grads = first.grads
     return {"steps": steps, "terms": rec.term_values(), "launches": launches,
             "traffic_per_step": traffic, "step_ms": rec.step_ms(steps), "mem_held_gib": held,
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
@@ -3625,6 +3672,370 @@ def dp_phase(smi, dev):
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
+# ------------------------------------------------------------------- shard
+SHARD_MODES = (None, "zero1", "fsdp")  # phase 11's rank runs: replicated, then each mode
+SHARD_EPOCHS, SHARD_LEN_EPOCH = 2, 2   # 4 steps; zero1 and fsdp save each epoch
+# a checkpoint save holds the tensor it gathers and, inside the gloo
+# collective, one more of its size (norm.json on an H100: 179.4-180.0 MiB
+# above the save's start for 89.4 MiB word embeddings), plus the
+# allocator's block rounding; the whole state would be gigabytes
+SAVE_SLACK_TENSORS, SAVE_SLACK_BYTES = 2, 8 * 2 ** 20
+# --dp-nccl: (recipe, mode, epochs, steps an epoch, trainer keys) a rank on each card
+SHARD_NCCL_RUNS = (("vit_huge_pod", "fsdp", 1, 3, dict(model_parallel=1)),
+                   ("large_batch_pod", "zero1", 1, 2, dict(fwd_chunk=8)))
+SHARD_NCCL_BATCH = {"vit_huge_pod": 8, "large_batch_pod": LARGE_BATCH}
+
+
+def shard_corpus(name, world):
+    """The clips of an --dp-nccl run: a batch a rank, or 32 clips."""
+    n = max(CORPUS_CLIPS, SHARD_NCCL_BATCH[name] * world)
+    return MemoryClips(n, seed=0 if n == CORPUS_CLIPS else 1)
+
+
+def shard_exp(mode, path=NORM_CONFIG, epochs=SHARD_EPOCHS, len_epoch=SHARD_LEN_EPOCH,
+              **trainer):
+    """A recipe for phase 11 under `mode` (None: replicated): no init_val,
+    a checkpoint each epoch (only where a save_dir is given)."""
+    return recipe(path, epochs=epochs, len_epoch=len_epoch, init_val=False, save_period=1,
+                  verbosity=1, fsdp=mode == "fsdp", zero1=mode == "zero1", **trainer)
+
+
+def shard_probe(dev, rank, world):
+    """phase 10's probe, and whether the group also takes
+    reduce_scatter_tensor and all_gather_into_tensor on CUDA tensors, which
+    the sharded layouts send (parallel/collectives.py): 'ok' needs all."""
+    import torch.distributed as dist
+
+    out = dp_probe(dev, rank, world)
+    x = torch.arange(2.0 * world, device=dev) + rank
+
+    def scatter():
+        got = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(got, x.clone())
+        want = world * (torch.arange(2.0, device=dev) + 2 * rank) + sum(range(world))
+        return torch.equal(got, want)
+
+    def gather():
+        got = torch.empty(2 * world, device=dev)
+        dist.all_gather_into_tensor(got, x[:2].clone())
+        return torch.equal(got.view(world, 2) - torch.arange(world, device=dev)[:, None],
+                           torch.arange(2.0, device=dev).expand(world, 2))
+
+    for name, fn in (("reduce_scatter_tensor", scatter), ("all_gather_into_tensor", gather)):
+        try:
+            out[name] = fn()
+        except Exception as e:  # the probe's answer, not a failure of the port
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    out["ok"] = out["ok"] and all(out[k] is True for k in ("reduce_scatter_tensor",
+                                                          "all_gather_into_tensor"))
+    return out
+
+
+@contextlib.contextmanager
+def watched_saves(dev, saves):
+    """checkpoint.save_checkpoint wrapped for the context: each save
+    appends {'prior': the peak allocated before it, 'before': allocated as
+    it starts, 'peak': the most allocated during it} in bytes (a save's
+    peak needs the count reset; 'prior' keeps the run's)."""
+    from oatx_torch.train import checkpoint as ckptlib
+
+    save = ckptlib.save_checkpoint
+
+    def watched(*args, **kwargs):
+        prior = torch.cuda.max_memory_allocated(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            return save(*args, **kwargs)
+        finally:
+            saves.append({"prior": prior, "before": before,
+                          "peak": torch.cuda.max_memory_allocated(dev)})
+
+    ckptlib.save_checkpoint = watched
+    try:
+        yield
+    finally:
+        ckptlib.save_checkpoint = save
+
+
+def shard_run(tag, trainer_of, steps, dev, keep):
+    """Trainer.train() over `steps` steps → (record: loss terms, launches,
+    traffic a step, held and predicted state bytes, step ms, peak memory;
+    step 1's whole gradients and the last whole parameters on the host
+    where `keep`)."""
+    from oatx_torch.parallel import collectives as coll
+    from oatx_torch.parallel import sharding
+
+    held0 = fresh_peak(dev)
+    tr = trainer_of()
+    t = tr.exp.trainer
+    cfg = tr.tower_cfg
+    v = cfg.video
+    shapes = {n: tuple(getattr(p, "_oatx_shard", p).shape)
+              for n, p in tr.state.model.named_parameters()}
+    rec = StepRecorder(tr)
+    first = FirstGrads(tr, keep)
+    launches, saves = {}, []
+    coll.reset_traffic()
+    t0 = time.perf_counter()
+    with counted(launches), watched_saves(dev, saves):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    traffic = {k: {q: n / steps for q, n in r.items()} for k, r in coll.TRAFFIC.items()
+               if k != "check"}  # whole() gathers step 1's gradients for the check
+    peak = max([torch.cuda.max_memory_allocated(dev)] + [x["prior"] for x in saves]) / 2 ** 30
+    # a save holds at most the tensor it gathers and the collective's own
+    # buffer of its size (SAVE_SLACK_TENSORS): never the whole state
+    largest = 4 * max(math.prod(x) for x in shapes.values())
+    save_bound = SAVE_SLACK_TENSORS * largest + SAVE_SLACK_BYTES
+    save_mem = [{"before_gib": x["before"] / 2 ** 30, "peak_gib": x["peak"] / 2 ** 30,
+                 "above_before_mib": (x["peak"] - x["before"]) / 2 ** 20} for x in saves]
+    if any(x["peak"] - x["before"] > save_bound for x in saves):
+        raise AssertionError(f"{tag}: a checkpoint save took more device memory than "
+                             f"{save_bound / 2 ** 20:.1f} MiB ({SAVE_SLACK_TENSORS} of the "
+                             f"largest whole tensor): {save_mem}")
+    chunks = (tr.exp.data_loaders[0].batch_size // t.fwd_chunk
+              if t.fwd_chunk and not (t.fsdp and tr.layout.spans_processes) else None)
+    check_launches(tag, launches, want_launches(v.depth, steps, v.remat, chunks=chunks,
+                                                accum_steps=t.accum_steps))
+    held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
+    mode = tr.shard_mode if tr.layout.spans_processes else None
+    want = sharding.state_bytes(shapes, tr.layout.data_size, mode, ema=bool(t.ema_decay))
+    terms = rec.term_values()
+    if not all(np.isfinite(x) for vals in terms.values() for x in vals):
+        raise AssertionError(f"{tag}: loss terms not finite: {terms}")
+    fsdp = sharding.fsdp_of(tr.state.model)
+    params = (fsdp.full_state_dict(to_host=True, keep=keep) or {} if fsdp is not None else
+              {k: x.detach().float().cpu() for k, x in tr.state.model.state_dict().items()}
+              if keep else {})
+    out = {"mode": mode or "replicated", "steps": steps, "terms": terms, "launches": launches,
+           "traffic_per_step": traffic, "step_ms": rec.step_ms(tr.cycles_per_epoch),
+           "train_wall_s": wall_s, "mem_held_gib": held0, "peak_mem_gib": peak,
+           "held_bytes": held, "predicted_bytes": want, "saves": save_mem,
+           "save_bound_mib": save_bound / 2 ** 20,
+           "shared_params": sum(hasattr(p, "_oatx_shard") for p in tr.state.model.parameters()),
+           "zero1_params": sum(s is not None for s in tr.state.optimizer.zero1)}
+    grads = first.grads
+    del tr, rec, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grads, params
+
+
+def shard_rank_main(rank, world, url, out, backend):
+    """One rank of phase 11, started by shard_ranks: a `backend` group over
+    `url` (gloo: every rank on cuda:0; nccl: cuda:rank), the probe, then the
+    runs (gloo: norm.json replicated, under zero1 and under fsdp, the zero1
+    and fsdp runs writing snapshots; nccl: SHARD_NCCL_RUNS); its record →
+    out/rank{rank}.json, rank 0's whole gradients and parameters →
+    out/{run}_{grads,params}.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from oatx_torch.data.loader import ShardedLoader
+    from oatx_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=url, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT_S))
+    try:
+        record = {"probe": shard_probe(dev, rank, world), "runs": {}}
+        if record["probe"]["ok"]:
+            base = MemoryClips(CORPUS_CLIPS, seed=0)
+            if backend == "gloo":
+                runs = [(mode or "replicated", shard_exp(mode), DP_RANK_BATCH, base)
+                        for mode in SHARD_MODES]
+            else:
+                runs = [(name, shard_exp(mode, WIDE_CONFIGS.get(name, LARGE_CONFIG), e, n, **kw),
+                         SHARD_NCCL_BATCH[name], shard_corpus(name, world))
+                        for name, mode, e, n, kw in SHARD_NCCL_RUNS]
+            for name, exp, batch, ds in runs:
+                _, col = dp_data("norm", exp, ds, out)
+                train = [ShardedLoader(ds, batch, col, seed=0, num_workers=4,
+                                       shard_id=rank, num_shards=world)]
+                save = {"fsdp": os.path.join(out, "ckpt"),
+                        "zero1": os.path.join(out, "ckpt_zero1")}.get(name)
+                steps = exp.trainer.epochs * exp.trainer.len_epoch
+                run, grads, params = shard_run(
+                    f"shard {name} rank {rank}",
+                    lambda: Trainer(exp, train, [], save_dir=save, device=dev), steps, dev,
+                    keep=rank == 0 and backend == "gloo")
+                if rank == 0 and backend == "gloo":
+                    torch.save(grads, os.path.join(out, f"{name}_grads.pt"))
+                    torch.save(params, os.path.join(out, f"{name}_params.pt"))
+                record["runs"][name] = run
+                del grads, params
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def shard_one_process(tag, exp, ds, batch, world, dev, resume=None, save=None):
+    """One process at batch world·`batch` over the ranks' global batches
+    (GlobalBatches), replicated: its record and step 1's gradients."""
+    from oatx_torch.data.loader import GlobalBatches, ShardedLoader
+    from oatx_torch.train.trainer import Trainer
+
+    _, col = dp_data("norm", exp, ds, None)
+    train = [GlobalBatches([ShardedLoader(ds, batch, col, seed=0, num_workers=4, shard_id=r,
+                                          num_shards=world) for r in range(world)])]
+    steps = exp.trainer.epochs * exp.trainer.len_epoch
+    if resume:
+        steps = exp.trainer.len_epoch * (exp.trainer.epochs - 1)
+    run, grads, params = shard_run(tag, lambda: Trainer(exp, train, [], resume=resume,
+                                                        device=dev), steps, dev, keep=True)
+    return run, grads, params
+
+
+def shard_ranks(smi, dev, world=DP_WORLD, backend="gloo"):
+    """Phase 11: `world` ranks, this script started again with --dp-rank
+    and --dp-phase shard (gloo: all on cuda:0; nccl: one card each). → the
+    record and the ranks' launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    where = "one card over gloo" if backend == "gloo" else f"{world} cards over NCCL"
+    with tempfile.TemporaryDirectory() as tmp:
+        url = "file://" + os.path.join(tmp, "store")
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                                   "--dp-world", str(world), "--dp-init", url,
+                                   "--dp-backend", backend, "--dp-out", tmp,
+                                   "--dp-phase", "shard"],
+                                  stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=DP_RANK_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall_s = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            for r, log in enumerate(logs):
+                print(f"shard rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
+            raise AssertionError(f"shard: ranks exited {[p.returncode for p in procs]}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+        print(f"shard {backend} on CUDA tensors, probe ({smi}): "
+              + json.dumps([r["probe"] for r in ranks]), flush=True)
+        if not all(r["probe"]["ok"] for r in ranks):
+            raise AssertionError(f"shard: {backend} refused CUDA tensors between the ranks")
+        for name in ranks[0]["runs"]:
+            if any(r["runs"][name]["terms"] != ranks[0]["runs"][name]["terms"] for r in ranks):
+                raise AssertionError(f"shard {name}: the ranks' loss terms differ")
+        launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
+        out = {"backend": backend, "world": world, "ranks_wall_s": wall_s, "runs": {}}
+        for name, run in ranks[0]["runs"].items():
+            held = [r["runs"][name]["held_bytes"]["total"] for r in ranks]
+            want = run["predicted_bytes"]
+            rec = {k: run[k] for k in ("mode", "steps", "terms", "traffic_per_step",
+                                       "shared_params", "zero1_params", "predicted_bytes")}
+            rec.update(held_bytes=[r["runs"][name]["held_bytes"] for r in ranks],
+                       held_gb=[h / 1e9 for h in held],
+                       rank_step_ms=[r["runs"][name]["step_ms"] for r in ranks],
+                       peak_mem_gib=[r["runs"][name]["peak_mem_gib"] for r in ranks],
+                       mem_held_gib=[r["runs"][name]["mem_held_gib"] for r in ranks],
+                       saves=[r["runs"][name]["saves"] for r in ranks],
+                       save_bound_mib=run["save_bound_mib"],
+                       launches_per_rank=run["launches"])
+            if backend == "gloo" and any(h != want["bytes"] for h in held):
+                raise AssertionError(f"shard {name}: ranks hold {held} bytes of state, "
+                                     f"sharding.state_bytes gives {want['bytes']}")
+            if run["mode"] != "replicated" and not max(held) < want["replicated"]:
+                raise AssertionError(f"shard {name}: a rank holds the replicated state")
+            out["runs"][name] = rec
+        if backend == "gloo":
+            shard_check_gloo(out, tmp, dev, world, smi)
+        else:
+            shard_nccl_peaks(out, dev, smi)
+    note = (" (rank step ms NOT a speed: the ranks share one card and gloo stages CUDA tensors "
+            "through the host)" if backend == "gloo" else "")
+    print(f"shard {world} ranks on {where} ({smi}){note}: " + json.dumps(out), flush=True)
+    return out, launches
+
+
+def shard_check_gloo(out, tmp, dev, world, smi):
+    """Phase 11's checks against one process at batch 16 on the same global
+    batches: step 1's loss terms and whole gradients; the whole parameters
+    after the last step against the replicated ranks' (the same arithmetic:
+    bitwise); the fsdp snapshot of epoch 1 restored in one process repeats
+    the ranks' next step."""
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    one, ref, ref_params = shard_one_process("shard one process", shard_exp(None), base,
+                                             DP_RANK_BATCH, world, dev)
+    out["one_process"] = {k: one[k] for k in ("terms", "step_ms", "peak_mem_gib", "held_bytes",
+                                              "predicted_bytes")}
+    rep_params = torch.load(os.path.join(tmp, "replicated_params.pt"))
+    for name, rec in out["runs"].items():
+        got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
+        check = grad_check(got, ref)
+        rel = {k: abs(rec["terms"][k][0] - v[0]) / abs(v[0]) for k, v in one["terms"].items()}
+        params = torch.load(os.path.join(tmp, f"{name}_params.pt"))
+        diff = max(float((params[k] - rep_params[k]).abs().max()) for k in rep_params)
+        rec.update(step1_rel_diff=rel, params_max_abs_diff_vs_replicated=diff,
+                   params_bitwise_vs_replicated=state_equal(params, rep_params),
+                   **{k: check[k] for k in ("grad_norm", "plain_grad_norm", "grad_norm_rel_diff",
+                                            "grad_global_cosine", "grad_tol_used",
+                                            "grad_tensors", "grad_worst")})
+        if max(rel.values()) > DP_LOSS_RTOL or check["grad_tol_used"] > 1 \
+                or check["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+                or check["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE \
+                or not rec["params_bitwise_vs_replicated"]:
+            raise AssertionError(f"shard {name}: against one process {rel}, "
+                                 f"{check['grad_worst']}; parameters against the replicated "
+                                 f"ranks' differ by up to {diff}")
+        del got, params
+    # the fsdp ranks' snapshot of epoch 1, restored in one process (epoch 2)
+    resumed, _, _ = shard_one_process(
+        "shard resumed in one process", shard_exp(None), base, DP_RANK_BATCH, world, dev,
+        resume=os.path.join(tmp, "ckpt", "checkpoint-epoch1"))
+    want = {k: v[SHARD_LEN_EPOCH] for k, v in out["runs"]["fsdp"]["terms"].items()}
+    rel = {k: abs(resumed["terms"][k][0] - w) / abs(w) for k, w in want.items()}
+    out["resume_fsdp_to_one_process"] = {"terms": resumed["terms"], "rel_diff": rel}
+    if max(rel.values()) > DP_LOSS_RTOL:
+        raise AssertionError(f"shard resume: one process from the fsdp snapshot {rel}")
+
+
+def shard_nccl_peaks(out, dev, smi):
+    """--dp-nccl: each pod recipe in one process at a rank's batch on
+    cuda:0, replicated, for its peak memory beside the ranks'."""
+    for name, mode, e, n, kw in SHARD_NCCL_RUNS:
+        from oatx_torch.data.loader import ShardedLoader
+        from oatx_torch.train.trainer import Trainer
+
+        exp = shard_exp(None, WIDE_CONFIGS.get(name, LARGE_CONFIG), e, n, **kw)
+        ds = shard_corpus(name, 1)
+        _, col = dp_data("norm", exp, ds, None)
+        train = [ShardedLoader(ds, SHARD_NCCL_BATCH[name], col, seed=0, num_workers=4)]
+        run, _, _ = shard_run(f"shard {name} one process", lambda: Trainer(
+            exp, train, [], device=dev), e * n, dev, keep=False)
+        out["runs"][name]["one_process"] = {k: run[k] for k in (
+            "terms", "step_ms", "peak_mem_gib", "held_bytes", "predicted_bytes")}
+
+
+def shard_phase(smi, dev):
+    """Sharded training state across ranks (module docstring, phase 11)."""
+    t0 = time.perf_counter()
+    out, launches = shard_ranks(smi, dev)
+    print(f"shard summary ({smi}): " + json.dumps({
+        "runs": {name: {k: r.get(k) for k in (
+            "held_gb", "step1_rel_diff", "grad_tol_used", "grad_global_cosine",
+            "params_bitwise_vs_replicated", "traffic_per_step", "rank_step_ms", "peak_mem_gib",
+            "saves", "save_bound_mib")}
+            for name, r in out["runs"].items()},
+        "resume": out["resume_fsdp_to_one_process"]["rel_diff"],
+        "phase_s": time.perf_counter() - t0}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -3656,23 +4067,28 @@ def main() -> int:
     ap.add_argument("--only-dp", action="store_true",
                     help="build the kernels and run the dp phase alone (no record, "
                          "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-shard", action="store_true",
+                    help="build the kernels and run the shard phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
     ap.add_argument("--dp-nccl", action="store_true",
-                    help="build the kernels and run phase 10 (b) alone with one rank per "
-                         "visible card over NCCL (needs 2 or more cards; no record, no ok "
-                         "line)")
+                    help="build the kernels and run phase 10 (b), then phase 11's pod "
+                         "recipes, alone with one rank per visible card over NCCL (needs 2 "
+                         "or more cards; no record, no ok line)")
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)  # phase 10's ranks
     ap.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-init", help=argparse.SUPPRESS)
     ap.add_argument("--dp-backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-phase", default="dp", help=argparse.SUPPRESS)  # 'dp' | 'shard'
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    if opts.dp_rank is not None:  # one rank of phase 10 (b), started by dp_ranks
-        return dp_rank_main(opts.dp_rank, opts.dp_world, opts.dp_init, opts.dp_out,
-                            opts.dp_backend)
+    if opts.dp_rank is not None:  # one rank of phase 10 (b) or 11, started by their parent
+        rank_main = shard_rank_main if opts.dp_phase == "shard" else dp_rank_main
+        return rank_main(opts.dp_rank, opts.dp_world, opts.dp_init, opts.dp_out,
+                         opts.dp_backend)
     from oatx_torch.ops.kernels import _build
 
     # TF32 off: the plain versions and every f32 matmul / convolution on the
@@ -3716,12 +4132,18 @@ def main() -> int:
         dp_phase(smi, dev)
         print("chip_smoke: --only-dp ran the dp phase alone", flush=True)
         return 0
+    if opts.only_shard:
+        shard_phase(smi, dev)
+        print("chip_smoke: --only-shard ran the shard phase alone", flush=True)
+        return 0
     if opts.dp_nccl:
         world = torch.cuda.device_count()
         if world < 2:
             raise SystemExit(f"--dp-nccl needs 2 or more cards, {world} visible")
         dp_ranks(smi, dev, world, "nccl")
-        print(f"chip_smoke: --dp-nccl ran phase 10 (b) on {world} cards over NCCL", flush=True)
+        shard_ranks(smi, dev, world, "nccl")
+        print(f"chip_smoke: --dp-nccl ran phase 10 (b) and phase 11's pod recipes on {world} "
+              "cards over NCCL", flush=True)
         return 0
     parent = None
     if opts.parent_ln_linear:
@@ -3781,6 +4203,7 @@ def main() -> int:
     phases["towers"] = towers_phase(smi, dev)
     phases["wide"], wide = wide_phase(smi, dev)
     phases["dp"] = dp_phase(smi, dev)
+    phases["shard"] = shard_phase(smi, dev)
     for name, recs in wide.items():
         by_name[name]["wide"] = recs
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

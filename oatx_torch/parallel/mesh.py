@@ -1,31 +1,35 @@
 """The process layout and the checks of a trainer config against it (port of
 oatx/parallel/mesh.py: `process_index`, `process_count`, `batch_shards`,
-`spans_processes` and `make_mesh`'s validation, :64-73, 90-121).
+`spans_processes` and `make_mesh`'s validation and slice grouping, :44-121).
 
 oatx trains one program over a (data, model) mesh, or ('dcn', 'data',
 'model') across slices, and shards by GSPMD. The port runs one process per
 device under `torch.distributed` (the reference's own mode): rank r of a
 world of n owns a per-process batch, as oatx's per-process batch
-(`batch_size` is per process, oatx/train/trainer.py:105-118), and every rank
-holds all the parameters. Without a process group, or with a world of one,
-this is oatx's 1-device mesh. The ranks form one flat data axis: the batch
-shards over ('dcn', 'data') jointly, and with replicated parameters that is
-plain data parallelism (train/step.py gathers the loss inputs and reduces
-the gradients, parallel/collectives.py).
+(`batch_size` is per process, oatx/train/trainer.py:105-118). Without a
+process group, or with a world of one, this is oatx's 1-device mesh. The
+ranks form the batch axes ('dcn', 'data') jointly: the batch shards over all
+of them. With `dcn_slices` s the world splits into s slices of n/s
+consecutive ranks each, as make_mesh groups devices by slice: a slice's
+ranks are its data axis (`Layout.data_ranks`), and the ranks at one
+position of every slice form a cross-slice group (`Layout.cross_ranks`).
 
 What each trainer key gives:
   * `dp_mode`: 'auto' and 'manual' reduce the gradients once per parameter
     after the backward, as oatx's `_manual_dp_grads`; 'gspmd' reduces the
     same gradients but ignores `grad_reduce_dtype` (trainer.py); 'manual'
-    with one shard raises ValueError, as in oatx (trainer.py:306-309);
+    with one shard, or with `fsdp`, raises ValueError, as in oatx
+    (trainer.py:301-309);
   * `dcn_slices` must divide the world (ValueError, as in make_mesh);
-  * on one process `fsdp` and `zero1` shard over a 1-wide data axis, that
-    is, replicate (oatx/train/trainer.py:186-187), and the model's
-    `sequence_parallel` is a no-op (models/vit_spacetime.py); across
-    processes `fsdp`, `zero1`, `model_parallel` > 1 and `pipeline` raise
-    NotImplementedError (ROADMAP A8b);
-  * `model_parallel` > 1 and `pipeline` need a model axis that one device
-    lacks and raise NotImplementedError there too (A8b).
+  * `zero1` shards the AdamW moments (and the EMA) over the data axis and
+    `fsdp` the parameters, gradients and moments (parallel/sharding.py);
+    neither crosses slices. On one process the data axis is 1 wide and both
+    replicate (oatx/train/trainer.py:186-187);
+  * `model_parallel` > 1 and `pipeline` need a model axis and raise
+    NotImplementedError at any world (ROADMAP A8b); `pipeline` with `fsdp`
+    raises ValueError first, as in oatx (trainer.py:78-80). The model's
+    `sequence_parallel` is a no-op without a model axis
+    (models/vit_spacetime.py).
 """
 
 from __future__ import annotations
@@ -38,18 +42,42 @@ import torch.distributed as dist
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Rank and world size of the default process group (0 and 1 without
-    one)."""
+    one), and the dcn slices the world splits into."""
     rank: int = 0
     world: int = 1
+    dcn_slices: int = 1
 
     @property
     def spans_processes(self) -> bool:
         return self.world > 1
 
+    @property
+    def data_size(self) -> int:
+        """Ranks on the data axis of one slice: what a shard divides by."""
+        return self.world // self.dcn_slices
 
-def current_layout() -> Layout:
+    @property
+    def data_rank(self) -> int:
+        """This rank's position on its slice's data axis."""
+        return self.rank % self.data_size
+
+    @property
+    def slice_index(self) -> int:
+        return self.rank // self.data_size
+
+    def data_ranks(self, slice_index: int) -> range:
+        """The ranks of one slice, in data order."""
+        return range(slice_index * self.data_size, (slice_index + 1) * self.data_size)
+
+    def cross_ranks(self, data_rank: int) -> range:
+        """The ranks at one data position of every slice: the replicas of
+        one shard."""
+        return range(data_rank, self.world, self.data_size)
+
+
+def current_layout(dcn_slices: int = 1) -> Layout:
     if dist.is_available() and dist.is_initialized():
-        return Layout(dist.get_rank(), dist.get_world_size())
+        return Layout(dist.get_rank(), dist.get_world_size(), dcn_slices)
     return Layout()
 
 
@@ -81,22 +109,19 @@ def check_layout(t, world: int = None) -> None:
         raise ValueError(f"unknown trainer.dp_mode {t.dp_mode!r}")
     if t.dcn_slices < 1:
         raise ValueError(f"dcn_slices must be >= 1, got {t.dcn_slices}")
+    if t.pipeline and t.fsdp:
+        raise ValueError("trainer.pipeline and trainer.fsdp both use structured "
+                         "placements — enable one")
     for name, on, item in (
             ("model_parallel > 1", t.model_parallel > 1, "A8b, tensor parallelism"),
             ("pipeline", t.pipeline, "A8b, pipeline stages")):
         if on:
             raise NotImplementedError(
                 f"trainer.{name} needs several devices on a model axis; the port "
-                f"trains data-parallel only (not ported yet: ROADMAP {item})")
+                f"shards over the data axis only (not ported yet: ROADMAP {item})")
     if world % (t.model_parallel * t.dcn_slices):
         raise ValueError(f"{world} processes not divisible by model_parallel="
                          f"{t.model_parallel} x dcn_slices={t.dcn_slices}")
-    if world > 1:
-        for name, on in (("fsdp", t.fsdp), ("zero1", t.zero1)):
-            if on:
-                raise NotImplementedError(
-                    f"trainer.{name} across {world} processes is not ported yet "
-                    f"(ROADMAP A8b, sharded parameters and moments)")
-    elif t.dp_mode == "manual":
+    if t.dp_mode == "manual" and (world == 1 or t.fsdp):
         raise ValueError("trainer.dp_mode='manual' needs a >1-shard batch axis and "
                          "replicated params (model_parallel=1, no fsdp/pipeline)")

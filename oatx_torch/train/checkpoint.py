@@ -17,6 +17,11 @@ writes the file in a background thread; `wait_for_async_saves` joins it.
 Under data parallelism (parallel/mesh.py) the ranks hold the same state:
 rank 0 writes, and every rank waits at a barrier until it has (an async
 write is then in flight on rank 0). Every rank restores the same file.
+Under a sharded layout (parallel/sharding.py) the schema is the same: every
+rank takes part in gathering each tensor whole, one tensor at a time, and
+rank 0 copies it to its host, so the whole state is never on one device; a
+restore reads the file on the host and each rank keeps its shares. So a
+snapshot of any layout restores under any other.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.parallel import collectives as coll
+from oatx_torch.parallel import sharding
 from oatx_torch.parallel.mesh import process_index
 
 STATE_FILE = "state.pt"
@@ -70,6 +76,25 @@ def wait_for_async_saves() -> None:
         raise _writer_error.pop()
 
 
+def _sharded(state) -> bool:
+    return (sharding.fsdp_of(state.model) is not None
+            or any(spec is not None for spec in state.optimizer.zero1))
+
+
+def _payload(state, lead: bool) -> Optional[Dict[str, Any]]:
+    """The snapshot's tensors, whole, on the `lead` rank's host (→ None
+    elsewhere). Shares are gathered one tensor at a time, every rank taking
+    part; a rank keeps none of them on its device past its host copy (lead)
+    or past the gather (the others)."""
+    fsdp = sharding.fsdp_of(state.model)
+    if fsdp is not None:
+        model = fsdp.full_state_dict(to_host=lead, keep=lead)
+    else:
+        model = _host_copy(state.model.state_dict()) if lead else None
+    opt = state.optimizer.named_state(to_host=lead, keep=lead)
+    return {"model": model, "optimizer": opt, "step": int(state.step)} if lead else None
+
+
 def save_checkpoint(ckpt_dir: str | Path, name: str, state, epoch: int,
                     monitor_best: float, keep: Optional[int] = None,
                     extra_meta: Optional[Dict[str, Any]] = None,
@@ -79,20 +104,20 @@ def save_checkpoint(ckpt_dir: str | Path, name: str, state, epoch: int,
     keep: leave only the newest `keep` checkpoint-epoch{N} snapshots."""
     ckpt_dir = Path(ckpt_dir).resolve()
     path = ckpt_dir / name
-    if process_index() == 0:
-        _save(ckpt_dir, path, state, epoch, monitor_best, keep, extra_meta, async_save)
+    lead = process_index() == 0
+    # a sharded state is gathered by every rank; a replicated one is rank 0's
+    payload = _payload(state, lead) if lead or _sharded(state) else None
+    if lead:
+        _save(ckpt_dir, path, payload, epoch, monitor_best, keep, extra_meta, async_save)
     coll.barrier()
     return path
 
 
-def _save(ckpt_dir: Path, path: Path, state, epoch, monitor_best, keep, extra_meta,
+def _save(ckpt_dir: Path, path: Path, payload, epoch, monitor_best, keep, extra_meta,
           async_save) -> None:
     global _writer
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     name = path.name
-    payload = _host_copy({"model": state.model.state_dict(),
-                          "optimizer": state.optimizer.named_state(),
-                          "step": int(state.step)})
     wait_for_async_saves()  # one write in flight; back-to-back saves stay ordered
     if async_save:
         def run():
@@ -106,7 +131,7 @@ def _save(ckpt_dir: Path, path: Path, state, epoch, monitor_best, keep, extra_me
     else:
         _write(path, payload)
     meta = {"epoch": int(epoch), "monitor_best": float(monitor_best),
-            "step": int(state.step)}
+            "step": payload["step"]}
     if extra_meta:
         meta.update(extra_meta)
     (ckpt_dir / f"{name}.meta.json").write_text(json.dumps(meta))
@@ -148,10 +173,16 @@ def _load(path: Path, device: torch.device) -> Dict[str, Any]:
 def restore_checkpoint(path: str | Path, state, device: DeviceLike = None):
     """Load a snapshot into `state`'s model and optimizer in place →
     (state with the saved step, meta). The tensors are read onto `device`
-    (CUDA unless the caller names another)."""
+    (CUDA unless the caller names another), or under a sharded layout onto
+    the host, each rank keeping its shares."""
     path = Path(path).resolve()
-    snap = _load(path, resolve_device(device))
-    state.model.load_state_dict(snap["model"], strict=True)
+    sharded = _sharded(state)
+    snap = _load(path, torch.device("cpu") if sharded else resolve_device(device))
+    fsdp = sharding.fsdp_of(state.model)
+    if fsdp is not None:
+        fsdp.load_full_state_dict(snap["model"])
+    else:
+        state.model.load_state_dict(snap["model"], strict=True)
     state.optimizer.load_named_state(snap["optimizer"])
     meta: Dict[str, Any] = {"epoch": 0, "monitor_best": float("inf"), "step": 0}
     meta_path = path.with_name(path.name + ".meta.json")

@@ -50,6 +50,16 @@ becomes its mean (collectives.reduce_gradients, in `grad_reduce_dtype` on
 the wire when given). The augmenter draws for the global batch
 (data/transforms.py). Without a group, or with one rank, none of this runs:
 the step is the one-device step.
+
+Sharded state (parallel/sharding.py): under `zero1` the step is the one
+above and the optimizer updates its shares. Under `fsdp` (a model put in
+place by `sharding.place`) the forward and backward run inside
+`gathering()`, so every access of a sharded weight all-gathers it; the
+gradients are not all-reduced: after the last micro-batch each sharded
+parameter's whole gradient is reduce-scattered once to its mean share, the
+replicated leaves all-reduced, in f32 (`grad_reduce_dtype` does not apply,
+as in oatx's GSPMD path). `grad_norm` is the whole gradient's on every
+layout (AdamW.grad_norm).
 """
 
 from __future__ import annotations
@@ -66,8 +76,9 @@ from oatx_torch.data import transforms as T
 from oatx_torch.losses import contrastive as C
 from oatx_torch.models.towers import DualTower, TowerConfig
 from oatx_torch.parallel import collectives as coll
+from oatx_torch.parallel import sharding
 from oatx_torch.parallel.mesh import current_layout
-from oatx_torch.train.optim import AdamW, global_norm
+from oatx_torch.train.optim import AdamW
 
 Batch = Dict[str, Any]
 
@@ -254,19 +265,24 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
         else:
             micro = [batch]
         opt.zero_grad(set_to_none=True)
+        fsdp = sharding.fsdp_of(model)
         sums: Dict[str, torch.Tensor] = {}
-        for mb in micro:
-            loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk, gather=dp)
-            loss.backward()
-            for k, v in m.items():
-                sums[k] = sums[k] + v if k in sums else v
+        with sharding.gathered(model):
+            for mb in micro:
+                loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk, gather=dp)
+                loss.backward()
+                for k, v in m.items():
+                    sums[k] = sums[k] + v if k in sums else v
         metrics = {k: v / len(micro) for k, v in sums.items()}
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        if len(micro) > 1:
-            torch._foreach_div_(grads, float(len(micro)))
-        if dp:
-            coll.reduce_gradients(model.parameters(), grad_reduce_dtype)
-        metrics["grad_norm"] = global_norm(grads)
+        if fsdp is not None:
+            fsdp.reduce_gradients(len(micro))
+        else:
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if len(micro) > 1:
+                torch._foreach_div_(grads, float(len(micro)))
+            if dp:
+                coll.reduce_gradients(model.parameters(), grad_reduce_dtype)
+        metrics["grad_norm"] = opt.grad_norm()
         if skip_nonfinite:
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"]))
             metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=dev)
@@ -320,21 +336,27 @@ def make_eval_step(cfg: TowerConfig, augment: Optional[Callable] = None,
     @torch.no_grad()
     def eval_step(model: DualTower, batch: Batch):
         batch = _to_device(batch, dev)
-        if chunk is None:
-            return body(model, batch)
-        return scan_chunked(lambda mb: body(model, mb), chunk)(batch)
+        with sharding.gathered(model):
+            if chunk is None:
+                return body(model, batch)
+            return scan_chunked(lambda mb: body(model, mb), chunk)(batch)
 
     return eval_step
 
 
 def init_state(cfg: TowerConfig, optimizer: Callable[..., AdamW],
                device: DeviceLike = None, generator: Optional[torch.Generator] = None,
-               state_dict: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+               state_dict: Optional[Dict[str, torch.Tensor]] = None,
+               shard_mode: Optional[str] = None, layout=None) -> TrainState:
     """A fresh TrainState: the tower on `device` (CUDA unless the caller
     names another; random init from `generator`, or `state_dict` loaded
-    strictly), and `optimizer` (train/optim.make_optimizer) built over its
-    named parameters."""
+    strictly), placed by `shard_mode` ('fsdp' | 'zero1') on `layout`
+    (default: the current group's, one slice; parallel/sharding.py), and
+    `optimizer` (train/optim.make_optimizer) built over its named
+    parameters."""
     model = DualTower(cfg, device, generator)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
-    return TrainState(model, optimizer(model.named_parameters()), 0)
+    shards = sharding.place(model, shard_mode, layout or current_layout())
+    return TrainState(model, optimizer(model.named_parameters(),
+                                       zero1=shards if shard_mode == "zero1" else None), 0)

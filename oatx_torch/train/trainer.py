@@ -29,20 +29,30 @@ Processes (parallel/mesh.py): the Trainer runs under whatever default
 process group the caller set up (cli/train.py under OATX_MULTIHOST=1), one
 rank per device, each over its shard of the loaders with a per-process
 `batch_size`, as oatx's per-process batch. Across ranks the step is data
-parallel (train/step.py: global negatives, one gradient reduction); rank 0's
-parameters and optimizer state are broadcast at the start and after a
-restore; `grad_reduce_dtype` applies under `dp_mode` auto or manual and is
+parallel (train/step.py: global negatives); rank 0's parameters are
+broadcast at the start, before the state is placed; `grad_reduce_dtype`
+applies under `dp_mode` auto or manual with replicated parameters and is
 warned about and ignored otherwise, as oatx's gating (:296-318);
 validation embeds each rank's shard and gathers every rank's rows in rank
 order on every rank (oatx `_gather_valid`); the console, TensorBoard
 writer, tracker, checkpoints and profiler belong to rank 0, and each rank
 logs to info_p{rank}.log; a preemption signal stops every rank at the same
-step (collectives.any_rank). Without a group, or with one rank, this is
-oatx on a 1-device mesh: `fsdp`, `zero1` and `dp_mode: auto` shard or
-reduce over a 1-wide data axis and are no-ops; `model_parallel` > 1 and
-`pipeline` raise NotImplementedError (ROADMAP A8b), as do `fsdp` and
-`zero1` across processes; `dp_mode: manual` with one rank and `dcn_slices`
-that do not divide the ranks raise ValueError, as in oatx.
+step (collectives.any_rank).
+
+The state is placed as oatx places it (:186-236), after the init and again
+by a resume (parallel/sharding.py): `fsdp` shards the parameters, their
+gradients and moments over the data axis of a dcn slice, else `zero1`
+shards the moments and the EMA; the layout of a fresh run and of a resumed
+one is the same, and a snapshot of any layout restores under any other.
+Under `fsdp` across ranks `fwd_chunk` and `grad_reduce_dtype` are warned
+about and ignored, as in oatx (:279-292, 301-318), and the validation
+forwards run in step on every rank (each weight is gathered at its use).
+Without a group, or with one rank, this is oatx on a 1-device mesh: `fsdp`,
+`zero1` and `dp_mode: auto` shard or reduce over a 1-wide data axis and are
+no-ops; `model_parallel` > 1 and `pipeline` raise NotImplementedError
+(ROADMAP A8b); `dp_mode: manual` with one rank or with `fsdp`, `pipeline`
+with `fsdp`, and `dcn_slices` that do not divide the ranks raise
+ValueError, as in oatx.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ from oatx_torch.metrics.retrieval import REQUIRES_QUERY_MASKS
 from oatx_torch.models.towers import DualTower, text_out_dim
 from oatx_torch.parallel import collectives as coll
 from oatx_torch.parallel import mesh as meshlib
+from oatx_torch.parallel import sharding
 from oatx_torch.train import checkpoint as ckptlib
 from oatx_torch.train import optim as optimlib
 from oatx_torch.train import step as steplib
@@ -92,8 +103,8 @@ class Trainer:
                  resume: Optional[str] = None, tracker=None, device: DeviceLike = None):
         self.exp = exp
         t = exp.trainer
-        self.layout = layout = meshlib.current_layout()
-        meshlib.check_layout(t, layout.world)
+        meshlib.check_layout(t)
+        self.layout = layout = meshlib.current_layout(t.dcn_slices)
         lead = layout.rank == 0
         self.device = dev = resolve_device(device)
         self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity, layout.rank)
@@ -156,14 +167,29 @@ class Trainer:
             grad_clip=exp.optimizer.grad_clip, trainable_filter=tf,
             ema_decay=t.ema_decay or None, kind=exp.optimizer.type)
 
-        # fresh init → optional reference-checkpoint import → AdamW over it
+        # fresh init → optional reference-checkpoint import → rank 0's values
+        # everywhere → placed (fsdp, else zero1; oatx :186-197) → AdamW over it
         model = DualTower(self.tower_cfg, dev, torch.Generator(dev).manual_seed(t.seed))
         if exp.arch.load_checkpoint:
             self.logger.info("importing initial weights from %s", exp.arch.load_checkpoint)
             ckptlib.import_initial_weights(exp.arch.load_checkpoint, model,
                                            temporal_fix=exp.arch.load_temporal_fix)
-        self.state = steplib.TrainState(model, self.optimizer(model.named_parameters()), 0)
-        self._broadcast_state()
+        if layout.spans_processes:
+            coll.broadcast_tensors(model.state_dict().values())
+        self.shard_mode = "fsdp" if t.fsdp else "zero1" if t.zero1 else None
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        shards = sharding.place(model, self.shard_mode, layout)
+        self.state = steplib.TrainState(
+            model, self.optimizer(model.named_parameters(),
+                                  zero1=shards if self.shard_mode == "zero1" else None), 0)
+        if self.shard_mode and layout.spans_processes:
+            want = sharding.state_bytes(shapes, layout.data_size, self.shard_mode,
+                                        ema=bool(t.ema_decay))
+            self.logger.info(
+                "%s over a data axis of %d (x %d dcn slices): %d of %d parameters "
+                "sharded, %.3f GB of state a rank (replicated: %.3f GB, padding %d B)",
+                self.shard_mode, layout.data_size, layout.dcn_slices, len(shards),
+                len(shapes), want["bytes"] / 1e9, want["replicated"] / 1e9, want["padding"])
 
         self.start_epoch = 1
         self._resume_cycle = 0
@@ -186,7 +212,6 @@ class Trainer:
                 # a lost sidecar reads +inf, which would disable max-mode monitoring
                 if not (self.monitor_mode == "max" and mb == float("inf")):
                     self.monitor_best = mb
-            self._broadcast_state()
 
         precropped = [getattr(l.dataset, "train_crop", "device_canonical")
                       == "reference_full_frame" for l in train_loaders]
@@ -198,13 +223,18 @@ class Trainer:
                                           host_precropped=any(precropped)),
             train=True, tower_cfg=self.tower_cfg)
         fwd_chunk = t.fwd_chunk or None
+        fsdp_across = t.fsdp and layout.spans_processes
+        if fwd_chunk and fsdp_across:
+            self.logger.warning("fwd_chunk=%d ignored: shard_map fwd_chunk needs replicated "
+                                "params (model_parallel=1, no fsdp/pipeline)", fwd_chunk)
+            fwd_chunk = None
         if fwd_chunk and t.accum_steps > 1:
             raise ValueError("fwd_chunk and accum_steps are mutually exclusive "
                              "(full-batch vs micro-batch negative semantics)")
         # data parallelism: one reduction per gradient after the backward
         # (step.py); grad_reduce_dtype on the manual path only (oatx :296-318)
         dp_mode = t.dp_mode or "auto"
-        pure_dp = layout.spans_processes  # check_layout refused sharded params
+        pure_dp = layout.spans_processes and not t.fsdp
         manual = pure_dp and dp_mode != "gspmd"
         grd = t.grad_reduce_dtype or ""
         if grd and not manual:
@@ -232,15 +262,6 @@ class Trainer:
         self._preempt_saved = False
         self._install_preemption_handler()
         self.watchdog = StepWatchdog(timeout_s=900.0, logger=self.logger)
-
-    def _broadcast_state(self) -> None:
-        """Every rank takes rank 0's parameters, buffers and optimizer state."""
-        if not self.layout.spans_processes:
-            return
-        opt = self.state.optimizer.named_state()
-        coll.broadcast_tensors(list(self.state.model.state_dict().values())
-                               + [t for key in ("mu", "nu", "ema") if key in opt
-                                  for t in opt[key].values()])
 
     def _stop_requested(self) -> bool:
         """The preemption flag, agreed over the ranks: all stop at one step."""
@@ -458,8 +479,9 @@ class Trainer:
 
     @contextlib.contextmanager
     def _ema_swapped(self):
-        """The model holds the EMA parameters inside the context."""
-        ema = self.state.optimizer.named_state()["ema"]
+        """The model holds the EMA parameters inside the context (each
+        parameter as it is held: a share under fsdp)."""
+        ema = self.state.optimizer.param_shaped("ema")
         params = dict(self.state.model.named_parameters())
         saved = {n: p.detach().clone() for n, p in params.items()}
         with torch.no_grad():
@@ -494,15 +516,27 @@ class Trainer:
         model = self.state.model
         multiple = max((l.batch_size for l in self.valid_loaders), default=1)
         multiple = max(multiple, meshlib.batch_shards())  # oatx :648-649
+        in_step = sharding.fsdp_of(model) is not None
         for vi, loader in enumerate(self.valid_loaders):
             texts, vids = [], []
+            # under fsdp every forward gathers the weights: the ranks run as
+            # many as the longest shard, the short ones again on their last batch
+            n_fwd = coll.max_across_ranks(len(loader)) if in_step else 0
+            batch = None
             for batch, n_valid in device_prefetch(padded_batches(iter(loader), multiple),
                                                   self.device):
                 batch.pop("meta", None)
                 out = self.eval_step(model, batch)
                 texts.append(out["text_embeds"][:n_valid].float())
                 vids.append(out["video_embeds"][:n_valid].float())
+                n_fwd -= 1
                 self.watchdog.beat()  # a long validation is not a hang
+            if n_fwd > 0 and batch is None:
+                raise ValueError(f"fsdp validation: loader {loader.dataset_name!r} has no "
+                                 f"batch on rank {self.layout.rank} to run in step with "
+                                 "the others (fewer samples than ranks)")
+            for _ in range(max(n_fwd, 0)):
+                self.eval_step(model, batch)
             if self.layout.spans_processes:
                 # every rank's valid rows, rank after rank (oatx _gather_valid)
                 texts = [coll.all_gather_ragged(self._rows(texts, "text"))]

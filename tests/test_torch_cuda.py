@@ -74,6 +74,35 @@ def test_ln_mlp_kernel_matches_plain(card, rows, d, hidden):
     torch.testing.assert_close(got.float(), plm.ln_mlp_plain(*args).float(), atol=ATOL, rtol=0)
 
 
+@pytest.mark.cuda
+def test_ln_mlp_kernel_takes_gathered_fsdp_weights(card):
+    """Under fsdp a weight reaches kernel 1 as the view of a gathered flat
+    buffer (parallel/sharding.FlatShard.whole over every rank's share, here
+    4 shares of an odd-sized weight, padded): the kernel launches on it and
+    gives bitwise the output it gives on the weight itself."""
+    from oatx_torch.parallel.sharding import FlatShard
+
+    g = torch.Generator(card).manual_seed(5)
+    d, hidden, rows = 768, 3072, 785
+    x = torch.randn(rows, d, device=card, generator=g)
+    w1 = torch.randn(hidden, d, device=card, generator=g) / d ** 0.5
+    w2 = torch.randn(d, hidden, device=card, generator=g) / hidden ** 0.5
+    b1 = 0.1 * torch.randn(hidden + 1, device=card, generator=g)[:hidden]
+    small = [0.1 * torch.randn(d, device=card, generator=g) for _ in range(3)]
+
+    def gathered(w):
+        shares = [FlatShard(tuple(w.shape), r, 4).take(w) for r in range(4)]
+        return FlatShard(tuple(w.shape), 0, 4).whole(torch.cat(shares))
+
+    bf = torch.bfloat16
+    before = plm.ln_mlp.launches
+    outs = [plm.ln_mlp(x.to(bf), 1 + small[0], small[1], a.to(bf), b1, c.to(bf), small[2],
+                       1e-6) for a, c in ((w1, w2), (gathered(w1), gathered(w2)))]
+    torch.cuda.synchronize()
+    assert plm.ln_mlp.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+
+
 def _qkv_views(card, b, frames, n, seed, heads=12, dh=64):
     """q, k, v of a (b, 1 + frames·n, 3, heads, dh) bf16 qkv tensor: k and v
     strided views of it, q a fresh tensor (the view times dh^-0.5), as the

@@ -5,8 +5,10 @@ ViT-H/14 has 16 heads of 80: tiny here as 2 heads over embed 160 (Dh 80),
 and at img 32 with patch 2 a frame has N = 256 patches, so each frame group
 holds 257 keys, the shape kernel 2 takes since its Dh-80 / 272-key
 instantiations. The recipes set `sequence_parallel` and `fsdp`, which oatx
-runs on a 1-device mesh as a no-op and as replication, and `model_parallel`
-4, which one device refuses in both packages; the Trainers here run with
+runs on a 1-device mesh as a no-op and as replication, as the port does in
+one process (across processes the port shards under fsdp:
+tests/test_torch_shard.py), and `model_parallel` 4, which one device
+refuses in both packages; the Trainers here run with
 `model_parallel` 1 and every other pod key (remat dots_all, accum_steps 2,
 the chunked NormSoftmax, skip_nonfinite, async checkpoints, cosine
 warm-up), through each package's own loaders, from one .pth.
@@ -90,7 +92,8 @@ def test_pod_configs_load_in_both_packages(name, dh):
     trainer keys. With `model_parallel: 4` on one device both refuse:
     oatx's make_mesh (4 does not divide 1 device) and the port's layout
     check (tensor parallelism, ROADMAP A8b). With 1 both accept, `fsdp` and
-    `sequence_parallel` included."""
+    `sequence_parallel` included (the port's fsdp at any world:
+    tests/test_torch_shard.py)."""
     raw = _load(name)
     jexp, pexp = jschema.ExperimentCfg.from_dict(raw), pschema.ExperimentCfg.from_dict(raw)
     jv, pv = jschema.build_tower_config(jexp.arch).video, pschema.build_tower_config(

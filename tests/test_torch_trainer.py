@@ -219,21 +219,25 @@ def test_multi_device_modes_raise(tmp_path, key, value):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("fsdp", True, "A8b"), ("zero1", True, "A8b"), ("model_parallel", 2, "A8b"),
+    ("fsdp", True, None), ("zero1", True, None), ("model_parallel", 2, "A8b"),
     ("pipeline", True, "A8b"), ("dcn_slices", 2, None), ("dcn_slices", 3, "dcn_slices=3"),
-    ("dp_mode", "manual", None)])
+    ("dp_mode", "manual", None), (("fsdp", "dcn_slices"), (True, 2), None),
+    (("pipeline", "fsdp"), (True, True), "pipeline and trainer.fsdp"),
+    (("dp_mode", "fsdp"), ("manual", True), "dp_mode='manual'")])
 def test_layout_checks_across_two_processes(tmp_path, key, value, error):
-    """At a world of 2 the sharded modes raise naming ROADMAP A8b; dcn
-    slices must divide the world (oatx's make_mesh) and then form one flat
-    data axis with the ranks; dp_mode 'manual' is plain data parallelism."""
+    """At a world of 2 the sharded modes run (fsdp also inside dcn slices);
+    tensor parallelism and pipeline stages raise naming ROADMAP A8b; dcn
+    slices must divide the world (oatx's make_mesh); dp_mode 'manual' is
+    plain data parallelism; pipeline with fsdp and dp_mode 'manual' with
+    fsdp raise ValueError with oatx's wording."""
     from oatx_torch.parallel import mesh as pmesh
 
-    t = PExp.from_dict(_raw(tmp_path, **{key: value})).trainer
+    keys = dict(zip(key, value)) if isinstance(key, tuple) else {key: value}
+    t = PExp.from_dict(_raw(tmp_path, **keys)).trainer
     if error is None:
         pmesh.check_layout(t, world=2)
         return
-    with pytest.raises(ValueError if key == "dcn_slices" else NotImplementedError,
-                       match=error):
+    with pytest.raises(NotImplementedError if error == "A8b" else ValueError, match=error):
         pmesh.check_layout(t, world=2)
 
 

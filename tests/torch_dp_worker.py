@@ -29,7 +29,24 @@ test wrote:
                batches of n shards concatenated, data/loader.py
                GlobalBatches), with a tracker of its own under
                log_dir/tracker{rank}, recording each step's metrics, the
-               history and the final parameters.
+               history and the final parameters;
+  shard        {'cases': {name: {'cfg', 'state_dict', 'batches' (global
+               batches, one a step), 'loss_cfg', 'mode' ('fsdp', 'zero1'
+               or None), 'dcn', 'min_size', 'opt' (make_optimizer's
+               keywords), 'freeze' (top-level subtrees the optimizer
+               leaves as they are), 'step' (make_train_step's)}}}: the steps of each
+               case on the rank's rows with the state placed by `mode`
+               (parallel/sharding.py): per step the metrics; after step 1
+               the whole gradients; at the end the whole parameters and
+               optimizer state, the held and predicted state bytes, each
+               share's size and the collectives' traffic;
+  shard_trainer {'jobs': [{'raw', 'save_dir', 'resume', 'min_size'}], 'clips',
+               'batch', 'log_dir'}: Trainer.train() per job over the rank's
+               shard of MemoryClips (with 'global_batches' as in trainer),
+               recording each step's metrics, the history, init_val, the
+               whole parameters and EMA, the held state bytes, and per
+               snapshot saved the tensors gathered and the most of them
+               alive at once (_watch_saves).
 """
 
 from __future__ import annotations
@@ -38,6 +55,7 @@ import datetime
 import os
 import signal
 import sys
+import weakref
 
 import numpy as np
 import torch
@@ -188,6 +206,149 @@ def trainer(p, rank, world):
             "params": {k: v.clone() for k, v in tr.state.model.state_dict().items()}}
 
 
+def _whole_grads(model):
+    """Every parameter's gradient, whole (fsdp shares gathered)."""
+    out = {}
+    for n, q in model.named_parameters():
+        if q.grad is None:
+            continue
+        spec = getattr(q, "_oatx_shard", None)
+        out[n] = (spec.gather(q.grad, "test") if spec is not None else q.grad).clone()
+    return out
+
+
+def shard(p, rank, world):
+    from oatx_torch.parallel import mesh, sharding
+    from oatx_torch.train import optim
+    from oatx_torch.train import step as steplib
+
+    out = {}
+    for name, case in p["cases"].items():
+        sharding.FSDP_MIN_SIZE = case["min_size"]
+        layout = mesh.current_layout(case.get("dcn", 1))
+        opt_kw = dict(case.get("opt", {}))
+        if case.get("freeze"):
+            opt_kw["trainable_filter"] = optim.exclude_subtrees(None, case["freeze"])
+        state = steplib.init_state(case["cfg"], optim.make_optimizer(**opt_kw),
+                                   device="cpu", state_dict=case["state_dict"],
+                                   shard_mode=case["mode"], layout=layout)
+        fn = steplib.make_train_step(case["cfg"], case["loss_cfg"], device="cpu",
+                                     **case.get("step", {}))
+        model, opt = state.model, state.optimizer
+        shapes = {n: tuple(getattr(q, "_oatx_shard", q).shape) for n, q in
+                  model.named_parameters()}
+        coll.reset_traffic()
+        rec = {"metrics": []}
+        for i, b in enumerate(case["batches"]):
+            rows = {k: torch.from_numpy(np.array_split(v, world)[rank]) for k, v in b.items()}
+            state, m = fn(state, rows)
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                rec["traffic_step1"] = {k: dict(v) for k, v in coll.TRAFFIC.items()}
+                rec["grads"] = _whole_grads(model)
+                rec["held"] = sharding.held_bytes(model, opt)
+        fsdp = sharding.fsdp_of(model)
+        rec["params"] = fsdp.full_state_dict() if fsdp else dict(model.state_dict())
+        rec["params"] = {k: v.clone() for k, v in rec["params"].items()}
+        rec["opt"] = opt.named_state()
+        rec["predicted"] = sharding.state_bytes(shapes, layout.data_size, case["mode"],
+                                                ema=bool(opt.ema_decay))
+        rec["shares"] = {n: q.numel() for n, q in model.named_parameters()
+                         if hasattr(q, "_oatx_shard")}
+        rec["moment_shares"] = {n: opt.state[q]["mu"].numel()
+                                for n, q, spec in zip(opt.names, opt.param_groups[0]["params"],
+                                                      opt.zero1) if spec is not None}
+        rec["share_values"] = {n: q.detach().clone() for n, q in model.named_parameters()
+                               if hasattr(q, "_oatx_shard")}
+        rec["step"] = state.step
+        out[name] = rec
+    return out
+
+
+def _watch_saves(saves):
+    """Wrap checkpoint._payload so that each snapshot appends to `saves`
+    {'gathers': the tensors collectives.all_gather_flat returned while it
+    was built, 'live_max': the most of those alive at once, counted before
+    each gather and once the payload is built}. A rank that keeps no
+    gathered tensor past its use shows at most 2: each of the gloo group's
+    two worker threads may still hold the output of the work it ran last."""
+    from oatx_torch.train import checkpoint
+
+    payload, gather = checkpoint._payload, coll.all_gather_flat
+
+    def watched(*args, **kwargs):
+        refs, live = [], [0]
+
+        def count():
+            live[0] = max(live[0], sum(r() is not None for r in refs))
+
+        def gathering(*a, **kw):
+            count()
+            out = gather(*a, **kw)
+            refs.append(weakref.ref(out))
+            return out
+
+        coll.all_gather_flat = gathering
+        try:
+            result = payload(*args, **kwargs)
+        finally:
+            coll.all_gather_flat = gather
+        count()
+        saves.append({"gathers": len(refs), "live_max": live[0]})
+        return result
+
+    checkpoint._payload = watched
+
+
+def shard_trainer(p, rank, world):
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data.loader import Collator, GlobalBatches, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train.trainer import Trainer
+    from torch_port_clips import MemoryClips
+
+    ds = MemoryClips(**p["clips"])
+    col = Collator(WordPieceTokenizer.build_from_corpus(ds.captions, vocab_size=100),
+                   max_text_len=10)
+    batch, n = p["batch"], p.get("global_batches") or 0
+    out, saves = [], []
+    _watch_saves(saves)
+    for job in p["jobs"]:
+        sharding.FSDP_MIN_SIZE = job["min_size"]
+        exp = ExperimentCfg.from_dict(job["raw"])
+        if n:
+            train = [GlobalBatches([ShardedLoader(ds, batch, col, shard_id=r, num_shards=n,
+                                                  num_workers=1) for r in range(n)])]
+        else:
+            train = [ShardedLoader(ds, batch, col, shard_id=rank, num_shards=world,
+                                   num_workers=1)]
+        valid = [ShardedLoader(ds, batch, col, shuffle=False, drop_last=False,
+                               shard_id=rank, num_shards=world, num_workers=1)]
+        steps, first_save = [], len(saves)
+        tr = Trainer(exp, train, valid, save_dir=job["save_dir"], log_dir=p["log_dir"],
+                     resume=job.get("resume"), device="cpu")
+        inner = tr.train_step
+
+        def recorded(state, b, inner=inner, steps=steps):
+            state, m = inner(state, b)
+            steps.append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        tr.train_step = recorded
+        hist = tr.train()
+        model, opt = tr.state.model, tr.state.optimizer
+        fsdp = sharding.fsdp_of(model)
+        params = fsdp.full_state_dict() if fsdp else model.state_dict()
+        named = opt.named_state()
+        out.append({"steps": steps, "hist": hist, "init_val": tr.init_val_log,
+                    "params": {k: v.clone() for k, v in params.items()},
+                    "ema": {k: v.clone() for k, v in named.get("ema", {}).items()},
+                    "held": sharding.held_bytes(model, opt), "saves": saves[first_save:],
+                    "shares": sum(hasattr(q, "_oatx_shard") for q in model.parameters())})
+    return out
+
+
 def main():
     mode, rank, world, url, src, dst = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -196,7 +357,8 @@ def main():
                             timeout=datetime.timedelta(seconds=120))
     try:
         payload = torch.load(src, weights_only=False)
-        out = {"collectives": collectives, "step": step, "trainer": trainer}[mode](
+        out = {"collectives": collectives, "step": step, "trainer": trainer,
+               "shard": shard, "shard_trainer": shard_trainer}[mode](
             payload, rank, world)
         torch.save(out, f"{dst}.rank{rank}")
     finally:
