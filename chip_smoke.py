@@ -5,7 +5,7 @@
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
-                          [--dp-nccl]
+                          [--only-tp] [--dp-nccl] [--tp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -22,9 +22,11 @@ tree's. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
---only-dp phase 10, --only-shard phase 11 (no record, no `ok` line).
---dp-nccl runs phase 10 (b) and then phase 11's pod recipes alone with one
-rank per visible card over NCCL (2 or more cards).
+--only-dp phase 10, --only-shard phase 11, --only-tp phase 12 (no record,
+no `ok` line). --dp-nccl runs phase 10 (b) and then phase 11's pod recipes
+alone with one rank per visible card over NCCL (2 or more cards).
+--tp-nccl runs the pod recipes as shipped (model_parallel 4) with a rank
+on each of 4 cards over NCCL (TP_NCCL_RUNS; no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -241,6 +243,32 @@ printed):
      steps) and large_batch_pod.json under zero1 (batch 64 a rank,
      fwd_chunk 8, 2 steps), each with its peak per rank beside one process
      at the same batch on cuda:0.
+ 12. tp — tensor and sequence parallelism over a model axis
+     (parallel/tensor.py, the Megatron splits of parallel/sharding.py, the
+     towers' enable_model_parallel). First kernels 1 and 2 at the shapes a
+     rank gives them (TP_MLP: the hidden shard of ViT-B at mp 2, ViT-L and
+     ViT-H at mp 4, with a zero fc2 bias, also held against the plain chain
+     less b2; TP_SA: the local heads, forward and backward) against their
+     plain versions, with ms, bound, plain and library ms (the `tp` key of
+     each kernel's record). Then TP_WORLD ranks on cuda:0 over gloo, this
+     script started again with --dp-rank and --dp-phase tp: phase 11's
+     probe plus bf16 token-axis gathers; then norm.json at model_parallel
+     TP_WORLD, one model group at TP_BATCH, through Trainer.train(): TP_STEPS
+     steps with sequence_parallel off and on, and one with fused_mlp false
+     (the plain MLP chain; no config key, set on the tower config). Each
+     against one process at TP_BATCH on the same rows: step 1's loss terms
+     within TP_LOSS_RTOL, step 1's whole gradients (gathered from the
+     parts) by grad_check, the model peers' replicated parameters bitwise
+     equal after every step, each rank's held state bytes exactly
+     sharding.state_bytes of the split, the tp_reduce / sp_gather /
+     sp_scatter bytes exactly tp_traffic's count and the tp_norm bytes the
+     partial gradients', and 12 launches of kernels 1 and 2 a forward a
+     rank (0 of kernel 1 for fused_mlp false). Printed: step ms, peak and
+     collectives a rank (gloo: no speed). With --tp-nccl (4 cards):
+     vit_huge_pod.json and vit_large_pod.json as shipped, a rank a card
+     over NCCL: per rank peak GiB, step ms, MFU (a rank's FLOPs over one
+     card's peak) and idle share (a 2-step trace), beside each recipe in
+     one process at model_parallel 1 on cuda:0 at the same batch.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -3026,8 +3054,8 @@ WIDE_ZERO_GRAD = 1e-3
 WIDE_NOISE_BOUND = 2 * GRAD_ATOL
 
 
-def wide_space_attention(dev, g):
-    """Kernel 2's forward and backward at WIDE_SA_SHAPES against the plain
+def wide_space_attention(dev, g, shapes=WIDE_SA_SHAPES):
+    """Kernel 2's forward and backward at `shapes` against the plain
     version: the forward within SPACE_ATTENTION_ATOL + 2^-7·|ref| + the
     flip allowance, the backward by relative L2 (SA_GRAD_REL, with both
     versions' distance from the exact f64 gradient) and by grad_check; ms by
@@ -3036,7 +3064,7 @@ def wide_space_attention(dev, g):
     from oatx_torch.ops.kernels import space_attention as psa
 
     fwd, bwd = {}, {}
-    for B, Fr, N, Hh, Dh in WIDE_SA_SHAPES:
+    for B, Fr, N, Hh, Dh in shapes:
         T, key = 1 + Fr * N, f"B{B}_T{1 + Fr * N}_H{Hh}_Dh{Dh}"
         qkv = torch.randn(B, T, 3, Hh, Dh, device=dev, generator=g).to(torch.bfloat16)
         q, k, v = qkv[:, :, 0] * Dh ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
@@ -3086,14 +3114,17 @@ def wide_space_attention(dev, g):
     return fwd, bwd
 
 
-def wide_ln_mlp(dev, g):
-    """Kernel 1 at WIDE_MLP against the plain version (LN_MLP_ATOL +
-    2^-7·|ref|); ms, device ms, bound, plain ms and the cuBLAS chain's
-    (layer_norm → linear → gelu → linear)."""
+def wide_ln_mlp(dev, g, shapes=WIDE_MLP, zero_b2=False):
+    """Kernel 1 at `shapes` (R rows, D, hidden H) against the plain version
+    (LN_MLP_ATOL + 2^-7·|ref|); ms, device ms, bound, plain ms and the
+    cuBLAS chain's (layer_norm → linear → gelu → linear). `zero_b2`: fc2's
+    bias is 0, as a rank of a model group calls it (its sum over the group
+    takes b2 once), and the result is also held against the plain chain
+    with b2 minus b2."""
     from oatx_torch.ops.kernels import ln_mlp as plm
 
     out, bf = {}, torch.bfloat16
-    for R, D, H in WIDE_MLP:
+    for R, D, H in shapes:
         x = torch.randn(R, D, device=dev, generator=g).to(bf)
         gamma = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
         beta = 0.1 * torch.randn(D, device=dev, generator=g)
@@ -3101,12 +3132,19 @@ def wide_ln_mlp(dev, g):
         b1 = 0.02 * torch.randn(H, device=dev, generator=g)
         w2 = (0.02 * torch.randn(D, H, device=dev, generator=g)).to(bf)
         b2 = 0.02 * torch.randn(D, device=dev, generator=g)
+        if zero_b2:
+            full_b2, b2 = b2, torch.zeros_like(b2)
         args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
         gb, bb, b1b, b2b = (t.to(bf) for t in (gamma, beta, b1, b2))
         call = lambda: plm.ln_mlp(*args)  # noqa: E731
         got = call()
         torch.cuda.synchronize()
         rec = check_close(f"ln_mlp {R}x{D}->{H}", got, plm.ln_mlp_plain(*args), LN_MLP_ATOL)
+        if zero_b2:  # the chain with its bias, less the bias
+            minus = (plm.ln_mlp_plain(x, gamma, beta, w1, b1, w2, full_b2, 1e-6).float()
+                     - full_b2).to(bf)
+            rec["zero_b2_vs_plain_minus_b2"] = check_close(
+                f"ln_mlp {R}x{D}->{H} zero b2", got, minus, LN_MLP_ATOL)
 
         def library():
             z = F.layer_norm(x, (D,), gb, bb, 1e-6)
@@ -3364,14 +3402,16 @@ def dp_data(name, exp, base, tmp):
 
 def whole(model, tensors, to_host):
     """{name: tensor} of `model`'s parameters (or their gradients), fsdp
-    shares gathered whole (every rank calls it); on the host if `to_host`."""
+    shares and model-axis parts gathered whole (every rank calls it); on
+    the host if `to_host`."""
+    from oatx_torch.parallel import sharding
+
     out = {}
     for n, p in model.named_parameters():
         t = tensors(p)
         if t is None:
             continue
-        spec = getattr(p, "_oatx_shard", None)
-        t = spec.gather(t, "check") if spec is not None else t.detach()
+        t = sharding.held_whole(t.detach(), p, "check")
         out[n] = t.float().cpu() if to_host else None
     return out
 
@@ -3804,10 +3844,7 @@ def shard_run(tag, trainer_of, steps, dev, keep):
     terms = rec.term_values()
     if not all(np.isfinite(x) for vals in terms.values() for x in vals):
         raise AssertionError(f"{tag}: loss terms not finite: {terms}")
-    fsdp = sharding.fsdp_of(tr.state.model)
-    params = (fsdp.full_state_dict(to_host=True, keep=keep) or {} if fsdp is not None else
-              {k: x.detach().float().cpu() for k, x in tr.state.model.state_dict().items()}
-              if keep else {})
+    params = sharding.full_state_dict(tr.state.model, to_host=True, keep=keep) or {}
     out = {"mode": mode or "replicated", "steps": steps, "terms": terms, "launches": launches,
            "traffic_per_step": traffic, "step_ms": rec.step_ms(tr.cycles_per_epoch),
            "train_wall_s": wall_s, "mem_held_gib": held0, "peak_mem_gib": peak,
@@ -4036,6 +4073,459 @@ def shard_phase(smi, dev):
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
+# ---------------------------------------------------------------------- tp
+TP_WORLD = 2          # phase 12: one model group of 2 ranks on cuda:0 over gloo
+TP_BATCH = 16         # norm.json's per-GPU batch, one model group's rows
+TP_STEPS = 4
+TP_RUNS = (  # (name, video_params keys, tower keys, steps) of phase 12, norm.json at
+    # model_parallel 2; fused_mlp is no config key (in oatx neither): the run sets it
+    # on the tower config the Trainer builds
+    ("sp_off", dict(sequence_parallel=False), {}, TP_STEPS),
+    ("sp_on", dict(sequence_parallel=True), {}, TP_STEPS),
+    ("unfused_mlp", dict(sequence_parallel=True), dict(fused_mlp=False), 1))
+TP_LOSS_RTOL = 2e-3   # step 1's loss terms against one process at 16
+# the kernels at a rank's shapes: kernel 1 on the hidden shard (R, D, 4D/mp),
+# kernel 2 on the local heads (B, frames, N, H/mp, Dh)
+TP_MLP = ((12560, 768, 1536), (12560, 1024, 1024), (4100, 1280, 1280))
+TP_SA = ((16, 4, 196, 6, 64), (16, 4, 196, 4, 64), (4, 4, 256, 4, 80))
+TP_SHAPES_OF = {"ViT-B/16 mp 2 @16 (norm.json, phase 12)": (0, 0),
+                "ViT-L/16 mp 4 @16 (vit_large_pod)": (1, 1),
+                "ViT-H/14 mp 4 @4 (vit_huge_pod micro-batch)": (2, 2)}
+# --tp-nccl: (recipe, epochs, steps an epoch) as shipped, a rank on each card
+TP_NCCL_RUNS = (("vit_huge_pod", 1, 5), ("vit_large_pod", 1, 5))
+
+
+def tp_exp(steps, path=NORM_CONFIG, **video):
+    """A recipe for phase 12 / --tp-nccl: one epoch of `steps` steps, no
+    init_val, no checkpoint; norm.json at model_parallel TP_WORLD (the pod
+    recipes keep theirs)."""
+    kw = dict(model_parallel=TP_WORLD) if path == NORM_CONFIG else {}
+    exp = recipe(path, epochs=1, len_epoch=steps, init_val=False, save_period=10 ** 6,
+                 verbosity=1, **kw)
+    return set_video(exp, **video) if video else exp
+
+
+def tp_traffic(cfg, batch, seq_len, mp, steps=1, remat=False, accum_steps=1):
+    """Bytes a rank hands to the model group's collectives in `steps` steps
+    of `accum_steps` micro-batches of `batch` rows (parallel/collectives.py's
+    purposes), derived from the code: per ViT block 3 sublayers, each
+    entered and left once forward and once backward; per DistilBERT layer 2
+    sublayers without sequence parallelism; the vocabulary-parallel
+    lookup's f32 all-reduce where the vocabulary divides; under sequence
+    parallelism the stream's split (backward all-gather) and final gather
+    (forward). A remat recompute runs a block's forward collectives again
+    but the last: torch's checkpoint stops recomputing once it has every
+    tensor the backward needs, and the MLP's leave feeds none."""
+    v, t = cfg.video, cfg.text
+    es = torch.finfo(cfg.compute_dtype).bits // 8
+    tokens = 1 + v.num_frames * v.patches_per_frame
+    rows = -(-tokens // mp)
+    shard, padded = batch * rows * v.embed_dim * es, batch * mp * rows * v.embed_dim * es
+    whole_v, whole_t = batch * tokens * v.embed_dim * es, batch * seq_len * t.dim * es
+    out = {"tp_reduce": 0, "sp_gather": 0, "sp_scatter": 0}
+    r = 1 if remat else 0
+    if v.sequence_parallel:
+        out["sp_gather"] += v.depth * 3 * (2 + r) * shard + 2 * shard
+        out["sp_scatter"] += v.depth * (3 * 2 + 2 * r) * padded
+    else:
+        out["tp_reduce"] += v.depth * (3 * 2 + 2 * r) * whole_v
+    out["tp_reduce"] += t.n_layers * 2 * 2 * whole_t
+    if t.vocab_size % mp == 0:
+        out["tp_reduce"] += batch * seq_len * t.dim * 4
+    return {k: n * steps * accum_steps for k, n in out.items()}
+
+
+def tp_partial_bytes(model):
+    """f32 bytes of the gradients a model rank holds in part (summed over the
+    group once a step: 'tp_norm')."""
+    return sum(4 * p.numel() for p in model.tp_partial_params())
+
+
+def tp_probe(dev, rank, world):
+    """shard_probe, and whether the group takes the token axis' bf16
+    all_gather_into_tensor and reduce_scatter_tensor on 3-D CUDA tensors
+    (parallel/collectives.py's gather_tokens / scatter_tokens)."""
+    import torch.distributed as dist
+
+    out = shard_probe(dev, rank, world)
+    try:
+        x = torch.full((2, 3, 4), rank + 1.0, device=dev, dtype=torch.bfloat16)
+        got = torch.empty((world * 2, 3, 4), device=dev, dtype=torch.bfloat16)
+        dist.all_gather_into_tensor(got, x)
+        red = torch.empty((2, 3, 4), device=dev, dtype=torch.bfloat16)
+        dist.reduce_scatter_tensor(red, torch.ones((world * 2, 3, 4), device=dev,
+                                                   dtype=torch.bfloat16))
+        out["bf16_tokens"] = bool(float(got[-1, 0, 0]) == world and float(red[0, 0, 0]) == world)
+    except Exception as e:  # the probe's answer, not a failure of the port
+        out["bf16_tokens"] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    out["ok"] = out["ok"] and out["bf16_tokens"] is True
+    return out
+
+
+class ReplicatedHashes:
+    """Wraps a Trainer's train_step: after each step a digest of the
+    parameters every model rank holds whole (neither split nor shared), on
+    the host, so model peers can be compared bitwise."""
+
+    def __init__(self, trainer):
+        import hashlib
+
+        self.step, self.model, self.digests, self.hashlib = trainer.train_step, \
+            trainer.state.model, [], hashlib
+        trainer.train_step = self
+
+    def __call__(self, state, batch):
+        state, m = self.step(state, batch)
+        h = self.hashlib.sha1()
+        for n, p in self.model.named_parameters():
+            if getattr(p, "_oatx_tp", None) is None and getattr(p, "_oatx_shard", None) is None:
+                h.update(n.encode())
+                h.update(p.detach().float().cpu().numpy().tobytes())
+        self.digests.append(h.hexdigest())
+        return state, m
+
+
+@contextlib.contextmanager
+def tower_keys(**video):
+    """Trainers built inside get these SpaceTimeViTConfig keys on the tower
+    config they build from their recipe."""
+    from oatx_torch.train import trainer as trainer_mod
+
+    build = trainer_mod.build_tower_config
+
+    def patched(*args, **kwargs):
+        cfg = build(*args, **kwargs)
+        return dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, **video))
+
+    trainer_mod.build_tower_config = patched if video else build
+    try:
+        yield
+    finally:
+        trainer_mod.build_tower_config = build
+
+
+def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
+           digests=True):
+    """Trainer.train() of `exp` (with `tower` keys on its tower config) over
+    `ds` at `batch` rows a data position on this rank → (record: loss
+    terms, launches, traffic a step, held and predicted state bytes,
+    replicated digests when `digests` (a host copy each step, inside the
+    step intervals), step ms, MFU, peak memory, idle share when `trace`;
+    step 1's whole gradients on the host when `keep_grads`)."""
+    from oatx_torch.data.loader import ShardedLoader
+    from oatx_torch.parallel import collectives as coll
+    from oatx_torch.parallel import mesh as meshlib
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train.trainer import Trainer
+
+    t = exp.trainer
+    layout = meshlib.current_layout(t.dcn_slices, t.model_parallel)
+    _, col = dp_data("norm", exp, ds, None)
+    train = [ShardedLoader(ds, batch, col, seed=0, num_workers=4, shard_id=layout.position,
+                           num_shards=layout.batch_shards)]
+    held0 = fresh_peak(dev)
+    with tower_keys(**(tower or {})):
+        tr = Trainer(exp, train, [], device=dev)
+    cfg, v = tr.tower_cfg, tr.tower_cfg.video
+    steps, accum = t.epochs * t.len_epoch, t.accum_steps
+    whole = {n: tuple((getattr(p, "_oatx_tp", None) or getattr(p, "_oatx_shard", None) or p).shape)
+             for n, p in tr.state.model.named_parameters()}
+    reps = 2 if v.remat else 1
+    rec = StepRecorder(tr, trace_at=steps - 1 if trace else None, expect=[
+        ("space_attention_kernel", v.depth * accum * reps),
+        ("space_attention_bwd_kernel", v.depth * accum)] + (
+        [("ln_mlp_", v.depth * accum * reps)] if v.fused_mlp else []))
+    hashes = ReplicatedHashes(tr) if digests else None
+    first = FirstGrads(tr, keep_grads) if keep_grads else None
+    launches = {}
+    coll.reset_traffic()
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    traffic = {k: dict(r) for k, r in coll.TRAFFIC.items() if k != "check"}
+    want = want_launches(v.depth, steps, v.remat, accum_steps=accum)
+    if not v.fused_mlp:
+        want["ln_mlp"] = 0
+    check_launches(tag, launches, want)
+    terms = rec.term_values()
+    if not all(np.isfinite(x) for vals in terms.values() for x in vals):
+        raise AssertionError(f"{tag}: loss terms not finite: {terms}")
+    mode = tr.shard_mode if layout.spans_processes else None
+    predicted = sharding.state_bytes(whole, layout.data_size, mode, ema=bool(t.ema_decay),
+                                     model_parallel=layout.model_parallel)
+    held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
+    torch.cuda.synchronize()
+    # step intervals, without those the trace of the last two steps touches
+    ms = [a.elapsed_time(b) for a, b in zip(rec.events, rec.events[1:])]
+    if trace:
+        ms = ms[:-2]
+    flops = flops_per_clip_step(cfg) / layout.model_parallel  # a rank's share
+    out = {"steps": steps, "batch_per_group": batch, "accum_steps": accum,
+           "sequence_parallel": v.sequence_parallel, "fused_mlp": v.fused_mlp,
+           "remat": v.remat_policy if v.remat else "off", "terms": terms,
+           "launches": launches, "launches_per_forward": {
+               k: launches[k] / (steps * accum * reps) for k in ("ln_mlp", "space_attention")},
+           "traffic": traffic, "held_bytes": held, "predicted_bytes": predicted,
+           "partial_bytes": tp_partial_bytes(tr.state.model),
+           "digests": hashes.digests if hashes is not None else None,
+           "split_params": sum(getattr(p, "_oatx_tp", None) is not None
+                               for p in tr.state.model.parameters()),
+           "train_wall_s": wall_s, "mem_held_gib": held0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           **(speed(ms, batch, flops) if ms else {}), **(rec.trace or {})}
+    grads = first.grads if first is not None else None
+    del tr, rec, hashes, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grads
+
+
+def tp_rank_main(rank, world, url, out, backend):
+    """One rank of phase 12 (gloo, cuda:0) or --tp-nccl (NCCL, cuda:rank),
+    started by tp_ranks: the probe, then the runs; its record →
+    out/rank{rank}.json, rank 0's step-1 whole gradients →
+    out/{run}_grads.pt (phase 12)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=url, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT_S))
+    try:
+        record = {"probe": tp_probe(dev, rank, world), "runs": {}}
+        if record["probe"]["ok"]:
+            if backend == "gloo":
+                base = MemoryClips(CORPUS_CLIPS, seed=0)
+                for name, video, tower, steps in TP_RUNS:
+                    run, grads = tp_run(f"tp {name} rank {rank}", tp_exp(steps, **video), base,
+                                        TP_BATCH, dev, tower=tower)
+                    if rank == 0:
+                        torch.save(grads, os.path.join(out, f"{name}_grads.pt"))
+                    record["runs"][name] = run
+                    del grads
+            else:
+                for name, epochs, steps in TP_NCCL_RUNS:
+                    exp = recipe(WIDE_CONFIGS[name], epochs=epochs, len_epoch=steps,
+                                 init_val=False, save_period=10 ** 6, verbosity=1)
+                    batch = exp.data_loaders[0].batch_size
+                    run, _ = tp_run(f"tp-nccl {name} rank {rank}", exp,
+                                    MemoryClips(max(CORPUS_CLIPS, batch), seed=0), batch, dev,
+                                    trace=True, keep_grads=False, digests=False)
+                    record["runs"][name] = run
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_ranks(world, backend, tmp):
+    """`world` ranks of this script started again with --dp-rank and
+    --dp-phase tp (gloo: all on cuda:0; nccl: one card each) → each rank's
+    record (their log tails printed if one fails)."""
+    url = "file://" + os.path.join(tmp, "store")
+    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               "--dp-world", str(world), "--dp-init", url,
+                               "--dp-backend", backend, "--dp-out", tmp, "--dp-phase", "tp"],
+                              stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=DP_RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        for r, log in enumerate(logs):
+            print(f"tp rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
+        raise AssertionError(f"tp: ranks exited {[p.returncode for p in procs]}")
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+    print(f"tp {backend} probe: " + json.dumps([r["probe"] for r in ranks]), flush=True)
+    if not all(r["probe"]["ok"] for r in ranks):
+        raise AssertionError(f"tp: {backend} refused the model group's collectives on CUDA "
+                             "tensors")
+    for name in ranks[0]["runs"]:
+        runs = [r["runs"][name] for r in ranks]
+        if any(x["terms"] != runs[0]["terms"] for x in runs):
+            raise AssertionError(f"tp {name}: the model peers' loss terms differ")
+        if any(x["digests"] != runs[0]["digests"] for x in runs):
+            raise AssertionError(f"tp {name}: the model peers' replicated parameters differ "
+                                 "after some step")
+    return ranks
+
+
+def tp_kernels(dev):
+    """Kernels 1 and 2 at the shard shapes a rank gives them (TP_SHAPES_OF),
+    against their plain versions; kernel 1 with a zero fc2 bias, as the
+    model group calls it → {kernel: {shape: record}}."""
+    g = torch.Generator(dev).manual_seed(12)
+    mlp = wide_ln_mlp(dev, g, TP_MLP, zero_b2=True)
+    sa_fwd, sa_bwd = wide_space_attention(dev, g, TP_SA)
+    out = {"ln_mlp": {}, "space_attention": {}, "space_attention_bwd": {}}
+    for label, (i, j) in TP_SHAPES_OF.items():
+        R, D, H = TP_MLP[i]
+        B, Fr, N, Hh, Dh = TP_SA[j]
+        key = f"B{B}_T{1 + Fr * N}_H{Hh}_Dh{Dh}"
+        out["ln_mlp"][label] = {"shape": f"{R}x{D}->{H}", **mlp[f"{R}x{D}->{H}"]}
+        out["space_attention"][label] = {"shape": key, **sa_fwd[key]}
+        out["space_attention_bwd"][label] = {"shape": key, **sa_bwd[key]}
+    return out
+
+
+def tp_phase(smi, dev):
+    """Tensor and sequence parallelism over a model axis (module docstring,
+    phase 12) → (launches of the ranks' main paths, the kernels' records at
+    the shard shapes)."""
+    t0 = time.perf_counter()
+    kernels = tp_kernels(dev)
+    for name, recs in kernels.items():
+        print(f"tp kernels {name} at the shard shapes ({smi}): " + json.dumps(recs), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        ranks = tp_ranks(TP_WORLD, "gloo", tmp)
+        ranks_s = time.perf_counter() - t1
+        out = {"world": TP_WORLD, "model_parallel": TP_WORLD, "batch_per_group": TP_BATCH,
+               "ranks_wall_s": ranks_s, "runs": {}}
+        for name, video, tower, steps in TP_RUNS:
+            exp = tp_exp(steps, **video)
+            runs = [r["runs"][name] for r in ranks]
+            one, ref = tp_run(f"tp {name} one process", set_model_parallel(exp, 1), base,
+                              TP_BATCH, dev, tower=tower)
+            got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
+            check = grad_check(got, ref)
+            del got, ref
+            rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
+                   for k, w in one["terms"].items()}
+            from oatx_torch.config.schema import build_tower_config, precision_dtype
+
+            cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(
+                exp.trainer.precision))
+            cfg = dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, **tower))
+            want = tp_traffic(cfg, TP_BATCH, TEXT_LEN, TP_WORLD, steps)
+            got_traffic = {k: runs[0]["traffic"].get(k, {}).get("bytes", 0) for k in want}
+            held = [r["held_bytes"]["total"] for r in runs]
+            rec = {"steps": steps, **{k: runs[0][k] for k in (
+                       "sequence_parallel", "fused_mlp", "launches_per_forward",
+                       "split_params", "predicted_bytes", "partial_bytes")},
+                   "step1_terms": {k: [runs[0]["terms"][k][0], w[0]]
+                                   for k, w in one["terms"].items()},
+                   "step1_rel_diff": rel, "losses": runs[0]["terms"]["loss"],
+                   "one_process_losses": one["terms"]["loss"],
+                   "traffic_per_step": {k: n / steps for k, n in got_traffic.items()},
+                   "traffic_derived_per_step": {k: n / steps for k, n in want.items()},
+                   "tp_norm_bytes_per_step": runs[0]["traffic"].get("tp_norm", {}).get(
+                       "bytes", 0) / steps,
+                   "held_bytes": held, "one_process_held_bytes": one["held_bytes"]["total"],
+                   "rank_step_ms": [r.get("step_ms") for r in runs],
+                   "one_process_step_ms": one.get("step_ms"),
+                   "peak_mem_gib": [r["peak_mem_gib"] for r in runs],
+                   "one_process_peak_mem_gib": one["peak_mem_gib"],
+                   **{k: check[k] for k in ("grad_norm", "plain_grad_norm",
+                                            "grad_norm_rel_diff", "grad_global_cosine",
+                                            "grad_tol_used", "grad_tensors", "grad_worst")}}
+            out["runs"][name] = rec
+            print(f"tp {name}: norm.json at model_parallel {TP_WORLD}, {TP_WORLD} ranks on one "
+                  f"card over gloo against one process at {TP_BATCH} ({smi}; rank step ms NOT "
+                  "a tensor-parallel speed: the ranks share one card and gloo stages CUDA "
+                  "tensors through the host): " + json.dumps(rec), flush=True)
+            bad = []
+            if max(rel.values()) > TP_LOSS_RTOL:
+                bad.append(f"step 1's loss terms {rel}")
+            if check["grad_tol_used"] > 1 or check["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+                    or check["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+                bad.append(f"gradients {check['grad_worst']}")
+            if any(h != runs[0]["predicted_bytes"]["bytes"] for h in held):
+                bad.append(f"held bytes {held} against the plan's "
+                           f"{runs[0]['predicted_bytes']['bytes']}")
+            if got_traffic != want:
+                bad.append(f"collective bytes {got_traffic}, derived {want}")
+            if rec["tp_norm_bytes_per_step"] != runs[0]["partial_bytes"]:
+                bad.append(f"tp_norm bytes {rec['tp_norm_bytes_per_step']}, derived "
+                           f"{runs[0]['partial_bytes']}")
+            lpf = runs[0]["launches_per_forward"]
+            if lpf["space_attention"] != 12 or lpf["ln_mlp"] != (12 if tower.get(
+                    "fused_mlp", True) else 0):
+                bad.append(f"launches per forward {lpf}")
+            if bad:
+                raise AssertionError(f"tp {name}: " + "; ".join(bad))
+    launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
+    print(f"tp summary ({smi}): " + json.dumps({
+        "runs": {n: {k: r[k] for k in ("step1_rel_diff", "grad_tol_used", "grad_global_cosine",
+                                       "held_bytes", "traffic_per_step",
+                                       "launches_per_forward")}
+                 for n, r in out["runs"].items()},
+        "phase_s": time.perf_counter() - t0}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
+
+
+def set_model_parallel(exp, mp):
+    from oatx_torch.config.schema import ExperimentCfg
+
+    raw = json.loads(json.dumps(exp.raw))
+    raw["trainer"]["model_parallel"] = mp
+    return ExperimentCfg.from_dict(raw)
+
+
+def tp_nccl(smi, dev):
+    """--tp-nccl: TP_NCCL_RUNS, the pod recipes as shipped (model_parallel 4,
+    sequence_parallel, fsdp over a data axis of 1), a rank on each of 4
+    cards over NCCL; per rank peak GiB, step ms, MFU (a rank's 1/4 of the
+    FLOPs over one card's peak) and idle share; then each recipe in one
+    process at model_parallel 1 on cuda:0 at the same batch beside them."""
+    world = torch.cuda.device_count()
+    if world != 4:
+        raise SystemExit(f"--tp-nccl needs 4 cards (model_parallel 4), {world} visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = tp_ranks(world, "nccl", tmp)
+    out = {}
+    for name, epochs, steps in TP_NCCL_RUNS:
+        runs = [r["runs"][name] for r in ranks]
+        exp = recipe(WIDE_CONFIGS[name], epochs=epochs, len_epoch=steps, init_val=False,
+                     save_period=10 ** 6, verbosity=1)
+        batch = exp.data_loaders[0].batch_size
+        one, _ = tp_run(f"tp-nccl {name} one process", set_model_parallel(exp, 1),
+                        MemoryClips(max(CORPUS_CLIPS, batch), seed=0), batch, dev, trace=True,
+                        keep_grads=False, digests=False)
+        rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
+               for k, w in one["terms"].items()}
+        keys = ("peak_mem_gib", "step_ms", "step_ms_spread", "mfu", "clips_per_s",
+                "idle_share", "device_busy_ms", "held_bytes", "train_wall_s")
+        rec = {"recipe": os.path.basename(WIDE_CONFIGS[name]), "model_parallel": world,
+               "batch_per_group": batch, "accum_steps": runs[0]["accum_steps"],
+               "remat": runs[0]["remat"], "sequence_parallel": runs[0]["sequence_parallel"],
+               "steps": runs[0]["steps"], "losses": runs[0]["terms"]["loss"],
+               "per_rank": {k: [r.get(k) for r in runs] for k in keys},
+               "predicted_bytes": runs[0]["predicted_bytes"],
+               "launches_per_forward": runs[0]["launches_per_forward"],
+               "traffic_per_step": {k: v["bytes"] / runs[0]["steps"]
+                                    for k, v in runs[0]["traffic"].items()},
+               "one_process": {k: one.get(k) for k in keys + ("terms",)},
+               "step1_rel_diff_vs_one_process": rel}
+        out[name] = rec
+        print(f"tp-nccl {name} as shipped, a rank on each of {world} cards over NCCL "
+              f"({smi}): " + json.dumps(rec), flush=True)
+        if any(h["total"] != runs[0]["predicted_bytes"]["bytes"]
+               for h in rec["per_rank"]["held_bytes"]):
+            raise AssertionError(f"tp-nccl {name}: held bytes {rec['per_rank']['held_bytes']} "
+                                 f"against the plan's {runs[0]['predicted_bytes']}")
+        if max(rel.values()) > TP_LOSS_RTOL:
+            raise AssertionError(f"tp-nccl {name}: step 1's loss terms against one process "
+                                 f"{rel}")
+    return out
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -4074,19 +4564,27 @@ def main() -> int:
                     help="build the kernels and run phase 10 (b), then phase 11's pod "
                          "recipes, alone with one rank per visible card over NCCL (needs 2 "
                          "or more cards; no record, no ok line)")
+    ap.add_argument("--only-tp", action="store_true",
+                    help="build the kernels and run the tp phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--tp-nccl", action="store_true",
+                    help="build the kernels and run the pod recipes as shipped "
+                         "(model_parallel 4) with one rank on each of 4 cards over NCCL "
+                         "(no record, no ok line)")
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)  # phase 10's ranks
     ap.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-init", help=argparse.SUPPRESS)
     ap.add_argument("--dp-backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", help=argparse.SUPPRESS)
-    ap.add_argument("--dp-phase", default="dp", help=argparse.SUPPRESS)  # 'dp' | 'shard'
+    ap.add_argument("--dp-phase", default="dp", help=argparse.SUPPRESS)  # 'dp' | 'shard' | 'tp'
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     if opts.dp_rank is not None:  # one rank of phase 10 (b) or 11, started by their parent
-        rank_main = shard_rank_main if opts.dp_phase == "shard" else dp_rank_main
+        rank_main = {"shard": shard_rank_main, "tp": tp_rank_main}.get(opts.dp_phase,
+                                                                       dp_rank_main)
         return rank_main(opts.dp_rank, opts.dp_world, opts.dp_init, opts.dp_out,
                          opts.dp_backend)
     from oatx_torch.ops.kernels import _build
@@ -4135,6 +4633,15 @@ def main() -> int:
     if opts.only_shard:
         shard_phase(smi, dev)
         print("chip_smoke: --only-shard ran the shard phase alone", flush=True)
+        return 0
+    if opts.only_tp:
+        tp_phase(smi, dev)
+        print("chip_smoke: --only-tp ran the tp phase alone", flush=True)
+        return 0
+    if opts.tp_nccl:
+        tp_nccl(smi, dev)
+        print("chip_smoke: --tp-nccl ran the pod recipes as shipped on 4 cards over NCCL",
+              flush=True)
         return 0
     if opts.dp_nccl:
         world = torch.cuda.device_count()
@@ -4204,13 +4711,16 @@ def main() -> int:
     phases["wide"], wide = wide_phase(smi, dev)
     phases["dp"] = dp_phase(smi, dev)
     phases["shard"] = shard_phase(smi, dev)
+    phases["tp"], tp = tp_phase(smi, dev)
     for name, recs in wide.items():
         by_name[name]["wide"] = recs
+    for name, recs in tp.items():
+        by_name[name]["tp"] = recs
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",
             "fwd_bwd_device_ms", "ptxas", "occupancy", "launches_by_phase", "parent", "by_rows",
-            "by_batch", "wide")
+            "by_batch", "wide", "tp")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}

@@ -23,10 +23,17 @@ LOCAL_RANK: init_method env://):
     OATX_MULTIHOST=1 torchrun --nproc-per-node 8 -m oatx_torch.cli.train -c <config>
 
 The backend is NCCL on CUDA and gloo with --device cpu. Process i uses
-cuda:LOCAL_RANK, or cuda:(i mod the visible cards). Every rank loads its
-shard of each loader (batch_size is per process) and runs the same run
-directory (rank 0's timestamp); rank 0 alone writes the vocab and the
-config and keeps the tracker. The group is torn down at exit.
+cuda:LOCAL_RANK, or cuda:(i mod the visible cards). Every rank loads the
+shard of each loader of its data position (batch_size is per process;
+with `trainer.model_parallel` mp the mp ranks of a position read the same
+rows, parallel/mesh.py, so the global batch is batch_size × world / mp)
+and runs the same run directory (rank 0's timestamp); rank 0 alone writes
+the vocab and the config and keeps the tracker. The group is torn down at
+exit. The pod recipes (configs/pt/cc3m_webvid/*_pod.json, model_parallel
+4) run as shipped at a world of 4 × the data positions:
+
+    OATX_MULTIHOST=1 torchrun --nproc-per-node 4 -m oatx_torch.cli.train \
+        -c configs/pt/cc3m_webvid/vit_huge_pod.json
 """
 
 from __future__ import annotations
@@ -86,7 +93,7 @@ def _main(argv: Optional[Sequence[str]], device: Optional[str] = None) -> int:
     from oatx_torch.cli.common import dataset_captions, resolve_tokenizer
     from oatx_torch.config.parser import load_experiment
     from oatx_torch.data.factory import build_loaders
-    from oatx_torch.parallel.mesh import current_layout
+    from oatx_torch.parallel.mesh import check_layout, current_layout
     from oatx_torch.train.trainer import Trainer
     from oatx_torch.utils.logging import setup_logging
     from oatx_torch.utils.tracking import ExperimentTracker
@@ -114,8 +121,11 @@ def _main(argv: Optional[Sequence[str]], device: Optional[str] = None) -> int:
         # the exact vocab goes with the checkpoints: eval and finetune runs
         # must tokenize identically
         tokenizer.save_vocab(str(exp.save_dir / "vocab.txt"))
-    seed = exp.cfg.trainer.seed
-    shards = dict(shard_id=layout.rank, num_shards=layout.world, seed=seed)
+    t = exp.cfg.trainer
+    check_layout(t)
+    layout = current_layout(t.dcn_slices, t.model_parallel)
+    # the ranks of one model group read the same rows: shard by data position
+    shards = dict(shard_id=layout.position, num_shards=layout.batch_shards, seed=t.seed)
     train_loaders = build_loaders(exp.cfg, tokenizer, split="train", **shards)
     try:
         valid_loaders = build_loaders(exp.cfg, tokenizer, split="val", **shards)

@@ -55,15 +55,17 @@ def norm_softmax_loss(sims: torch.Tensor, temperature: float = 0.05) -> torch.Te
 
 
 def norm_softmax_loss_global(text_embeds: torch.Tensor, video_embeds: torch.Tensor,
-                             temperature: float = 0.05, eps: float = 1e-8) -> torch.Tensor:
+                             temperature: float = 0.05, eps: float = 1e-8,
+                             group=None) -> torch.Tensor:
     """NormSoftmax with global negatives: each rank's rows of both embedding
-    sets are gathered across the default process group, in rank order, so
-    the similarity matrix is the cross-replica one (the reference's
-    AllGather_multi). Its gradient reaches each rank's own rows with JAX's
-    transpose semantics (collectives.all_gather_rows). Without a group the
-    plain loss."""
-    return norm_softmax_loss(sim_matrix(all_gather_rows(text_embeds),
-                                        all_gather_rows(video_embeds), eps), temperature)
+    sets are gathered across `group` (default: the default process group;
+    under a model axis the batch group, collectives.batch_group), in group
+    order, so the similarity matrix is the cross-replica one (the
+    reference's AllGather_multi). Its gradient reaches each rank's own rows
+    with JAX's transpose semantics (collectives.all_gather_rows). Without a
+    group the plain loss."""
+    return norm_softmax_loss(sim_matrix(all_gather_rows(text_embeds, group),
+                                        all_gather_rows(video_embeds, group), eps), temperature)
 
 
 def norm_softmax_loss_chunked(text_embeds: torch.Tensor, video_embeds: torch.Tensor,

@@ -26,6 +26,13 @@ With an object tower (`object_tower`, stream 3), `compute_object` maps
 (B, K, 2054) BUTD features through it and `obj_proj` (Linear, f32) into the
 shared space (:190-202).
 
+Under a model axis (`model_parallel` > 1, parallel/sharding.py calls
+`enable_model_parallel`) the baseline variant with the DistilBERT text
+tower runs tensor-parallel: the ViT and DistilBERT layers split by
+Megatron's rules, the projections replicated. The BERT and CLIP text
+towers, the object tower and the object-aware variants raise
+NotImplementedError there (ROADMAP A8c); no pod recipe uses them.
+
 Module names follow the reference state_dict (`video_model.*`,
 `text_model.*`, `txt_proj.1`, `vid_proj.0`, `txt_proj_2.1`,
 `text_local_proj.1`, `vid_local_proj.0`); the object tower, which the
@@ -146,6 +153,31 @@ class DualTower(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.video_model.pos_embed.device
+
+    def enable_model_parallel(self, axis, split) -> None:
+        """Run the towers tensor-parallel over `axis` (parallel/tensor.py
+        ModelAxis); `split`: the parameter names parallel/sharding.py splits
+        over it. Raises for what the port does not split (module docstring)."""
+        cfg = self.cfg
+        for what, bad in (("the text family " + repr(cfg.text_family),
+                           cfg.text_family != "distilbert"),
+                          (f"the variant {cfg.variant!r}", cfg.variant != "baseline"),
+                          ("the object tower (stream 3)", cfg.object_tower is not None)):
+            if bad:
+                raise NotImplementedError(
+                    f"model_parallel={axis.size} with {what}: the port splits the ViT and "
+                    "DistilBERT towers of the baseline variant only (not ported yet: "
+                    "ROADMAP A8c)")
+
+        def under(prefix):
+            return {n[len(prefix):] for n in split if n.startswith(prefix)}
+
+        self.video_model.enable_model_parallel(axis, under("video_model."))
+        self.text_model.enable_model_parallel(axis, under("text_model."))
+
+    def tp_partial_params(self):
+        """Parameters whose gradient each model rank holds in part."""
+        return self.video_model.tp_partial_params() + self.text_model.tp_partial_params()
 
     def compute_text(self, input_ids: torch.Tensor,
                      attention_mask: Optional[torch.Tensor] = None,

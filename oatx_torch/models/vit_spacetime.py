@@ -5,7 +5,9 @@ Block wiring (:166-188):
     u = x + time_attn(norm3(x))
     r = x + space_attn(norm1(u))        # residual from x, not u
     out = r + ln_mlp(norm2, r)          # kernel 1 (oatx's fused_mlp default)
-Space attention runs kernel 2 (ops/kernels/space_attention.py). With
+With `fused_mlp=False` the MLP is the plain chain oatx runs then (its
+`mlp(layer_norm(r))`, :187): LayerNorm, fc1, exact-erf GELU, fc2, biases
+in the compute dtype. Space attention runs kernel 2 (ops/kernels/space_attention.py). With
 `fused_qkv=True` each LN→qkv pair runs as kernel 3 (ops/kernels/ln_linear.py,
 oatx :168-177); the port's one CLS-first stream is the layout oatx falls back
 to under `fused_qkv` (:297-299). Every kernel carries its gradient, so the
@@ -36,10 +38,34 @@ between blocks, outside any block's checkpoint, so every remat policy and
 
 The config accepts every oatx key. The layout knobs (`cls_position`,
 `split_cls_stream`) leave outputs unchanged and are ignored: the port has one
-token order, CLS first. `sequence_parallel` shards activations over a model
-axis that one device does not have: oatx's `_sp_constrain` (:270-282) then
-returns its input, and so the port ignores the key. Pipeline stages and the
-unfused MLP (`fused_mlp=False`) are not ported: the tower raises on them.
+token order, CLS first. Pipeline stages are not ported: the tower raises on
+them (ROADMAP A8b).
+
+Tensor parallelism (parallel/tensor.py; put in place by
+parallel/sharding.py through `enable_model_parallel`): each block runs its
+rank's heads of both attentions (qkv rows, proj input columns) and its rows
+of the MLP's hidden width (fc1 rows, fc2 columns; kernel 1 on them with a
+zero fc2 bias, b2 added once after the sum), between the model group's
+`enter` / `leave` collectives. Both are numerically the unsharded block.
+Gradients that a rank holds in part are summed over the model group after
+the backward (`tp_partial_params`): the column-parallel biases (held whole,
+used by rows), and every LayerNorm whose affine runs after the point where
+`enter` sits: norm2 inside kernel 1, norm1 / norm3 inside kernel 3 under
+`fused_qkv`.
+
+`sequence_parallel` with a model axis (oatx's `_sp_constrain`, :270-282;
+without one it is a no-op there and here): the residual stream between the
+blocks is token-sharded over the model group. The CLS-first stream of
+T = 1 + F·N tokens (785 at ViT-B/16 over 4 frames, 1025 at ViT-H/14, neither
+divisible by 4) is padded with zero rows to a multiple of the group's
+width: rank m holds rows [m·t, (m + 1)·t), t = ⌈T/mp⌉, the padding on the
+last rank. The norms and residual adds run on those rows (zero padding rows
+stay zero and never reach a product); each sublayer gathers the rows
+before its products and reduce-scatters after the row-parallel one, so
+every block LayerNorm and row-parallel bias then sums its gradient over
+the group too. The region tap and the final norm read a gathered stream.
+Under remat a block's saved input is its rank's rows, and the recompute
+runs the block's collectives again.
 
 `inflate_spatial_embed` / `inflate_temporal_embed` (oatx :413-454) resize the
 positional embeddings of a checkpoint with another patch or frame count.
@@ -59,7 +85,10 @@ from torch.utils import checkpoint as ckpt
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.ops.attention import divided_attention
 from oatx_torch.ops.kernels.ln_mlp import ln_mlp
-from oatx_torch.ops.layers import LayerNorm, Linear, patch_embed_conv, trunc_normal_
+from oatx_torch.ops.layers import LayerNorm, Linear, gelu, linear, patch_embed_conv, \
+    trunc_normal_
+from oatx_torch.parallel import collectives as coll
+from oatx_torch.parallel import tensor as tpl
 
 LN_EPS = 1e-6  # reference norm_layer = partial(nn.LayerNorm, eps=1e-6)
 
@@ -84,9 +113,9 @@ class SpaceTimeViTConfig:
     pipeline_stages: int = 1
     pipeline_microbatches: int = 4
     fused_qkv: bool = False
-    sequence_parallel: bool = False   # one device: no model axis, a no-op
+    sequence_parallel: bool = False   # token-sharded stream over a model axis
     split_cls_stream: bool = True     # layout only; the port keeps one stream
-    fused_mlp: bool = True            # LN→fc1→GELU→fc2 through kernel 1, always
+    fused_mlp: bool = True            # LN→fc1→GELU→fc2 through kernel 1
 
     @property
     def patches_per_frame(self) -> int:
@@ -99,9 +128,7 @@ class SpaceTimeViTConfig:
 
 def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
     if cfg.pipeline_stages != 1:
-        return "pipeline_stages"
-    if not cfg.fused_mlp:
-        return "fused_mlp=False (the port runs kernel 1 in every block)"
+        return "pipeline_stages (ROADMAP A8b, pipeline stages)"
     return None
 
 
@@ -144,13 +171,20 @@ class Attention(nn.Module):
                 self.proj.weight.fill_(1.0)
 
     def forward(self, x: torch.Tensor, num_heads: int, num_frames: int,
-                mode: str, norm: Optional[LayerNorm] = None) -> torch.Tensor:
-        """`norm` given: x is pre-norm and LN→qkv runs as kernel 3."""
+                mode: str, norm: Optional[LayerNorm] = None,
+                axis: Optional[tpl.ModelAxis] = None) -> torch.Tensor:
+        """`norm` given: x is pre-norm and LN→qkv runs as kernel 3. `axis`
+        given: the rank's heads (of `num_heads` in all), its qkv bias rows,
+        the projection without its bias (a partial sum)."""
         ln = {} if norm is None else dict(ln_w=norm.weight, ln_b=norm.bias,
                                           ln_eps=norm.eps)
-        return divided_attention(x, self.qkv.weight, self.qkv.bias,
-                                 self.proj.weight, self.proj.bias,
-                                 num_heads, num_frames, mode, **ln)
+        if axis is None:
+            return divided_attention(x, self.qkv.weight, self.qkv.bias,
+                                     self.proj.weight, self.proj.bias,
+                                     num_heads, num_frames, mode, **ln)
+        return divided_attention(x, self.qkv.weight, tpl.local_rows(self.qkv.bias, axis, 3),
+                                 self.proj.weight, None, axis.heads(num_heads),
+                                 num_frames, mode, **ln)
 
 
 class Mlp(nn.Module):
@@ -161,6 +195,8 @@ class Mlp(nn.Module):
 
 
 class SpaceTimeBlock(nn.Module):
+    tp: Optional[tpl.ModelAxis] = None  # the model axis, once enable_model_parallel ran
+
     def __init__(self, cfg: SpaceTimeViTConfig, device, generator):
         super().__init__()
         dim = cfg.embed_dim
@@ -173,6 +209,8 @@ class SpaceTimeBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio), device, generator)
 
     def forward(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+        if self.tp is not None:
+            return self._forward_tp(x, num_frames)
         h = self.cfg.num_heads
         if self.cfg.fused_qkv:
             u = x + self.timeattn(x, h, num_frames, "time", self.norm3)
@@ -181,8 +219,60 @@ class SpaceTimeBlock(nn.Module):
             u = x + self.timeattn(self.norm3(x), h, num_frames, "time")
             r = x + self.attn(self.norm1(u), h, num_frames, "space")
         m, n2 = self.mlp, self.norm2
+        if not self.cfg.fused_mlp:
+            return r + mlp_plain(self.norm2(r), m.fc1.weight, m.fc1.bias,
+                                 m.fc2.weight, m.fc2.bias)
         return r + ln_mlp(r, n2.weight, n2.bias, m.fc1.weight, m.fc1.bias,
                           m.fc2.weight, m.fc2.bias, LN_EPS)
+
+    def _forward_tp(self, x: torch.Tensor, num_frames: int) -> torch.Tensor:
+        """The block on this rank's heads and hidden rows (module docstring);
+        x is the whole stream, or this rank's token rows under sequence
+        parallelism."""
+        axis, cfg = self.tp, self.cfg
+        total = 1 + num_frames * cfg.patches_per_frame
+        h = cfg.num_heads
+
+        def attention(mod, y, mode, norm=None):
+            part = mod(tpl.enter(axis, y, total), h, num_frames, mode, norm, axis)
+            return tpl.leave(axis, part) + mod.proj.bias.to(y.dtype)
+
+        if cfg.fused_qkv:
+            u = x + attention(self.timeattn, x, "time", self.norm3)
+            r = x + attention(self.attn, u, "space", self.norm1)
+        else:
+            u = x + attention(self.timeattn, self.norm3(x), "time")
+            r = x + attention(self.attn, self.norm1(u), "space")
+        m, n2 = self.mlp, self.norm2
+        b1 = tpl.local_rows(m.fc1.bias, axis)
+        if cfg.fused_mlp:
+            part = ln_mlp(tpl.enter(axis, r, total), n2.weight, n2.bias, m.fc1.weight, b1,
+                          m.fc2.weight, torch.zeros_like(m.fc2.bias), LN_EPS)
+        else:
+            part = mlp_plain(tpl.enter(axis, self.norm2(r), total), m.fc1.weight, b1,
+                             m.fc2.weight, None)
+        return r + (tpl.leave(axis, part) + m.fc2.bias.to(r.dtype))
+
+    def tp_partial_params(self):
+        """The parameters whose gradient each rank of the model group holds
+        in part (module docstring), to be summed over the group."""
+        cfg = self.cfg
+        out = [self.attn.qkv.bias, self.timeattn.qkv.bias, self.mlp.fc1.bias]
+        norms = []
+        if cfg.fused_mlp:
+            norms.append(self.norm2)
+        if cfg.fused_qkv:
+            norms += [self.norm1, self.norm3]
+        if self.tp is not None and self.tp.sequence_parallel:
+            norms = [self.norm1, self.norm2, self.norm3]
+            out += [self.attn.proj.bias, self.timeattn.proj.bias, self.mlp.fc2.bias]
+        return out + [p for n in norms for p in (n.weight, n.bias)]
+
+
+def mlp_plain(z: torch.Tensor, fc1_w, fc1_b, fc2_w, fc2_b) -> torch.Tensor:
+    """fc1 → exact-erf GELU → fc2 on normed z, biases in the compute dtype
+    (oatx layers.mlp, its fused_mlp=False path); a None bias is left out."""
+    return linear(gelu(linear(z, fc1_w, fc1_b)), fc2_w, fc2_b)
 
 
 class PatchEmbed(nn.Module):
@@ -201,6 +291,8 @@ class PatchEmbed(nn.Module):
 
 
 class SpaceTimeTransformer(nn.Module):
+    tp: Optional[tpl.ModelAxis] = None  # the model axis, once enable_model_parallel ran
+
     def __init__(self, cfg: SpaceTimeViTConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -253,6 +345,12 @@ class SpaceTimeTransformer(nn.Module):
         through region_norm)."""
         f = video.shape[1]
         x = self.embed(video)
+        total = x.shape[1]
+        sp = self.tp is not None and self.tp.sequence_parallel
+        whole = (lambda y: coll.gather_tokens_whole(y, self.tp.group, total)) if sp \
+            else (lambda y: y)
+        if sp:
+            x = coll.split_tokens(x, self.tp.group)
         remat = self._remat_ctx is not None and torch.is_grad_enabled()
         k = self.cfg.region_tap_layer
         out: Dict[str, torch.Tensor] = {}
@@ -263,13 +361,38 @@ class SpaceTimeTransformer(nn.Module):
             else:
                 x = blk(x, f)
             if k is not None and i == k - 1:
-                out["region"] = self.region_norm(x[:, 1:])
-        x = self.norm(x)
+                out["region"] = self.region_norm(whole(x)[:, 1:])
+        x = self.norm(whole(x))
         cls, patches = x[:, 0], x[:, 1:]
         if self.cfg.pooling == "cls_mean_half":
             cls = 0.5 * cls + 0.5 * patches.mean(dim=1)
         out["cls"], out["patches"] = cls, patches
         return out
+
+
+    def enable_model_parallel(self, axis: tpl.ModelAxis, split) -> None:
+        """Run the blocks tensor-parallel over `axis` (module docstring),
+        token-sharded when cfg.sequence_parallel. `split`: the names (under
+        this module) of the parameters parallel/sharding.py splits; every
+        block's qkv, proj, fc1 and fc2 weight must be among them."""
+        cfg = self.cfg
+        if cfg.num_heads % axis.size:
+            raise ValueError(f"model_parallel={axis.size} does not divide the video "
+                             f"tower's {cfg.num_heads} heads")
+        want = [f"blocks.{i}.{m}.{w}.weight" for i in range(cfg.depth)
+                for m, w in (("attn", "qkv"), ("attn", "proj"), ("timeattn", "qkv"),
+                             ("timeattn", "proj"), ("mlp", "fc1"), ("mlp", "fc2"))]
+        missing = [n for n in want if n not in split]
+        if missing:
+            raise ValueError(f"model_parallel={axis.size} does not divide the widths of "
+                             f"{missing[:3]}")
+        axis = dataclasses.replace(axis, sequence_parallel=cfg.sequence_parallel)
+        self.tp = axis
+        for blk in self.blocks:
+            blk.tp = axis
+
+    def tp_partial_params(self):
+        return [p for blk in self.blocks for p in blk.tp_partial_params()]
 
 
 def inflate_spatial_embed(pos_embed: torch.Tensor, target_patches: int) -> torch.Tensor:

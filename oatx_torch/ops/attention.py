@@ -16,6 +16,12 @@ One formulation, the reference's CLS-first token order:
 oatx's `cls_position`, `split_cls_stream`, the stream/concat CLS merge and the
 `nminor` layout are layout choices with unchanged outputs; the port has none
 of them.
+
+Under tensor parallelism (parallel/tensor.py) the same functions run on a
+rank's heads: `num_heads` is the local count, the qkv weight holds those
+heads' q, k and v rows, the head width comes from the weight, and the
+output projection gets the rank's input columns and no bias (the caller
+adds it once, after the model group's sum).
 """
 
 from __future__ import annotations
@@ -32,12 +38,13 @@ from oatx_torch.ops.layers import linear
 def qkv_heads(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               num_heads: int, ln_w: Optional[torch.Tensor] = None,
               ln_b: Optional[torch.Tensor] = None, ln_eps: float = 1e-6):
-    """(B, T, D) → q, k, v each (B, T, H, Dh); q pre-scaled (a new tensor),
+    """(B, T, D) → q, k, v each (B, T, H, Dh), Dh = rows of `weight` / 3H;
+    q pre-scaled (a new tensor),
     k and v views into the fused qkv output. With `ln_w`/`ln_b`, x is the
     pre-norm stream and qkv = ln_linear(x) (bias added in f32, as oatx's
     ln_linear does; plain `linear` adds it in the compute dtype)."""
-    b, t, d = x.shape
-    dh = d // num_heads
+    b, t = x.shape[:2]
+    dh = weight.shape[0] // (3 * num_heads)
     if ln_w is not None:
         qkv = ln_linear(x, ln_w, ln_b, weight, bias, ln_eps)
     else:
@@ -62,7 +69,7 @@ def full_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b, num_heads: int
     """Standard MHA over the full sequence; mask (B, T) with 1 = attend."""
     q, k, v = qkv_heads(x, qkv_w, qkv_b, num_heads)
     out = attend(q, k, v, x.dtype, mask)
-    return linear(out.reshape(x.shape), proj_w, proj_b)
+    return linear(out.reshape(*x.shape[:2], -1), proj_w, proj_b)
 
 
 def time_attention(q, k, v, num_frames: int) -> torch.Tensor:
@@ -92,7 +99,7 @@ def divided_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
     """One VarAttention pass over x (B, 1 + F·N, D), CLS first, with grouping
     `mode` ∈ {'space', 'time'}. With LN params x is pre-norm and the LN runs
     inside the qkv projection (kernel 3)."""
-    b, t, d = x.shape
+    b, t = x.shape[:2]
     f = num_frames
     if f < 1 or (t - 1) % f:
         raise ValueError(f"token count {t} incompatible with {f} frames")
@@ -103,4 +110,4 @@ def divided_attention(x: torch.Tensor, qkv_w, qkv_b, proj_w, proj_b,
         out = time_attention(q, k, v, f)
     else:
         raise ValueError(f"mode must be 'space' or 'time', got {mode!r}")
-    return linear(out.reshape(b, t, d), proj_w, proj_b)
+    return linear(out.reshape(b, t, -1), proj_w, proj_b)

@@ -32,6 +32,31 @@ takes on CPU and on CUDA tensors (the probe of chip_smoke.py's phase 11).
 Over the ranks that hold one shard in every slice (`cross_group`):
 `all_reduce_sum`.
 
+Under a model axis (parallel/mesh.py: `model_parallel` mp > 1) the ranks
+of one data position form a model group (`model_group`) and the ranks at
+one model rank the batch group (`batch_group`): the loss gathers, the
+averaged losses, the gradient mean and the validation gather run over the
+batch group (their `group` argument), so no row is counted once per model
+rank and no weight shard is averaged with another. The data and
+cross-slice groups then hold the ranks at this model rank only. Over the
+model group run Megatron's four operators, each an autograd.Function whose
+backward is its forward's transpose (every model rank computes the same
+loss and seeds its own copy of it):
+  * `copy_to_model`: identity forward, all-reduce backward (before a
+    column-parallel product: each rank's input gradient is a partial sum);
+  * `reduce_from_model`: all-reduce forward, identity backward (after a
+    row-parallel product, whose outputs are partial sums);
+  * `gather_tokens`: all-gather on the token axis forward, reduce-scatter
+    backward (before a column-parallel product under sequence
+    parallelism);
+  * `scatter_tokens`: reduce-scatter on the token axis forward, all-gather
+    backward (after a row-parallel product under sequence parallelism);
+and the two that enter and leave the token-sharded stream from and to a
+replicated one: `split_tokens` (this rank's rows forward, all-gather
+backward) and `gather_tokens_whole` (all-gather forward, this rank's rows
+backward). A token axis of T rows is padded with zero rows to a multiple of
+mp; rank m holds rows [m·t, (m + 1)·t) of the padded axis, t = ⌈T/mp⌉.
+
 Each call goes through `_count`, which counts the bytes of the tensor a
 rank hands in and the calls per purpose in `TRAFFIC`: 'grad' (the gradient
 all-reduce), 'gather' (the forward gathers), 'gather_bwd' (their backward
@@ -41,9 +66,15 @@ sums), 'mean' (the averaged losses), 'valid' (validation), 'flag'
 'grad_scatter' (its gradient reduce-scatter), 'grad_cross' (the scattered
 gradients' sum across dcn slices), 'norm' (the sharded gradient norm),
 'param_update' (zero1's gather of the updated parameters) and
-'state_gather' (whole tensors for a checkpoint or the EMA). Without a
-process group, or with one rank, every function here is the identity and
-sends nothing.
+'state_gather' (whole tensors for a checkpoint or the EMA), and under a
+model axis 'tp_reduce' (the all-reduces of copy_to_model's backward and
+reduce_from_model's forward, the vocabulary-parallel lookup's included),
+'sp_gather' and 'sp_scatter' (the token axis' all-gathers and
+reduce-scatters, forward and backward alike) and 'tp_norm' (the model
+group's sum of the gradients each rank holds in part: parallel/sharding.py
+`reduce_model_partials`). A remat recompute runs its forward collectives
+again, and they count again. Without a process group, or with one rank,
+every function here is the identity and sends nothing.
 """
 
 from __future__ import annotations
@@ -78,67 +109,74 @@ def _all_reduce(x: torch.Tensor, purpose: str, group=None) -> torch.Tensor:
     return x
 
 
-def _all_gather(x: torch.Tensor, purpose: str) -> List[torch.Tensor]:
-    """Every rank's `x` (same shape on each), in rank order."""
+def group_size(group=None) -> int:
+    """Ranks of `group` (default: all); 1 without a process group."""
+    return dist.get_world_size(group) if spans_processes() else 1
+
+
+def _all_gather(x: torch.Tensor, purpose: str, group=None) -> List[torch.Tensor]:
+    """Every rank's `x` (same shape on each) of `group`, in group order."""
     x = x.contiguous()
     _count(purpose, x.numel() * x.element_size())
-    out = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, x)
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, x, group=group)
     return out
 
 
 class _AllGatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.rank, ctx.rows = dist.get_rank(), x.shape[0]
-        return torch.cat(_all_gather(x, "gather"))
+    def forward(ctx, x, group):
+        ctx.group, ctx.rank, ctx.rows = group, dist.get_rank(group), x.shape[0]
+        return torch.cat(_all_gather(x, "gather", group))
 
     @staticmethod
     def backward(ctx, g):
-        g = _all_reduce(g.contiguous().clone(), "gather_bwd")
-        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
+        g = _all_reduce(g.contiguous().clone(), "gather_bwd", ctx.group)
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """(B, ...) on each rank → (world·B, ...), rank 0's rows first. Every
-    rank must pass the same shape."""
-    if not spans_processes():
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(B, ...) on each rank of `group` (default: all) → (n·B, ...), the
+    group's first rank's rows first. Every rank must pass the same shape."""
+    if group_size(group) == 1:
         return x
-    return _AllGatherRows.apply(x)
+    return _AllGatherRows.apply(x, group)
 
 
 class _MeanAcrossRanks(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        ctx.world = dist.get_world_size()
-        return _all_reduce(x.detach().clone(), "mean") / ctx.world
+    def forward(ctx, x, group):
+        ctx.group, ctx.world = group, dist.get_world_size(group)
+        return _all_reduce(x.detach().clone(), "mean", group) / ctx.world
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g.contiguous().clone(), "mean") / ctx.world
+        return _all_reduce(g.contiguous().clone(), "mean", ctx.group) / ctx.world, None
 
 
-def mean_across_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The mean of `x` over the ranks, the same on every rank."""
-    if not spans_processes():
+def mean_across_ranks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of `x` over the ranks of `group` (default: all), the same on
+    each of them."""
+    if group_size(group) == 1:
         return x
-    return _MeanAcrossRanks.apply(x)
+    return _MeanAcrossRanks.apply(x, group)
 
 
 @torch.no_grad()
 def reduce_gradients(params: Iterable[torch.nn.Parameter],
                      dtype: Optional[torch.dtype] = None,
-                     scale: Optional[float] = None) -> None:
-    """Replace every `.grad` of `params` by its mean over the ranks, in
-    place (with `scale`, by the sum times `scale`). `dtype` (e.g.
-    torch.bfloat16) is the dtype on the wire: each gradient is cast to it
-    before the reduction and back after, as `_manual_dp_grads`'
-    grad_reduce_dtype (the mean is taken in that dtype too). Parameters
-    without a gradient are skipped; which ones have none must be the same on
-    every rank (it follows from the config)."""
-    if not spans_processes():
+                     scale: Optional[float] = None, group=None,
+                     purpose: str = "grad") -> None:
+    """Replace every `.grad` of `params` by its mean over the ranks of
+    `group` (default: all), in place (with `scale`, by the sum times
+    `scale`). `dtype` (e.g. torch.bfloat16) is the dtype on the wire: each
+    gradient is cast to it before the reduction and back after, as
+    `_manual_dp_grads`' grad_reduce_dtype (the mean is taken in that dtype
+    too). Parameters without a gradient are skipped; which ones have none
+    must be the same on every rank (it follows from the config)."""
+    if group_size(group) == 1:
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
     grads = [p.grad for p in params if p.grad is not None]
     bucket: List[torch.Tensor] = []
     size = 0
@@ -149,7 +187,7 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter],
             return
         wire = dtype or bucket[0].dtype
         flat = torch.cat([g.reshape(-1).to(wire) for g in bucket])
-        _all_reduce(flat, "grad")
+        _all_reduce(flat, purpose, group)
         if scale is None:
             flat.div_(world)
         else:
@@ -170,32 +208,60 @@ def reduce_gradients(params: Iterable[torch.nn.Parameter],
     flush()
 
 
-_groups: dict = {}  # (default group, dcn slices) → (data group, cross-slice group)
+_groups: dict = {}  # (default group, dcn slices, model_parallel) → this rank's groups
 
 
-def _shard_groups(layout: Layout):
-    """This rank's (data group, cross-slice group) for `layout`, (None,
-    None) with one slice (the data group is then the default group). Every
-    rank makes every group, in the same order, the first time."""
-    if layout.dcn_slices == 1 or not spans_processes():
-        return None, None
-    key = (dist.group.WORLD, layout.dcn_slices)
+def _layout_groups(layout: Layout) -> dict:
+    """This rank's process groups for `layout`: 'model' (its data
+    position's ranks; None without a model axis), 'batch' (the ranks at its
+    model rank), 'data' (its slice's ranks at its model rank) and 'cross'
+    (its replicas in the other slices; None with one slice). A group of the
+    whole world is None (the default group). Every rank makes every group,
+    in the same order, the first time."""
+    if not spans_processes():
+        return {"model": None, "batch": None, "data": None, "cross": None}
+    key = (dist.group.WORLD, layout.dcn_slices, layout.model_parallel)
     if key not in _groups:
-        data = [dist.new_group(list(layout.data_ranks(s))) for s in range(layout.dcn_slices)]
-        cross = [dist.new_group(list(layout.cross_ranks(j))) for j in range(layout.data_size)]
-        _groups[key] = (data[layout.slice_index], cross[layout.data_rank])
+        world, mp, dcn = layout.world, layout.model_parallel, layout.dcn_slices
+
+        def make(rank_sets, mine):
+            made = [dist.new_group(list(r)) if len(r) < world else None for r in rank_sets]
+            return made[mine]
+
+        lay = layout
+        model = (make([lay.model_ranks(p) for p in range(lay.batch_shards)], lay.position)
+                 if mp > 1 else None)
+        batch = make([lay.batch_ranks(m) for m in range(mp)], lay.model_rank)
+        data = batch if dcn == 1 else make(
+            [lay.data_ranks(s, m) for m in range(mp) for s in range(dcn)],
+            lay.model_rank * dcn + lay.slice_index)
+        cross = None if dcn == 1 else make(
+            [lay.cross_ranks(j, m) for m in range(mp) for j in range(lay.data_size)],
+            lay.model_rank * lay.data_size + lay.data_rank)
+        _groups[key] = {"model": model, "batch": batch, "data": data, "cross": cross}
     return _groups[key]
 
 
+def model_group(layout: Layout):
+    """The process group of this rank's data position (None: no model axis)."""
+    return _layout_groups(layout)["model"]
+
+
+def batch_group(layout: Layout):
+    """The ranks at this rank's model rank (None: the default group)."""
+    return _layout_groups(layout)["batch"]
+
+
 def data_group(layout: Layout):
-    """The process group of this rank's slice (None: the default group)."""
-    return _shard_groups(layout)[0]
+    """The process group of this rank's slice at its model rank (None: the
+    default group)."""
+    return _layout_groups(layout)["data"]
 
 
 def cross_group(layout: Layout):
     """The group of this rank's replicas in the other slices (None when
     there is one slice)."""
-    return _shard_groups(layout)[1]
+    return _layout_groups(layout)["cross"]
 
 
 def all_gather_flat(x: torch.Tensor, group, purpose: str) -> torch.Tensor:
@@ -231,18 +297,18 @@ def all_reduce_sum(x: torch.Tensor, purpose: str, group=None) -> torch.Tensor:
 
 
 @torch.no_grad()
-def all_gather_ragged(x: torch.Tensor) -> torch.Tensor:
-    """(n_r, ...) rows on rank r, n_r free per rank → every rank's rows
-    concatenated in rank order, on every rank (the trainer's validation
-    gather, oatx `_gather_valid`)."""
-    if not spans_processes():
+def all_gather_ragged(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(n_r, ...) rows on rank r of `group` (default: all), n_r free per
+    rank → every rank's rows concatenated in group order, on every rank (the
+    trainer's validation gather, oatx `_gather_valid`)."""
+    if group_size(group) == 1:
         return x
     n = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
-    counts = [int(c) for c in _all_gather(n, "valid")]
+    counts = [int(c) for c in _all_gather(n, "valid", group)]
     most = max(counts)
     padded = x.new_zeros((most,) + tuple(x.shape[1:]))
     padded[:x.shape[0]] = x
-    blocks = _all_gather(padded, "valid")
+    blocks = _all_gather(padded, "valid", group)
     return torch.cat([b[:c] for b, c in zip(blocks, counts)])
 
 
@@ -288,3 +354,137 @@ def max_across_ranks(value: int) -> int:
     if not spans_processes():
         return value
     return _host_all_reduce_max(value)
+
+
+# ------------------------------------------------------------ model axis
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), "tp_reduce", ctx.group), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """x, replicated over the model group, into a column-parallel product:
+    the identity; backward: the sum of the ranks' partial gradients."""
+    return _CopyToModel.apply(x, group)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.contiguous().clone(), "tp_reduce", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model group of each rank's partial `x` (a
+    row-parallel product's output); backward: the identity."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def tokens_per_rank(total: int, size: int) -> int:
+    """Rows of a token axis of `total` a rank holds over `size` ranks."""
+    return -(-total // size)
+
+
+def _gather_tokens(x: torch.Tensor, group, purpose: str) -> torch.Tensor:
+    """(B, t, ...) on each rank → (B, size·t, ...), the group's first
+    rank's rows first."""
+    x = x.contiguous()
+    size = dist.get_world_size(group)
+    _count(purpose, x.numel() * x.element_size())
+    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    out = out.view(size, *x.shape)
+    return out.transpose(0, 1).reshape(x.shape[0], size * x.shape[1], *x.shape[2:])
+
+
+def _scatter_tokens(y: torch.Tensor, group, purpose: str) -> torch.Tensor:
+    """(B, size·t, ...) on each rank → the sum over the ranks, this rank's
+    t rows."""
+    size = dist.get_world_size(group)
+    b, t = y.shape[0], y.shape[1] // size
+    send = y.reshape(b, size, t, *y.shape[2:]).transpose(0, 1).reshape(size * b, t,
+                                                                        *y.shape[2:])
+    _count(purpose, send.numel() * send.element_size())
+    out = y.new_empty((b, t) + tuple(y.shape[2:]))
+    dist.reduce_scatter_tensor(out, send, group=group)
+    return out
+
+
+def _pad_tokens(y: torch.Tensor, rows: int) -> torch.Tensor:
+    if y.shape[1] == rows:
+        return y
+    pad = y.new_zeros((y.shape[0], rows - y.shape[1]) + tuple(y.shape[2:]))
+    return torch.cat([y, pad], dim=1)
+
+
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, total, whole_grad):
+        ctx.group, ctx.rows, ctx.whole_grad = group, x.shape[1], whole_grad
+        return _gather_tokens(x, group, "sp_gather")[:, :total]
+
+    @staticmethod
+    def backward(ctx, g):
+        size = dist.get_world_size(ctx.group)
+        g = _pad_tokens(g, size * ctx.rows)
+        if ctx.whole_grad:  # every rank holds the whole gradient: take its rows
+            r = dist.get_rank(ctx.group)
+            return g[:, r * ctx.rows:(r + 1) * ctx.rows], None, None, None
+        return _scatter_tokens(g, ctx.group, "sp_scatter"), None, None, None
+
+
+def gather_tokens(x: torch.Tensor, group, total: int) -> torch.Tensor:
+    """This rank's token rows (B, t, D) → the whole axis (B, total, D) (the
+    padding dropped), into a column-parallel product; backward: the
+    reduce-scatter of the ranks' partial gradients."""
+    return _GatherTokens.apply(x, group, total, False)
+
+
+def gather_tokens_whole(x: torch.Tensor, group, total: int) -> torch.Tensor:
+    """gather_tokens out of the token-sharded stream into a computation
+    every model rank repeats (the final norm, the region tap): backward,
+    each rank's rows of the whole gradient."""
+    return _GatherTokens.apply(x, group, total, True)
+
+
+class _ScatterTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, split):
+        size = dist.get_world_size(group)
+        ctx.group, ctx.total, ctx.split = group, y.shape[1], split
+        t = tokens_per_rank(y.shape[1], size)
+        y = _pad_tokens(y, size * t)
+        if split:  # every rank holds the whole tensor: take its rows
+            r = dist.get_rank(group)
+            return y[:, r * t:(r + 1) * t].contiguous()
+        return _scatter_tokens(y, group, "sp_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_tokens(g, ctx.group, "sp_gather")[:, :ctx.total], None, None
+
+
+def scatter_tokens(y: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model group of each rank's partial (B, T, D) (a
+    row-parallel product's output), this rank's token rows (B, t, D);
+    backward: the all-gather of the rows' gradients."""
+    return _ScatterTokens.apply(y, group, False)
+
+
+def split_tokens(y: torch.Tensor, group) -> torch.Tensor:
+    """A (B, T, D) tensor every model rank holds whole → this rank's token
+    rows (B, t, D), into the token-sharded stream; backward: the all-gather
+    of the rows' gradients."""
+    return _ScatterTokens.apply(y, group, True)

@@ -4,32 +4,49 @@ oatx/parallel/mesh.py: `process_index`, `process_count`, `batch_shards`,
 
 oatx trains one program over a (data, model) mesh, or ('dcn', 'data',
 'model') across slices, and shards by GSPMD. The port runs one process per
-device under `torch.distributed` (the reference's own mode): rank r of a
-world of n owns a per-process batch, as oatx's per-process batch
-(`batch_size` is per process, oatx/train/trainer.py:105-118). Without a
-process group, or with a world of one, this is oatx's 1-device mesh. The
-ranks form the batch axes ('dcn', 'data') jointly: the batch shards over all
-of them. With `dcn_slices` s the world splits into s slices of n/s
-consecutive ranks each, as make_mesh groups devices by slice: a slice's
-ranks are its data axis (`Layout.data_ranks`), and the ranks at one
-position of every slice form a cross-slice group (`Layout.cross_ranks`).
+device under `torch.distributed` (the reference's own mode). Without a
+process group, or with a world of one, this is oatx's 1-device mesh.
+
+The ranks keep make_mesh's device order, the model axis fastest
+(oatx mesh.py:84-85 reshapes the devices to (n // mp, mp), or to (dcn,
+data, mp) with slices). With `model_parallel` mp, rank r is
+  * `model_rank` r mod mp: which shard of the tensor-parallel weights it
+    holds (parallel/sharding.py);
+  * `position` r // mp: its data position, one oatx process. The mp ranks
+    of one position form a model group (`model_ranks`): they read the same
+    rows, draw the same augmentation and compute the same loss;
+  * `data_rank` position mod data_size and `slice_index` position //
+    data_size, where data_size = world / (dcn_slices · mp) is a slice's
+    data axis.
+`batch_size` stays per process as oatx defines it, and a model group acts
+as one oatx process: the global batch is batch_size × world / mp
+(`batch_shards` = world / mp positions). The ranks at one model rank form
+the batch axes ('dcn', 'data') jointly (`batch_ranks`): the batch shards
+over them, the loss inputs gather over them and the gradients average over
+them. With `dcn_slices` s a slice's ranks at one model rank are its data
+axis (`data_ranks`), and the ranks at one data position and model rank of
+every slice form a cross-slice group (`cross_ranks`).
 
 What each trainer key gives:
   * `dp_mode`: 'auto' and 'manual' reduce the gradients once per parameter
     after the backward, as oatx's `_manual_dp_grads`; 'gspmd' reduces the
     same gradients but ignores `grad_reduce_dtype` (trainer.py); 'manual'
-    with one shard, or with `fsdp`, raises ValueError, as in oatx
-    (trainer.py:301-309);
-  * `dcn_slices` must divide the world (ValueError, as in make_mesh);
+    with one batch shard, with `fsdp` or under a model axis raises
+    ValueError, as in oatx (trainer.py:301-309);
+  * `dcn_slices` × `model_parallel` must divide the world (ValueError, as
+    in make_mesh);
   * `zero1` shards the AdamW moments (and the EMA) over the data axis and
     `fsdp` the parameters, gradients and moments (parallel/sharding.py);
     neither crosses slices. On one process the data axis is 1 wide and both
     replicate (oatx/train/trainer.py:186-187);
-  * `model_parallel` > 1 and `pipeline` need a model axis and raise
-    NotImplementedError at any world (ROADMAP A8b); `pipeline` with `fsdp`
-    raises ValueError first, as in oatx (trainer.py:78-80). The model's
-    `sequence_parallel` is a no-op without a model axis
-    (models/vit_spacetime.py).
+  * `model_parallel` > 1 splits the ViT and DistilBERT weights over the
+    model group by Megatron's column / row rules (oatx sharding.py:26-61;
+    parallel/sharding.py, parallel/tensor.py), and the model's
+    `sequence_parallel` shards the ViT's residual stream over it
+    (models/vit_spacetime.py); without a model axis the key is a no-op;
+  * `pipeline` raises NotImplementedError at any world (ROADMAP A8b,
+    pipeline stages); with `fsdp` it raises ValueError first, as in oatx
+    (trainer.py:78-80).
 """
 
 from __future__ import annotations
@@ -42,43 +59,78 @@ import torch.distributed as dist
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Rank and world size of the default process group (0 and 1 without
-    one), and the dcn slices the world splits into."""
+    one), the dcn slices the world splits into and the model axis' width
+    (module docstring)."""
     rank: int = 0
     world: int = 1
     dcn_slices: int = 1
+    model_parallel: int = 1
 
     @property
     def spans_processes(self) -> bool:
         return self.world > 1
 
     @property
+    def model_rank(self) -> int:
+        """This rank's place in its model group: the weight shard it holds."""
+        return self.rank % self.model_parallel
+
+    @property
+    def position(self) -> int:
+        """This rank's data position: the oatx process its model group is."""
+        return self.rank // self.model_parallel
+
+    @property
+    def batch_shards(self) -> int:
+        """Ways the global batch is split: the data positions (oatx's
+        product of the batch axes, ('dcn', 'data'))."""
+        return self.world // self.model_parallel
+
+    @property
     def data_size(self) -> int:
-        """Ranks on the data axis of one slice: what a shard divides by."""
-        return self.world // self.dcn_slices
+        """Positions on the data axis of one slice: what a shard divides by."""
+        return self.batch_shards // self.dcn_slices
 
     @property
     def data_rank(self) -> int:
         """This rank's position on its slice's data axis."""
-        return self.rank % self.data_size
+        return self.position % self.data_size
 
     @property
     def slice_index(self) -> int:
-        return self.rank // self.data_size
+        return self.position // self.data_size
 
-    def data_ranks(self, slice_index: int) -> range:
-        """The ranks of one slice, in data order."""
-        return range(slice_index * self.data_size, (slice_index + 1) * self.data_size)
+    def model_ranks(self, position: int = None) -> range:
+        """The ranks of one data position (default: this rank's), in model
+        order: a model group."""
+        p = self.position if position is None else position
+        return range(p * self.model_parallel, (p + 1) * self.model_parallel)
 
-    def cross_ranks(self, data_rank: int) -> range:
-        """The ranks at one data position of every slice: the replicas of
-        one shard."""
-        return range(data_rank, self.world, self.data_size)
+    def batch_ranks(self, model_rank: int = None) -> range:
+        """The ranks at one model rank (default: this rank's) of every data
+        position: the batch axes."""
+        m = self.model_rank if model_rank is None else model_rank
+        return range(m, self.world, self.model_parallel)
+
+    def data_ranks(self, slice_index: int, model_rank: int = None) -> range:
+        """The ranks of one slice at one model rank (default: this rank's),
+        in data order."""
+        m = self.model_rank if model_rank is None else model_rank
+        mp, n = self.model_parallel, self.data_size
+        return range(slice_index * n * mp + m, (slice_index + 1) * n * mp, mp)
+
+    def cross_ranks(self, data_rank: int, model_rank: int = None) -> range:
+        """The ranks at one data position and model rank of every slice: the
+        replicas of one shard."""
+        m = self.model_rank if model_rank is None else model_rank
+        mp = self.model_parallel
+        return range(data_rank * mp + m, self.world, self.data_size * mp)
 
 
-def current_layout(dcn_slices: int = 1) -> Layout:
+def current_layout(dcn_slices: int = 1, model_parallel: int = 1) -> Layout:
     if dist.is_available() and dist.is_initialized():
-        return Layout(dist.get_rank(), dist.get_world_size(), dcn_slices)
-    return Layout()
+        return Layout(dist.get_rank(), dist.get_world_size(), dcn_slices, model_parallel)
+    return Layout(dcn_slices=dcn_slices, model_parallel=model_parallel)
 
 
 def process_index() -> int:
@@ -90,8 +142,9 @@ def process_count() -> int:
 
 
 def batch_shards() -> int:
-    """Ways the global batch is split: one shard per rank (oatx's product of
-    the batch axes, ('dcn', 'data'))."""
+    """Ways the global batch is split without a model axis: one shard per
+    rank (oatx's product of the batch axes, ('dcn', 'data')); under one,
+    `Layout.batch_shards`."""
     return process_count()
 
 
@@ -109,19 +162,20 @@ def check_layout(t, world: int = None) -> None:
         raise ValueError(f"unknown trainer.dp_mode {t.dp_mode!r}")
     if t.dcn_slices < 1:
         raise ValueError(f"dcn_slices must be >= 1, got {t.dcn_slices}")
+    if t.model_parallel < 1:
+        raise ValueError(f"model_parallel must be >= 1, got {t.model_parallel}")
     if t.pipeline and t.fsdp:
         raise ValueError("trainer.pipeline and trainer.fsdp both use structured "
                          "placements — enable one")
-    for name, on, item in (
-            ("model_parallel > 1", t.model_parallel > 1, "A8b, tensor parallelism"),
-            ("pipeline", t.pipeline, "A8b, pipeline stages")):
-        if on:
-            raise NotImplementedError(
-                f"trainer.{name} needs several devices on a model axis; the port "
-                f"shards over the data axis only (not ported yet: ROADMAP {item})")
+    if t.pipeline:
+        raise NotImplementedError(
+            "trainer.pipeline needs several devices on a model axis as pipeline "
+            "stages, which the port does not run (not ported yet: ROADMAP A8b, "
+            "pipeline stages)")
     if world % (t.model_parallel * t.dcn_slices):
         raise ValueError(f"{world} processes not divisible by model_parallel="
                          f"{t.model_parallel} x dcn_slices={t.dcn_slices}")
-    if t.dp_mode == "manual" and (world == 1 or t.fsdp):
+    if t.dp_mode == "manual" and (world // t.model_parallel == 1 or t.fsdp
+                                  or t.model_parallel > 1):
         raise ValueError("trainer.dp_mode='manual' needs a >1-shard batch axis and "
                          "replicated params (model_parallel=1, no fsdp/pipeline)")

@@ -1,6 +1,7 @@
-"""Data-axis sharding of the training state (port of oatx/parallel/sharding.py:
-`fsdp_param_specs`, `shard_params_fsdp`, `shard_opt_state_zero1`,
-`opt_leaf_zero1_sharding`, :76-182).
+"""Sharding of the training state over the model and data axes (port of
+oatx/parallel/sharding.py: `_spec_for`, `param_specs`, `fsdp_param_specs`,
+`shard_params_fsdp`, `shard_opt_state_zero1`, `opt_leaf_zero1_sharding`,
+:26-182).
 
 Which tensors shard follows oatx's rules, applied to the oatx leaf that each
 of the port's parameters belongs to (oatx stacks a tower's layers on a
@@ -39,11 +40,37 @@ the data axis (then all-reduces across slices) into each share's `.grad`
 and all-reduces the replicated leaves' gradients, all to their mean. A remat
 recompute accesses the weights again and so gathers them again. Outside
 `gathering()` an access returns the share, so nothing off the step sends a
-collective. `full_state_dict` and `load_full_state_dict` convert between
-the shares and whole tensors one tensor at a time.
+collective. `full_state_dict` and `load_full_state_dict` (module
+functions) convert between the shares and whole tensors one tensor at a
+time.
 
-The Megatron rules (`_spec_for`, :30-42) and `shard_params_pipeline`
-(:185-204) wait for tensor parallelism and pipeline stages (ROADMAP A8b).
+Tensor parallelism over a model axis (`model_parallel` mp > 1,
+parallel/mesh.py): oatx's Megatron rules (`_spec_for`, `param_specs`,
+:26-61) on each parameter's oatx leaf (`oatx_leaf`'s taken dimension):
+fc1 / lin1 / qkv / q_lin / k_lin / v_lin weights split their output rows,
+fc2 / lin2 / proj / out_lin their input columns, DistilBERT's word table its
+vocabulary rows; every bias, norm, embedding, the patch embedding and the
+projections replicate, and so does a weight whose taken dimension does not
+divide by mp, as in oatx. A split tensor is held as its `ModelShard`: this
+rank's rows or columns, the parameter replaced under its own name by a
+parameter of the local shape (`place_model_parallel`), and the towers told
+to run on it (models/towers.py `enable_model_parallel`). oatx splits the
+fused qkv's 3·D outputs contiguously, so at mp 4 its rank 0 would hold q's
+first 9 heads of 12; attention on whole heads needs each rank's q, k and v
+of the same heads, so the port's rank r holds rows [r·D/mp, (r + 1)·D/mp)
+of each of q, k and v (`ModelShard.groups` = 3): the same number of bytes as
+oatx's shard, other rows. `fsdp` and `zero1` compose with the split as
+oatx's fsdp_param_specs does: their flat data-axis shares are taken of each
+rank's model-local tensor, and which leaves shard follows oatx's rules on
+the whole leaf. (oatx's zero1 re-places each moment on the data axis alone,
+dropping its model-axis split; the port keeps the moments model-local and
+takes its data shares of those, so a rank holds no more than oatx's.)
+`state_bytes`, `full_state_dict` and `load_full_state_dict` gather and
+scatter over the model group too, one whole tensor at a time. After the
+backward, `reduce_model_partials` sums over the model group the gradients
+each rank holds in part (the towers' `tp_partial_params`).
+
+`shard_params_pipeline` (:185-204) waits for pipeline stages (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -58,7 +85,8 @@ import torch
 from torch import nn
 
 from oatx_torch.parallel import collectives as coll
-from oatx_torch.parallel.mesh import Layout
+from oatx_torch.parallel.mesh import Layout, current_layout
+from oatx_torch.parallel.tensor import ModelAxis
 
 FSDP_MIN_SIZE = 2 ** 16  # oatx fsdp_param_specs' min_size
 
@@ -113,6 +141,84 @@ def oatx_leaf(name: str, shape: Sequence[int],
         dims = (depths[m.group(1)],) + dims
         taken = None if taken is None else taken + 1
     return dims, taken
+
+
+def _model_split(name: str, shape: Sequence[int], depths: Dict[str, int],
+                 size: int) -> Optional[Tuple[int, int]]:
+    """(torch dim, groups) that oatx's Megatron rules split over a model axis
+    of `size` for this parameter, or None (replicated: no rule names it, or
+    the named dimension does not divide by `size`)."""
+    if size <= 1:
+        return None
+    dims, taken = oatx_leaf(name, shape, depths)
+    if taken is None or dims[taken] % size:
+        return None
+    parts = name.split(".")
+    if parts[-2] == "word_embeddings":
+        return 0, 1
+    own = taken - (1 if _STACKED.match(name) else 0)  # oatx (in, out) ↔ torch (out, in)
+    if own == 1:
+        return 0, (3 if parts[-2] == "qkv" or parts[-1] == "in_proj_weight" else 1)
+    return 1, 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ModelShard:
+    """This rank's part of a tensor split over the model group: `shape` is
+    the whole tensor's; dimension `dim`, seen as (groups, size, n), keeps
+    index `rank` of its size axis (module docstring; the fused qkv has
+    groups = 3, q, k and v)."""
+    shape: Tuple[int, ...]
+    dim: int
+    groups: int
+    rank: int
+    size: int
+    group: object = None
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        s = list(self.shape)
+        s[self.dim] //= self.size
+        return tuple(s)
+
+    def take(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole tensor, a new contiguous tensor."""
+        d = self.dim
+        n = self.shape[d] // (self.groups * self.size)
+        part = full.detach().reshape(*self.shape[:d], self.groups, self.size, n,
+                                     *self.shape[d + 1:]).select(d + 1, self.rank)
+        out = full.new_empty(self.local_shape)
+        out.view(part.shape).copy_(part)
+        return out
+
+    def whole(self, parts: torch.Tensor) -> torch.Tensor:
+        """The tensor from every rank's part, stacked in group order on a
+        leading axis of `size`."""
+        d = self.dim
+        n = self.shape[d] // (self.groups * self.size)
+        p = parts.reshape(self.size, *self.shape[:d], self.groups, n, *self.shape[d + 1:])
+        return p.movedim(0, d + 1).reshape(self.shape)
+
+    def gather(self, part: torch.Tensor, purpose: str) -> torch.Tensor:
+        got = coll.all_gather_flat(part, self.group, purpose)
+        return self.whole(got.view(self.size, *self.local_shape))
+
+
+def model_plan(shapes: Dict[str, Sequence[int]], layout: Layout) -> Dict[str, ModelShard]:
+    """{parameter name: its ModelShard} for the parameters (whole `shapes`)
+    that oatx's Megatron rules split over `layout`'s model axis."""
+    size = layout.model_parallel
+    if size <= 1:
+        return {}
+    depths = _depths(shapes)
+    group = coll.model_group(layout)
+    out = {}
+    for name, shape in shapes.items():
+        split = _model_split(name, shape, depths, size)
+        if split is not None:
+            out[name] = ModelShard(tuple(int(s) for s in shape), split[0], split[1],
+                                   layout.model_rank, size, group)
+    return out
 
 
 def _divisible(dims: Sequence[int], n: int, skip: Optional[int] = None) -> bool:
@@ -181,7 +287,9 @@ def plan(shapes: Dict[str, Sequence[int]], layout: Layout,
          mode: Optional[str]) -> Dict[str, FlatShard]:
     """{parameter name: its FlatShard} for the tensors that `mode` ('fsdp':
     the parameters, their gradients and moments; 'zero1': the moments and
-    EMA only) shards on this rank; names absent replicate."""
+    EMA only) shards on this rank; names absent replicate. `shapes` are the
+    whole parameters'; under a model axis a share is of the rank's
+    model-local part."""
     if mode not in ("fsdp", "zero1") or layout.data_size <= 1:
         return {}
     depths = _depths(shapes)
@@ -192,27 +300,33 @@ def plan(shapes: Dict[str, Sequence[int]], layout: Layout,
         on = (fsdp_placement(dims, taken, layout.data_size) if mode == "fsdp"
               else zero1_placement(dims, layout.data_size))
         if on:
-            out[name] = FlatShard(tuple(int(s) for s in shape), layout.data_rank,
-                                  layout.data_size, group)
+            split = _model_split(name, shape, depths, layout.model_parallel)
+            local = list(int(s) for s in shape)
+            if split is not None:
+                local[split[0]] //= layout.model_parallel
+            out[name] = FlatShard(tuple(local), layout.data_rank, layout.data_size, group)
     return out
 
 
 def state_bytes(shapes: Dict[str, Sequence[int]], data_size: int, mode: Optional[str],
-                ema: bool = False) -> Dict[str, int]:
+                ema: bool = False, model_parallel: int = 1) -> Dict[str, int]:
     """Per-rank bytes of f32 parameters + gradients + AdamW moments (+ EMA) under
-    `mode` (None: replicated) on a data axis of `data_size` → {'bytes',
-    'padding' (of those, the flat shards' zero padding), 'replicated' (the
-    same state unsharded)}. Every parameter is counted with a gradient."""
+    `mode` (None: replicated) on a data axis of `data_size` and a model axis
+    of `model_parallel` (`shapes` whole) → {'bytes', 'padding' (of those,
+    the flat shards' zero padding), 'replicated' (the same state unsharded
+    on both axes)}. Every parameter is counted with a gradient."""
     data_size = max(data_size, 1)
     depths = _depths(shapes)
     moments = 3 if ema else 2
     total = pad = full = 0
     for name, shape in shapes.items():
-        n = math.prod(int(s) for s in shape)
+        whole = math.prod(int(s) for s in shape)
         dims, taken = oatx_leaf(name, shape, depths)
+        split = _model_split(name, shape, depths, model_parallel)
+        n = whole // model_parallel if split is not None else whole
         chunk = -(-n // data_size)
         extra = chunk - n / data_size
-        full += (2 + moments) * n
+        full += (2 + moments) * whole
         if mode == "fsdp" and fsdp_placement(dims, taken, data_size):
             total += (2 + moments) * chunk
             pad += (2 + moments) * extra
@@ -297,7 +411,6 @@ class ShardedModel:
         self.layout = layout
         self.active = False
         self.cross = coll.cross_group(layout)
-        self.specs: Dict[str, FlatShard] = {}
         self.shares: List[nn.Parameter] = []
         self.pending: Dict[nn.Parameter, torch.Tensor] = {}
         by_module: Dict[nn.Module, List[str]] = {}
@@ -309,9 +422,9 @@ class ShardedModel:
                 module, leaf = _owner_of(model, name)
                 share = nn.Parameter(spec.take(p), requires_grad=p.requires_grad)
                 share._oatx_shard, share._oatx_owner = spec, self
+                share._oatx_tp = getattr(p, "_oatx_tp", None)
                 module._parameters[leaf] = share
                 by_module.setdefault(module, []).append(leaf)
-                self.specs[name] = spec
                 self.shares.append(share)
         for module, names in by_module.items():
             module.__class__ = _gathering_class(type(module), names)
@@ -342,7 +455,7 @@ class ShardedModel:
         ranks (and micro-batches); the replicated leaves' `.grad` likewise
         whole. Which parameters have a gradient must agree across ranks (it
         follows from the config)."""
-        scale = 1.0 / (self.layout.world * micro_batches)
+        scale = 1.0 / (self.layout.batch_shards * micro_batches)
         todo = [(p, self.pending[p]) for p in self.shares if p in self.pending]
         self.pending = {}
         bucket, size = [], 0
@@ -352,7 +465,8 @@ class ShardedModel:
             if size >= coll.BUCKET_BYTES or i == len(todo) - 1:
                 self._scatter(bucket, scale)
                 bucket, size = [], 0
-        coll.reduce_gradients(self.replicated, scale=scale)
+        coll.reduce_gradients(self.replicated, scale=scale,
+                              group=coll.batch_group(self.layout))
 
     def _scatter(self, bucket, scale: float) -> None:
         spec0 = bucket[0][0]._oatx_shard
@@ -367,40 +481,122 @@ class ShardedModel:
             p.grad = got[off:off + n]
             off += n
 
-    def full_state_dict(self, to_host: bool = False,
-                        keep: bool = True) -> Optional[Dict[str, torch.Tensor]]:
-        """The model's state_dict with whole tensors, gathered one at a time
-        (every rank must call it); `to_host`: each copied to the CPU.
-        `keep=False` (a rank that writes no snapshot): take part in each
-        gather, keep nothing, → None; no rank ever holds more than one
-        gathered tensor on its device."""
-        out = {}
-        for k, v in self.model.state_dict().items():
-            spec = self.specs.get(k)
-            if spec is not None:
-                v = spec.gather(v, "state_gather")
-            if keep:
-                out[k] = v.to("cpu", copy=True) if to_host else v
-        return out if keep else None
 
-    @torch.no_grad()
-    def load_full_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
-        """Load whole tensors (on any device): each rank keeps its share."""
-        own = self.model.state_dict()
-        if sorted(own) != sorted(sd):
-            missing, extra = set(own) - set(sd), set(sd) - set(own)
-            raise RuntimeError(f"state_dict keys differ: missing {sorted(missing)[:5]}, "
-                               f"unexpected {sorted(extra)[:5]}")
-        for k, v in own.items():
-            spec = self.specs.get(k)
-            v.copy_(spec.take(sd[k]) if spec is not None else sd[k])
+def held_whole(t: torch.Tensor, p: nn.Parameter, purpose: str,
+               share: Optional[FlatShard] = None) -> torch.Tensor:
+    """The whole tensor of `t`, held for parameter `p` (the parameter, its
+    gradient or a moment): its data-axis `share` (default: fsdp's, if p is
+    one) gathered, then its model-axis parts (every rank of the groups
+    calls it)."""
+    share = share if share is not None else getattr(p, "_oatx_shard", None)
+    if share is not None:
+        t = share.gather(t, purpose)
+    tp = getattr(p, "_oatx_tp", None)
+    return tp.gather(t, purpose) if tp is not None else t
+
+
+def held_part(full: torch.Tensor, p: nn.Parameter,
+              share: Optional[FlatShard] = None) -> torch.Tensor:
+    """What this rank holds of a whole tensor for parameter `p`: its
+    model-axis part, then its data-axis share (held_whole's inverse)."""
+    tp = getattr(p, "_oatx_tp", None)
+    part = tp.take(full) if tp is not None else full
+    share = share if share is not None else getattr(p, "_oatx_shard", None)
+    return share.take(part) if share is not None else part
+
+
+def full_state_dict(model: nn.Module, to_host: bool = False,
+                    keep: bool = True) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's state_dict with whole tensors, gathered one at a time over
+    the data and model axes (every rank must call it); `to_host`: each
+    copied to the CPU. `keep=False` (a rank that writes no snapshot): take
+    part in each gather, keep nothing, → None; no rank ever holds more than
+    one gathered tensor on its device."""
+    params = dict(model.named_parameters())
+    out = {}
+    for k, v in model.state_dict().items():
+        p = params.get(k)
+        if p is not None:
+            v = held_whole(v, p, "state_gather")
+        if keep:
+            out[k] = v.to("cpu", copy=True) if to_host else v
+    return out if keep else None
+
+
+@torch.no_grad()
+def load_full_state_dict(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Load whole tensors (on any device): each rank keeps its parts."""
+    own = model.state_dict()
+    if sorted(own) != sorted(sd):
+        missing, extra = set(own) - set(sd), set(sd) - set(own)
+        raise RuntimeError(f"state_dict keys differ: missing {sorted(missing)[:5]}, "
+                           f"unexpected {sorted(extra)[:5]}")
+    params = dict(model.named_parameters())
+    for k, v in own.items():
+        p = params.get(k)
+        v.copy_(held_part(sd[k], p) if p is not None else sd[k])
+
+
+def sharded(model: nn.Module) -> bool:
+    """True when some parameter of `model` is held in part (fsdp's share or a
+    model-axis split): whole tensors then need every rank."""
+    return any(getattr(p, "_oatx_shard", None) is not None
+               or getattr(p, "_oatx_tp", None) is not None for p in model.parameters())
+
+
+def place_model_parallel(model: nn.Module, layout: Layout) -> Dict[str, ModelShard]:
+    """Split `model`'s parameters over `layout`'s model axis (module
+    docstring): each split one replaced, under its own name, by a parameter
+    holding this rank's part, and the towers told to run on them
+    (`enable_model_parallel`) → the plan. Every rank must call it (it makes
+    the model groups)."""
+    if layout.model_parallel <= 1:
+        return {}
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    specs = model_plan(shapes, layout)
+    axis = ModelAxis(layout.model_parallel, layout.model_rank, coll.model_group(layout))
+    model.enable_model_parallel(axis, set(specs))
+    with torch.no_grad():
+        for name, spec in specs.items():
+            module, leaf = _owner_of(model, name)
+            p = module._parameters[leaf]
+            part = nn.Parameter(spec.take(p), requires_grad=p.requires_grad)
+            part._oatx_tp = spec
+            module._parameters[leaf] = part
+    model.model_axis = axis
+    return specs
+
+
+@torch.no_grad()
+def reduce_model_partials(model: nn.Module) -> None:
+    """Sum over the model group the gradients each of its ranks holds in part
+    (the towers' `tp_partial_params`: a LayerNorm applied after `enter`, on
+    a token shard or inside kernels 1 and 3, and a bias used by rows or on a
+    token shard), once a step, after the data axis' reduction: a parameter
+    fsdp shares is whole on every model rank, so its ranks' shares cover the
+    same elements and their sum is the share of the sum."""
+    axis = getattr(model, "model_axis", None)
+    if axis is None:
+        return
+    params = [p for p in model.tp_partial_params() if p.grad is not None]
+    coll.reduce_gradients(params, scale=1.0, group=axis.group, purpose="tp_norm")
+
+
+def layout_of(model: nn.Module) -> Layout:
+    """The layout `place` put `model` on (the current group's, with one
+    slice and no model axis, for a model it never placed)."""
+    return getattr(model, "layout", None) or current_layout()
 
 
 def place(model: nn.Module, mode: Optional[str], layout: Layout) -> Dict[str, FlatShard]:
-    """Plan `mode` ('fsdp', 'zero1' or None) for `model`'s parameters on
-    `layout` and put fsdp in place → the plan (AdamW's `zero1` under
-    zero1). Every rank must call it (it makes the slices' groups)."""
-    shards = plan({n: tuple(p.shape) for n, p in model.named_parameters()}, layout, mode)
+    """Split `model` over `layout`'s model axis, plan `mode` ('fsdp',
+    'zero1' or None) for its parameters on the data axis and put fsdp in
+    place → the data-axis plan (AdamW's `zero1` under zero1). Every rank
+    must call it (it makes the layout's groups)."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    model.layout = layout
+    place_model_parallel(model, layout)
+    shards = plan(shapes, layout, mode)
     if mode == "fsdp" and layout.spans_processes:
         model.fsdp = ShardedModel(model, shards, layout)
     return shards

@@ -20,8 +20,10 @@ write is then in flight on rank 0). Every rank restores the same file.
 Under a sharded layout (parallel/sharding.py) the schema is the same: every
 rank takes part in gathering each tensor whole, one tensor at a time, and
 rank 0 copies it to its host, so the whole state is never on one device; a
-restore reads the file on the host and each rank keeps its shares. So a
-snapshot of any layout restores under any other.
+restore reads the file on the host and each rank keeps its shares. A
+model-axis split (tensor parallelism) is gathered and split the same way,
+over the model group too. So a snapshot of any layout restores under any
+other: a tensor-parallel snapshot in one process and the reverse.
 """
 
 from __future__ import annotations
@@ -77,18 +79,17 @@ def wait_for_async_saves() -> None:
 
 
 def _sharded(state) -> bool:
-    return (sharding.fsdp_of(state.model) is not None
+    return (sharding.sharded(state.model)
             or any(spec is not None for spec in state.optimizer.zero1))
 
 
 def _payload(state, lead: bool) -> Optional[Dict[str, Any]]:
     """The snapshot's tensors, whole, on the `lead` rank's host (→ None
-    elsewhere). Shares are gathered one tensor at a time, every rank taking
-    part; a rank keeps none of them on its device past its host copy (lead)
-    or past the gather (the others)."""
-    fsdp = sharding.fsdp_of(state.model)
-    if fsdp is not None:
-        model = fsdp.full_state_dict(to_host=lead, keep=lead)
+    elsewhere). Shares and model-axis parts are gathered one tensor at a
+    time, every rank taking part; a rank keeps none of them on its device
+    past its host copy (lead) or past the gather (the others)."""
+    if sharding.sharded(state.model):
+        model = sharding.full_state_dict(state.model, to_host=lead, keep=lead)
     else:
         model = _host_copy(state.model.state_dict()) if lead else None
     opt = state.optimizer.named_state(to_host=lead, keep=lead)
@@ -178,9 +179,8 @@ def restore_checkpoint(path: str | Path, state, device: DeviceLike = None):
     path = Path(path).resolve()
     sharded = _sharded(state)
     snap = _load(path, torch.device("cpu") if sharded else resolve_device(device))
-    fsdp = sharding.fsdp_of(state.model)
-    if fsdp is not None:
-        fsdp.load_full_state_dict(snap["model"])
+    if sharding.sharded(state.model):
+        sharding.load_full_state_dict(state.model, snap["model"])
     else:
         state.model.load_state_dict(snap["model"], strict=True)
     state.optimizer.load_named_state(snap["optimizer"])

@@ -2,7 +2,9 @@
 
 The port's own copy of bench.py:39-71 `flops_forward_per_clip` (the port
 imports nothing of oatx or bench.py). A train step is taken as 3× the
-forward (backward = 2× forward); the optimizer is not counted.
+forward (backward = 2× forward); the optimizer is not counted. Under a
+model axis of mp ranks each rank does 1/mp of a clip's products: a rank's
+MFU is that share over one card's peak.
 """
 
 from __future__ import annotations

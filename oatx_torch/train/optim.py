@@ -24,10 +24,13 @@ each sharded parameter only: it takes its share of the parameter and of
 the (already averaged) gradient, updates that share, and all-gathers the
 updated shares into the whole parameter, which every rank holds. Under
 `fsdp` the parameters themselves are shares (`sharding.place`), so the update
-runs on them as on whole tensors. Either way the clip and `grad_norm` read
-the norm of the whole gradient: the squares of the shares summed over the
-data axis, plus the replicated gradients once, the same value on every
-rank. `named_state` / `load_named_state` keep the schema of whole tensors,
+runs on them as on whole tensors. Under a model axis (parallel/sharding.py)
+a split parameter is the rank's part of the whole, and its moments are too.
+Either way the clip and `grad_norm` read the norm of the whole gradient: the
+squares of the data-axis shares summed over the data axis, those of the
+model-axis parts summed over the model group, and the replicated gradients
+counted once, the same value on every rank (optax's global norm of the
+whole tree). `named_state` / `load_named_state` keep the schema of whole tensors,
 gathering and slicing one tensor at a time.
 
 `make_optimizer` returns a factory: call it with `model.named_parameters()`
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from oatx_torch.parallel import collectives as coll
+from oatx_torch.parallel import sharding
 
 Schedule = Callable[[int], float]
 PathFilter = Callable[[Tuple[str, ...]], bool]
@@ -111,6 +115,12 @@ def _share_of(p: torch.Tensor):
     return getattr(p, "_oatx_shard", None)
 
 
+def _split_of(p: torch.Tensor):
+    """The ModelShard a parameter is this rank's part of (a model axis), or
+    None."""
+    return getattr(p, "_oatx_tp", None)
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """1 − decay^count in f32, as optax computes it. With decay 0.999 the
     subtraction cancels most digits (at count 5 the f32 value is 1.2e-5 off
@@ -158,9 +168,11 @@ class AdamW(torch.optim.Optimizer):
         params = self.param_groups[0]["params"]
         if grads is None:
             grads = [p.grad for p in params]
-        whole = [g for p, g in zip(params, grads) if g is not None and _share_of(p) is None]
-        shares = [(g, _share_of(p)) for p, g in zip(params, grads)
-                  if g is not None and _share_of(p) is not None]
+        live = [(p, g) for p, g in zip(params, grads) if g is not None]
+        if any(_split_of(p) is not None for p, _ in live):
+            return self._split_norm(live)
+        whole = [g for p, g in live if _share_of(p) is None]
+        shares = [(g, _share_of(p)) for p, g in live if _share_of(p) is not None]
         if not shares:
             return global_norm(whole) if whole else torch.zeros(
                 (), device=params[0].device)
@@ -169,6 +181,29 @@ class AdamW(torch.optim.Optimizer):
         if whole:
             sq = sq + global_norm(whole).square()
         return sq.sqrt()
+
+    @staticmethod
+    def _split_norm(live) -> torch.Tensor:
+        """grad_norm under a model axis: [split, replicated] squares of the
+        data-axis shares summed over the data axis, then the split ones'
+        over the model group, the replicated whole gradients once."""
+        def sq(gs):
+            if not gs:
+                return torch.zeros((), device=live[0][1].device)
+            return torch.stack(torch._foreach_norm([g.float() for g in gs])).square().sum()
+
+        parts = {(split, share): [g for p, g in live
+                                  if (_split_of(p) is not None) == split
+                                  and (_share_of(p) is not None) == share]
+                 for split in (True, False) for share in (True, False)}
+        shared = torch.stack([sq(parts[True, True]), sq(parts[False, True])])
+        spec = next((_share_of(p) for p, _ in live if _share_of(p) is not None), None)
+        if spec is not None:
+            coll.all_reduce_sum(shared, "norm", spec.group)
+        split = sq(parts[True, False]) + shared[0]
+        coll.all_reduce_sum(split, "norm", next(_split_of(p) for p, _ in live
+                                                if _split_of(p) is not None).group)
+        return (split + shared[1] + sq(parts[False, False])).sqrt()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -237,8 +272,8 @@ class AdamW(torch.optim.Optimizer):
     def named_state(self, to_host: bool = False,
                     keep: bool = True) -> Optional[Dict[str, object]]:
         """{'count', 'mu', 'nu'[, 'ema']}, the moments keyed by parameter name,
-        whole: a rank's shares are gathered one tensor at a time (every rank
-        must call it then); `to_host` copies each to the CPU. `keep=False`
+        whole: a rank's shares and model-axis parts are gathered one tensor
+        at a time (every rank must call it then); `to_host` copies each to the CPU. `keep=False`
         (a rank that writes no snapshot): take part in each gather, keep
         nothing, → None."""
         group = self.param_groups[0]
@@ -248,9 +283,8 @@ class AdamW(torch.optim.Optimizer):
                 continue
             out[key] = {}
             for i, (n, p) in enumerate(zip(self.names, group["params"])):
-                t, spec = self.state[p][key], self._spec(i, p)
-                if spec is not None:
-                    t = spec.gather(t, "state_gather")
+                t = sharding.held_whole(self.state[p][key], p, "state_gather",
+                                        self._spec(i, p))
                 if keep:
                     out[key][n] = t.to("cpu", copy=True) if to_host else t
         return out if keep else None
@@ -273,9 +307,8 @@ class AdamW(torch.optim.Optimizer):
             if key == "ema" and not self.ema_decay:
                 continue
             for i, (n, p) in enumerate(zip(self.names, group["params"])):
-                spec = self._spec(i, p)
-                src = state[key][n]
-                self.state[p][key].copy_(spec.take(src) if spec is not None else src)
+                self.state[p][key].copy_(sharding.held_part(state[key][n], p,
+                                                            self._spec(i, p)))
 
 
 def make_optimizer(lr: Union[float, Schedule] = 2e-4, weight_decay: float = 0.01,

@@ -51,6 +51,16 @@ the wire when given). The augmenter draws for the global batch
 (data/transforms.py). Without a group, or with one rank, none of this runs:
 the step is the one-device step.
 
+Under a model axis (parallel/mesh.py, `model_parallel` mp; the model split
+by `sharding.place`) the ranks of one model group hold the same rows and
+compute the same loss, each on its part of the weights (parallel/
+tensor.py): the gathers, region_mem's mean and the gradient mean run over
+the batch group (the ranks at this rank's model rank, one per data
+position), the augmenter draws for the data position's rows, and after the
+backward the gradients a model rank holds in part are summed over the
+model group after that mean (`sharding.reduce_model_partials`; an fsdp
+share's too: the model ranks' shares of it cover the same elements).
+
 Sharded state (parallel/sharding.py): under `zero1` the step is the one
 above and the optimizer updates its shares. Under `fsdp` (a model put in
 place by `sharding.place`) the forward and backward run inside
@@ -125,8 +135,8 @@ def _outputs(model: DualTower, batch: Batch) -> Dict[str, torch.Tensor]:
 
 
 def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
-            fwd_chunk: Optional[int] = None,
-            gather: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            fwd_chunk: Optional[int] = None, gather: bool = False,
+            group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, metrics) of the model's variant on a batch of tensors on the
     model's device: 'video' (B, F, H, W, C) normalized frames, 'input_ids'
     (B, L), optional 'attention_mask', and the variant's extras
@@ -134,8 +144,9 @@ def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
     on sub-batches of that size (B must divide by it), the loss over all
     B. `gather` (oatx's gather_axes): the batch is this rank's rows; every
     cross-batch loss input is gathered across the ranks and region_mem's
-    BCE averaged over them (module docstring)."""
-    g = coll.all_gather_rows if gather else (lambda x: x)
+    BCE averaged over them (module docstring), over `group` (default: all
+    ranks)."""
+    g = (lambda x: coll.all_gather_rows(x, group)) if gather else (lambda x: x)
     if fwd_chunk:
         out = scan_chunked(lambda mb: ckpt.checkpoint(_outputs, model, mb, use_reentrant=False),
                            fwd_chunk)(batch)
@@ -168,7 +179,7 @@ def loss_fn(model: DualTower, loss_cfg: LossConfig, batch: Batch,
         l_region = C.region_bce(out["region_sim_logits"], batch["patch_masks"])
         terms = {
             "loss_nce": _pair_loss(C.sim_matrix(g(out["text_embeds"]), video_e), loss_cfg),
-            "loss_region": coll.mean_across_ranks(l_region) if gather else l_region,
+            "loss_region": coll.mean_across_ranks(l_region, group) if gather else l_region,
         }
         loss = terms["loss_nce"] + loss_cfg.region_bce_weight * terms["loss_region"]
     return loss, {"loss": loss.detach(), **{k: v.detach() for k, v in terms.items()}}
@@ -200,19 +211,20 @@ def key_generator(gen: torch.Generator, i: int) -> torch.Generator:
 
 
 def make_augmenter(transform_cfg: Optional[T.TransformConfig] = None, train: bool = True,
-                   tower_cfg: Optional[TowerConfig] = None):
+                   tower_cfg: Optional[TowerConfig] = None, layout=None):
     """`augment(generator, batch) → batch`: uint8 'video' / 'object_frame'
     become normalized f32 on the batch's device, through train_augment (from
     `key_generator(generator, i)`) or the eval transform. The output
     resolution follows the tower's img_size when tower_cfg is given (oatx
-    make_augmenter). Under a process group of several ranks each rank draws
-    for the global batch and keeps its rows (data/transforms.py)."""
+    make_augmenter). Under a process group of several data positions
+    (`layout`, default: the current group's) each rank draws for the global
+    batch and keeps its position's rows (data/transforms.py)."""
     if transform_cfg is None:
         res = tower_cfg.video.img_size if tower_cfg is not None else 224
         transform_cfg = T.TransformConfig(input_res=res)
     tcfg = transform_cfg
-    layout = current_layout()
-    shard = (layout.rank, layout.world) if layout.spans_processes else None
+    layout = layout or current_layout()
+    shard = (layout.position, layout.batch_shards) if layout.batch_shards > 1 else None
 
     def augment(gen: torch.Generator, batch: Dict[str, torch.Tensor]):
         out = dict(batch)
@@ -242,15 +254,17 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
     micro-batches (negatives then span a micro-batch, as in oatx);
     `fwd_chunk` keeps full-batch negatives (loss_fn). The process group
     set up when the step is built (parallel/mesh.py) takes the place of
-    oatx's `mesh` / `manual_axes`: with several ranks the batch is this
-    rank's rows and the step is data-parallel (module docstring), the
-    gradients reduced in `grad_reduce_dtype` when given; with one rank it is
-    unused."""
+    oatx's `mesh` / `manual_axes`: with several data positions (the layout
+    `sharding.place` put the model on) the batch is this position's rows
+    and the step is data-parallel (module docstring), the gradients reduced
+    in `grad_reduce_dtype` when given; with one it is unused."""
     dev = resolve_device(device)
-    dp = current_layout().spans_processes
 
     def step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
+        layout = sharding.layout_of(model)
+        dp = layout.batch_shards > 1
+        group = coll.batch_group(layout) if dp else None
         batch = _to_device(batch, dev)
         if augment is not None:
             gen = torch.Generator(dev).manual_seed(_step_seed(base_seed, state.step))
@@ -269,7 +283,7 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
         sums: Dict[str, torch.Tensor] = {}
         with sharding.gathered(model):
             for mb in micro:
-                loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk, gather=dp)
+                loss, m = loss_fn(model, loss_cfg, mb, fwd_chunk, gather=dp, group=group)
                 loss.backward()
                 for k, v in m.items():
                     sums[k] = sums[k] + v if k in sums else v
@@ -281,7 +295,8 @@ def make_train_step(cfg: TowerConfig, loss_cfg: LossConfig,
             if len(micro) > 1:
                 torch._foreach_div_(grads, float(len(micro)))
             if dp:
-                coll.reduce_gradients(model.parameters(), grad_reduce_dtype)
+                coll.reduce_gradients(model.parameters(), grad_reduce_dtype, group=group)
+        sharding.reduce_model_partials(model)
         metrics["grad_norm"] = opt.grad_norm()
         if skip_nonfinite:
             ok = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(metrics["grad_norm"]))
@@ -350,8 +365,9 @@ def init_state(cfg: TowerConfig, optimizer: Callable[..., AdamW],
                shard_mode: Optional[str] = None, layout=None) -> TrainState:
     """A fresh TrainState: the tower on `device` (CUDA unless the caller
     names another; random init from `generator`, or `state_dict` loaded
-    strictly), placed by `shard_mode` ('fsdp' | 'zero1') on `layout`
-    (default: the current group's, one slice; parallel/sharding.py), and
+    strictly), split over `layout`'s model axis and placed by `shard_mode`
+    ('fsdp' | 'zero1') on its data axis (default layout: the current
+    group's, one slice, no model axis; parallel/sharding.py), and
     `optimizer` (train/optim.make_optimizer) built over its named
     parameters."""
     model = DualTower(cfg, device, generator)

@@ -49,10 +49,22 @@ about and ignored, as in oatx (:279-292, 301-318), and the validation
 forwards run in step on every rank (each weight is gathered at its use).
 Without a group, or with one rank, this is oatx on a 1-device mesh: `fsdp`,
 `zero1` and `dp_mode: auto` shard or reduce over a 1-wide data axis and are
-no-ops; `model_parallel` > 1 and `pipeline` raise NotImplementedError
-(ROADMAP A8b); `dp_mode: manual` with one rank or with `fsdp`, `pipeline`
-with `fsdp`, and `dcn_slices` that do not divide the ranks raise
-ValueError, as in oatx.
+no-ops; `pipeline` raises NotImplementedError (ROADMAP A8b, pipeline
+stages); `dp_mode: manual` with one batch shard, with `fsdp` or under a
+model axis, `pipeline` with `fsdp`, and `model_parallel` × `dcn_slices`
+that do not divide the ranks raise ValueError, as in oatx.
+
+With `model_parallel` mp > 1 (parallel/mesh.py) the mp ranks of a data
+position form a model group: the towers are split over it after the init
+(and the broadcast of rank 0's whole values), and again by a resume, which
+splits the whole tensors of any snapshot (parallel/sharding.py; `fsdp` and
+`zero1` then shard each rank's part over the data axis). A model group
+reads one shard of the loaders (cli/train.py: shards by data position),
+so the global batch is batch_size × world / mp. Validation gathers over
+the ranks at one model rank; `fwd_chunk` is warned about and ignored when
+the batch is also split across positions, and `grad_reduce_dtype` always,
+as oatx gates them (:279-318). A rank does 1/mp of a step's FLOPs
+(train/flops.py).
 """
 
 from __future__ import annotations
@@ -104,7 +116,7 @@ class Trainer:
         self.exp = exp
         t = exp.trainer
         meshlib.check_layout(t)
-        self.layout = layout = meshlib.current_layout(t.dcn_slices)
+        self.layout = layout = meshlib.current_layout(t.dcn_slices, t.model_parallel)
         lead = layout.rank == 0
         self.device = dev = resolve_device(device)
         self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity, layout.rank)
@@ -168,7 +180,8 @@ class Trainer:
             ema_decay=t.ema_decay or None, kind=exp.optimizer.type)
 
         # fresh init → optional reference-checkpoint import → rank 0's values
-        # everywhere → placed (fsdp, else zero1; oatx :186-197) → AdamW over it
+        # everywhere → split over the model axis and placed (fsdp, else
+        # zero1; oatx :186-197) → AdamW over it
         model = DualTower(self.tower_cfg, dev, torch.Generator(dev).manual_seed(t.seed))
         if exp.arch.load_checkpoint:
             self.logger.info("importing initial weights from %s", exp.arch.load_checkpoint)
@@ -182,14 +195,24 @@ class Trainer:
         self.state = steplib.TrainState(
             model, self.optimizer(model.named_parameters(),
                                   zero1=shards if self.shard_mode == "zero1" else None), 0)
-        if self.shard_mode and layout.spans_processes:
-            want = sharding.state_bytes(shapes, layout.data_size, self.shard_mode,
-                                        ema=bool(t.ema_decay))
+        if layout.model_parallel > 1:
+            split = sum(getattr(p, "_oatx_tp", None) is not None for p in model.parameters())
             self.logger.info(
-                "%s over a data axis of %d (x %d dcn slices): %d of %d parameters "
-                "sharded, %.3f GB of state a rank (replicated: %.3f GB, padding %d B)",
-                self.shard_mode, layout.data_size, layout.dcn_slices, len(shards),
-                len(shapes), want["bytes"] / 1e9, want["replicated"] / 1e9, want["padding"])
+                "tensor parallel over a model axis of %d (rank %d of position %d, "
+                "sequence_parallel %s): %d of %d parameters split; global batch = "
+                "batch_size x %d positions", layout.model_parallel, layout.model_rank,
+                layout.position, self.tower_cfg.video.sequence_parallel, split, len(shapes),
+                layout.batch_shards)
+        if (self.shard_mode and layout.spans_processes) or layout.model_parallel > 1:
+            mode = self.shard_mode if layout.spans_processes else None
+            want = sharding.state_bytes(shapes, layout.data_size, mode, ema=bool(t.ema_decay),
+                                        model_parallel=layout.model_parallel)
+            self.logger.info(
+                "%s over a data axis of %d (x %d dcn slices, x %d model ranks): %d of %d "
+                "parameters sharded, %.3f GB of state a rank (replicated: %.3f GB, "
+                "padding %d B)", mode or "replicated", layout.data_size, layout.dcn_slices,
+                layout.model_parallel, len(shards), len(shapes), want["bytes"] / 1e9,
+                want["replicated"] / 1e9, want["padding"])
 
         self.start_epoch = 1
         self._resume_cycle = 0
@@ -221,10 +244,11 @@ class Trainer:
         self.augment = steplib.make_augmenter(
             transform_cfg=TransformConfig(input_res=self.tower_cfg.video.img_size,
                                           host_precropped=any(precropped)),
-            train=True, tower_cfg=self.tower_cfg)
+            train=True, tower_cfg=self.tower_cfg, layout=layout)
         fwd_chunk = t.fwd_chunk or None
         fsdp_across = t.fsdp and layout.spans_processes
-        if fwd_chunk and fsdp_across:
+        split_across = layout.model_parallel > 1 and layout.batch_shards > 1
+        if fwd_chunk and (fsdp_across or split_across):
             self.logger.warning("fwd_chunk=%d ignored: shard_map fwd_chunk needs replicated "
                                 "params (model_parallel=1, no fsdp/pipeline)", fwd_chunk)
             fwd_chunk = None
@@ -234,7 +258,7 @@ class Trainer:
         # data parallelism: one reduction per gradient after the backward
         # (step.py); grad_reduce_dtype on the manual path only (oatx :296-318)
         dp_mode = t.dp_mode or "auto"
-        pure_dp = layout.spans_processes and not t.fsdp
+        pure_dp = layout.batch_shards > 1 and not t.fsdp and layout.model_parallel == 1
         manual = pure_dp and dp_mode != "gspmd"
         grd = t.grad_reduce_dtype or ""
         if grd and not manual:
@@ -245,6 +269,9 @@ class Trainer:
         if pure_dp:
             self.logger.info("data-parallel gradients: one mean over %d ranks%s",
                              layout.world, f" in {grd}" if grd else "")
+        elif layout.batch_shards > 1 and not t.fsdp:
+            self.logger.info("data-parallel gradients: one mean over the %d ranks of each "
+                             "model rank", layout.batch_shards)
         self.train_step = steplib.make_train_step(
             self.tower_cfg, self.loss_cfg, augment=self.augment, base_seed=t.seed + 1,
             accum_steps=t.accum_steps, skip_nonfinite=t.skip_nonfinite,
@@ -515,7 +542,7 @@ class Trainer:
         log: Dict[str, float] = {}
         model = self.state.model
         multiple = max((l.batch_size for l in self.valid_loaders), default=1)
-        multiple = max(multiple, meshlib.batch_shards())  # oatx :648-649
+        multiple = max(multiple, self.layout.batch_shards)  # oatx :648-649
         in_step = sharding.fsdp_of(model) is not None
         for vi, loader in enumerate(self.valid_loaders):
             texts, vids = [], []
@@ -537,10 +564,12 @@ class Trainer:
                                  "the others (fewer samples than ranks)")
             for _ in range(max(n_fwd, 0)):
                 self.eval_step(model, batch)
-            if self.layout.spans_processes:
-                # every rank's valid rows, rank after rank (oatx _gather_valid)
-                texts = [coll.all_gather_ragged(self._rows(texts, "text"))]
-                vids = [coll.all_gather_ragged(self._rows(vids, "video"))]
+            if self.layout.batch_shards > 1:
+                # every position's valid rows, one after another (oatx
+                # _gather_valid), over the ranks at this model rank
+                group = coll.batch_group(self.layout)
+                texts = [coll.all_gather_ragged(self._rows(texts, "text"), group)]
+                vids = [coll.all_gather_ragged(self._rows(vids, "video"), group)]
                 if not len(texts[0]):
                     texts = []
             if not texts:

@@ -103,6 +103,37 @@ def test_ln_mlp_kernel_takes_gathered_fsdp_weights(card):
     assert torch.equal(outs[0], outs[1])
 
 
+# a rank's shapes under a model axis: kernel 1 on the hidden shard (rows, D,
+# 4D/mp), kernel 2 on the local heads (B, frames, N, H/mp, Dh)
+TP_MLP = [(12560, 768, 1536), (12560, 1024, 1024), (4100, 1280, 1280)]
+TP_SA = [(16, 4, 196, 6, 64), (16, 4, 196, 4, 64), (4, 4, 256, 4, 80)]
+TP_IDS = ["vit_b_mp2", "vit_l_mp4", "vit_h_mp4"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,hidden", TP_MLP, ids=TP_IDS)
+def test_ln_mlp_kernel_on_a_hidden_shard(card, rows, d, hidden):
+    """Kernel 1 on a rank's fc1 rows and fc2 columns (ViT-B at mp 2, ViT-L
+    and ViT-H at mp 4) with a zero fc2 bias, as the model group calls it:
+    against its plain version, and against the plain chain with its bias,
+    less the bias (the group's sum adds b2 once)."""
+    g = torch.Generator(card).manual_seed(rows + hidden)
+    bf = torch.bfloat16
+    x = torch.randn(rows, d, device=card, generator=g).to(bf)
+    w1 = (torch.randn(hidden, d, device=card, generator=g) / d ** 0.5).to(bf)
+    w2 = (torch.randn(d, hidden, device=card, generator=g) / hidden ** 0.5).to(bf)
+    small = [0.1 * torch.randn(n, device=card, generator=g) for n in (d, d, hidden, d)]
+    args = (x, 1 + small[0], small[1], w1, small[2], w2, torch.zeros_like(small[3]), 1e-6)
+    before = plm.ln_mlp.launches
+    got = plm.ln_mlp(*args)
+    torch.cuda.synchronize()
+    assert plm.ln_mlp.launches == before + 1
+    torch.testing.assert_close(got.float(), plm.ln_mlp_plain(*args).float(), atol=ATOL, rtol=0)
+    whole = plm.ln_mlp_plain(*args[:6], small[3], 1e-6).float() - small[3]
+    torch.testing.assert_close(got.float(), whole, atol=ATOL + BF16_ULP * float(whole.abs().max()),
+                               rtol=0)
+
+
 def _qkv_views(card, b, frames, n, seed, heads=12, dh=64):
     """q, k, v of a (b, 1 + frames·n, 3, heads, dh) bf16 qkv tensor: k and v
     strided views of it, q a fresh tensor (the view times dh^-0.5), as the
@@ -128,6 +159,33 @@ def test_space_attention_kernel_matches_plain(card, b, frames, n):
     assert psa.space_attention.launches == before + 1
     torch.testing.assert_close(got.float(), psa.space_attention_plain(q, k, v, frames).float(),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,frames,n,heads,dh", TP_SA, ids=TP_IDS)
+def test_space_attention_kernel_on_local_heads(card, b, frames, n, heads, dh):
+    """Kernel 2 on a rank's heads under a model axis (6 of ViT-B's 12 at mp
+    2, 4 of ViT-L's and ViT-H's 16 at mp 4), k and v views into the rank's
+    qkv (its q, k, v rows of those heads), forward and backward against the
+    plain version."""
+    q, k, v = _qkv_views(card, b, frames, n, b + n + heads, heads, dh)
+    before = psa.space_attention.launches
+    got = psa.space_attention(q, k, v, frames)
+    torch.cuda.synchronize()
+    assert psa.space_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), psa.space_attention_plain(q, k, v, frames).float(),
+                               atol=ATOL, rtol=0)
+    g = torch.Generator(card).manual_seed(7)
+    dout = torch.randn(got.shape, device=card, generator=g).to(torch.bfloat16)
+    _, lse = psa._launch(q, k, v, frames, with_lse=True)
+    grads = psa.space_attention_backward(q, k, v, dout, frames, lse)
+    with torch.enable_grad():
+        leaves = [a.detach().float().requires_grad_() for a in (q, k, v)]
+        want = torch.autograd.grad(psa.space_attention_plain(*leaves, frames), leaves,
+                                   dout.float())
+    for name, a, w in zip("qkv", grads, want):
+        rel = float((a.float() - w).norm() / w.norm())
+        assert rel < 2e-2, (name, rel)
 
 
 @pytest.mark.cuda

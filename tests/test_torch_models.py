@@ -264,7 +264,22 @@ def test_unported_options_raise(change):
     `sequence_parallel` is a no-op on one device, as oatx's `_sp_constrain`
     is without a model axis: that tower builds, with the same weights and
     outputs as one without the key (tests/test_torch_pod.py holds a Dh-80
-    tower with it against oatx's `apply`)."""
+    tower with it against oatx's `apply`). `fused_mlp=False` is ported: its
+    tower runs oatx's plain LN → fc1 → GELU → fc2 chain and matches oatx's
+    `apply` with the key (f32, ATOL)."""
+    if change == dict(video=dict(fused_mlp=False)):
+        params = oatx_params(oatx_cfg())
+        cfg = oatx_cfg(fused_mlp=False, split_cls_stream=False, cls_position="first")
+        x = _video(3)
+        want = jvst.apply(params["video"], cfg.video, jnp.asarray(x))
+        pcfg = port_cfg()
+        pcfg = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video, fused_mlp=False))
+        with torch.no_grad():
+            got = port_model(params, pcfg).video_model(t(x))
+        for key in ("cls", "patches"):
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                       atol=ATOL, rtol=0, err_msg=key)
+        return
     cfg = port_cfg()
     if "video" in change:
         cfg = dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, **change["video"]))

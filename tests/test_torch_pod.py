@@ -91,7 +91,8 @@ def test_pod_configs_load_in_both_packages(name, dh):
     """Both recipes as shipped load in both packages to the same tower and
     trainer keys. With `model_parallel: 4` on one device both refuse:
     oatx's make_mesh (4 does not divide 1 device) and the port's layout
-    check (tensor parallelism, ROADMAP A8b). With 1 both accept, `fsdp` and
+    check, with oatx's wording (a model axis of 4 needs 4 processes:
+    tests/test_torch_tp_trainer.py). With 1 both accept, `fsdp` and
     `sequence_parallel` included (the port's fsdp at any world:
     tests/test_torch_shard.py)."""
     raw = _load(name)
@@ -113,7 +114,7 @@ def test_pod_configs_load_in_both_packages(name, dh):
     with pytest.raises(ValueError, match="model_parallel=4"):
         jmesh.make_mesh(n_devices=1, model_parallel=pexp.trainer.model_parallel)
     jmesh.set_current_mesh(None)
-    with pytest.raises(NotImplementedError, match="several devices.*A8b"):
+    with pytest.raises(ValueError, match="model_parallel=4"):
         pmesh.check_layout(pexp.trainer)
 
     raw["trainer"]["model_parallel"] = 1

@@ -193,13 +193,13 @@ def test_sigterm_snapshot_resumes_mid_epoch_to_the_same_parameters(tmp_path, kee
                                        ("pipeline", True), ("dp_mode", "manual"),
                                        ("dcn_slices", 2)])
 def test_multi_device_modes_raise(tmp_path, key, value):
-    """The layouts one process cannot give raise: tensor and pipeline
-    parallelism name ROADMAP A8b; `dp_mode: manual` with one batch shard and
-    `dcn_slices` that do not divide the processes raise oatx's ValueError
-    (trainer.py:306-309, make_mesh). `fsdp` on one process shards over a
-    1-wide data axis, that is, replicates, as oatx's shard_params_fsdp does
-    on a 1-device mesh: that Trainer builds and holds the same parameters as
-    one without it."""
+    """The layouts one process cannot give raise: pipeline stages name
+    ROADMAP A8b; a model axis of 2, `dp_mode: manual` with one batch shard
+    and `dcn_slices` that do not divide the processes raise oatx's
+    ValueError (trainer.py:306-309, make_mesh). `fsdp` on one process shards
+    over a 1-wide data axis, that is, replicates, as oatx's
+    shard_params_fsdp does on a 1-device mesh: that Trainer builds and holds
+    the same parameters as one without it."""
     raw = _raw(tmp_path, **{key: value})
     raw["arch"]["args"]["load_checkpoint"] = ""
     if key == "fsdp":
@@ -209,9 +209,11 @@ def test_multi_device_modes_raise(tmp_path, key, value):
         assert sorted(got) == sorted(want)
         assert all(torch.equal(got[k], want[k]) for k in want)
         return
-    if key in ("dp_mode", "dcn_slices"):
-        with pytest.raises(ValueError, match="dp_mode='manual'" if key == "dp_mode"
-                           else "not divisible by model_parallel=1 x dcn_slices=2"):
+    if key in ("dp_mode", "dcn_slices", "model_parallel"):
+        with pytest.raises(ValueError, match={
+                "dp_mode": "dp_mode='manual'",
+                "dcn_slices": "not divisible by model_parallel=1 x dcn_slices=2",
+                "model_parallel": "not divisible by model_parallel=2 x dcn_slices=1"}[key]):
             PTrainer(PExp.from_dict(raw), [], device="cpu")
         return
     with pytest.raises(NotImplementedError, match="several devices.*A8b"):
@@ -219,14 +221,14 @@ def test_multi_device_modes_raise(tmp_path, key, value):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("fsdp", True, None), ("zero1", True, None), ("model_parallel", 2, "A8b"),
+    ("fsdp", True, None), ("zero1", True, None), ("model_parallel", 2, None),
     ("pipeline", True, "A8b"), ("dcn_slices", 2, None), ("dcn_slices", 3, "dcn_slices=3"),
     ("dp_mode", "manual", None), (("fsdp", "dcn_slices"), (True, 2), None),
     (("pipeline", "fsdp"), (True, True), "pipeline and trainer.fsdp"),
     (("dp_mode", "fsdp"), ("manual", True), "dp_mode='manual'")])
 def test_layout_checks_across_two_processes(tmp_path, key, value, error):
-    """At a world of 2 the sharded modes run (fsdp also inside dcn slices);
-    tensor parallelism and pipeline stages raise naming ROADMAP A8b; dcn
+    """At a world of 2 the sharded modes and a model axis of 2 run (fsdp
+    also inside dcn slices); pipeline stages raise naming ROADMAP A8b; dcn
     slices must divide the world (oatx's make_mesh); dp_mode 'manual' is
     plain data parallelism; pipeline with fsdp and dp_mode 'manual' with
     fsdp raise ValueError with oatx's wording."""

@@ -40,6 +40,24 @@ test wrote:
                the whole gradients; at the end the whole parameters and
                optimizer state, the held and predicted state bytes, each
                share's size and the collectives' traffic;
+  tp           {'cases': {name: shard's case keys + 'mp' (the model axis'
+               width)}}: shard's steps on the rows of the rank's data
+               position, the model split over its model group
+               (parallel/sharding.py): per step the metrics; after step 1
+               the whole gradients (shares and model-axis parts gathered)
+               and the traffic; at the end the whole parameters and
+               optimizer state, the held and predicted state bytes, the
+               split parameters' names; with 'saved' the bytes of the video
+               blocks' inputs that the first forward saves for the backward
+               (saved_tensors_hooks);
+  tp_trainer   {'jobs': [{'raw', 'save_dir', 'resume', 'min_size'}], 'clips', 'batch'
+               (per data position), 'log_dir', 'eval_augment'}: Trainer.train()
+               per job over the shard of MemoryClips of the rank's data
+               position (the model peers read the same rows), with the
+               eval transform in place of train_augment when
+               'eval_augment'; records each step's loss terms and
+               input_ids, the whole state the Trainer holds once built
+               (after a resume: what it restored) and at the end;
   shard_trainer {'jobs': [{'raw', 'save_dir', 'resume', 'min_size'}], 'clips',
                'batch', 'log_dir'}: Trainer.train() per job over the rank's
                shard of MemoryClips (with 'global_batches' as in trainer),
@@ -207,14 +225,12 @@ def trainer(p, rank, world):
 
 
 def _whole_grads(model):
-    """Every parameter's gradient, whole (fsdp shares gathered)."""
-    out = {}
-    for n, q in model.named_parameters():
-        if q.grad is None:
-            continue
-        spec = getattr(q, "_oatx_shard", None)
-        out[n] = (spec.gather(q.grad, "test") if spec is not None else q.grad).clone()
-    return out
+    """Every parameter's gradient, whole (fsdp shares and model-axis parts
+    gathered)."""
+    from oatx_torch.parallel import sharding
+
+    return {n: sharding.held_whole(q.grad, q, "test").clone()
+            for n, q in model.named_parameters() if q.grad is not None}
 
 
 def shard(p, rank, world):
@@ -247,9 +263,7 @@ def shard(p, rank, world):
                 rec["traffic_step1"] = {k: dict(v) for k, v in coll.TRAFFIC.items()}
                 rec["grads"] = _whole_grads(model)
                 rec["held"] = sharding.held_bytes(model, opt)
-        fsdp = sharding.fsdp_of(model)
-        rec["params"] = fsdp.full_state_dict() if fsdp else dict(model.state_dict())
-        rec["params"] = {k: v.clone() for k, v in rec["params"].items()}
+        rec["params"] = {k: v.clone() for k, v in sharding.full_state_dict(model).items()}
         rec["opt"] = opt.named_state()
         rec["predicted"] = sharding.state_bytes(shapes, layout.data_size, case["mode"],
                                                 ema=bool(opt.ema_decay))
@@ -260,6 +274,83 @@ def shard(p, rank, world):
                                                       opt.zero1) if spec is not None}
         rec["share_values"] = {n: q.detach().clone() for n, q in model.named_parameters()
                                if hasattr(q, "_oatx_shard")}
+        rec["step"] = state.step
+        out[name] = rec
+    return out
+
+
+def _saved_block_inputs(model, batch, loss_cfg):
+    """Bytes of the video blocks' inputs among the tensors the loss's
+    forward saves for the backward (a block input is what a forward
+    pre-hook of a block sees)."""
+    from oatx_torch.train import step as steplib
+
+    inputs, packed = set(), []
+    hooks = [blk.register_forward_pre_hook(
+        lambda m, args: inputs.add(args[0].untyped_storage().data_ptr()))
+        for blk in model.video_model.blocks]
+
+    def pack(t):
+        packed.append((t.untyped_storage().data_ptr(), t.numel() * t.element_size()))
+        return t
+
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = steplib.loss_fn(model, loss_cfg, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return sum(n for ptr, n in packed if ptr in inputs)
+
+
+def tp(p, rank, world):
+    from oatx_torch.parallel import mesh, sharding
+    from oatx_torch.train import optim
+    from oatx_torch.train import step as steplib
+
+    out = {}
+    for name, case in p["cases"].items():
+        sharding.FSDP_MIN_SIZE = case["min_size"]
+        layout = mesh.current_layout(case.get("dcn", 1), case["mp"])
+        opt_kw = dict(case.get("opt", {}))
+        state = steplib.init_state(case["cfg"], optim.make_optimizer(**opt_kw),
+                                   device="cpu", state_dict=case["state_dict"],
+                                   shard_mode=case["mode"], layout=layout)
+        fn = steplib.make_train_step(case["cfg"], case["loss_cfg"], device="cpu",
+                                     **case.get("step", {}))
+        model, opt = state.model, state.optimizer
+        shapes = {k: tuple(v.shape) for k, v in case["state_dict"].items()}
+        rec = {"metrics": [], "layout": {"position": layout.position,
+                                         "model_rank": layout.model_rank,
+                                         "batch_shards": layout.batch_shards}}
+
+        def rows(b):
+            return {k: torch.from_numpy(np.array_split(v, layout.batch_shards)[layout.position])
+                    for k, v in b.items()}
+
+        if case.get("saved"):
+            rec["saved_block_inputs"] = _saved_block_inputs(model, rows(case["batches"][0]),
+                                                            case["loss_cfg"])
+            model.zero_grad(set_to_none=True)
+        coll.reset_traffic()
+        for i, b in enumerate(case["batches"]):
+            state, m = fn(state, rows(b))
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                rec["traffic_step1"] = {k: dict(v) for k, v in coll.TRAFFIC.items()}
+                rec["grads"] = _whole_grads(model)
+                rec["held"] = sharding.held_bytes(model, opt)
+                rec["batch_rows"] = rows(b)["input_ids"].clone()
+        rec["params"] = sharding.full_state_dict(model)
+        rec["opt"] = opt.named_state()
+        rec["predicted"] = sharding.state_bytes(shapes, layout.data_size, case["mode"],
+                                                ema=bool(opt.ema_decay),
+                                                model_parallel=layout.model_parallel)
+        rec["split"] = sorted(n for n, q in model.named_parameters()
+                              if getattr(q, "_oatx_tp", None) is not None)
+        rec["replicated_values"] = {n: q.detach().clone() for n, q in model.named_parameters()
+                                    if getattr(q, "_oatx_tp", None) is None
+                                    and getattr(q, "_oatx_shard", None) is None}
         rec["step"] = state.step
         out[name] = rec
     return out
@@ -338,14 +429,61 @@ def shard_trainer(p, rank, world):
         tr.train_step = recorded
         hist = tr.train()
         model, opt = tr.state.model, tr.state.optimizer
-        fsdp = sharding.fsdp_of(model)
-        params = fsdp.full_state_dict() if fsdp else model.state_dict()
+        params = sharding.full_state_dict(model)
         named = opt.named_state()
         out.append({"steps": steps, "hist": hist, "init_val": tr.init_val_log,
                     "params": {k: v.clone() for k, v in params.items()},
                     "ema": {k: v.clone() for k, v in named.get("ema", {}).items()},
                     "held": sharding.held_bytes(model, opt), "saves": saves[first_save:],
                     "shares": sum(hasattr(q, "_oatx_shard") for q in model.parameters())})
+    return out
+
+
+def _whole_state(state):
+    """The model's and AdamW's state, whole (every rank calls it)."""
+    from oatx_torch.parallel import sharding
+
+    return {"model": {k: v.clone() for k, v in sharding.full_state_dict(state.model).items()},
+            "optimizer": state.optimizer.named_state(to_host=True)}
+
+
+def tp_trainer(p, rank, world):
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data.loader import Collator, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.parallel import mesh, sharding
+    from oatx_torch.train import step as steplib
+    from oatx_torch.train.trainer import Trainer
+    from torch_port_clips import MemoryClips
+
+    if p.get("eval_augment"):
+        make = steplib.make_augmenter
+        steplib.make_augmenter = lambda *a, **kw: make(train=False, tower_cfg=kw["tower_cfg"])
+    ds = MemoryClips(**p["clips"])
+    col = Collator(WordPieceTokenizer.build_from_corpus(ds.captions, vocab_size=100),
+                   max_text_len=10)
+    out = []
+    for job in p["jobs"]:
+        sharding.FSDP_MIN_SIZE = job.get("min_size", sharding.FSDP_MIN_SIZE)
+        exp = ExperimentCfg.from_dict(job["raw"])
+        layout = mesh.current_layout(exp.trainer.dcn_slices, exp.trainer.model_parallel)
+        train = [ShardedLoader(ds, p["batch"], col, seed=0, num_workers=1,
+                               shard_id=layout.position, num_shards=layout.batch_shards)]
+        tr = Trainer(exp, train, [], save_dir=job["save_dir"], log_dir=p["log_dir"],
+                     resume=job.get("resume"), device="cpu")
+        built = _whole_state(tr.state)
+        inner, steps, ids = tr.train_step, [], []
+
+        def recorded(state, b, inner=inner, steps=steps, ids=ids):
+            ids.append(torch.as_tensor(np.asarray(b["input_ids"])).clone())
+            state, m = inner(state, b)
+            steps.append({k: float(v) for k, v in m.items() if k.startswith("loss")})
+            return state, m
+
+        tr.train_step = recorded
+        tr.train()
+        out.append({"steps": steps, "input_ids": ids, "built": built,
+                    "final": _whole_state(tr.state), "position": layout.position})
     return out
 
 
@@ -358,7 +496,8 @@ def main():
     try:
         payload = torch.load(src, weights_only=False)
         out = {"collectives": collectives, "step": step, "trainer": trainer,
-               "shard": shard, "shard_trainer": shard_trainer}[mode](
+               "shard": shard, "shard_trainer": shard_trainer, "tp": tp,
+               "tp_trainer": tp_trainer}[mode](
             payload, rank, world)
         torch.save(out, f"{dst}.rank{rank}")
     finally:
