@@ -5,7 +5,8 @@
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
-                          [--only-tp] [--dp-nccl] [--tp-nccl]
+                          [--only-tp] [--only-pp] [--dp-nccl] [--tp-nccl]
+                          [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -22,11 +23,13 @@ tree's. --sweep-query-splits also times kernel 2's forward at 1-4 blocks
 per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
---only-dp phase 10, --only-shard phase 11, --only-tp phase 12 (no record,
-no `ok` line). --dp-nccl runs phase 10 (b) and then phase 11's pod recipes
+--only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
+phase 13 (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then phase 11's pod recipes
 alone with one rank per visible card over NCCL (2 or more cards).
 --tp-nccl runs the pod recipes as shipped (model_parallel 4) with a rank
 on each of 4 cards over NCCL (TP_NCCL_RUNS; no record, no `ok` line).
+--pp-nccl runs the pod recipes with pipeline true on their 4 stages, a rank
+on each of 4 cards over NCCL (PP_NCCL_RUNS; no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
@@ -269,6 +272,39 @@ printed):
      over NCCL: per rank peak GiB, step ms, MFU (a rank's FLOPs over one
      card's peak) and idle share (a 2-step trace), beside each recipe in
      one process at model_parallel 1 on cuda:0 at the same batch.
+ 13. pp — pipeline stages over the model axis (parallel/pipeline.py, the
+     stage placement of parallel/sharding.py, `trainer.pipeline`). First
+     kernels 1 and 2 (forward and backward) at a stage's micro-batch shapes
+     of the pod recipes (PP_MLP, PP_SA: ViT-L/16 at 4 rows of 785 tokens,
+     ViT-H/14 at 1 row of 1025; ViT-B/16's at norm.json's 16 over 4
+     micro-batches are phase 2's record shapes) against their plain
+     versions, with ms, bound, plain and library ms (the `pp` key of each
+     kernel's record). Then PP_WORLD ranks on cuda:0 over gloo, this script
+     started again with --dp-rank and --dp-phase pp: phase 12's probe plus
+     the pipeline's own sends and broadcast on CUDA tensors (over gloo a
+     send crosses the host); then norm.json with pipeline true at
+     model_parallel PP_WORLD and PP_MICRO micro-batches, one pipeline group
+     at PP_BATCH, through Trainer.train(): PP_STEPS steps with a validation
+     and a snapshot, one step with fused_qkv true (kernel 3 on each stage)
+     and one under zero1. Each against one process at PP_BATCH on the same
+     rows: step 1's loss terms within PP_LOSS_RTOL, step 1's whole
+     gradients (the other stage's blocks gathered) by grad_check, the
+     stages' replicated parameters bitwise equal after every step, each
+     rank's held state bytes exactly sharding.state_bytes(pipeline=True),
+     the pp_* bytes (pp_send, pp_grad, pp_bcast, pp_embed, pp_host) exactly
+     pp_traffic's, kernels 1, 2 and 2's backward launched L/P × M = 24
+     times a step a rank, every launch as derived (validation's included),
+     the snapshot restored by one process bitwise, then training on, and
+     the ranks' validation embeddings within PP_EVAL_MIN_COSINE of that
+     process's on the same (restored) weights.
+     With --pp-nccl (4 cards): vit_huge_pod.json and vit_large_pod.json
+     with pipeline true at their model_parallel 4 (fsdp and
+     sequence_parallel off, as oatx requires), a rank a card over NCCL:
+     per rank peak GiB, step ms, MFU (a rank's 1/4 of the FLOPs over one
+     card's peak), idle share and device ms by group (NCCL's send / receive
+     kernels among them) from a 2-step trace, the derived bubble (P − 1) /
+     (M + P − 1), beside each recipe in one process at model_parallel 1
+     on cuda:0 at the same batch.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -368,7 +404,9 @@ KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_",)),
                  ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
                  ("softmax", ("softmax",)),
                  ("conv", ("conv", "implicit")),
-                 ("memcpy", ("memcpy",)))
+                 ("memcpy", ("memcpy",)),
+                 ("nccl_p2p", ("sendrecv",)),
+                 ("nccl", ("nccl",)))
 
 
 def sh(cmd):
@@ -3402,16 +3440,23 @@ def dp_data(name, exp, base, tmp):
 
 def whole(model, tensors, to_host):
     """{name: tensor} of `model`'s parameters (or their gradients), fsdp
-    shares and model-axis parts gathered whole (every rank calls it); on
-    the host if `to_host`."""
+    shares and model-axis parts gathered whole, other pipeline stages'
+    blocks from their ranks (every rank calls it); on the host if
+    `to_host`."""
     from oatx_torch.parallel import sharding
 
+    params = dict(model.named_parameters())
+    stages = sharding.stage_plan_of(model)
     out = {}
-    for n, p in model.named_parameters():
-        t = tensors(p)
-        if t is None:
+    for n in (stages.params if stages is not None else params):
+        p = params.get(n)
+        t = tensors(p) if p is not None else None
+        if stages is not None and stages.owner(n) is not None:  # from its stage
+            t = stages.fetch(n, None if t is None else t.detach())
+        elif t is None:
             continue
-        t = sharding.held_whole(t.detach(), p, "check")
+        else:
+            t = sharding.held_whole(t.detach(), p, "check")
         out[n] = t.float().cpu() if to_host else None
     return out
 
@@ -4164,8 +4209,9 @@ def tp_probe(dev, rank, world):
 
 class ReplicatedHashes:
     """Wraps a Trainer's train_step: after each step a digest of the
-    parameters every model rank holds whole (neither split nor shared), on
-    the host, so model peers can be compared bitwise."""
+    parameters every model rank holds whole (neither split, shared nor a
+    pipeline stage's), on the host, so model peers can be compared
+    bitwise."""
 
     def __init__(self, trainer):
         import hashlib
@@ -4178,7 +4224,7 @@ class ReplicatedHashes:
         state, m = self.step(state, batch)
         h = self.hashlib.sha1()
         for n, p in self.model.named_parameters():
-            if getattr(p, "_oatx_tp", None) is None and getattr(p, "_oatx_shard", None) is None:
+            if all(getattr(p, a, None) is None for a in ("_oatx_tp", "_oatx_shard", "_oatx_pp")):
                 h.update(n.encode())
                 h.update(p.detach().float().cpu().numpy().tobytes())
         self.digests.append(h.hexdigest())
@@ -4212,6 +4258,8 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
     replicated digests when `digests` (a host copy each step, inside the
     step intervals), step ms, MFU, peak memory, idle share when `trace`;
     step 1's whole gradients on the host when `keep_grads`)."""
+    import torch.distributed as dist
+
     from oatx_torch.data.loader import ShardedLoader
     from oatx_torch.parallel import collectives as coll
     from oatx_torch.parallel import mesh as meshlib
@@ -4324,15 +4372,15 @@ def tp_rank_main(rank, world, url, out, backend):
     return 0
 
 
-def tp_ranks(world, backend, tmp):
+def tp_ranks(world, backend, tmp, phase="tp"):
     """`world` ranks of this script started again with --dp-rank and
-    --dp-phase tp (gloo: all on cuda:0; nccl: one card each) → each rank's
-    record (their log tails printed if one fails)."""
+    --dp-phase `phase` ('tp' or 'pp'; gloo: all on cuda:0; nccl: one card
+    each) → each rank's record (their log tails printed if one fails)."""
     url = "file://" + os.path.join(tmp, "store")
     logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
                                "--dp-world", str(world), "--dp-init", url,
-                               "--dp-backend", backend, "--dp-out", tmp, "--dp-phase", "tp"],
+                               "--dp-backend", backend, "--dp-out", tmp, "--dp-phase", phase],
                               stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
              for r in range(world)]
     try:
@@ -4345,20 +4393,20 @@ def tp_ranks(world, backend, tmp):
                 p.wait()
     if any(p.returncode for p in procs):
         for r, log in enumerate(logs):
-            print(f"tp rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
-        raise AssertionError(f"tp: ranks exited {[p.returncode for p in procs]}")
+            print(f"{phase} rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
+        raise AssertionError(f"{phase}: ranks exited {[p.returncode for p in procs]}")
     ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
-    print(f"tp {backend} probe: " + json.dumps([r["probe"] for r in ranks]), flush=True)
+    print(f"{phase} {backend} probe: " + json.dumps([r["probe"] for r in ranks]), flush=True)
     if not all(r["probe"]["ok"] for r in ranks):
-        raise AssertionError(f"tp: {backend} refused the model group's collectives on CUDA "
-                             "tensors")
+        raise AssertionError(f"{phase}: {backend} refused the model group's collectives on "
+                             "CUDA tensors")
     for name in ranks[0]["runs"]:
         runs = [r["runs"][name] for r in ranks]
         if any(x["terms"] != runs[0]["terms"] for x in runs):
-            raise AssertionError(f"tp {name}: the model peers' loss terms differ")
+            raise AssertionError(f"{phase} {name}: the model peers' loss terms differ")
         if any(x["digests"] != runs[0]["digests"] for x in runs):
-            raise AssertionError(f"tp {name}: the model peers' replicated parameters differ "
-                                 "after some step")
+            raise AssertionError(f"{phase} {name}: the model peers' replicated parameters "
+                                 "differ after some step")
     return ranks
 
 
@@ -4526,6 +4574,489 @@ def tp_nccl(smi, dev):
 
 
 
+
+# ---------------------------------------------------------------------- pp
+PP_WORLD = 2          # phase 13: one pipeline group of 2 stages on cuda:0 over gloo
+PP_BATCH = 16         # norm.json's per-GPU batch, one pipeline group's rows
+PP_MICRO = 4          # pipeline_microbatches (the schema's default)
+PP_STEPS = 4
+PP_RUNS = (  # (name, trainer keys, tower keys, steps) of phase 13: norm.json with
+    # pipeline true at model_parallel 2; fused_qkv is no config key: the run sets it
+    # on the tower config the Trainer builds
+    ("plain", {}, {}, PP_STEPS),
+    ("fused_qkv", {}, dict(fused_qkv=True), 1),
+    ("zero1", dict(zero1=True), {}, 1))
+PP_LOSS_RTOL = 2e-3   # step 1's loss terms against one process at 16
+PP_EVAL_MIN_COSINE = 0.999  # each validation embedding against one process on the same weights
+# the kernels at a stage's micro-batch shapes (ViT-B/16's, norm.json at 16 over
+# 4 micro-batches, are phase 2's record shapes: R 3140 and B 4 × 785 tokens):
+# kernel 1 (R, D, 4D), kernel 2 (B, frames, N, H, Dh)
+PP_MLP = ((3140, 1024, 4096), (1025, 1280, 5120))
+PP_SA = ((4, 4, 196, 16, 64), (1, 4, 256, 16, 80))
+PP_SHAPES_OF = {"ViT-L/16 pp micro-batch of 4 (vit_large_pod @16, M 4)": (0, 0),
+                "ViT-H/14 pp micro-batch of 1 (vit_huge_pod @8 as 2 x 4, M 4)": (1, 1)}
+# --pp-nccl: (recipe, epochs, steps an epoch), pipeline at the shipped model_parallel 4
+PP_NCCL_RUNS = (("vit_huge_pod", 1, 5), ("vit_large_pod", 1, 5))
+
+
+def pp_exp(steps, path=NORM_CONFIG, epochs=1, **trainer):
+    """A recipe for phase 13 / --pp-nccl: `epochs` epochs of `steps` steps,
+    no init_val, no monitor, no checkpoint unless `trainer` asks (its keys
+    win), `pipeline` true over PP_MICRO micro-batches;
+    norm.json at model_parallel PP_WORLD, the pod recipes at their own 4
+    with fsdp and sequence_parallel off (oatx refuses either with
+    pipeline)."""
+    kw = dict(epochs=epochs, len_epoch=steps, init_val=False, save_period=10 ** 6,
+              monitor="off", verbosity=1, pipeline=True, pipeline_microbatches=PP_MICRO)
+    kw.update(dict(model_parallel=PP_WORLD) if path == NORM_CONFIG else dict(fsdp=False))
+    kw.update(trainer)
+    return set_video(recipe(path, **kw), sequence_parallel=False)
+
+
+def pp_embed_bytes(cfg):
+    """f32 bytes of the video embedding's parameters (their gradients are
+    summed over the model group once a step: 'pp_embed')."""
+    v = cfg.video
+    d = v.embed_dim
+    return 4 * (d * v.in_chans * v.patch_size ** 2 + d + d + (v.patches_per_frame + 1) * d
+                + v.num_frames * d)
+
+
+def pp_traffic(cfg, rows, stage, stages, steps, accum_steps=1, eval_rows=0, staged=False):
+    """Bytes a rank of `stage` of `stages` hands to the pipeline's sends in
+    `steps` steps of `accum_steps` micro-batches of `rows` rows and a
+    validation of `eval_rows` rows (parallel/pipeline.py, parallel/
+    collectives.py's purposes), derived from the code: per tower forward
+    the stack's (rows, T, D) output leaves every stage but the last once
+    ('pp_send') and is broadcast from the last ('pp_bcast', counted on every
+    stage); per backward the cotangent of a stage's input leaves every stage
+    but the first once ('pp_grad'); the embedding's f32 gradients are summed
+    over the model group once a step ('pp_embed'). `staged` (gloo): every
+    send and receive crosses the host ('pp_host': the bytes sent and
+    received)."""
+    v = cfg.video
+    es = torch.finfo(cfg.compute_dtype).bits // 8
+    act = (1 + v.num_frames * v.patches_per_frame) * v.embed_dim * es
+    train = steps * accum_steps * rows * act
+    fwd = train + eval_rows * act
+    first, last = stage == 0, stage == stages - 1
+    out = {"pp_send": 0 if last else fwd, "pp_grad": 0 if first else train,
+           "pp_bcast": fwd, "pp_embed": steps * pp_embed_bytes(cfg)}
+    if staged:
+        out["pp_host"] = (out["pp_send"] + out["pp_grad"] + (0 if first else fwd)
+                          + (0 if last else train))
+    return out
+
+
+def pp_probe(dev, rank, world):
+    """tp_probe, and the pipeline's own calls on CUDA tensors through
+    parallel/collectives.py: a bf16 send to the next rank and a receive from
+    the previous (over gloo through a host copy: gloo's transport aborts the
+    process on a CUDA address) and a broadcast from the last rank: 'ok'
+    needs all."""
+    from oatx_torch.parallel import collectives as coll
+
+    out = tp_probe(dev, rank, world)
+    try:
+        x = torch.full((3, 5), rank + 1.0, device=dev, dtype=torch.bfloat16)
+        if rank + 1 < world:
+            coll.send_to(x, rank + 1, "probe")
+        got = coll.recv_from(x.shape, x.dtype, dev, rank - 1) if rank else None
+        b = torch.full((4,), float(rank), device=dev)
+        coll.broadcast_from(b, world - 1, None, "probe")
+        out["p2p"] = bool((got is None or (got.device == dev and float(got[2, 4]) == rank))
+                          and float(b[3]) == world - 1)
+    except Exception as e:  # the probe's answer, not a failure of the port
+        out["p2p"] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    out["ok"] = out["ok"] and out["p2p"] is True
+    return out
+
+
+class EvalEmbeds:
+    """Wraps a Trainer's eval_step: every eval step's text and video
+    embeddings, on the host."""
+
+    def __init__(self, trainer):
+        self.step, self.rows = trainer.eval_step, {"text_embeds": [], "video_embeds": []}
+        trainer.eval_step = self
+
+    def __call__(self, model, batch):
+        out = self.step(model, batch)
+        for k in self.rows:
+            self.rows[k].append(out[k].float().cpu())
+        return out
+
+    def embeds(self):
+        return {k: torch.cat(v) for k, v in self.rows.items() if v}
+
+
+def pp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
+           digests=True, valid=False, save_dir=None):
+    """Trainer.train() of `exp` (with `tower` keys on its tower config) over
+    `ds` at `batch` rows a data position on this rank, with a validation
+    over the position's clips when `valid` and a snapshot under `save_dir`
+    → (record: loss terms, launches against the derived ones, pp_* traffic
+    against pp_traffic, held and predicted state bytes, replicated digests
+    when `digests`, step ms, MFU (a rank's 1/P of the FLOPs), peak memory,
+    idle share and device ms by group (NCCL's send / receive kernels among
+    them) when `trace`; step 1's whole gradients and the validation's
+    embeddings on the host)."""
+    import torch.distributed as dist
+
+    from oatx_torch.data.loader import ShardedLoader
+    from oatx_torch.parallel import collectives as coll
+    from oatx_torch.parallel import mesh as meshlib
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train.trainer import Trainer
+
+    t = exp.trainer
+    layout = meshlib.current_layout(t.dcn_slices, t.model_parallel, t.pipeline)
+    stages = layout.model_parallel if layout.pipeline else 1
+    _, col = dp_data("norm", exp, ds, None)
+    shard = dict(shard_id=layout.position, num_shards=layout.batch_shards, num_workers=4)
+    train = [ShardedLoader(ds, batch, col, seed=0, **shard)]
+    valid_l = [ShardedLoader(ds, batch, col, shuffle=False, drop_last=False, **shard)] \
+        if valid else []
+    held0 = fresh_peak(dev)
+    with tower_keys(**(tower or {})):
+        tr = Trainer(exp, train, valid_l, save_dir=save_dir, device=dev)
+    cfg, v = tr.tower_cfg, tr.tower_cfg.video
+    steps, accum = t.epochs * t.len_epoch, t.accum_steps
+    micro = v.pipeline_microbatches if stages > 1 else 1
+    depth = v.depth // stages  # a stage's blocks
+    reps = 2 if v.remat else 1
+    rec = StepRecorder(tr, trace_at=steps - 1 if trace else None, expect=[
+        ("space_attention_kernel", depth * micro * accum * reps),
+        ("space_attention_bwd_kernel", depth * micro * accum),
+        ("ln_mlp_", depth * micro * accum * reps)])
+    hashes = ReplicatedHashes(tr) if digests else None
+    first = FirstGrads(tr, keep_grads) if keep_grads else None
+    evals = EvalEmbeds(tr) if valid else None
+    launches = {}
+    coll.reset_traffic()
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    traffic = {k: dict(r) for k, r in coll.TRAFFIC.items() if k not in ("check", "probe")}
+    # the validation embeds the position's clips in chunks of 8 (eval_forwards);
+    # a chunk of 8 rows runs min(M, 8) micro-batches through a stage's blocks
+    n_val = len(ds) // layout.batch_shards if valid else 0
+    eval_launches = eval_forwards(1, n_val, batch) * depth * (min(micro, 8) if valid else 0)
+    want = want_launches(depth * micro, steps, v.remat, accum_steps=accum)
+    for k in ("ln_mlp", "space_attention"):
+        want[k] += eval_launches
+    if v.fused_qkv:
+        want["ln_linear"] = 2 * steps * accum * reps * depth * micro + 2 * eval_launches
+    check_launches(tag, launches, want)
+    terms = rec.term_values()
+    if not all(np.isfinite(x) for vals in terms.values() for x in vals):
+        raise AssertionError(f"{tag}: loss terms not finite: {terms}")
+    whole_shapes = tower_shapes(cfg)
+    mode = tr.shard_mode if layout.spans_processes else None
+    predicted = sharding.state_bytes(whole_shapes, layout.data_size, mode,
+                                     ema=bool(t.ema_decay), model_parallel=stages,
+                                     pipeline=stages > 1)
+    held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
+    derived = pp_traffic(cfg, batch // accum, layout.stage if stages > 1 else 0, stages,
+                         steps, accum, n_val, staged=dist.get_backend() == "gloo"
+                         ) if stages > 1 else {}
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(rec.events, rec.events[1:])]
+    if trace:
+        ms = ms[:-2]
+    flops = flops_per_clip_step(cfg) / stages  # a rank's share
+    out = {"steps": steps, "batch_per_group": batch, "accum_steps": accum,
+           "stages": stages, "microbatches": micro, "stage_blocks": depth,
+           "fused_qkv": v.fused_qkv, "remat": v.remat_policy if v.remat else "off",
+           "zero1": bool(t.zero1), "terms": terms, "launches": launches,
+           "launches_derived": want, "launches_per_forward": {
+               k: (launches[k] - (eval_launches if k != "space_attention_bwd" else 0))
+               / (steps * accum * reps if k != "space_attention_bwd" else steps * accum)
+               for k in ("ln_mlp", "space_attention", "space_attention_bwd")},
+           "traffic": traffic, "pp_traffic_derived": derived,
+           "held_bytes": held, "predicted_bytes": predicted,
+           "digests": hashes.digests if hashes is not None else None,
+           "train_wall_s": wall_s, "mem_held_gib": held0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           **(speed(ms, batch, flops) if ms else {}), **(rec.trace or {})}
+    grads = first.grads if first is not None else None
+    embeds = evals.embeds() if evals is not None else None
+    del tr, rec, hashes, first, evals
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grads, embeds
+
+
+def tower_shapes(cfg):
+    """{name: shape} of the whole model of a tower config, built on the meta
+    device (no weights)."""
+    from oatx_torch.models.towers import DualTower
+
+    with torch.device("meta"):
+        model = DualTower(dataclasses.replace(cfg, video=dataclasses.replace(
+            cfg.video, pipeline_stages=1)), device="meta", generator=torch.Generator())
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def pp_rank_main(rank, world, url, out, backend):
+    """One rank of phase 13 (gloo, cuda:0) or --pp-nccl (NCCL, cuda:rank),
+    started by tp_ranks: the probe, then the runs; its record →
+    out/rank{rank}.json, rank 0's step-1 whole gradients and validation
+    embeddings → out/{run}_grads.pt, out/{run}_evals.pt (phase 13)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=url, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_RANK_TIMEOUT_S))
+    try:
+        record = {"probe": pp_probe(dev, rank, world), "runs": {}}
+        if record["probe"]["ok"]:
+            if backend == "gloo":
+                base = MemoryClips(CORPUS_CLIPS, seed=0)
+                for name, trainer, tower, steps in PP_RUNS:
+                    plain = name == "plain"
+                    run, grads, embeds = pp_run(
+                        f"pp {name} rank {rank}", pp_exp(steps, save_period=1 if plain
+                                                         else 10 ** 6, **trainer),
+                        base, PP_BATCH, dev, tower=tower, valid=plain,
+                        save_dir=os.path.join(out, "ckpt") if plain else None)
+                    if rank == 0:
+                        torch.save(grads, os.path.join(out, f"{name}_grads.pt"))
+                        torch.save(embeds, os.path.join(out, f"{name}_evals.pt"))
+                    record["runs"][name] = run
+                    del grads, embeds
+            else:
+                for name, epochs, steps in PP_NCCL_RUNS:
+                    exp = pp_exp(steps, WIDE_CONFIGS[name], epochs=epochs)
+                    batch = exp.data_loaders[0].batch_size
+                    run, _, _ = pp_run(f"pp-nccl {name} rank {rank}", exp,
+                                       MemoryClips(max(CORPUS_CLIPS, batch), seed=0), batch,
+                                       dev, trace=True, keep_grads=False, digests=False)
+                    record["runs"][name] = run
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def pp_kernels(dev):
+    """Kernels 1 and 2 (forward and backward) at a stage's micro-batch
+    shapes of the pod recipes (PP_SHAPES_OF) against their plain versions
+    → {kernel: {shape: record}}."""
+    g = torch.Generator(dev).manual_seed(13)
+    mlp = wide_ln_mlp(dev, g, PP_MLP)
+    sa_fwd, sa_bwd = wide_space_attention(dev, g, PP_SA)
+    out = {"ln_mlp": {}, "space_attention": {}, "space_attention_bwd": {}}
+    for label, (i, j) in PP_SHAPES_OF.items():
+        R, D, H = PP_MLP[i]
+        B, Fr, N, Hh, Dh = PP_SA[j]
+        key = f"B{B}_T{1 + Fr * N}_H{Hh}_Dh{Dh}"
+        out["ln_mlp"][label] = {"shape": f"{R}x{D}->{H}", **mlp[f"{R}x{D}->{H}"]}
+        out["space_attention"][label] = {"shape": key, **sa_fwd[key]}
+        out["space_attention_bwd"][label] = {"shape": key, **sa_bwd[key]}
+    return out
+
+
+def pp_phase(smi, dev):
+    """Pipeline stages over the model axis (module docstring, phase 13) →
+    (launches of the ranks' main paths, the kernels' records at the
+    micro-batch shapes)."""
+    t0 = time.perf_counter()
+    kernels = pp_kernels(dev)
+    for name, recs in kernels.items():
+        print(f"pp kernels {name} at the micro-batch shapes ({smi}): " + json.dumps(recs),
+              flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        ranks = tp_ranks(PP_WORLD, "gloo", tmp, phase="pp")
+        ranks_s = time.perf_counter() - t1
+        out = {"world": PP_WORLD, "stages": PP_WORLD, "microbatches": PP_MICRO,
+               "batch_per_group": PP_BATCH, "ranks_wall_s": ranks_s, "runs": {}}
+        refs = {}
+        for name, trainer, tower, steps in PP_RUNS:
+            exp = pp_exp(steps, **trainer)
+            runs = [r["runs"][name] for r in ranks]
+            key = "fused_qkv" if tower.get("fused_qkv") else "plain"
+            if key not in refs:  # zero1 changes no number: plain's reference serves
+                refs[key] = pp_run(f"pp {name} one process", set_model_parallel(exp, 1), base,
+                                   PP_BATCH, dev, tower=tower, digests=False)
+            one, ref, _ = refs[key]
+            got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
+            check = grad_check(got, ref)
+            del got
+            rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
+                   for k, w in one["terms"].items()}
+            held = [r["held_bytes"]["total"] for r in runs]
+            traffic = [{k: r["traffic"].get(k, {}).get("bytes", 0)
+                        for k in r["pp_traffic_derived"]} for r in runs]
+            rec = {"steps": steps, **{k: runs[0][k] for k in (
+                       "fused_qkv", "zero1", "stage_blocks", "microbatches",
+                       "launches_per_forward", "predicted_bytes")},
+                   "step1_terms": {k: [runs[0]["terms"][k][0], w[0]]
+                                   for k, w in one["terms"].items()},
+                   "step1_rel_diff": rel, "losses": runs[0]["terms"]["loss"],
+                   "one_process_losses": one["terms"]["loss"][:steps],
+                   "traffic": traffic, "traffic_derived": [r["pp_traffic_derived"]
+                                                           for r in runs],
+                   "held_bytes": held, "one_process_held_bytes": one["held_bytes"]["total"],
+                   "rank_step_ms": [r.get("step_ms") for r in runs],
+                   "one_process_step_ms": one.get("step_ms"),
+                   "peak_mem_gib": [r["peak_mem_gib"] for r in runs],
+                   "one_process_peak_mem_gib": one["peak_mem_gib"],
+                   **{k: check[k] for k in ("grad_norm", "plain_grad_norm",
+                                            "grad_norm_rel_diff", "grad_global_cosine",
+                                            "grad_tol_used", "grad_tensors", "grad_worst")}}
+            bad = []
+            if name == "plain":
+                rec["resume"], one_evals = pp_resume(os.path.join(tmp, "ckpt"), base, dev)
+                evals = torch.load(os.path.join(tmp, "plain_evals.pt"))
+                cos = {k: float(F.cosine_similarity(evals[k], one_evals[k], dim=1).min())
+                       for k in one_evals}
+                rec["eval_min_cosine"] = cos
+                if min(cos.values()) < PP_EVAL_MIN_COSINE or \
+                        evals["video_embeds"].shape != one_evals["video_embeds"].shape:
+                    bad.append(f"validation embeddings' cosine {cos}")
+                if not rec["resume"]["bitwise"]:
+                    bad.append(f"the snapshot's restore in one process {rec['resume']}")
+            out["runs"][name] = rec
+            print(f"pp {name}: norm.json with pipeline on {PP_WORLD} stages, {PP_MICRO} "
+                  f"micro-batches, {PP_WORLD} ranks on one card over gloo against one process "
+                  f"at {PP_BATCH} ({smi}; rank step ms NOT a pipeline speed: the ranks share "
+                  "one card and gloo stages every send through the host): " + json.dumps(rec),
+                  flush=True)
+            if max(rel.values()) > PP_LOSS_RTOL:
+                bad.append(f"step 1's loss terms {rel}")
+            if check["grad_tol_used"] > 1 or check["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+                    or check["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+                bad.append(f"gradients {check['grad_worst']}")
+            if any(h != runs[0]["predicted_bytes"]["bytes"] for h in held):
+                bad.append(f"held bytes {held} against the plan's "
+                           f"{runs[0]['predicted_bytes']['bytes']}")
+            if any(g != r["pp_traffic_derived"] for g, r in zip(traffic, runs)):
+                bad.append(f"pp bytes {traffic}, derived {rec['traffic_derived']}")
+            lpf = runs[0]["launches_per_forward"]
+            want_lpf = 12 // PP_WORLD * PP_MICRO
+            if any(n != want_lpf for n in lpf.values()):
+                bad.append(f"launches per forward {lpf}, derived {want_lpf}")
+            if bad:
+                raise AssertionError(f"pp {name}: " + "; ".join(bad))
+        del refs
+    launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
+    print(f"pp summary ({smi}): " + json.dumps({
+        "runs": {n: {k: r.get(k) for k in ("step1_rel_diff", "grad_tol_used",
+                                           "grad_global_cosine", "held_bytes", "traffic",
+                                           "launches_per_forward", "eval_min_cosine")}
+                 for n, r in out["runs"].items()},
+        "ranks_wall_s": ranks_s, "phase_s": time.perf_counter() - t0}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
+
+
+def pp_resume(save_dir, base, dev):
+    """The ranks' checkpoint-epoch1 restored by one process (pipeline on a
+    model axis of 1) → (record: the restored parameters and moments bitwise
+    the snapshot's, then one more step with finite loss terms; that
+    process's validation embeddings on the restored weights, the weights
+    the ranks validated with before they saved)."""
+    from oatx_torch.data.loader import ShardedLoader
+    from oatx_torch.train.trainer import Trainer
+
+    snap = os.path.join(save_dir, "checkpoint-epoch1")
+    saved = torch.load(os.path.join(snap, "state.pt"), map_location="cpu", weights_only=True)
+    exp = set_model_parallel(pp_exp(1, epochs=2), 1)
+    _, col = dp_data("norm", exp, base, None)
+    tr = Trainer(exp, [ShardedLoader(base, PP_BATCH, col, seed=0, num_workers=4)],
+                 [ShardedLoader(base, PP_BATCH, col, shuffle=False, drop_last=False,
+                                num_workers=4)], resume=snap, device=dev)
+    model = {k: v.cpu() for k, v in tr.state.model.state_dict().items()}
+    opt = tr.state.optimizer.named_state(to_host=True)
+    bitwise = (sorted(model) == sorted(saved["model"])
+               and all(torch.equal(model[k], v) for k, v in saved["model"].items())
+               and all(torch.equal(opt[q][k], v) for q in ("mu", "nu")
+                       for k, v in saved["optimizer"][q].items()))
+    evals = EvalEmbeds(tr)
+    tr._validate(1)
+    embeds = evals.embeds()
+    tr.valid_loaders = []
+    rec = StepRecorder(tr)
+    tr.train()
+    terms = rec.term_values()
+    out = {"bitwise": bool(bitwise), "tensors": len(saved["model"]), "resumed_terms": terms,
+           "finite": all(np.isfinite(x) for vals in terms.values() for x in vals)}
+    out["bitwise"] = out["bitwise"] and out["finite"]
+    del tr, rec, evals
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, embeds
+
+
+def pp_nccl(smi, dev):
+    """--pp-nccl: PP_NCCL_RUNS, the pod recipes with pipeline true at their
+    shipped model_parallel 4 (fsdp and sequence_parallel off), a rank on
+    each of 4 cards over NCCL; per rank peak GiB, step ms, MFU (a rank's
+    1/4 of the FLOPs over one card's peak), idle share and device ms by
+    group (NCCL's send / receive kernels, waiting included, among them)
+    from a 2-step trace; then each recipe in one process at model_parallel
+    1 on cuda:0 at the same batch beside them."""
+    world = torch.cuda.device_count()
+    if world != 4:
+        raise SystemExit(f"--pp-nccl needs 4 cards (model_parallel 4), {world} visible")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = tp_ranks(world, "nccl", tmp, phase="pp")
+    out = {}
+    for name, epochs, steps in PP_NCCL_RUNS:
+        runs = [r["runs"][name] for r in ranks]
+        exp = pp_exp(steps, WIDE_CONFIGS[name], epochs=epochs)
+        batch = exp.data_loaders[0].batch_size
+        one, _, _ = pp_run(f"pp-nccl {name} one process", set_model_parallel(exp, 1),
+                           MemoryClips(max(CORPUS_CLIPS, batch), seed=0), batch, dev,
+                           trace=True, keep_grads=False, digests=False)
+        rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
+               for k, w in one["terms"].items()}
+        keys = ("peak_mem_gib", "step_ms", "step_ms_spread", "mfu", "clips_per_s",
+                "idle_share", "device_busy_ms", "device_ms_by_group", "held_bytes",
+                "train_wall_s")
+        m = runs[0]["microbatches"]
+        rec = {"recipe": os.path.basename(WIDE_CONFIGS[name]), "stages": world,
+               "microbatches": m, "stage_blocks": runs[0]["stage_blocks"],
+               "bubble_derived": (world - 1) / (m + world - 1),
+               "batch_per_group": batch, "accum_steps": runs[0]["accum_steps"],
+               "remat": runs[0]["remat"], "steps": runs[0]["steps"],
+               "losses": runs[0]["terms"]["loss"],
+               "per_rank": {k: [r.get(k) for r in runs] for k in keys},
+               "predicted_bytes": runs[0]["predicted_bytes"],
+               "launches_per_forward": runs[0]["launches_per_forward"],
+               "traffic_per_step": [{k: v["bytes"] / r["steps"] for k, v in r["traffic"].items()}
+                                    for r in runs],
+               "one_process": {k: one.get(k) for k in keys + ("terms",)},
+               "step1_rel_diff_vs_one_process": rel}
+        out[name] = rec
+        print(f"pp-nccl {name} with pipeline on {world} stages, a rank on each of {world} "
+              f"cards over NCCL ({smi}): " + json.dumps(rec), flush=True)
+        if any(h["total"] != runs[0]["predicted_bytes"]["bytes"]
+               for h in rec["per_rank"]["held_bytes"]):
+            raise AssertionError(f"pp-nccl {name}: held bytes {rec['per_rank']['held_bytes']} "
+                                 f"against the plan's {runs[0]['predicted_bytes']}")
+        if max(rel.values()) > PP_LOSS_RTOL:
+            raise AssertionError(f"pp-nccl {name}: step 1's loss terms against one process "
+                                 f"{rel}")
+        for r in runs:
+            got = {k: r["traffic"].get(k, {}).get("bytes", 0) for k in r["pp_traffic_derived"]}
+            if got != r["pp_traffic_derived"]:
+                raise AssertionError(f"pp-nccl {name}: pp bytes {got}, derived "
+                                     f"{r['pp_traffic_derived']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -4571,20 +5102,28 @@ def main() -> int:
                     help="build the kernels and run the pod recipes as shipped "
                          "(model_parallel 4) with one rank on each of 4 cards over NCCL "
                          "(no record, no ok line)")
+    ap.add_argument("--only-pp", action="store_true",
+                    help="build the kernels and run the pp phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--pp-nccl", action="store_true",
+                    help="build the kernels and run the pod recipes with pipeline true "
+                         "on their 4 stages, one rank on each of 4 cards over NCCL (no "
+                         "record, no ok line)")
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)  # phase 10's ranks
     ap.add_argument("--dp-world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-init", help=argparse.SUPPRESS)
     ap.add_argument("--dp-backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", help=argparse.SUPPRESS)
-    ap.add_argument("--dp-phase", default="dp", help=argparse.SUPPRESS)  # 'dp' | 'shard' | 'tp'
+    ap.add_argument("--dp-phase", default="dp",
+                    help=argparse.SUPPRESS)  # 'dp' | 'shard' | 'tp' | 'pp'
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     if opts.dp_rank is not None:  # one rank of phase 10 (b) or 11, started by their parent
-        rank_main = {"shard": shard_rank_main, "tp": tp_rank_main}.get(opts.dp_phase,
-                                                                       dp_rank_main)
+        rank_main = {"shard": shard_rank_main, "tp": tp_rank_main,
+                     "pp": pp_rank_main}.get(opts.dp_phase, dp_rank_main)
         return rank_main(opts.dp_rank, opts.dp_world, opts.dp_init, opts.dp_out,
                          opts.dp_backend)
     from oatx_torch.ops.kernels import _build
@@ -4637,6 +5176,15 @@ def main() -> int:
     if opts.only_tp:
         tp_phase(smi, dev)
         print("chip_smoke: --only-tp ran the tp phase alone", flush=True)
+        return 0
+    if opts.only_pp:
+        pp_phase(smi, dev)
+        print("chip_smoke: --only-pp ran the pp phase alone", flush=True)
+        return 0
+    if opts.pp_nccl:
+        pp_nccl(smi, dev)
+        print("chip_smoke: --pp-nccl ran the pod recipes with pipeline stages on 4 cards "
+              "over NCCL", flush=True)
         return 0
     if opts.tp_nccl:
         tp_nccl(smi, dev)
@@ -4712,15 +5260,18 @@ def main() -> int:
     phases["dp"] = dp_phase(smi, dev)
     phases["shard"] = shard_phase(smi, dev)
     phases["tp"], tp = tp_phase(smi, dev)
+    phases["pp"], pp = pp_phase(smi, dev)
     for name, recs in wide.items():
         by_name[name]["wide"] = recs
     for name, recs in tp.items():
         by_name[name]["tp"] = recs
+    for name, recs in pp.items():
+        by_name[name]["pp"] = recs
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",
             "fwd_bwd_device_ms", "ptxas", "occupancy", "launches_by_phase", "parent", "by_rows",
-            "by_batch", "wide", "tp")
+            "by_batch", "wide", "tp", "pp")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}

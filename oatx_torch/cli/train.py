@@ -26,7 +26,9 @@ The backend is NCCL on CUDA and gloo with --device cpu. Process i uses
 cuda:LOCAL_RANK, or cuda:(i mod the visible cards). Every rank loads the
 shard of each loader of its data position (batch_size is per process;
 with `trainer.model_parallel` mp the mp ranks of a position read the same
-rows, parallel/mesh.py, so the global batch is batch_size × world / mp)
+rows, parallel/mesh.py, so the global batch is batch_size × world / mp,
+whether the model axis splits the weights or, under `trainer.pipeline`,
+holds pipeline stages)
 and runs the same run directory (rank 0's timestamp); rank 0 alone writes
 the vocab and the config and keeps the tracker. The group is torn down at
 exit. The pod recipes (configs/pt/cc3m_webvid/*_pod.json, model_parallel

@@ -33,6 +33,14 @@ Megatron's rules, the projections replicated. The BERT and CLIP text
 towers, the object tower and the object-aware variants raise
 NotImplementedError there (ROADMAP A8c); no pod recipe uses them.
 
+Under pipeline stages (`trainer.pipeline`, parallel/sharding.py calls
+`enable_pipeline`) the video tower's block stack runs over the model
+group's stages (models/vit_spacetime.py) and everything else stays whole
+on every stage: every text family, the object tower, and the object-aware
+variants without a region tap (global_local: the clip and its object
+frame, T = 1 + N, each through the same pipelined tower). region_mem taps
+layer K and is refused, as oatx refuses a tap under pipeline stages.
+
 Module names follow the reference state_dict (`video_model.*`,
 `text_model.*`, `txt_proj.1`, `vid_proj.0`, `txt_proj_2.1`,
 `text_local_proj.1`, `vid_local_proj.0`); the object tower, which the
@@ -174,6 +182,16 @@ class DualTower(nn.Module):
 
         self.video_model.enable_model_parallel(axis, under("video_model."))
         self.text_model.enable_model_parallel(axis, under("text_model."))
+
+    def enable_pipeline(self, layout) -> None:
+        """Run the video tower's blocks as `layout`'s pipeline stages
+        (module docstring)."""
+        self.video_model.enable_pipeline(layout)
+
+    def pp_partial_params(self):
+        """Under pipeline stages: the parameters whose gradient stage 0
+        alone computes (the video embedding's)."""
+        return self.video_model.pp_partial_params()
 
     def tp_partial_params(self):
         """Parameters whose gradient each model rank holds in part."""

@@ -38,8 +38,18 @@ between blocks, outside any block's checkpoint, so every remat policy and
 
 The config accepts every oatx key. The layout knobs (`cls_position`,
 `split_cls_stream`) leave outputs unchanged and are ignored: the port has one
-token order, CLS first. Pipeline stages are not ported: the tower raises on
-them (ROADMAP A8b).
+token order, CLS first.
+
+Pipeline stages (`pipeline_stages` P > 1, oatx :312-321; put in place by
+parallel/sharding.py `place_pipeline` through `enable_pipeline`): the tower
+keeps its stage's blocks only (`blocks[i]` is None for the others' i) and
+runs its block loop through parallel/pipeline.py `pipeline_blocks` in
+`pipeline_microbatches` micro-batches, remat wrapping each block inside the
+stage as in the loop; the embedding, the final norm and the pooling run on
+every stage. P must equal the model axis' width, and a region tap is
+refused, as oatx asserts; a tower with P > 1 that was not placed raises at
+its forward. `pp_partial_params` are the embedding's parameters, whose
+gradient only stage 0 computes.
 
 Tensor parallelism (parallel/tensor.py; put in place by
 parallel/sharding.py through `enable_model_parallel`): each block runs its
@@ -89,6 +99,7 @@ from oatx_torch.ops.layers import LayerNorm, Linear, gelu, linear, patch_embed_c
     trunc_normal_
 from oatx_torch.parallel import collectives as coll
 from oatx_torch.parallel import tensor as tpl
+from oatx_torch.parallel.pipeline import pipeline_blocks
 
 LN_EPS = 1e-6  # reference norm_layer = partial(nn.LayerNorm, eps=1e-6)
 
@@ -124,12 +135,6 @@ class SpaceTimeViTConfig:
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
-
-
-def _unsupported(cfg: SpaceTimeViTConfig) -> Optional[str]:
-    if cfg.pipeline_stages != 1:
-        return "pipeline_stages (ROADMAP A8b, pipeline stages)"
-    return None
 
 
 _SAVED_OPS = {  # remat_policy → aten products whose outputs the backward keeps
@@ -292,13 +297,13 @@ class PatchEmbed(nn.Module):
 
 class SpaceTimeTransformer(nn.Module):
     tp: Optional[tpl.ModelAxis] = None  # the model axis, once enable_model_parallel ran
+    pp = None  # the rank's Layout, once enable_pipeline ran
 
     def __init__(self, cfg: SpaceTimeViTConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        bad = _unsupported(cfg)
-        if bad:
-            raise NotImplementedError(f"SpaceTimeViTConfig.{bad} is not ported yet")
+        if cfg.pipeline_stages > 1 and cfg.region_tap_layer is not None:
+            raise ValueError("pipeline parallelism does not support region taps")
         if cfg.pooling not in ("cls", "cls_mean_half"):
             raise ValueError(f"unknown pooling {cfg.pooling!r}")
         device = resolve_device(device)
@@ -352,16 +357,29 @@ class SpaceTimeTransformer(nn.Module):
         if sp:
             x = coll.split_tokens(x, self.tp.group)
         remat = self._remat_ctx is not None and torch.is_grad_enabled()
+
+        def run(blk):
+            if remat:
+                return lambda h: ckpt.checkpoint(blk, h, f, use_reentrant=False,
+                                                 context_fn=self._remat_ctx)
+            return lambda h: blk(h, f)
+
         k = self.cfg.region_tap_layer
         out: Dict[str, torch.Tensor] = {}
-        for i, blk in enumerate(self.blocks):
-            if remat:
-                x = ckpt.checkpoint(blk, x, f, use_reentrant=False,
-                                    context_fn=self._remat_ctx)
-            else:
-                x = blk(x, f)
-            if k is not None and i == k - 1:
-                out["region"] = self.region_norm(whole(x)[:, 1:])
+        if self.cfg.pipeline_stages > 1:
+            if self.pp is None:
+                raise ValueError("pipeline_stages must equal the registered mesh's model "
+                                 "axis: place the tower on its pipeline stages "
+                                 "(parallel/sharding.place_pipeline)")
+            mine = [blk for blk in self.blocks if blk is not None]
+            x = pipeline_blocks([run(blk) for blk in mine], x, self.cfg.pipeline_stages,
+                                self.cfg.pipeline_microbatches, self.pp,
+                                [p for blk in mine for p in blk.parameters()])
+        else:
+            for i, blk in enumerate(self.blocks):
+                x = run(blk)(x)
+                if k is not None and i == k - 1:
+                    out["region"] = self.region_norm(whole(x)[:, 1:])
         x = self.norm(whole(x))
         cls, patches = x[:, 0], x[:, 1:]
         if self.cfg.pooling == "cls_mean_half":
@@ -393,6 +411,26 @@ class SpaceTimeTransformer(nn.Module):
 
     def tp_partial_params(self):
         return [p for blk in self.blocks for p in blk.tp_partial_params()]
+
+    def enable_pipeline(self, layout) -> None:
+        """Keep the blocks of `layout`'s stage (parallel/mesh.py
+        `stage_blocks`) and drop the others; the forward then runs the
+        stack through parallel/pipeline.py (module docstring)."""
+        cfg = self.cfg
+        if cfg.pipeline_stages != layout.model_parallel:
+            raise ValueError(f"pipeline_stages={cfg.pipeline_stages} must equal the "
+                             f"registered mesh's model axis ({layout.model_parallel})")
+        mine = layout.stage_blocks(cfg.depth)
+        for i in range(cfg.depth):
+            if i not in mine:
+                self.blocks._modules[str(i)] = None
+        self.pp = layout
+
+    def pp_partial_params(self):
+        """The embedding's parameters: under pipeline stages only stage 0
+        computes their gradient, which the model group sums."""
+        return [self.patch_embed.proj.weight, self.patch_embed.proj.bias, self.cls_token,
+                self.pos_embed, self.temporal_embed]
 
 
 def inflate_spatial_embed(pos_embed: torch.Tensor, target_patches: int) -> torch.Tensor:

@@ -73,8 +73,21 @@ reduce_from_model's forward, the vocabulary-parallel lookup's included),
 reduce-scatters, forward and backward alike) and 'tp_norm' (the model
 group's sum of the gradients each rank holds in part: parallel/sharding.py
 `reduce_model_partials`). A remat recompute runs its forward collectives
-again, and they count again. Without a process group, or with one rank,
-every function here is the identity and sends nothing.
+again, and they count again.
+
+Pipeline stages over the model axis (parallel/pipeline.py) send between
+neighbouring stages of a model group, point to point on the default
+group: `send_to` (blocking) and `recv_from`, each at a fixed place of both
+ranks' programs; the sender counts 'pp_send' (a stage's output activations,
+forward) or 'pp_grad' (the cotangents of its input, backward). Over gloo a
+CUDA tensor is sent and received through a host copy ('pp_host', the
+bytes each side copies). The last stage's output reaches the model group
+by `broadcast_from` ('pp_bcast', counted on every rank), and the
+embedding's gradients, which stage 0 alone computes, are summed over the
+model group ('pp_embed').
+
+Without a process group, or with one rank, every function here but the
+pipeline's is the identity and sends nothing.
 """
 
 from __future__ import annotations
@@ -488,3 +501,48 @@ def split_tokens(y: torch.Tensor, group) -> torch.Tensor:
     rows (B, t, D), into the token-sharded stream; backward: the all-gather
     of the rows' gradients."""
     return _ScatterTokens.apply(y, group, True)
+
+
+# ------------------------------------------------------------ pipeline stages
+
+
+def _host_staged(device: torch.device) -> bool:
+    """gloo's send and recv take host tensors only: its transport writes
+    from the tensor's address, and a CUDA tensor aborts the process (torch
+    2.11 on an H100: 'writev: Bad address'). Over gloo a CUDA tensor
+    therefore crosses through a host copy, counted as 'pp_host'; NCCL sends
+    from the card."""
+    return device.type == "cuda" and dist.get_backend() == "gloo"
+
+
+def send_to(x: torch.Tensor, dst: int, purpose: str) -> None:
+    """Send `x` to rank `dst` (of the default group), blocking until it is
+    handed over; the receiver calls `recv_from` at the same place of its
+    program."""
+    x = x.contiguous()
+    _count(purpose, x.numel() * x.element_size())
+    if _host_staged(x.device):
+        x = x.cpu()
+        _count("pp_host", x.numel() * x.element_size())
+    dist.send(x, dst)
+
+
+def recv_from(shape, dtype: torch.dtype, device: torch.device, src: int) -> torch.Tensor:
+    """The tensor rank `src` sends with `send_to` (its shape and dtype known
+    to both sides)."""
+    if _host_staged(device):
+        out = torch.empty(shape, dtype=dtype)
+        dist.recv(out, src)
+        _count("pp_host", out.numel() * out.element_size())
+        return out.to(device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    dist.recv(out, src)
+    return out
+
+
+def broadcast_from(x: torch.Tensor, src: int, group, purpose: str) -> torch.Tensor:
+    """Overwrite `x` on every rank of `group` (None: all) with rank `src`'s
+    (a rank of the default group), in place."""
+    _count(purpose, x.numel() * x.element_size())
+    dist.broadcast(x, src, group=group)
+    return x

@@ -44,9 +44,16 @@ What each trainer key gives:
     parallel/sharding.py, parallel/tensor.py), and the model's
     `sequence_parallel` shards the ViT's residual stream over it
     (models/vit_spacetime.py); without a model axis the key is a no-op;
-  * `pipeline` raises NotImplementedError at any world (ROADMAP A8b,
-    pipeline stages); with `fsdp` it raises ValueError first, as in oatx
-    (trainer.py:78-80).
+  * `pipeline` with a model axis of P > 1 turns the axis into P GPipe
+    stages over the video tower's blocks instead of Megatron splits
+    (parallel/pipeline.py): stage s is the model rank s and owns blocks
+    [s·L/P, (s + 1)·L/P) (`stage_blocks`, oatx `stage_block_specs`); its
+    neighbours are the ranks of the previous and next stage at the same
+    data position (`prev_stage`, `next_stage`). With a model axis of 1 it
+    is a no-op, as in oatx, where pipeline_stages = model_parallel = 1 runs
+    the blocks one after another. With `fsdp` or the video tower's
+    `sequence_parallel` it raises oatx's ValueError (trainer.py:78-85),
+    and so does `dp_mode: manual` (oatx's pure-DP test, :301-309).
 """
 
 from __future__ import annotations
@@ -59,12 +66,19 @@ import torch.distributed as dist
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """Rank and world size of the default process group (0 and 1 without
-    one), the dcn slices the world splits into and the model axis' width
-    (module docstring)."""
+    one), the dcn slices the world splits into, the model axis' width and
+    whether that axis holds pipeline stages (module docstring)."""
     rank: int = 0
     world: int = 1
     dcn_slices: int = 1
     model_parallel: int = 1
+    pipeline: bool = False
+
+    @property
+    def split_size(self) -> int:
+        """Ranks the Megatron splits divide a weight over: the model axis,
+        or 1 when it holds pipeline stages."""
+        return 1 if self.pipeline else self.model_parallel
 
     @property
     def spans_processes(self) -> bool:
@@ -126,11 +140,42 @@ class Layout:
         mp = self.model_parallel
         return range(data_rank * mp + m, self.world, self.data_size * mp)
 
+    @property
+    def stage(self) -> int:
+        """Under `pipeline`: this rank's pipeline stage, its model rank."""
+        return self.model_rank
 
-def current_layout(dcn_slices: int = 1, model_parallel: int = 1) -> Layout:
+    @property
+    def prev_stage(self):
+        """The rank of the previous stage at this data position (None on
+        stage 0)."""
+        return self.rank - 1 if self.stage > 0 else None
+
+    @property
+    def next_stage(self):
+        """The rank of the next stage at this data position (None on the
+        last stage)."""
+        return self.rank + 1 if self.stage < self.model_parallel - 1 else None
+
+    def stage_blocks(self, depth: int) -> range:
+        """The blocks of a `depth`-block stack that this rank's stage owns:
+        [s·L/P, (s + 1)·L/P) (oatx stage_block_specs; L must divide by P, as
+        oatx's pipeline_blocks asserts)."""
+        p, s = self.model_parallel, self.stage
+        if depth % p:
+            raise ValueError(f"depth {depth} not divisible by {p} stages")
+        return range(s * depth // p, (s + 1) * depth // p)
+
+
+def current_layout(dcn_slices: int = 1, model_parallel: int = 1,
+                   pipeline: bool = False) -> Layout:
+    """The default group's layout; `pipeline` (trainer.pipeline) makes the
+    model axis pipeline stages when it is wider than 1."""
+    pipeline = bool(pipeline) and model_parallel > 1
     if dist.is_available() and dist.is_initialized():
-        return Layout(dist.get_rank(), dist.get_world_size(), dcn_slices, model_parallel)
-    return Layout(dcn_slices=dcn_slices, model_parallel=model_parallel)
+        return Layout(dist.get_rank(), dist.get_world_size(), dcn_slices, model_parallel,
+                      pipeline)
+    return Layout(dcn_slices=dcn_slices, model_parallel=model_parallel, pipeline=pipeline)
 
 
 def process_index() -> int:
@@ -154,9 +199,10 @@ def spans_processes() -> bool:
     return current_layout().spans_processes
 
 
-def check_layout(t, world: int = None) -> None:
+def check_layout(t, world: int = None, sequence_parallel: bool = False) -> None:
     """Raise for a TrainerCfg `t` whose layout the world (default: the
-    current process group's) cannot run; accept what it runs as oatx does."""
+    current process group's) cannot run; accept what it runs as oatx does.
+    `sequence_parallel`: the video tower's key of that name."""
     world = process_count() if world is None else world
     if (t.dp_mode or "auto") not in ("auto", "gspmd", "manual"):
         raise ValueError(f"unknown trainer.dp_mode {t.dp_mode!r}")
@@ -167,15 +213,15 @@ def check_layout(t, world: int = None) -> None:
     if t.pipeline and t.fsdp:
         raise ValueError("trainer.pipeline and trainer.fsdp both use structured "
                          "placements — enable one")
-    if t.pipeline:
-        raise NotImplementedError(
-            "trainer.pipeline needs several devices on a model axis as pipeline "
-            "stages, which the port does not run (not ported yet: ROADMAP A8b, "
-            "pipeline stages)")
+    if t.pipeline and sequence_parallel:
+        raise ValueError(
+            "video_params.sequence_parallel cannot combine with "
+            "trainer.pipeline: the sharding constraint targets mesh "
+            "axes that are manual inside the pipeline's shard_map")
     if world % (t.model_parallel * t.dcn_slices):
         raise ValueError(f"{world} processes not divisible by model_parallel="
                          f"{t.model_parallel} x dcn_slices={t.dcn_slices}")
     if t.dp_mode == "manual" and (world // t.model_parallel == 1 or t.fsdp
-                                  or t.model_parallel > 1):
+                                  or t.model_parallel > 1 or t.pipeline):
         raise ValueError("trainer.dp_mode='manual' needs a >1-shard batch axis and "
                          "replicated params (model_parallel=1, no fsdp/pipeline)")

@@ -70,7 +70,24 @@ scatter over the model group too, one whole tensor at a time. After the
 backward, `reduce_model_partials` sums over the model group the gradients
 each rank holds in part (the towers' `tp_partial_params`).
 
-`shard_params_pipeline` (:185-204) waits for pipeline stages (ROADMAP A8b).
+Pipeline stages over the model axis (`trainer.pipeline`, a Layout whose
+`pipeline` is set; oatx `shard_params_pipeline`, :185-204): the video
+tower's blocks are split by depth, stage s holding blocks [s·L/P,
+(s + 1)·L/P) under their global names (`video_model.blocks.N.*`), and every
+other parameter is whole on every rank; no Megatron split applies.
+`place_pipeline` drops the other stages' blocks from the model and keeps a
+`StagePlan` of the whole model's state-dict keys; `full_state_dict` and
+`load_full_state_dict` (and AdamW's named_state) go through it: a block's
+tensor comes from its stage's rank of the model group by a broadcast, one
+tensor at a time. `zero1` composes: the moments of what a rank holds
+(its blocks and the whole rest) shard over the data axis of its stage, by
+oatx's rule on the whole leaf. oatx applies zero1 after the pipeline
+placement and re-places each moment on the data axis alone
+(opt_leaf_zero1_sharding), which takes the depth axis of a stacked (L, ...)
+block leaf and drops its stage split: an oatx device then holds L/data
+blocks' moments where a port rank holds (L/P)/data (`state_bytes` counts
+the port's). The embedding's gradients, which stage 0 alone computes, are
+summed over the model group after the backward (`reduce_model_partials`).
 """
 
 from __future__ import annotations
@@ -143,6 +160,25 @@ def oatx_leaf(name: str, shape: Sequence[int],
     return dims, taken
 
 
+_STAGED = re.compile(r"^((?:video_model\.)?blocks)\.(\d+)\.")  # in a DualTower, a lone tower
+
+
+def _video_depth(names: Iterable[str]) -> int:
+    """Blocks of the video tower among the names."""
+    return len({m.group(2) for n in names if (m := _STAGED.match(n))})
+
+
+def _stage_of(name: str, depth: int, stages: int) -> Optional[int]:
+    """The pipeline stage owning a video block's parameter or buffer (None
+    for every other name): block N of L belongs to stage N // (L / P)."""
+    m = _STAGED.match(name)
+    if m is None:
+        return None
+    if depth % stages:
+        raise ValueError(f"depth {depth} not divisible by {stages} stages")
+    return int(m.group(2)) // (depth // stages)
+
+
 def _model_split(name: str, shape: Sequence[int], depths: Dict[str, int],
                  size: int) -> Optional[Tuple[int, int]]:
     """(torch dim, groups) that oatx's Megatron rules split over a model axis
@@ -207,7 +243,7 @@ class ModelShard:
 def model_plan(shapes: Dict[str, Sequence[int]], layout: Layout) -> Dict[str, ModelShard]:
     """{parameter name: its ModelShard} for the parameters (whole `shapes`)
     that oatx's Megatron rules split over `layout`'s model axis."""
-    size = layout.model_parallel
+    size = layout.split_size
     if size <= 1:
         return {}
     depths = _depths(shapes)
@@ -300,33 +336,40 @@ def plan(shapes: Dict[str, Sequence[int]], layout: Layout,
         on = (fsdp_placement(dims, taken, layout.data_size) if mode == "fsdp"
               else zero1_placement(dims, layout.data_size))
         if on:
-            split = _model_split(name, shape, depths, layout.model_parallel)
+            split = _model_split(name, shape, depths, layout.split_size)
             local = list(int(s) for s in shape)
             if split is not None:
-                local[split[0]] //= layout.model_parallel
+                local[split[0]] //= layout.split_size
             out[name] = FlatShard(tuple(local), layout.data_rank, layout.data_size, group)
     return out
 
 
 def state_bytes(shapes: Dict[str, Sequence[int]], data_size: int, mode: Optional[str],
-                ema: bool = False, model_parallel: int = 1) -> Dict[str, int]:
+                ema: bool = False, model_parallel: int = 1,
+                pipeline: bool = False) -> Dict[str, int]:
     """Per-rank bytes of f32 parameters + gradients + AdamW moments (+ EMA) under
     `mode` (None: replicated) on a data axis of `data_size` and a model axis
-    of `model_parallel` (`shapes` whole) → {'bytes', 'padding' (of those,
-    the flat shards' zero padding), 'replicated' (the same state unsharded
-    on both axes)}. Every parameter is counted with a gradient."""
+    of `model_parallel` (`shapes` whole), its Megatron splits or, with
+    `pipeline`, its stages (a rank holds L/P of the video blocks: stage 0's
+    are counted, the same bytes as any stage's) → {'bytes', 'padding' (of
+    those, the flat shards' zero padding), 'replicated' (the same state
+    unsharded on both axes)}. Every parameter is counted with a gradient."""
     data_size = max(data_size, 1)
     depths = _depths(shapes)
     moments = 3 if ema else 2
     total = pad = full = 0
+    video_depth = _video_depth(shapes)
     for name, shape in shapes.items():
         whole = math.prod(int(s) for s in shape)
+        full += (2 + moments) * whole
+        owner = _stage_of(name, video_depth, model_parallel) if pipeline else None
+        if owner is not None and owner > 0:  # another stage's block
+            continue
         dims, taken = oatx_leaf(name, shape, depths)
-        split = _model_split(name, shape, depths, model_parallel)
+        split = None if pipeline else _model_split(name, shape, depths, model_parallel)
         n = whole // model_parallel if split is not None else whole
         chunk = -(-n // data_size)
         extra = chunk - n / data_size
-        full += (2 + moments) * whole
         if mode == "fsdp" and fsdp_placement(dims, taken, data_size):
             total += (2 + moments) * chunk
             pad += (2 + moments) * extra
@@ -513,11 +556,16 @@ def full_state_dict(model: nn.Module, to_host: bool = False,
     part in each gather, keep nothing, → None; no rank ever holds more than
     one gathered tensor on its device."""
     params = dict(model.named_parameters())
+    own = model.state_dict()
+    stages = stage_plan_of(model)
     out = {}
-    for k, v in model.state_dict().items():
-        p = params.get(k)
-        if p is not None:
-            v = held_whole(v, p, "state_gather")
+    for k in (stages.keys if stages is not None else own):
+        if stages is not None and stages.owner(k) is not None:
+            v = stages.fetch(k, own.get(k))
+        else:
+            v, p = own[k], params.get(k)
+            if p is not None:
+                v = held_whole(v, p, "state_gather")
         if keep:
             out[k] = v.to("cpu", copy=True) if to_host else v
     return out if keep else None
@@ -527,8 +575,10 @@ def full_state_dict(model: nn.Module, to_host: bool = False,
 def load_full_state_dict(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     """Load whole tensors (on any device): each rank keeps its parts."""
     own = model.state_dict()
-    if sorted(own) != sorted(sd):
-        missing, extra = set(own) - set(sd), set(sd) - set(own)
+    stages = stage_plan_of(model)
+    want = list(stages.keys) if stages is not None else list(own)
+    if sorted(want) != sorted(sd):
+        missing, extra = set(want) - set(sd), set(sd) - set(want)
         raise RuntimeError(f"state_dict keys differ: missing {sorted(missing)[:5]}, "
                            f"unexpected {sorted(extra)[:5]}")
     params = dict(model.named_parameters())
@@ -538,10 +588,71 @@ def load_full_state_dict(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
 
 
 def sharded(model: nn.Module) -> bool:
-    """True when some parameter of `model` is held in part (fsdp's share or a
-    model-axis split): whole tensors then need every rank."""
-    return any(getattr(p, "_oatx_shard", None) is not None
-               or getattr(p, "_oatx_tp", None) is not None for p in model.parameters())
+    """True when some parameter of `model` is held in part (fsdp's share, a
+    model-axis split or another pipeline stage's blocks): whole tensors
+    then need every rank."""
+    return stage_plan_of(model) is not None or any(
+        getattr(p, "_oatx_shard", None) is not None
+        or getattr(p, "_oatx_tp", None) is not None for p in model.parameters())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StagePlan:
+    """The whole model's state as a pipeline stage holds it (module
+    docstring): every state-dict key in order with its shape and dtype,
+    the parameter names in order, and the stage owning each video block's
+    key; `layout` is the rank's, `device` the model's, `group` its model
+    group (None: the whole world)."""
+    keys: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+    params: Tuple[str, ...]
+    owners: Dict[str, int]
+    layout: Layout
+    device: torch.device
+    group: object = None
+
+    def owner(self, key: str) -> Optional[int]:
+        """The stage holding `key` (None: every stage holds it whole)."""
+        return self.owners.get(key)
+
+    def fetch(self, key: str, local: Optional[torch.Tensor]) -> torch.Tensor:
+        """The whole tensor of a block's `key` (or of a tensor of its shape
+        and dtype: a gradient, a moment) on every rank of the model group,
+        from its stage's rank (`local`: this rank's, when it is that stage;
+        every rank of the group calls it)."""
+        src = self.layout.model_ranks()[self.owners[key]]
+        if src == self.layout.rank:
+            buf = local.detach().contiguous()
+        else:
+            shape, dtype = self.keys[key]
+            buf = torch.empty(shape, dtype=dtype, device=self.device)
+        return coll.broadcast_from(buf, src, self.group, "state_gather")
+
+
+def stage_plan_of(model: nn.Module) -> Optional[StagePlan]:
+    """The StagePlan `place_pipeline` put on `model` (None: not pipelined)."""
+    return getattr(model, "pp_plan", None)
+
+
+def place_pipeline(model: nn.Module, layout: Layout) -> StagePlan:
+    """Keep this rank's stage of the video tower's blocks and drop the
+    others (module docstring; `enable_pipeline` on the towers) → the plan,
+    which each kept block parameter carries as `_oatx_pp`. Every rank must
+    call it (it makes the model groups)."""
+    sd = model.state_dict()
+    keys = {k: (tuple(v.shape), v.dtype) for k, v in sd.items()}
+    names = tuple(n for n, _ in model.named_parameters())
+    depth = _video_depth(keys)
+    owners = {k: o for k in keys
+              if (o := _stage_of(k, depth, layout.model_parallel)) is not None}
+    device = next(iter(sd.values())).device
+    del sd
+    model.enable_pipeline(layout)
+    plan = StagePlan(keys, names, owners, layout, device, coll.model_group(layout))
+    for n, p in model.named_parameters():
+        if n in owners:
+            p._oatx_pp = plan
+    model.pp_plan = plan
+    return plan
 
 
 def place_model_parallel(model: nn.Module, layout: Layout) -> Dict[str, ModelShard]:
@@ -574,7 +685,17 @@ def reduce_model_partials(model: nn.Module) -> None:
     a token shard or inside kernels 1 and 3, and a bias used by rows or on a
     token shard), once a step, after the data axis' reduction: a parameter
     fsdp shares is whole on every model rank, so its ranks' shares cover the
-    same elements and their sum is the share of the sum."""
+    same elements and their sum is the share of the sum. Under pipeline
+    stages: the embedding's gradients (the towers' `pp_partial_params`),
+    which only stage 0 computes, summed over the model group."""
+    stages = stage_plan_of(model)
+    if stages is not None:
+        params = model.pp_partial_params()
+        for p in params:
+            if p.grad is None:  # a stage > 0: the stack's input is stage 0's
+                p.grad = torch.zeros_like(p)
+        coll.reduce_gradients(params, scale=1.0, group=stages.group, purpose="pp_embed")
+        return
     axis = getattr(model, "model_axis", None)
     if axis is None:
         return
@@ -589,14 +710,22 @@ def layout_of(model: nn.Module) -> Layout:
 
 
 def place(model: nn.Module, mode: Optional[str], layout: Layout) -> Dict[str, FlatShard]:
-    """Split `model` over `layout`'s model axis, plan `mode` ('fsdp',
+    """Split `model` over `layout`'s model axis (Megatron's splits, or its
+    pipeline stages when `layout.pipeline`), plan `mode` ('fsdp',
     'zero1' or None) for its parameters on the data axis and put fsdp in
     place → the data-axis plan (AdamW's `zero1` under zero1). Every rank
     must call it (it makes the layout's groups)."""
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     model.layout = layout
-    place_model_parallel(model, layout)
-    shards = plan(shapes, layout, mode)
+    if layout.pipeline:
+        if mode == "fsdp":
+            raise ValueError("trainer.pipeline and trainer.fsdp both use structured "
+                             "placements — enable one")
+        place_pipeline(model, layout)
+    else:
+        place_model_parallel(model, layout)
+    held = {n for n, _ in model.named_parameters()}
+    shards = {n: s for n, s in plan(shapes, layout, mode).items() if n in held}
     if mode == "fsdp" and layout.spans_processes:
         model.fsdp = ShardedModel(model, shards, layout)
     return shards

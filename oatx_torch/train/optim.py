@@ -30,8 +30,12 @@ Either way the clip and `grad_norm` read the norm of the whole gradient: the
 squares of the data-axis shares summed over the data axis, those of the
 model-axis parts summed over the model group, and the replicated gradients
 counted once, the same value on every rank (optax's global norm of the
-whole tree). `named_state` / `load_named_state` keep the schema of whole tensors,
-gathering and slicing one tensor at a time.
+whole tree). Under pipeline stages a rank holds its stage's video blocks
+and every other parameter whole: the squares of the blocks' gradients are
+summed over the model group, each stage's counted once, and the rest once.
+`named_state` / `load_named_state` keep the schema of whole tensors,
+gathering and slicing one tensor at a time (another stage's moments come
+from its rank of the model group: parallel/sharding.py `StagePlan`).
 
 `make_optimizer` returns a factory: call it with `model.named_parameters()`
 (train/step.py `init_state` does). Trainable filters take the parameter's
@@ -121,6 +125,12 @@ def _split_of(p: torch.Tensor):
     return getattr(p, "_oatx_tp", None)
 
 
+def _stage_of(p: torch.Tensor):
+    """The StagePlan of a parameter this rank's pipeline stage owns, or
+    None."""
+    return getattr(p, "_oatx_pp", None)
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """1 − decay^count in f32, as optax computes it. With decay 0.999 the
     subtraction cancels most digits (at count 5 the f32 value is 1.2e-5 off
@@ -171,6 +181,12 @@ class AdamW(torch.optim.Optimizer):
         live = [(p, g) for p, g in zip(params, grads) if g is not None]
         if any(_split_of(p) is not None for p, _ in live):
             return self._split_norm(live)
+        stages = next((_stage_of(p) for p, _ in live if _stage_of(p) is not None), None)
+        if stages is not None:
+            owned = global_norm([g for p, g in live if _stage_of(p) is not None]).square()
+            coll.all_reduce_sum(owned, "norm", stages.group)
+            rest = [g for p, g in live if _stage_of(p) is None]
+            return (owned + global_norm(rest).square()).sqrt() if rest else owned.sqrt()
         whole = [g for p, g in live if _share_of(p) is None]
         shares = [(g, _share_of(p)) for p, g in live if _share_of(p) is not None]
         if not shares:
@@ -272,19 +288,29 @@ class AdamW(torch.optim.Optimizer):
     def named_state(self, to_host: bool = False,
                     keep: bool = True) -> Optional[Dict[str, object]]:
         """{'count', 'mu', 'nu'[, 'ema']}, the moments keyed by parameter name,
-        whole: a rank's shares and model-axis parts are gathered one tensor
-        at a time (every rank must call it then); `to_host` copies each to the CPU. `keep=False`
+        whole: a rank's shares, model-axis parts and other stages' moments
+        are gathered one tensor at a time (every rank must call it then);
+        `to_host` copies each to the CPU. `keep=False`
         (a rank that writes no snapshot): take part in each gather, keep
         nothing, → None."""
         group = self.param_groups[0]
         out: Dict[str, object] = {"count": group["count"]}
+        stages = next((_stage_of(p) for p in group["params"] if _stage_of(p) is not None),
+                      None)
+        index = {n: i for i, n in enumerate(self.names)}
         for key in ("mu", "nu", "ema"):
             if key == "ema" and not self.ema_decay:
                 continue
             out[key] = {}
-            for i, (n, p) in enumerate(zip(self.names, group["params"])):
-                t = sharding.held_whole(self.state[p][key], p, "state_gather",
-                                        self._spec(i, p))
+            for n in (stages.params if stages is not None else self.names):
+                i = index.get(n)
+                t = None
+                if i is not None:
+                    p = group["params"][i]
+                    t = sharding.held_whole(self.state[p][key], p, "state_gather",
+                                            self._spec(i, p))
+                if stages is not None and stages.owner(n) is not None:
+                    t = stages.fetch(n, t)
                 if keep:
                     out[key][n] = t.to("cpu", copy=True) if to_host else t
         return out if keep else None

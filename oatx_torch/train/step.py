@@ -61,6 +61,19 @@ backward the gradients a model rank holds in part are summed over the
 model group after that mean (`sharding.reduce_model_partials`; an fsdp
 share's too: the model ranks' shares of it cover the same elements).
 
+Under pipeline stages over the model axis (a model placed by
+`sharding.place` on a Layout with `pipeline`) the step is the same: the
+video tower's forward runs its block stack through parallel/pipeline.py on
+the accumulation micro-batch, split there into `pipeline_microbatches`
+for the stack only, so the loss and its negatives still span the whole
+micro-batch; the backward sends the cotangents back stage by stage inside
+`loss.backward()`. Every stage computes the same loss and the same
+gradients of the heads after the stack, which are whole on each stage; a
+stage's block gradients are averaged over the ranks of that stage (the
+batch group at its model rank), and the embedding's, which stage 0 alone
+computes, are summed over the model group after that
+(`sharding.reduce_model_partials`).
+
 Sharded state (parallel/sharding.py): under `zero1` the step is the one
 above and the optimizer updates its shares. Under `fsdp` (a model put in
 place by `sharding.place`) the forward and backward run inside

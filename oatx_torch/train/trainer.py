@@ -49,10 +49,11 @@ about and ignored, as in oatx (:279-292, 301-318), and the validation
 forwards run in step on every rank (each weight is gathered at its use).
 Without a group, or with one rank, this is oatx on a 1-device mesh: `fsdp`,
 `zero1` and `dp_mode: auto` shard or reduce over a 1-wide data axis and are
-no-ops; `pipeline` raises NotImplementedError (ROADMAP A8b, pipeline
-stages); `dp_mode: manual` with one batch shard, with `fsdp` or under a
-model axis, `pipeline` with `fsdp`, and `model_parallel` × `dcn_slices`
-that do not divide the ranks raise ValueError, as in oatx.
+no-ops, and so is `pipeline` (a model axis of 1 is one stage, oatx's
+pipeline_stages = model_parallel = 1); `dp_mode: manual` with one batch
+shard, with `fsdp`, `pipeline` or under a model axis, `pipeline` with
+`fsdp` or the video tower's `sequence_parallel`, and `model_parallel` ×
+`dcn_slices` that do not divide the ranks raise ValueError, as in oatx.
 
 With `model_parallel` mp > 1 (parallel/mesh.py) the mp ranks of a data
 position form a model group: the towers are split over it after the init
@@ -65,11 +66,24 @@ the ranks at one model rank; `fwd_chunk` is warned about and ignored when
 the batch is also split across positions, and `grad_reduce_dtype` always,
 as oatx gates them (:279-318). A rank does 1/mp of a step's FLOPs
 (train/flops.py).
+
+With `pipeline` and a model axis of P > 1 the axis holds GPipe stages
+instead (oatx :73-90): the tower config gets pipeline_stages = P and the
+trainer's `pipeline_microbatches`; after the init (and the broadcast of
+rank 0's whole values), and again by a resume, a rank keeps its stage's
+video blocks and every other parameter whole (parallel/sharding.py
+`place_pipeline`; `zero1` then shards the moments of what it holds over
+its stage's data axis). Each train loader's global batch must be a
+multiple of pipeline_microbatches × the batch shards (oatx :119-125), and
+`fwd_chunk` is warned about and ignored (oatx :285-289). Validation runs
+the same pipelined forward without a grad; its embeddings are oatx's
+sequential ones (:333-342), the rows being independent.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import signal
 import threading
 import time
@@ -115,8 +129,14 @@ class Trainer:
                  resume: Optional[str] = None, tracker=None, device: DeviceLike = None):
         self.exp = exp
         t = exp.trainer
-        meshlib.check_layout(t)
-        self.layout = layout = meshlib.current_layout(t.dcn_slices, t.model_parallel)
+        self.tower_cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(t.precision))
+        meshlib.check_layout(t, sequence_parallel=self.tower_cfg.video.sequence_parallel)
+        if t.pipeline:  # the model axis becomes GPipe stages (oatx :73-90)
+            self.tower_cfg = dataclasses.replace(self.tower_cfg, video=dataclasses.replace(
+                self.tower_cfg.video, pipeline_stages=t.model_parallel,
+                pipeline_microbatches=t.pipeline_microbatches))
+        self.layout = layout = meshlib.current_layout(t.dcn_slices, t.model_parallel,
+                                                      t.pipeline)
         lead = layout.rank == 0
         self.device = dev = resolve_device(device)
         self.logger = setup_logging(log_dir, "oatx_torch.trainer", t.verbosity, layout.rank)
@@ -130,12 +150,21 @@ class Trainer:
         self.train_loaders = train_loaders
         self.valid_loaders = valid_loaders or []
 
-        self.tower_cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(t.precision))
         self.loss_cfg = steplib.LossConfig(
             name=exp.loss.type, temperature=exp.loss.temperature,
             margin=exp.loss.margin, region_bce_weight=exp.loss.region_bce_weight,
             chunked=exp.loss.chunked, chunk_size=exp.loss.chunk_size,
             object_nce_weight=exp.loss.object_nce_weight)
+
+        if layout.pipeline:  # oatx :119-125
+            m = t.pipeline_microbatches
+            for l in train_loaders:
+                gb = l.batch_size * layout.batch_shards
+                if gb % m or (gb // m) % layout.batch_shards:
+                    raise ValueError(
+                        f"pipeline mode: data_loader '{l.dataset_name}' global batch {gb} "
+                        f"must be a multiple of pipeline_microbatches ({m}) x batch shards "
+                        f"({layout.batch_shards})")
 
         # steps per epoch for the LR schedule (oatx :127-140)
         cycle_batches = sum(l.batch_size for l in train_loaders) or 1
@@ -195,7 +224,15 @@ class Trainer:
         self.state = steplib.TrainState(
             model, self.optimizer(model.named_parameters(),
                                   zero1=shards if self.shard_mode == "zero1" else None), 0)
-        if layout.model_parallel > 1:
+        if layout.pipeline:
+            mine = layout.stage_blocks(self.tower_cfg.video.depth)
+            self.logger.info(
+                "pipeline stages over a model axis of %d (stage %d of position %d): video "
+                "blocks [%d, %d) of %d, %d micro-batches; global batch = batch_size x %d "
+                "positions", layout.model_parallel, layout.stage, layout.position, mine.start,
+                mine.stop, self.tower_cfg.video.depth, t.pipeline_microbatches,
+                layout.batch_shards)
+        elif layout.model_parallel > 1:
             split = sum(getattr(p, "_oatx_tp", None) is not None for p in model.parameters())
             self.logger.info(
                 "tensor parallel over a model axis of %d (rank %d of position %d, "
@@ -206,7 +243,8 @@ class Trainer:
         if (self.shard_mode and layout.spans_processes) or layout.model_parallel > 1:
             mode = self.shard_mode if layout.spans_processes else None
             want = sharding.state_bytes(shapes, layout.data_size, mode, ema=bool(t.ema_decay),
-                                        model_parallel=layout.model_parallel)
+                                        model_parallel=layout.model_parallel,
+                                        pipeline=layout.pipeline)
             self.logger.info(
                 "%s over a data axis of %d (x %d dcn slices, x %d model ranks): %d of %d "
                 "parameters sharded, %.3f GB of state a rank (replicated: %.3f GB, "
@@ -248,7 +286,7 @@ class Trainer:
         fwd_chunk = t.fwd_chunk or None
         fsdp_across = t.fsdp and layout.spans_processes
         split_across = layout.model_parallel > 1 and layout.batch_shards > 1
-        if fwd_chunk and (fsdp_across or split_across):
+        if fwd_chunk and (fsdp_across or split_across or layout.pipeline):
             self.logger.warning("fwd_chunk=%d ignored: shard_map fwd_chunk needs replicated "
                                 "params (model_parallel=1, no fsdp/pipeline)", fwd_chunk)
             fwd_chunk = None
@@ -258,7 +296,8 @@ class Trainer:
         # data parallelism: one reduction per gradient after the backward
         # (step.py); grad_reduce_dtype on the manual path only (oatx :296-318)
         dp_mode = t.dp_mode or "auto"
-        pure_dp = layout.batch_shards > 1 and not t.fsdp and layout.model_parallel == 1
+        pure_dp = (layout.batch_shards > 1 and not t.fsdp and layout.model_parallel == 1
+                   and not t.pipeline)
         manual = pure_dp and dp_mode != "gspmd"
         grd = t.grad_reduce_dtype or ""
         if grd and not manual:

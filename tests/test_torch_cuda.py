@@ -796,3 +796,112 @@ def test_build_region_memory_refuses_the_cpu_without_device_flag(card, tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         pbrm.main(["--vocab", str(vocab), "--out", str(tmp_path / "bank.npy")])
     assert not (tmp_path / "bank.npy").exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro", [1, 4])
+def test_pipeline_with_one_stage_is_the_plain_tower(card, micro):
+    """parallel/pipeline.py's pipeline_blocks with one stage in one process
+    runs the tower's block loop through kernels 1 and 2 (ViT-B/16 width, 2
+    blocks, bf16, B 4 × 785 tokens): with one micro-batch bitwise the plain
+    loop, output, d(x) and every block gradient; with 4 (a row each) the
+    same within ATOL and GRAD_REL (cuBLAS may pick another algorithm for
+    the plain products' smaller row counts). time_init 'random': at 'zeros'
+    the time branch's gradients are 0 in real arithmetic and bf16 noise in
+    both."""
+    from oatx_torch.parallel import mesh as pmesh
+    from oatx_torch.parallel import pipeline as ppipe
+
+    cfg = pvst.SpaceTimeViTConfig(depth=2, time_init="random")
+    tower = pvst.SpaceTimeTransformer(cfg, card, torch.Generator(card).manual_seed(0))
+    g = torch.Generator(card).manual_seed(1)
+    video = torch.randn(4, 4, 224, 224, 3, device=card, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        x0 = tower.embed(video)
+    w = torch.randn(x0.shape, device=card, generator=g).to(torch.bfloat16)
+
+    def run(piped):
+        tower.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        if piped:
+            out = ppipe.pipeline_blocks([lambda h, b=b: b(h, 4) for b in tower.blocks], x, 1,
+                                        micro, pmesh.Layout())
+        else:
+            out = x
+            for b in tower.blocks:
+                out = b(out, 4)
+        (out.float() * w.float()).sum().backward()
+        grads = {n: p.grad.clone() for n, p in tower.blocks.named_parameters()}
+        return out.detach(), x.grad, grads
+
+    got, want = run(True), run(False)
+    torch.cuda.synchronize()
+    if micro == 1:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert all(torch.equal(got[2][n], want[2][n]) for n in want[2])
+        return
+    assert float((got[0].float() - want[0].float()).abs().max()) <= ATOL + BF16_ULP * float(
+        want[0].float().abs().max())
+    assert _rel(got[1], want[1]) <= GRAD_REL
+    for n in want[2]:
+        assert _rel(got[2][n], want[2][n]) <= GRAD_REL, n
+
+
+_PP_RANK = r"""
+import datetime, json, sys, torch, torch.distributed as dist
+from oatx_torch.parallel import collectives as coll
+rank, url, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dev = torch.device("cuda", 0)
+dist.init_process_group("gloo", init_method=url, rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+res = {}
+x = (torch.arange(6 * 785 * 8, device=dev, dtype=torch.float32).view(6, 785, 8) + rank
+     ).to(torch.bfloat16)
+if rank == 0:
+    coll.send_to(x, 1, "pp_send")
+    got = coll.recv_from(x.shape, x.dtype, dev, 1)
+else:
+    got = coll.recv_from(x.shape, x.dtype, dev, 0)
+    coll.send_to(x, 0, "pp_grad")
+b = torch.full((3, 4), float(rank), device=dev, dtype=torch.bfloat16)
+coll.broadcast_from(b, 1, None, "pp_bcast")
+other = (torch.arange(6 * 785 * 8, device=dev, dtype=torch.float32).view(6, 785, 8)
+         + 1 - rank).to(torch.bfloat16)
+res["recv_ok"] = bool(got.device == dev and torch.equal(got, other))
+res["bcast_ok"] = bool(b.device == dev and float(b.float().min()) == 1.0)
+res["traffic"] = {k: dict(v) for k, v in coll.TRAFFIC.items()}
+dist.destroy_process_group()
+json.dump(res, open(out, "w"))
+"""
+
+
+@pytest.mark.cuda
+def test_pipeline_sends_cuda_tensors_over_gloo(card, tmp_path):
+    """The sends phase 13 of chip_smoke.py depends on: two gloo ranks on one
+    card exchange a bf16 CUDA activation through parallel/collectives.py's
+    send_to / recv_from (gloo's transport aborts on a CUDA address, so each
+    side crosses the host, counted as 'pp_host') and broadcast a CUDA tensor
+    from the last rank; every tensor arrives whole on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    url = (tmp_path / "store").as_uri()
+    env = {**os.environ, "PYTHONPATH": repo}
+    procs = [subprocess.Popen([sys.executable, "-c", _PP_RANK, str(r), url,
+                               str(tmp_path / f"r{r}.json")], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    nbytes = 6 * 785 * 8 * 2
+    for r in range(2):
+        res = json.loads((tmp_path / f"r{r}.json").read_text())
+        assert res["recv_ok"] and res["bcast_ok"], res
+        sent = "pp_send" if r == 0 else "pp_grad"
+        assert res["traffic"][sent]["bytes"] == nbytes
+        assert res["traffic"]["pp_host"]["bytes"] == 2 * nbytes  # its send and its receive
+        assert res["traffic"]["pp_bcast"]["bytes"] == 3 * 4 * 2

@@ -266,7 +266,29 @@ def test_unported_options_raise(change):
     outputs as one without the key (tests/test_torch_pod.py holds a Dh-80
     tower with it against oatx's `apply`). `fused_mlp=False` is ported: its
     tower runs oatx's plain LN → fc1 → GELU → fc2 chain and matches oatx's
-    `apply` with the key (f32, ATOL)."""
+    `apply` with the key (f32, ATOL). `pipeline_stages=2` is ported: the
+    tower builds, and with no model axis of 2 under it its forward raises,
+    as oatx's `apply` asserts the registered mesh's model axis (the stages
+    run in tests/test_torch_pp.py)."""
+    if change == dict(video=dict(pipeline_stages=2)):
+        from oatx.parallel import mesh as jmesh
+
+        params = oatx_params(oatx_cfg())
+        x = _video(2)
+        prev = jmesh.current_mesh()
+        jmesh.set_current_mesh(None)
+        try:
+            with pytest.raises(AssertionError, match="registered mesh's model axis"):
+                jvst.apply(params["video"], oatx_cfg(pipeline_stages=2).video, jnp.asarray(x))
+        finally:
+            jmesh.set_current_mesh(prev)
+        pcfg = port_cfg()
+        pcfg = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video,
+                                                                   pipeline_stages=2))
+        model = port_model(params, pcfg)
+        with pytest.raises(ValueError, match="registered mesh's model axis"):
+            model.video_model(t(x))
+        return
     if change == dict(video=dict(fused_mlp=False)):
         params = oatx_params(oatx_cfg())
         cfg = oatx_cfg(fused_mlp=False, split_cls_stream=False, cls_position="first")

@@ -193,18 +193,19 @@ def test_sigterm_snapshot_resumes_mid_epoch_to_the_same_parameters(tmp_path, kee
                                        ("pipeline", True), ("dp_mode", "manual"),
                                        ("dcn_slices", 2)])
 def test_multi_device_modes_raise(tmp_path, key, value):
-    """The layouts one process cannot give raise: pipeline stages name
-    ROADMAP A8b; a model axis of 2, `dp_mode: manual` with one batch shard
-    and `dcn_slices` that do not divide the processes raise oatx's
-    ValueError (trainer.py:306-309, make_mesh). `fsdp` on one process shards
-    over a 1-wide data axis, that is, replicates, as oatx's
-    shard_params_fsdp does on a 1-device mesh: that Trainer builds and holds
-    the same parameters as one without it."""
+    """The layouts one process cannot give raise: a model axis of 2,
+    `dp_mode: manual` with one batch shard and `dcn_slices` that do not
+    divide the processes raise oatx's ValueError (trainer.py:306-309,
+    make_mesh). `fsdp` on one process shards over a 1-wide data axis, that
+    is, replicates, as oatx's shard_params_fsdp does on a 1-device mesh, and
+    `pipeline` on a model axis of 1 is one stage, as oatx's pipeline_stages
+    = model_parallel = 1: each Trainer builds and holds the same parameters
+    as one without the key."""
     raw = _raw(tmp_path, **{key: value})
     raw["arch"]["args"]["load_checkpoint"] = ""
-    if key == "fsdp":
+    if key in ("fsdp", "pipeline"):
         got = PTrainer(PExp.from_dict(raw), [], device="cpu").state.model.state_dict()
-        raw["trainer"]["fsdp"] = False
+        raw["trainer"][key] = False
         want = PTrainer(PExp.from_dict(raw), [], device="cpu").state.model.state_dict()
         assert sorted(got) == sorted(want)
         assert all(torch.equal(got[k], want[k]) for k in want)
@@ -216,19 +217,18 @@ def test_multi_device_modes_raise(tmp_path, key, value):
                 "model_parallel": "not divisible by model_parallel=2 x dcn_slices=1"}[key]):
             PTrainer(PExp.from_dict(raw), [], device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="several devices.*A8b"):
-        PTrainer(PExp.from_dict(raw), [], device="cpu")
 
 
 @pytest.mark.parametrize("key,value,error", [
     ("fsdp", True, None), ("zero1", True, None), ("model_parallel", 2, None),
-    ("pipeline", True, "A8b"), ("dcn_slices", 2, None), ("dcn_slices", 3, "dcn_slices=3"),
+    pytest.param("pipeline", True, None, id="pipeline-True-A8b"),  # the case's name kept
+    ("dcn_slices", 2, None), ("dcn_slices", 3, "dcn_slices=3"),
     ("dp_mode", "manual", None), (("fsdp", "dcn_slices"), (True, 2), None),
     (("pipeline", "fsdp"), (True, True), "pipeline and trainer.fsdp"),
     (("dp_mode", "fsdp"), ("manual", True), "dp_mode='manual'")])
 def test_layout_checks_across_two_processes(tmp_path, key, value, error):
-    """At a world of 2 the sharded modes and a model axis of 2 run (fsdp
-    also inside dcn slices); pipeline stages raise naming ROADMAP A8b; dcn
+    """At a world of 2 the sharded modes, a model axis of 2 and pipeline on a
+    model axis of 1 (one stage) run (fsdp also inside dcn slices); dcn
     slices must divide the world (oatx's make_mesh); dp_mode 'manual' is
     plain data parallelism; pipeline with fsdp and dp_mode 'manual' with
     fsdp raise ValueError with oatx's wording."""
@@ -239,7 +239,7 @@ def test_layout_checks_across_two_processes(tmp_path, key, value, error):
     if error is None:
         pmesh.check_layout(t, world=2)
         return
-    with pytest.raises(NotImplementedError if error == "A8b" else ValueError, match=error):
+    with pytest.raises(ValueError, match=error):
         pmesh.check_layout(t, world=2)
 
 

@@ -58,6 +58,24 @@ test wrote:
                'eval_augment'; records each step's loss terms and
                input_ids, the whole state the Trainer holds once built
                (after a resume: what it restored) and at the end;
+  pp           {'blocks': {name: {'cfg' (a SpaceTimeViTConfig), 'state_dict'
+               (the tower's), 'x' (B, T, D), 'w' (its cotangent), 'mp'
+               (stages), 'micro'}}, 'towers': {name: the same with 'video'
+               (B, F, H, W, C) for 'x'}, 'cases': {name: tp's case keys}}:
+               pipeline stages over the model axis (parallel/pipeline.py).
+               blocks: parallel/pipeline.py pipeline_blocks on the rows of
+               the rank's data position and the loss Σ w·out → the output,
+               d(x) on stage 0 and the blocks' whole gradients; towers: the
+               pipelined tower's forward → its outputs; cases: tp's steps
+               with the model placed on its stages → tp's records, the
+               whole gradients gathered from the stages, each rank's own
+               gradients of what it holds whole, and the traffic a step;
+  pp_trainer   {'jobs': [{'raw', 'save_dir', 'resume', 'valid'}], 'clips',
+               'batch' (per data position), 'log_dir', 'eval_augment'}:
+               tp_trainer's jobs with, where 'valid', a validation loader
+               over the position's shard of the clips and every eval
+               step's input_ids and embeddings recorded; a job whose
+               Trainer raises ValueError records the message ('error');
   shard_trainer {'jobs': [{'raw', 'save_dir', 'resume', 'min_size'}], 'clips',
                'batch', 'log_dir'}: Trainer.train() per job over the rank's
                shard of MemoryClips (with 'global_batches' as in trainer),
@@ -69,6 +87,7 @@ test wrote:
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import signal
@@ -487,6 +506,159 @@ def tp_trainer(p, rank, world):
     return out
 
 
+def _whole_stage_grads(model):
+    """Every parameter's gradient, whole: the other stages' blocks' from
+    their ranks (parallel/sharding.py StagePlan), the rest this rank's."""
+    from oatx_torch.parallel import sharding
+
+    stages = sharding.stage_plan_of(model)
+    own = {n: q.grad for n, q in model.named_parameters()}
+    out = {}
+    for n in stages.params:
+        g = own.get(n)
+        if stages.owner(n) is not None:
+            g = stages.fetch(n, g)
+        if g is not None:
+            out[n] = g.clone()
+    return out
+
+
+def _pp_blocks(job, layout, tower):
+    """pipeline_blocks on the rank's rows of job['x'] (module docstring)."""
+    from oatx_torch.parallel import pipeline, sharding
+
+    rows = np.array_split(np.arange(job["x"].shape[0]), layout.batch_shards)[layout.position]
+    x = job["x"][rows].clone().requires_grad_(True)
+    mine = [b for b in tower.blocks if b is not None]
+    f = tower.cfg.num_frames
+    coll.reset_traffic()
+    out = pipeline.pipeline_blocks([lambda h, b=b: b(h, f) for b in mine], x, job["mp"],
+                                   job["micro"], layout)
+    (out * job["w"][rows]).sum().backward()
+    traffic = {k: dict(v) for k, v in coll.TRAFFIC.items()}
+    grads = {n: q.grad for n, q in tower.named_parameters()}
+    stages = sharding.stage_plan_of(tower)
+    whole = {n: stages.fetch(n, grads.get(n)).clone() for n in stages.params
+             if stages.owner(n) is not None}
+    return {"out": out.detach(), "x_grad": x.grad if layout.stage == 0 else None,
+            "grads": whole, "traffic": traffic}
+
+
+def pp(p, rank, world):
+    from oatx_torch.models import vit_spacetime as vst
+    from oatx_torch.parallel import mesh, sharding
+    from oatx_torch.train import optim
+    from oatx_torch.train import step as steplib
+
+    out = {"blocks": {}, "towers": {}, "cases": {}}
+    for kind in ("blocks", "towers"):
+        for name, job in p.get(kind, {}).items():
+            layout = mesh.current_layout(job.get("dcn", 1), job["mp"], True)
+            tower = vst.SpaceTimeTransformer(job["cfg"], "cpu")
+            tower.load_state_dict(job["state_dict"])
+            sharding.place_pipeline(tower, layout)
+            if kind == "blocks":
+                out[kind][name] = _pp_blocks(job, layout, tower)
+            else:
+                rows = np.array_split(np.arange(job["video"].shape[0]),
+                                      layout.batch_shards)[layout.position]
+                with torch.no_grad():
+                    out[kind][name] = tower(job["video"][rows])
+    for name, case in p.get("cases", {}).items():
+        layout = mesh.current_layout(case.get("dcn", 1), case["mp"], True)
+        state = steplib.init_state(case["cfg"], optim.make_optimizer(**case.get("opt", {})),
+                                   device="cpu", state_dict=case["state_dict"],
+                                   shard_mode=case["mode"], layout=layout)
+        fn = steplib.make_train_step(case["cfg"], case["loss_cfg"], device="cpu",
+                                     **case.get("step", {}))
+        model, opt = state.model, state.optimizer
+        shapes = {k: tuple(v.shape) for k, v in model.named_parameters()}
+        whole_shapes = {k: tuple(v.shape) for k, v in case["state_dict"].items()
+                        if k in sharding.stage_plan_of(model).params}
+        rec = {"metrics": [], "layout": {"position": layout.position, "stage": layout.stage,
+                                         "batch_shards": layout.batch_shards},
+               "held_names": sorted(shapes)}
+
+        def rows(b):
+            return {k: torch.from_numpy(np.array_split(v, layout.batch_shards)[layout.position])
+                    for k, v in b.items()}
+
+        coll.reset_traffic()
+        for i, b in enumerate(case["batches"]):
+            state, m = fn(state, rows(b))
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                rec["traffic_step1"] = {k: dict(v) for k, v in coll.TRAFFIC.items()}
+                rec["own_grads"] = {n: q.grad.clone() for n, q in model.named_parameters()
+                                    if q.grad is not None}
+                rec["grads"] = _whole_stage_grads(model)
+                rec["held"] = sharding.held_bytes(model, opt)
+        rec["params"] = sharding.full_state_dict(model)
+        rec["opt"] = opt.named_state()
+        rec["predicted"] = sharding.state_bytes(whole_shapes, layout.data_size, case["mode"],
+                                                ema=bool(opt.ema_decay),
+                                                model_parallel=layout.model_parallel,
+                                                pipeline=True)
+        rec["replicated_values"] = {n: q.detach().clone() for n, q in model.named_parameters()
+                                    if getattr(q, "_oatx_pp", None) is None}
+        rec["step"] = state.step
+        out["cases"][name] = rec
+    return out
+
+
+def pp_trainer(p, rank, world):
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data.loader import Collator, ShardedLoader
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.parallel import mesh
+    from oatx_torch.train import step as steplib
+    from oatx_torch.train.trainer import Trainer
+    from torch_port_clips import MemoryClips
+
+    if p.get("eval_augment"):
+        make = steplib.make_augmenter
+        steplib.make_augmenter = lambda *a, **kw: make(train=False, tower_cfg=kw["tower_cfg"])
+    ds = MemoryClips(**p["clips"])
+    col = Collator(WordPieceTokenizer.build_from_corpus(ds.captions, vocab_size=100),
+                   max_text_len=10)
+    out = []
+    for job in p["jobs"]:
+        exp = ExperimentCfg.from_dict(job["raw"])
+        t = exp.trainer
+        layout = mesh.current_layout(t.dcn_slices, t.model_parallel, t.pipeline)
+        shard = dict(shard_id=layout.position, num_shards=layout.batch_shards, num_workers=1)
+        train = [ShardedLoader(ds, job.get("batch", p["batch"]), col, seed=0, **shard)]
+        valid = ([ShardedLoader(ds, p["batch"], col, shuffle=False, drop_last=False, **shard)]
+                 if job.get("valid") else [])
+        try:
+            tr = Trainer(exp, train, valid, save_dir=job["save_dir"], log_dir=p["log_dir"],
+                         resume=job.get("resume"), device="cpu")
+        except ValueError as e:
+            out.append({"error": str(e)})
+            continue
+        built = _whole_state(tr.state)
+        inner, steps, evals = tr.train_step, [], []
+
+        def recorded(state, b, inner=inner, steps=steps):
+            state, m = inner(state, b)
+            steps.append({k: float(v) for k, v in m.items() if k.startswith("loss")})
+            return state, m
+
+        inner_eval = tr.eval_step
+
+        def recorded_eval(model, b, inner_eval=inner_eval, evals=evals):
+            res = inner_eval(model, b)
+            evals.append({"input_ids": torch.as_tensor(np.asarray(b["input_ids"])).clone(),
+                          **{k: v.clone() for k, v in res.items()}})
+            return res
+
+        tr.train_step, tr.eval_step = recorded, recorded_eval
+        hist = tr.train()
+        out.append({"steps": steps, "evals": evals, "hist": hist, "built": built,
+                    "final": _whole_state(tr.state), "layout": dataclasses.asdict(layout)})
+    return out
+
+
 def main():
     mode, rank, world, url, src, dst = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -497,7 +669,7 @@ def main():
         payload = torch.load(src, weights_only=False)
         out = {"collectives": collectives, "step": step, "trainer": trainer,
                "shard": shard, "shard_trainer": shard_trainer, "tp": tp,
-               "tp_trainer": tp_trainer}[mode](
+               "tp_trainer": tp_trainer, "pp": pp, "pp_trainer": pp_trainer}[mode](
             payload, rank, world)
         torch.save(out, f"{dst}.rank{rank}")
     finally:
