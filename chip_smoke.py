@@ -253,21 +253,35 @@ printed):
      ViT-H at mp 4, with a zero fc2 bias, also held against the plain chain
      less b2; TP_SA: the local heads, forward and backward) against their
      plain versions, with ms, bound, plain and library ms (the `tp` key of
-     each kernel's record). Then TP_WORLD ranks on cuda:0 over gloo, this
-     script started again with --dp-rank and --dp-phase tp: phase 11's
-     probe plus bf16 token-axis gathers; then norm.json at model_parallel
-     TP_WORLD, one model group at TP_BATCH, through Trainer.train(): TP_STEPS
-     steps with sequence_parallel off and on, and one with fused_mlp false
-     (the plain MLP chain; no config key, set on the tower config). Each
-     against one process at TP_BATCH on the same rows: step 1's loss terms
-     within TP_LOSS_RTOL, step 1's whole gradients (gathered from the
-     parts) by grad_check, the model peers' replicated parameters bitwise
-     equal after every step, each rank's held state bytes exactly
+     each kernel's record; TP_MLP / TP_SA also hold the object-aware
+     recipes' 1-frame object frame at a rank's shapes: R = 16·197, 768 →
+     1536; B 16, F 1, N 196, 6 heads). Then TP_WORLD ranks on cuda:0 over
+     gloo, this script started again with --dp-rank and --dp-phase tp:
+     phase 11's probe plus bf16 token-axis gathers; then TP_RUNS at
+     model_parallel TP_WORLD, one model group at TP_BATCH, through
+     Trainer.train() (tp_recipe, tp_data): norm.json for TP_STEPS steps
+     with sequence_parallel off and on, and one with fused_mlp false (the
+     plain MLP chain; no config key, set on the tower config);
+     local_region_loss.json (global_local) and region_mem.json as shipped
+     with sequence_parallel on, 2 steps each over the objects phase's
+     corpus with patch masks and BUTD files (the second text and video
+     streams, the object frame's 197 tokens padded to 2 × 99, region_mem's
+     layer-6 tap on the gathered stream); norm.json with BERT-base text and
+     arch.stream 3 at STREAM3_NCE_WEIGHT (BERT's layers and vocabulary
+     split, the object tower's layers split), and with CLIP's text tower
+     (the packed in_proj by whole heads under the causal mask), 1 step
+     each. Each against one process at TP_BATCH on the same rows: step 1's
+     loss terms within TP_LOSS_RTOL, step 1's whole gradients (gathered
+     from the parts) by grad_check, the model peers' replicated parameters
+     bitwise equal after every step, each rank's held state bytes exactly
      sharding.state_bytes of the split, the tp_reduce / sp_gather /
      sp_scatter bytes exactly tp_traffic's count and the tp_norm bytes the
      partial gradients', and 12 launches of kernels 1 and 2 a forward a
-     rank (0 of kernel 1 for fused_mlp false). Printed: step ms, peak and
-     collectives a rank (gloo: no speed). With --tp-nccl (4 cards):
+     rank for each video stream (24 for the two-stream variants; 0 of
+     kernel 1 for fused_mlp false) and kernel 2's backward once a block
+     the loss reaches (tp_reached: 12 a step, 24 for global_local, 12 + 6
+     for region_mem). Printed: step ms, peak and collectives a rank
+     (gloo: no speed). With --tp-nccl (4 cards):
      vit_huge_pod.json and vit_large_pod.json as shipped, a rank a card
      over NCCL: per rank peak GiB, step ms, MFU (a rank's FLOPs over one
      card's peak) and idle share (a 2-step trace), beside each recipe in
@@ -1771,43 +1785,85 @@ class StepRecorder:
     events: the device's view of the trainer loop, host stalls included).
     With `trace_at` = k, steps k and k + 1 run inside a `cuda_trace`,
     whose device records between its markers give the loop's device idle
-    share (1 − busy / the window's wall time); `expect` as device_trace's."""
+    share (1 − busy / the window's wall time); `expect` as device_trace's.
+    A trace that lost records is taken again by `traced()`, as
+    device_trace's are, up to TRACE_ATTEMPTS traces in all: a retake
+    replays the traced steps' batches on the Trainer's state after its
+    run (steps that move the state on, outside every launch count, loss
+    and event), in one process only, since a rank cannot replay alone a
+    step whose collectives its peers do not run."""
 
     def __init__(self, trainer, trace_at=None, expect=()):
         self.step, self.trainer = trainer.train_step, trainer
         self.events, self.losses, self.terms = [], [], []
-        self.trace_at, self.expect, self.trace = trace_at, expect, None
+        self.trace_at, self.expect = trace_at, expect
+        self.window, self.attempts, self.lost, self._trace = [], 0, None, None
         trainer.train_step = self
 
     def __call__(self, state, batch):
         i = len(self.losses) + 1
+        traced = self.trace_at is not None and 0 <= i - self.trace_at < PROFILED_STEPS
+        if traced:
+            self.window.append(batch)
         if i == self.trace_at:
-            self._trace_cm = cuda_trace()
-            self._trace = self._trace_cm.__enter__()
-            self._t0 = time.perf_counter()
+            self._open()
         state, m = self.step(state, batch)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         self.events.append(ev)
         self.losses.append(m["loss"])
         self.terms.append({k: v for k, v in m.items() if k.startswith("loss")})
-        if self.trace_at is not None and i == self.trace_at + PROFILED_STEPS - 1:
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - self._t0) * 1e3
-            self._trace_cm.__exit__(None, None, None)
-            recs = self._trace.recs
-            if recs is None:
-                raise AssertionError("trainer trace lost a marker")
-            lost = [key for key, per in self.expect
-                    if sum(key in r[2] for r in recs) < per * PROFILED_STEPS]
-            if lost or not recs:
-                raise AssertionError(f"trainer trace lost records of {lost or 'every kernel'}")
-            busy = busy_union_us(recs) / 1e3
-            self.trace = {"wall_ms": wall_ms / PROFILED_STEPS,
-                          "device_busy_ms": busy / PROFILED_STEPS,
-                          "idle_share": 1 - busy / wall_ms,
-                          "device_ms_by_group": group_ms(recs, PROFILED_STEPS)[0]}
+        if traced and i == self.trace_at + PROFILED_STEPS - 1:
+            self._close()
         return state, m
+
+    def _open(self):
+        self._cm = cuda_trace()
+        self._held = self._cm.__enter__()
+        self._t0 = time.perf_counter()
+
+    def _close(self):
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self._t0) * 1e3
+        self._cm.__exit__(None, None, None)
+        self.attempts += 1
+        recs = self._held.recs
+        if recs is None:
+            self.lost = "a marker"
+        else:
+            self.lost = [key for key, per in self.expect
+                         if sum(key in r[2] for r in recs) < per * PROFILED_STEPS]
+            self.lost = self.lost or (None if recs else "every kernel")
+        if self.lost:
+            print(f"trainer trace: attempt {self.attempts} lost records of {self.lost}",
+                  file=sys.stderr, flush=True)
+            return
+        busy = busy_union_us(recs) / 1e3
+        self._trace = {"wall_ms": wall_ms / PROFILED_STEPS,
+                       "device_busy_ms": busy / PROFILED_STEPS,
+                       "idle_share": 1 - busy / wall_ms,
+                       "device_ms_by_group": group_ms(recs, PROFILED_STEPS)[0],
+                       "trace_attempt": self.attempts}
+
+    def traced(self):
+        """The trace's record (None where no step was traced), after taking
+        again a trace that lost records; raises once TRACE_ATTEMPTS traces
+        lost records."""
+        if not self.attempts:
+            return None
+        dist = torch.distributed
+        ranks = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        while self._trace is None:
+            if self.attempts >= TRACE_ATTEMPTS or ranks > 1:
+                raise AssertionError(f"trainer trace: {self.attempts} traces lost records of "
+                                     f"{self.lost}")
+            state = self.trainer.state
+            self._open()
+            for batch in self.window:
+                state, _ = self.step(state, batch)
+            self._close()
+            self.trainer.state = state
+        return self._trace
 
     def step_ms(self, per_epoch):
         """Intervals between consecutive steps inside each epoch of
@@ -1947,7 +2003,7 @@ def resume_epoch2(tag, exp, loaders, ckpt, dev, len_epoch, expect, want, terms):
         raise AssertionError(f"{tag} resume: epoch 2's loss terms {again} vs {first} "
                              f"(rel {rel:.2e})")
     return ({"restored_bitwise": restored, "losses": again["loss"], "max_rel_diff": rel,
-             "bitwise": again == first}, launches, rec.trace)
+             "bitwise": again == first}, launches, rec.traced())
 
 
 def remat_runs(smi, dev, ds):
@@ -2516,12 +2572,12 @@ def data_train(root, tmp, smi, dev):
            "launches": launches,
            **cycle_speed(rec, trace_at, DATA_CYCLES * len(raw["data_loader"]), batch,
                          mixed_flops_per_clip_step(tr.tower_cfg)),
-           "trace_cc3m_webvid": rec.trace}
+           "trace_cc3m_webvid": rec.traced()}
     print(f"data train ({smi}): input_wait {waits}, step ms CC3M 1-frame "
           f"{out['step_ms_cc3m']['step_ms']:.1f}, WebVid 4-frame "
           f"{out['step_ms_webvid']['step_ms']:.1f}, clips/s {out['clips_per_s']:.1f}, idle "
-          f"share {rec.trace['idle_share']:.3f}, peak {peak:.2f} GiB: " + json.dumps(out),
-          flush=True)
+          f"share {out['trace_cc3m_webvid']['idle_share']:.3f}, peak {peak:.2f} GiB: "
+          + json.dumps(out), flush=True)
     del tr, made
     return out, launches, os.path.join(save_dir, f"checkpoint-epoch{TRAINER_EPOCHS}")
 
@@ -2778,7 +2834,7 @@ def stream3_run(weight, tmp, smi, dev, base):
     if frozen:
         out["frozen_bitwise_steps"] = frozen.steps
     else:
-        out.update(rec.trace)
+        out.update(rec.traced())
         # the o2v / o2t eval streams over the same clips with their features
         valid = ShardedLoader(ds, batch, col, shuffle=False, drop_last=False, num_workers=4)
         l_eval = {}
@@ -2836,7 +2892,7 @@ def bert_run(tmp, smi, dev, base):
     out = {"config": "norm.json + bert-base-uncased", "batch": batch, "losses": losses,
            "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held,
            "launches": launches, **tower_speed(rec, TOWERS_LEN_EPOCH, batch, cfg, TEXT_LEN),
-           **rec.trace}
+           **rec.traced()}
     print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
     return out, launches
 
@@ -2901,7 +2957,7 @@ def clip_run(root, tmp, smi, dev):
            "vocab_size": train_tok.vocab_size, "train_wall_s": wall_s, "peak_mem_gib": peak,
            "mem_held_gib": held, "launches": launches,
            **cycle_speed(rec, trace_at, steps, batch, cycle_flops),
-           "flops_per_clip_step": cycle_flops, "flops_py_per_clip_step": None, **rec.trace}
+           "flops_per_clip_step": cycle_flops, "flops_py_per_clip_step": None, **rec.traced()}
     del tr, made
 
     # cli.test from that checkpoint: the persisted tokenizer, the metrics
@@ -3356,7 +3412,7 @@ def wide_recipe(name, smi, dev, ds):
            "launches": launches,
            "launches_per_step": {k: n for k, n in want_launches(
                depth, 1, v.remat, accum_steps=accum).items() if n},
-           **speed(ms, batch, flops_per_clip_step(cfg)), **(rec.trace or {})}
+           **speed(ms, batch, flops_per_clip_step(cfg)), **(rec.traced() or {})}
 
     # one step's gradients on a fixed batch at full depth, the loader's batch
     # in one pass: kernels vs plain versions and both vs the f32 step (not
@@ -4122,61 +4178,213 @@ def shard_phase(smi, dev):
 TP_WORLD = 2          # phase 12: one model group of 2 ranks on cuda:0 over gloo
 TP_BATCH = 16         # norm.json's per-GPU batch, one model group's rows
 TP_STEPS = 4
-TP_RUNS = (  # (name, video_params keys, tower keys, steps) of phase 12, norm.json at
-    # model_parallel 2; fused_mlp is no config key (in oatx neither): the run sets it
-    # on the tower config the Trainer builds
-    ("sp_off", dict(sequence_parallel=False), {}, TP_STEPS),
-    ("sp_on", dict(sequence_parallel=True), {}, TP_STEPS),
-    ("unfused_mlp", dict(sequence_parallel=True), dict(fused_mlp=False), 1))
+TP_RUNS = (  # (name, recipe, video_params keys, tower keys, steps) of phase 12 at
+    # model_parallel 2 (tp_recipe); fused_mlp is no config key (in oatx neither): the
+    # run sets it on the tower config the Trainer builds
+    ("sp_off", "norm", dict(sequence_parallel=False), {}, TP_STEPS),
+    ("sp_on", "norm", dict(sequence_parallel=True), {}, TP_STEPS),
+    ("unfused_mlp", "norm", dict(sequence_parallel=True), dict(fused_mlp=False), 1),
+    ("global_local", "global_local", dict(sequence_parallel=True), {}, 2),
+    ("region_mem", "region_mem", dict(sequence_parallel=True), {}, 2),
+    ("bert_stream3", "bert_stream3", {}, {}, 1),
+    ("clip", "clip", {}, {}, 1))
 TP_LOSS_RTOL = 2e-3   # step 1's loss terms against one process at 16
+# TP_F32_NOTE: step 1's loss terms and whole gradients of the ranks and of
+# one process (both bf16) are also read against the same step of one
+# process in f32 through the plain versions (tp_f32_step), the exact step
+# up to f32 rounding, as phase 9 reads the wide recipes' (WIDE_F32_RATIO).
+# The ranks' gradient's relative L2 distance from it is at most
+# WIDE_F32_RATIO x one process's. Two bf16 results with independent
+# rounding noise from the exact one differ by about the sum of their
+# distances from it: where one process's own loss term is over
+# TP_LOSS_RTOL / 2 from the f32 step's, the ranks' term is held to
+# TP_LOSS_RTOL of the f32 step's instead of one process's, and where one
+# process's own 1 − cos from the f32 gradient exceeds half of 1 −
+# GRAD_MIN_GLOBAL_COSINE, the bf16 pair is not held to
+# GRAD_MIN_GLOBAL_COSINE and the f32 reading decides (at random init the
+# BERT-base and CLIP text towers' bf16 steps are that far from f32:
+# PERF.md §6).
+PAD_TEXT_LEN = 60     # the Collator's max_pad_text_len: global_local's caption + tags
 # the kernels at a rank's shapes: kernel 1 on the hidden shard (R, D, 4D/mp),
 # kernel 2 on the local heads (B, frames, N, H/mp, Dh)
-TP_MLP = ((12560, 768, 1536), (12560, 1024, 1024), (4100, 1280, 1280))
-TP_SA = ((16, 4, 196, 6, 64), (16, 4, 196, 4, 64), (4, 4, 256, 4, 80))
+TP_MLP = ((12560, 768, 1536), (12560, 1024, 1024), (4100, 1280, 1280), (3152, 768, 1536))
+TP_SA = ((16, 4, 196, 6, 64), (16, 4, 196, 4, 64), (4, 4, 256, 4, 80), (16, 1, 196, 6, 64))
 TP_SHAPES_OF = {"ViT-B/16 mp 2 @16 (norm.json, phase 12)": (0, 0),
                 "ViT-L/16 mp 4 @16 (vit_large_pod)": (1, 1),
-                "ViT-H/14 mp 4 @4 (vit_huge_pod micro-batch)": (2, 2)}
+                "ViT-H/14 mp 4 @4 (vit_huge_pod micro-batch)": (2, 2),
+                "ViT-B/16 mp 2 object frame @16 (local_region_loss, region_mem; "
+                "phase 12)": (3, 3)}
 # --tp-nccl: (recipe, epochs, steps an epoch) as shipped, a rank on each card
 TP_NCCL_RUNS = (("vit_huge_pod", 1, 5), ("vit_large_pod", 1, 5))
 
 
 def tp_exp(steps, path=NORM_CONFIG, **video):
     """A recipe for phase 12 / --tp-nccl: one epoch of `steps` steps, no
-    init_val, no checkpoint; norm.json at model_parallel TP_WORLD (the pod
-    recipes keep theirs)."""
-    kw = dict(model_parallel=TP_WORLD) if path == NORM_CONFIG else {}
+    init_val, no checkpoint; norm.json and the object-aware recipes at
+    model_parallel TP_WORLD (the pod recipes keep theirs)."""
+    kw = {} if path in WIDE_CONFIGS.values() else dict(model_parallel=TP_WORLD)
     exp = recipe(path, epochs=1, len_epoch=steps, init_val=False, save_period=10 ** 6,
                  verbosity=1, **kw)
     return set_video(exp, **video) if video else exp
 
 
-def tp_traffic(cfg, batch, seq_len, mp, steps=1, remat=False, accum_steps=1):
+def tp_recipe(name, steps, video):
+    """Phase 12's recipe `name` (TP_RUNS) through tp_exp: norm.json, the
+    object-aware recipes as shipped, norm.json with BERT-base text and
+    arch.stream 3 at STREAM3_NCE_WEIGHT over STREAM3_TOP_K objects
+    ('bert_stream3'), or with CLIP's text tower ('clip': 512 × 12, 8 heads,
+    context 77)."""
+    from oatx_torch.config.schema import ExperimentCfg
+
+    exp = tp_exp(steps, OBJECT_CONFIGS.get(name, NORM_CONFIG), **video)
+    if name not in ("bert_stream3", "clip"):
+        return exp
+    raw = json.loads(json.dumps(exp.raw))
+    args = raw["arch"]["args"]
+    if name == "clip":
+        args["text_params"]["model"] = CLIP_TEXT_MODEL
+        return ExperimentCfg.from_dict(raw)
+    args["text_params"]["model"] = "bert-base-uncased"
+    raw["arch"]["stream"] = 3
+    args["object_params"].update(input_objects=True, top_k=STREAM3_TOP_K)
+    raw["data_loader"][0]["args"]["object_params"] = {"input_objects": True,
+                                                      "top_k": STREAM3_TOP_K}
+    raw["loss"]["args"]["object_nce_weight"] = STREAM3_NCE_WEIGHT
+    return ExperimentCfg.from_dict(raw)
+
+
+def tp_data(name, exp, base, tmp):
+    """(dataset, collator) of phase 12's recipe `name` over `base`'s clips:
+    dp_data's for norm.json and the object-aware recipes (their files under
+    `tmp`), stream 3's BUTD features (object_corpus) for 'bert_stream3', the
+    CLIP tokenizer the CLI resolves from the captions for 'clip'."""
+    from oatx_torch.cli.common import resolve_tokenizer
+    from oatx_torch.data import factory
+    from oatx_torch.data.loader import Collator
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+
+    if name == "clip":
+        return base, Collator(resolve_tokenizer(exp, corpus=base.captions),
+                              max_text_len=TEXT_LEN)
+    if name != "bert_stream3":
+        return dp_data(name if name in OBJECT_CONFIGS else "norm", exp, base, tmp)
+    opts = factory.object_options_for_variant("baseline", exp.data_loaders[0])
+    ds = object_corpus(base, os.path.join(tmp, "objects"), opts)
+    return ds, Collator(WordPieceTokenizer.build_from_corpus(ds.captions),
+                        max_text_len=TEXT_LEN)
+
+
+def tp_reached(cfg):
+    """Blocks of each video stream a step's loss reaches (want_launches'
+    backward_depths): the clip's all; the object-aware variants' 1-frame
+    object frame all under global_local, up to the tap under region_mem."""
+    v = cfg.video
+    if cfg.variant == "baseline":
+        return (v.depth,)
+    return v.depth, (v.depth if cfg.variant == "global_local" else v.region_tap_layer)
+
+
+def tp_f32_step(exp, ds, col, dev, tower):
+    """Step 1 of `exp` (one step of it) in one process at TP_BATCH on the
+    rows tp_run's one process reads, in f32 through the plain versions: the
+    exact step up to f32 rounding → (its loss terms, its gradients on the
+    host)."""
+    from oatx_torch.data.loader import ShardedLoader
+    from oatx_torch.train.trainer import Trainer
+
+    train = [ShardedLoader(ds, TP_BATCH, col, seed=0, num_workers=4)]
+    with tower_keys(**tower):
+        tr = Trainer(set_model_parallel(exp, 1), train, [], device=dev)
+    first = FirstGrads(tr)
+    rec = StepRecorder(tr)
+    with plain_versions(), f32_compute(tr.state.model):
+        tr.train()
+    terms, grads = {k: v[0] for k, v in rec.term_values().items()}, first.grads
+    del tr, first, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return terms, grads
+
+
+def tp_f32_reading(got, ref, exact):
+    """Each bf16 gradient's distance from the f32 step (tp_f32_grads):
+    relative L2 over the whole gradient and global cosine, for the ranks'
+    (`got`) and one process's (`ref`)."""
+    norm = float(np.sqrt(sum(float(e.double().square().sum()) for e in exact.values())))
+    out = {}
+    for v, g in (("ranks", got), ("one_process", ref)):
+        diff = sum(float((g[n].double() - exact[n].double()).square().sum()) for n in exact)
+        dot = sum(float((g[n].double() * exact[n].double()).sum()) for n in exact)
+        gn = float(np.sqrt(sum(float(g[n].double().square().sum()) for n in exact)))
+        out[v] = {"rel_l2": float(np.sqrt(diff)) / norm, "cosine": dot / (gn * norm)}
+    return out
+
+
+def tp_slots(cfg, exp):
+    """Objects a clip the loss runs the object tower over (0: none)."""
+    return STREAM3_TOP_K if cfg.object_tower is not None and \
+        exp.loss.object_nce_weight > 0 else 0
+
+
+def tp_flops_per_clip_step(cfg, exp):
+    """Model FLOPs of one clip's train step of phase 12's recipe: train/
+    flops.py's for norm.json and the pod recipes, each stream at its own
+    shape for the object-aware variants (object_flops_per_clip_step) and
+    for the other text families and the object tower
+    (towers_flops_per_clip_step)."""
+    if cfg.variant != "baseline":
+        return object_flops_per_clip_step(cfg, PAD_TEXT_LEN)
+    if cfg.text_family != "distilbert" or cfg.object_tower is not None:
+        return towers_flops_per_clip_step(cfg, TEXT_LEN, tp_slots(cfg, exp))
+    return flops_per_clip_step(cfg)
+
+
+def tp_traffic(cfg, batch, seq_len, mp, steps=1, remat=False, accum_steps=1,
+               pad_len=PAD_TEXT_LEN, slots=0):
     """Bytes a rank hands to the model group's collectives in `steps` steps
     of `accum_steps` micro-batches of `batch` rows (parallel/collectives.py's
-    purposes), derived from the code: per ViT block 3 sublayers, each
-    entered and left once forward and once backward; per DistilBERT layer 2
-    sublayers without sequence parallelism; the vocabulary-parallel
-    lookup's f32 all-reduce where the vocabulary divides; under sequence
-    parallelism the stream's split (backward all-gather) and final gather
-    (forward). A remat recompute runs a block's forward collectives again
-    but the last: torch's checkpoint stops recomputing once it has every
-    tensor the backward needs, and the MLP's leave feeds none."""
+    purposes), derived from the code. Per ViT block 3 sublayers, each
+    entered and left once forward and, where the loss reaches the block
+    (tp_reached), once backward, over each video stream: the clip and, with
+    an object-aware variant, its 1-frame object frame (T = 1 + N). Under
+    sequence parallelism the stream's rows are padded to mp·⌈T/mp⌉; its
+    split (backward all-gather), its final gather (forward) and the region
+    tap's gather (forward) add a rank's rows each. A remat recompute runs a
+    block's forward collectives again but the last: torch's checkpoint stops
+    recomputing once it has every tensor the backward needs, and the MLP's
+    leave feeds none. Per layer of the text tower (DistilBERT, BERT, CLIP
+    text; never token-sharded) 2 sublayers, each left forward and entered
+    backward, once a text stream: the caption at `seq_len` and, under
+    global_local, the caption + tags at `pad_len`; CLIP's second pass
+    (encode_text_tokens) runs only for return_tokens, which no train step
+    asks for (CLIP text with global_local is refused). The (Distil)BERT
+    vocabulary-parallel lookup's f32 all-reduce where the vocabulary
+    divides, once a text stream. With `slots` (the loss runs the object
+    tower) its 2 sublayers a layer over (batch, slots, dim)."""
     v, t = cfg.video, cfg.text
     es = torch.finfo(cfg.compute_dtype).bits // 8
-    tokens = 1 + v.num_frames * v.patches_per_frame
-    rows = -(-tokens // mp)
-    shard, padded = batch * rows * v.embed_dim * es, batch * mp * rows * v.embed_dim * es
-    whole_v, whole_t = batch * tokens * v.embed_dim * es, batch * seq_len * t.dim * es
     out = {"tp_reduce": 0, "sp_gather": 0, "sp_scatter": 0}
     r = 1 if remat else 0
-    if v.sequence_parallel:
-        out["sp_gather"] += v.depth * 3 * (2 + r) * shard + 2 * shard
-        out["sp_scatter"] += v.depth * (3 * 2 + 2 * r) * padded
-    else:
-        out["tp_reduce"] += v.depth * (3 * 2 + 2 * r) * whole_v
-    out["tp_reduce"] += t.n_layers * 2 * 2 * whole_t
-    if t.vocab_size % mp == 0:
-        out["tp_reduce"] += batch * seq_len * t.dim * 4
+    frames = (v.num_frames,) if cfg.variant == "baseline" else (v.num_frames, 1)
+    for f, reached in zip(frames, tp_reached(cfg)):
+        tokens = 1 + f * v.patches_per_frame
+        rows = -(-tokens // mp)
+        unit = batch * v.embed_dim * es
+        if v.sequence_parallel:
+            taps = 1 if v.region_tap_layer is not None else 0
+            out["sp_gather"] += (3 * v.depth + 3 * (1 + r) * reached + 2 + taps) * rows * unit
+            out["sp_scatter"] += (3 * v.depth + (3 + 2 * r) * reached) * mp * rows * unit
+        else:
+            out["tp_reduce"] += (3 * v.depth + (3 + 2 * r) * reached) * tokens * unit
+    clip = cfg.text_family == "clip"
+    layers, dim = (t.layers, t.width) if clip else (t.n_layers, t.dim)
+    for length in (seq_len,) + ((pad_len,) if cfg.variant == "global_local" else ()):
+        out["tp_reduce"] += layers * 2 * 2 * batch * length * dim * es
+        if not clip and t.vocab_size % mp == 0:
+            out["tp_reduce"] += batch * length * dim * 4
+    if slots:
+        o = cfg.object_tower
+        out["tp_reduce"] += o.n_layers * 2 * 2 * batch * slots * o.dim * es
     return {k: n * steps * accum_steps for k, n in out.items()}
 
 
@@ -4251,13 +4459,14 @@ def tower_keys(**video):
 
 
 def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
-           digests=True):
+           digests=True, col=None):
     """Trainer.train() of `exp` (with `tower` keys on its tower config) over
-    `ds` at `batch` rows a data position on this rank → (record: loss
-    terms, launches, traffic a step, held and predicted state bytes,
-    replicated digests when `digests` (a host copy each step, inside the
-    step intervals), step ms, MFU, peak memory, idle share when `trace`;
-    step 1's whole gradients on the host when `keep_grads`)."""
+    `ds` at `batch` rows a data position on this rank, collated by `col`
+    (default: norm.json's) → (record: loss terms, launches, traffic a step,
+    held and predicted state bytes, replicated digests when `digests` (a
+    host copy each step, inside the step intervals), step ms, MFU, peak
+    memory, idle share when `trace`; step 1's whole gradients on the host
+    when `keep_grads`)."""
     import torch.distributed as dist
 
     from oatx_torch.data.loader import ShardedLoader
@@ -4268,7 +4477,8 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
 
     t = exp.trainer
     layout = meshlib.current_layout(t.dcn_slices, t.model_parallel)
-    _, col = dp_data("norm", exp, ds, None)
+    if col is None:
+        _, col = dp_data("norm", exp, ds, None)
     train = [ShardedLoader(ds, batch, col, seed=0, num_workers=4, shard_id=layout.position,
                            num_shards=layout.batch_shards)]
     held0 = fresh_peak(dev)
@@ -4279,10 +4489,12 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
     whole = {n: tuple((getattr(p, "_oatx_tp", None) or getattr(p, "_oatx_shard", None) or p).shape)
              for n, p in tr.state.model.named_parameters()}
     reps = 2 if v.remat else 1
+    reached = tp_reached(cfg)
+    streams = len(reached)
     rec = StepRecorder(tr, trace_at=steps - 1 if trace else None, expect=[
-        ("space_attention_kernel", v.depth * accum * reps),
-        ("space_attention_bwd_kernel", v.depth * accum)] + (
-        [("ln_mlp_", v.depth * accum * reps)] if v.fused_mlp else []))
+        ("space_attention_kernel", v.depth * accum * reps * streams),
+        ("space_attention_bwd_kernel", sum(reached) * accum)] + (
+        [("ln_mlp_", v.depth * accum * reps * streams)] if v.fused_mlp else []))
     hashes = ReplicatedHashes(tr) if digests else None
     first = FirstGrads(tr, keep_grads) if keep_grads else None
     launches = {}
@@ -4292,7 +4504,7 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
         tr.train()
     wall_s = time.perf_counter() - t0
     traffic = {k: dict(r) for k, r in coll.TRAFFIC.items() if k != "check"}
-    want = want_launches(v.depth, steps, v.remat, accum_steps=accum)
+    want = want_launches(v.depth, steps, v.remat, accum_steps=accum, backward_depths=reached)
     if not v.fused_mlp:
         want["ln_mlp"] = 0
     check_launches(tag, launches, want)
@@ -4308,12 +4520,15 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
     ms = [a.elapsed_time(b) for a, b in zip(rec.events, rec.events[1:])]
     if trace:
         ms = ms[:-2]
-    flops = flops_per_clip_step(cfg) / layout.model_parallel  # a rank's share
+    flops = tp_flops_per_clip_step(cfg, exp) / layout.model_parallel  # a rank's share
     out = {"steps": steps, "batch_per_group": batch, "accum_steps": accum,
+           "variant": cfg.variant, "text_family": cfg.text_family,
+           "object_tower": cfg.object_tower is not None, "backward_depths": reached,
            "sequence_parallel": v.sequence_parallel, "fused_mlp": v.fused_mlp,
            "remat": v.remat_policy if v.remat else "off", "terms": terms,
            "launches": launches, "launches_per_forward": {
                k: launches[k] / (steps * accum * reps) for k in ("ln_mlp", "space_attention")},
+           "bwd_launches_per_step": launches["space_attention_bwd"] / (steps * accum),
            "traffic": traffic, "held_bytes": held, "predicted_bytes": predicted,
            "partial_bytes": tp_partial_bytes(tr.state.model),
            "digests": hashes.digests if hashes is not None else None,
@@ -4321,7 +4536,7 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
                                for p in tr.state.model.parameters()),
            "train_wall_s": wall_s, "mem_held_gib": held0,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-           **(speed(ms, batch, flops) if ms else {}), **(rec.trace or {})}
+           **(speed(ms, batch, flops) if ms else {}), **(rec.traced() or {})}
     grads = first.grads if first is not None else None
     del tr, rec, hashes, first
     gc.collect()
@@ -4349,9 +4564,11 @@ def tp_rank_main(rank, world, url, out, backend):
         if record["probe"]["ok"]:
             if backend == "gloo":
                 base = MemoryClips(CORPUS_CLIPS, seed=0)
-                for name, video, tower, steps in TP_RUNS:
-                    run, grads = tp_run(f"tp {name} rank {rank}", tp_exp(steps, **video), base,
-                                        TP_BATCH, dev, tower=tower)
+                for name, kind, video, tower, steps in TP_RUNS:
+                    exp = tp_recipe(kind, steps, video)
+                    ds, col = tp_data(kind, exp, base, os.path.join(out, f"rank{rank}"))
+                    run, grads = tp_run(f"tp {name} rank {rank}", exp, ds, TP_BATCH, dev,
+                                        tower=tower, col=col)
                     if rank == 0:
                         torch.save(grads, os.path.join(out, f"{name}_grads.pt"))
                     record["runs"][name] = run
@@ -4445,30 +4662,40 @@ def tp_phase(smi, dev):
         ranks_s = time.perf_counter() - t1
         out = {"world": TP_WORLD, "model_parallel": TP_WORLD, "batch_per_group": TP_BATCH,
                "ranks_wall_s": ranks_s, "runs": {}}
-        for name, video, tower, steps in TP_RUNS:
-            exp = tp_exp(steps, **video)
+        for name, kind, video, tower, steps in TP_RUNS:
+            exp = tp_recipe(kind, steps, video)
+            ds, col = tp_data(kind, exp, base, os.path.join(tmp, "reference"))
             runs = [r["runs"][name] for r in ranks]
-            one, ref = tp_run(f"tp {name} one process", set_model_parallel(exp, 1), base,
-                              TP_BATCH, dev, tower=tower)
+            one, ref = tp_run(f"tp {name} one process", set_model_parallel(exp, 1), ds,
+                              TP_BATCH, dev, tower=tower, col=col)
             got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
             check = grad_check(got, ref)
-            del got, ref
+            f32_terms, exact = tp_f32_step(tp_recipe(kind, 1, video), ds, col, dev, tower)
+            f32 = tp_f32_reading(got, ref, exact)
+            del got, ref, exact
             rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
                    for k, w in one["terms"].items()}
+            # against the f32 step, for the ranks and for one process (TP_F32_NOTE)
+            rel_f32 = {v: {k: abs(terms[k][0] - w) / abs(w) for k, w in f32_terms.items()}
+                       for v, terms in (("ranks", runs[0]["terms"]),
+                                        ("one_process", one["terms"]))}
             from oatx_torch.config.schema import build_tower_config, precision_dtype
 
             cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(
                 exp.trainer.precision))
             cfg = dataclasses.replace(cfg, video=dataclasses.replace(cfg.video, **tower))
-            want = tp_traffic(cfg, TP_BATCH, TEXT_LEN, TP_WORLD, steps)
+            want = tp_traffic(cfg, TP_BATCH, TEXT_LEN, TP_WORLD, steps, slots=tp_slots(cfg, exp))
             got_traffic = {k: runs[0]["traffic"].get(k, {}).get("bytes", 0) for k in want}
             held = [r["held_bytes"]["total"] for r in runs]
-            rec = {"steps": steps, **{k: runs[0][k] for k in (
+            rec = {"steps": steps, "recipe": kind, **{k: runs[0][k] for k in (
+                       "variant", "text_family", "object_tower", "backward_depths",
                        "sequence_parallel", "fused_mlp", "launches_per_forward",
-                       "split_params", "predicted_bytes", "partial_bytes")},
+                       "bwd_launches_per_step", "split_params", "predicted_bytes",
+                       "partial_bytes")},
                    "step1_terms": {k: [runs[0]["terms"][k][0], w[0]]
                                    for k, w in one["terms"].items()},
-                   "step1_rel_diff": rel, "losses": runs[0]["terms"]["loss"],
+                   "step1_rel_diff": rel, "f32_terms": f32_terms,
+                   "step1_rel_diff_f32": rel_f32, "losses": runs[0]["terms"]["loss"],
                    "one_process_losses": one["terms"]["loss"],
                    "traffic_per_step": {k: n / steps for k, n in got_traffic.items()},
                    "traffic_derived_per_step": {k: n / steps for k, n in want.items()},
@@ -4481,18 +4708,28 @@ def tp_phase(smi, dev):
                    "one_process_peak_mem_gib": one["peak_mem_gib"],
                    **{k: check[k] for k in ("grad_norm", "plain_grad_norm",
                                             "grad_norm_rel_diff", "grad_global_cosine",
-                                            "grad_tol_used", "grad_tensors", "grad_worst")}}
+                                            "grad_tol_used", "grad_tensors", "grad_worst")},
+                   "grad_f32": f32}
             out["runs"][name] = rec
-            print(f"tp {name}: norm.json at model_parallel {TP_WORLD}, {TP_WORLD} ranks on one "
+            print(f"tp {name}: {kind} at model_parallel {TP_WORLD}, {TP_WORLD} ranks on one "
                   f"card over gloo against one process at {TP_BATCH} ({smi}; rank step ms NOT "
                   "a tensor-parallel speed: the ranks share one card and gloo stages CUDA "
                   "tensors through the host): " + json.dumps(rec), flush=True)
             bad = []
-            if max(rel.values()) > TP_LOSS_RTOL:
-                bad.append(f"step 1's loss terms {rel}")
+            # a term one process's bf16 step holds to under TP_LOSS_RTOL / 2 of the f32
+            # step's is held against one process; a noisier one against the f32 step
+            for k, r in rel.items():
+                noisy_term = rel_f32["one_process"][k] > TP_LOSS_RTOL / 2
+                if (rel_f32["ranks"][k] if noisy_term else r) > TP_LOSS_RTOL:
+                    bad.append(f"step 1's {k}: {r} from one process, {rel_f32}")
+            # the ranks' gradient no farther from the f32 step than WIDE_F32_RATIO x one
+            # process's; the bf16 pair's cosine under GRAD_MIN_GLOBAL_COSINE passes only
+            # where one process alone spends over half of its budget (TP_F32_NOTE)
+            noisy = 1 - f32["one_process"]["cosine"] > (1 - GRAD_MIN_GLOBAL_COSINE) / 2
             if check["grad_tol_used"] > 1 or check["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
-                    or check["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
-                bad.append(f"gradients {check['grad_worst']}")
+                    or (check["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE and not noisy) \
+                    or f32["ranks"]["rel_l2"] > WIDE_F32_RATIO * f32["one_process"]["rel_l2"]:
+                bad.append(f"gradients {check['grad_worst']}, against the f32 step {f32}")
             if any(h != runs[0]["predicted_bytes"]["bytes"] for h in held):
                 bad.append(f"held bytes {held} against the plan's "
                            f"{runs[0]['predicted_bytes']['bytes']}")
@@ -4501,17 +4738,23 @@ def tp_phase(smi, dev):
             if rec["tp_norm_bytes_per_step"] != runs[0]["partial_bytes"]:
                 bad.append(f"tp_norm bytes {rec['tp_norm_bytes_per_step']}, derived "
                            f"{runs[0]['partial_bytes']}")
-            lpf = runs[0]["launches_per_forward"]
-            if lpf["space_attention"] != 12 or lpf["ln_mlp"] != (12 if tower.get(
-                    "fused_mlp", True) else 0):
-                bad.append(f"launches per forward {lpf}")
+            # kernels 1 and 2 once a block of each video stream a forward, kernel
+            # 2's backward once a block the loss reaches (tp_reached)
+            lpf, reached = runs[0]["launches_per_forward"], tp_reached(cfg)
+            per = 12 * len(reached)
+            if lpf["space_attention"] != per or lpf["ln_mlp"] != (per if tower.get(
+                    "fused_mlp", True) else 0) or runs[0]["bwd_launches_per_step"] != sum(
+                    reached):
+                bad.append(f"launches per forward {lpf}, backward a step "
+                           f"{runs[0]['bwd_launches_per_step']}")
             if bad:
                 raise AssertionError(f"tp {name}: " + "; ".join(bad))
     launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
     print(f"tp summary ({smi}): " + json.dumps({
-        "runs": {n: {k: r[k] for k in ("step1_rel_diff", "grad_tol_used", "grad_global_cosine",
+        "runs": {n: {k: r[k] for k in ("step1_rel_diff", "step1_rel_diff_f32",
+                                       "grad_tol_used", "grad_global_cosine", "grad_f32",
                                        "held_bytes", "traffic_per_step",
-                                       "launches_per_forward")}
+                                       "launches_per_forward", "bwd_launches_per_step")}
                  for n, r in out["runs"].items()},
         "phase_s": time.perf_counter() - t0}), flush=True)
     return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
@@ -4779,7 +5022,7 @@ def pp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
            "digests": hashes.digests if hashes is not None else None,
            "train_wall_s": wall_s, "mem_held_gib": held0,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
-           **(speed(ms, batch, flops) if ms else {}), **(rec.trace or {})}
+           **(speed(ms, batch, flops) if ms else {}), **(rec.traced() or {})}
     grads = first.grads if first is not None else None
     embeds = evals.embeds() if evals is not None else None
     del tr, rec, hashes, first, evals

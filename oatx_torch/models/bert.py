@@ -9,6 +9,21 @@ projections, q pre-scaled, masked logits filled with finfo(f32).min (:65-76);
 the tanh pooler over the CLS row in f32 (:113). Parameter names follow HF
 `BertModel` (`embeddings.*`, `encoder.layer.N.*`, `pooler.dense`), so a
 reference state_dict loads strictly under `text_model.`.
+
+Tensor parallelism (parallel/tensor.py, `enable_model_parallel`; oatx's
+Megatron rules on its `attn.q/k/v`, `attn.out`, `intermediate` and `output`
+kernels, oatx/parallel/sharding.py:23-42): each layer runs its rank's heads
+(`query` / `key` / `value` rows, each its own D rows, so a rank's D/mp rows
+are whole heads; `attention.output.dense` columns) and its rows of the
+intermediate width (`intermediate.dense` rows, `output.dense` columns)
+between the model group's copy / all-reduce pair; the row-parallel biases
+are added once after the sum, and both post-LNs read the whole sum, so
+their gradients are whole on every rank. The word table is split by
+vocabulary rows where the vocabulary divides by the group's width (30522
+does at 2, not at 4) and looked up vocabulary-parallel before the
+embedding LN; the position and token-type tables and the tanh pooler stay
+whole. The column-parallel biases are the gradients a rank holds in part
+(`tp_partial_params`).
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ from oatx_torch.models.distilbert import _Table
 from oatx_torch.ops.attention import attend
 from oatx_torch.ops.layers import LayerNorm, Linear, embedding_lookup, gelu, layer_norm, \
     linear
+from oatx_torch.parallel import tensor as tpl
 
 LN_EPS = 1e-12
 
@@ -70,13 +86,36 @@ class _Dense(nn.Module):
 
 
 class Attention(nn.Module):
+    tp: Optional[tpl.ModelAxis] = None
+
     def __init__(self, d: int, device, generator):
         super().__init__()
         self.self = SelfAttention(d, device, generator)
         self.output = _Dense(d, d, device, generator, ln=True)
 
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """Self-attention → Add & LN."""
+        b, t, d = x.shape
+        dh = d // n_heads
+        axis = self.tp
+        y = x if axis is None else tpl.enter(axis, x, t)
+        heads = n_heads if axis is None else axis.heads(n_heads)
+
+        def project(lin):
+            bias = lin.bias if axis is None else tpl.local_rows(lin.bias, axis)
+            return linear(y, lin.weight, bias).reshape(b, t, heads, dh)
+
+        sa, dense = self.self, self.output.dense
+        q = project(sa.query) * (dh ** -0.5)
+        out = attend(q, project(sa.key), project(sa.value), x.dtype, mask).reshape(b, t, -1)
+        a = dense(out) if axis is None else \
+            tpl.leave(axis, linear(out, dense.weight)) + dense.bias.to(x.dtype)
+        return self.output.LayerNorm(x + a)
+
 
 class Layer(nn.Module):
+    tp: Optional[tpl.ModelAxis] = None  # the feed-forward sublayer's
+
     def __init__(self, cfg: BertConfig, device, generator):
         super().__init__()
         self.attention = Attention(cfg.dim, device, generator)
@@ -84,15 +123,14 @@ class Layer(nn.Module):
         self.output = _Dense(cfg.hidden_dim, cfg.dim, device, generator, ln=True)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, n_heads: int) -> torch.Tensor:
-        b, t, d = x.shape
-        dh = d // n_heads
-        sa = self.attention.self
-        q = sa.query(x).reshape(b, t, n_heads, dh) * (dh ** -0.5)
-        k = sa.key(x).reshape(b, t, n_heads, dh)
-        v = sa.value(x).reshape(b, t, n_heads, dh)
-        a = self.attention.output.dense(attend(q, k, v, x.dtype, mask).reshape(b, t, d))
-        x = self.attention.output.LayerNorm(x + a)
-        f = self.output.dense(gelu(self.intermediate.dense(x)))
+        x = self.attention(x, mask, n_heads)
+        fc1, fc2, axis = self.intermediate.dense, self.output.dense, self.tp
+        if axis is None:
+            f = fc2(gelu(fc1(x)))
+        else:
+            h = gelu(linear(tpl.enter(axis, x, x.shape[1]), fc1.weight,
+                            tpl.local_rows(fc1.bias, axis)))
+            f = tpl.leave(axis, linear(h, fc2.weight)) + fc2.bias.to(x.dtype)
         return self.output.LayerNorm(x + f)
 
 
@@ -130,7 +168,9 @@ class Bert(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         emb = self.embeddings
-        x = (embedding_lookup(emb.word_embeddings.weight, input_ids)
+        word = emb.word_embeddings
+        x = ((embedding_lookup(word.weight, input_ids) if word.tp is None
+              else tpl.vocab_lookup(word.weight, input_ids, word.tp))
              + emb.position_embeddings.weight[:t][None]
              + embedding_lookup(emb.token_type_embeddings.weight, token_type_ids))
         x = layer_norm(x, emb.LayerNorm.weight, emb.LayerNorm.bias, LN_EPS).to(dtype)
@@ -139,3 +179,27 @@ class Bert(nn.Module):
         pd = self.pooler.dense
         pooled = torch.tanh(linear(x[:, 0].float(), pd.weight, pd.bias))
         return x, pooled
+
+    def enable_model_parallel(self, axis: tpl.ModelAxis, split) -> None:
+        """Run the layers tensor-parallel over `axis` (module docstring).
+        `split`: the names (under this module) of the parameters
+        parallel/sharding.py splits: every layer's query / key / value /
+        attention.output / intermediate / output dense weights, and the word
+        table where the vocabulary divides."""
+        cfg = self.cfg
+        want = [f"encoder.layer.{i}.{m}.weight" for i in range(cfg.n_layers)
+                for m in ("attention.self.query", "attention.self.key",
+                          "attention.self.value", "attention.output.dense",
+                          "intermediate.dense", "output.dense")]
+        axis = tpl.layer_axis(axis, cfg.n_heads, "BERT", want, split)
+        for layer in self.encoder.layer:
+            layer.attention.tp = layer.tp = axis
+        if "embeddings.word_embeddings.weight" in split:
+            self.embeddings.word_embeddings.tp = axis
+
+    def tp_partial_params(self):
+        """The column-parallel biases, whose gradient each rank holds in part
+        (the post-LNs read the whole sum after `leave`: whole on every rank)."""
+        return [lin.bias for layer in self.encoder.layer
+                for lin in (layer.attention.self.query, layer.attention.self.key,
+                            layer.attention.self.value, layer.intermediate.dense)]

@@ -18,6 +18,21 @@ Parameter names follow the vendored CLIP's text side (`token_embedding`,
 attn.in_proj_bias, attn.out_proj, ln_2, mlp.c_fc, mlp.c_proj}`, `ln_final`,
 `text_projection` used as x @ W), so oatx's export (convert.py:277-300)
 loads strictly under `text_model.`.
+
+Tensor parallelism (parallel/tensor.py, `enable_model_parallel`; oatx's
+Megatron rules on its `attn.qkv`, `attn.out`, `mlp.fc1` and `mlp.fc2`
+kernels, oatx/parallel/sharding.py:23-42): each block runs its rank's
+heads under the causal mask and its rows of the 4·W hidden width between
+the model group's copy / all-reduce pair. The packed `in_proj_weight`
+(3W, W) splits by whole heads, the rank's rows of each of q, k and v
+(`groups` = 3, as the ViT's fused qkv: oatx's contiguous split holds the
+same bytes, other rows); `out_proj` and `mlp.c_proj` take their input
+columns, their biases added once after the sum; `mlp.c_fc` its output
+rows. `ln_1` / `ln_2` run on the whole stream before the copy, so their
+gradients are whole; `token_embedding` (not named `word` in oatx),
+`positional_embedding`, `ln_final`, the EOT pick and `text_projection`
+stay whole. The column-parallel biases are the gradients a rank holds in
+part (`tp_partial_params`).
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import torch.nn as nn
 
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.ops.layers import LayerNorm, Linear, embedding_lookup, layer_norm, linear
+from oatx_torch.parallel import tensor as tpl
 
 LN_EPS = 1e-5  # torch nn.LayerNorm's default (the vendored LayerNorm)
 
@@ -63,6 +79,7 @@ class _Table(nn.Module):
 class CausalAttention(nn.Module):
     """torch MultiheadAttention's packed layout: in_proj_weight (3D, D) rows
     [q; k; v], out_proj."""
+    tp: Optional[tpl.ModelAxis] = None
 
     def __init__(self, cfg: ClipTextConfig, device, generator):
         super().__init__()
@@ -77,17 +94,26 @@ class CausalAttention(nn.Module):
     def forward(self, x: torch.Tensor, heads: int) -> torch.Tensor:
         b, t, d = x.shape
         dh = d // heads
-        qkv = linear(x, self.in_proj_weight, self.in_proj_bias).reshape(b, t, 3, heads, dh)
+        axis, bias, y = self.tp, self.in_proj_bias, x
+        if axis is not None:
+            y, bias, heads = tpl.enter(axis, x, t), tpl.local_rows(bias, axis, 3), \
+                axis.heads(heads)
+        qkv = linear(y, self.in_proj_weight, bias).reshape(b, t, 3, heads, dh)
         q, k, v = qkv[:, :, 0] * (dh ** -0.5), qkv[:, :, 1], qkv[:, :, 2]
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
         logits = logits.masked_fill(~causal, torch.finfo(torch.float32).min)
         p = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(x.dtype)
-        return self.out_proj(out.reshape(b, t, d))
+        if axis is None:
+            return self.out_proj(out.reshape(b, t, d))
+        return tpl.leave(axis, linear(out.reshape(b, t, -1), self.out_proj.weight)) \
+            + self.out_proj.bias.to(x.dtype)
 
 
 class Mlp(nn.Module):
+    tp: Optional[tpl.ModelAxis] = None
+
     def __init__(self, cfg: ClipTextConfig, device, generator):
         super().__init__()
         d = cfg.width
@@ -97,6 +123,14 @@ class Mlp(nn.Module):
             self.c_fc.weight.normal_(0.0, (2 * d) ** -0.5, generator=generator)
             self.c_proj.weight.normal_(0.0, (d ** -0.5) * ((2 * cfg.layers) ** -0.5),
                                        generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = self.tp
+        if axis is None:
+            return self.c_proj(quick_gelu(self.c_fc(x)))
+        h = quick_gelu(linear(tpl.enter(axis, x, x.shape[1]), self.c_fc.weight,
+                              tpl.local_rows(self.c_fc.bias, axis)))
+        return tpl.leave(axis, linear(h, self.c_proj.weight)) + self.c_proj.bias.to(x.dtype)
 
 
 class ResidualBlock(nn.Module):
@@ -109,7 +143,7 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, heads: int) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), heads)
-        return x + self.mlp.c_proj(quick_gelu(self.mlp.c_fc(self.ln_2(x))))
+        return x + self.mlp(self.ln_2(x))
 
 
 class Transformer(nn.Module):
@@ -162,3 +196,21 @@ class ClipText(nn.Module):
         h = self(ids, dtype)
         x = h @ self.text_projection.to(h.dtype)
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    def enable_model_parallel(self, axis: tpl.ModelAxis, split) -> None:
+        """Run the blocks tensor-parallel over `axis` (module docstring).
+        `split`: the names (under this module) of the parameters
+        parallel/sharding.py splits: every block's in_proj_weight, out_proj,
+        c_fc and c_proj weights."""
+        cfg = self.cfg
+        want = [f"transformer.resblocks.{i}.{m}" for i in range(cfg.layers)
+                for m in ("attn.in_proj_weight", "attn.out_proj.weight", "mlp.c_fc.weight",
+                          "mlp.c_proj.weight")]
+        axis = tpl.layer_axis(axis, cfg.heads, "CLIP text", want, split)
+        for block in self.transformer.resblocks:
+            block.attn.tp = block.mlp.tp = axis
+
+    def tp_partial_params(self):
+        """The column-parallel biases, whose gradient each rank holds in part."""
+        return [p for block in self.transformer.resblocks
+                for p in (block.attn.in_proj_bias, block.mlp.c_fc.bias)]

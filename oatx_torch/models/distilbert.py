@@ -173,17 +173,10 @@ class DistilBert(nn.Module):
         parallel/sharding.py splits: every layer's q/k/v/out_lin and
         lin1/lin2 weights, and the word table where the vocabulary divides."""
         cfg = self.cfg
-        if cfg.n_heads % axis.size:
-            raise ValueError(f"model_parallel={axis.size} does not divide DistilBERT's "
-                             f"{cfg.n_heads} heads")
         want = [f"transformer.layer.{i}.{m}.weight" for i in range(cfg.n_layers)
                 for m in ("attention.q_lin", "attention.k_lin", "attention.v_lin",
                           "attention.out_lin", "ffn.lin1", "ffn.lin2")]
-        missing = [n for n in want if n not in split]
-        if missing:
-            raise ValueError(f"model_parallel={axis.size} does not divide the widths of "
-                             f"{missing[:3]}")
-        axis = dataclasses.replace(axis, sequence_parallel=False)
+        axis = tpl.layer_axis(axis, cfg.n_heads, "DistilBERT", want, split)
         for layer in self.transformer.layer:
             layer.attention.tp = layer.ffn.tp = axis
         if "embeddings.word_embeddings.weight" in split:

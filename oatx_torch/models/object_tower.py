@@ -21,6 +21,17 @@ K ≤ 10 slots: negligible compute, plain PyTorch (oatx runs it on XLA).
 Parameter names mirror oatx's tree (`embed`, `embed_norm`, `layers.N.{norm1,
 norm2,attn.qkv,attn.proj,mlp.fc1,mlp.fc2}`, `norm`, `pool_query`); the
 reference has no schema for it.
+
+Tensor parallelism (parallel/tensor.py, `enable_model_parallel`; oatx's
+Megatron rules on these names, oatx/parallel/sharding.py:23-42): each layer
+runs its rank's heads (`attn.qkv` rows of whole heads, q, k and v each,
+`groups` = 3; `attn.proj` input columns) and its rows of the hidden width
+(`mlp.fc1` rows, `mlp.fc2` columns) between the model group's copy /
+all-reduce pair, the row-parallel biases added once after the sum. The
+pre-LNs run on the whole stream before the copy; the slot mask, `embed`,
+the norms and the attention pooling on `pool_query` stay whole. The
+column-parallel biases are the gradients a rank holds in part
+(`tp_partial_params`).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch.nn as nn
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.ops.attention import full_attention
 from oatx_torch.ops.layers import LayerNorm, Linear, layer_norm, mlp, trunc_normal_
+from oatx_torch.parallel import tensor as tpl
 
 LN_EPS = 1e-6
 
@@ -63,6 +75,8 @@ class _Mlp(nn.Module):
 
 
 class _Layer(nn.Module):
+    tp: Optional[tpl.ModelAxis] = None
+
     def __init__(self, cfg: ObjectTowerConfig, device, generator):
         super().__init__()
         self.norm1 = LayerNorm(cfg.dim, LN_EPS, device)
@@ -71,11 +85,19 @@ class _Layer(nn.Module):
         self.mlp = _Mlp(cfg.dim, cfg.hidden_dim, device, generator)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, heads: int) -> torch.Tensor:
-        a = self.attn
-        x = x + full_attention(self.norm1(x), a.qkv.weight, a.qkv.bias, a.proj.weight,
-                               a.proj.bias, heads, mask=mask)
-        m = self.mlp
-        return x + mlp(self.norm2(x), m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+        a, m, axis = self.attn, self.mlp, self.tp
+        if axis is None:
+            x = x + full_attention(self.norm1(x), a.qkv.weight, a.qkv.bias, a.proj.weight,
+                                   a.proj.bias, heads, mask=mask)
+            return x + mlp(self.norm2(x), m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias)
+        t = x.shape[1]
+        part = full_attention(tpl.enter(axis, self.norm1(x), t), a.qkv.weight,
+                              tpl.local_rows(a.qkv.bias, axis, 3), a.proj.weight, None,
+                              axis.heads(heads), mask=mask)
+        x = x + (tpl.leave(axis, part) + a.proj.bias.to(x.dtype))
+        part = mlp(tpl.enter(axis, self.norm2(x), t), m.fc1.weight,
+                   tpl.local_rows(m.fc1.bias, axis), m.fc2.weight, None)
+        return x + (tpl.leave(axis, part) + m.fc2.bias.to(x.dtype))
 
 
 class ObjectTower(nn.Module):
@@ -110,3 +132,19 @@ class ObjectTower(nn.Module):
         logits = logits.float().masked_fill(mask == 0, torch.finfo(torch.float32).min)
         w = torch.softmax(logits, dim=-1).to(x.dtype)
         return torch.einsum("bk,bkd->bd", w, x)
+
+    def enable_model_parallel(self, axis: tpl.ModelAxis, split) -> None:
+        """Run the layers tensor-parallel over `axis` (module docstring).
+        `split`: the names (under this module) of the parameters
+        parallel/sharding.py splits: every layer's qkv, proj, fc1 and fc2
+        weights."""
+        cfg = self.cfg
+        want = [f"layers.{i}.{m}.weight" for i in range(cfg.n_layers)
+                for m in ("attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2")]
+        axis = tpl.layer_axis(axis, cfg.n_heads, "the object tower", want, split)
+        for layer in self.layers:
+            layer.tp = axis
+
+    def tp_partial_params(self):
+        """The column-parallel biases, whose gradient each rank holds in part."""
+        return [p for layer in self.layers for p in (layer.attn.qkv.bias, layer.mlp.fc1.bias)]

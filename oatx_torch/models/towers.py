@@ -27,11 +27,18 @@ With an object tower (`object_tower`, stream 3), `compute_object` maps
 shared space (:190-202).
 
 Under a model axis (`model_parallel` > 1, parallel/sharding.py calls
-`enable_model_parallel`) the baseline variant with the DistilBERT text
-tower runs tensor-parallel: the ViT and DistilBERT layers split by
-Megatron's rules, the projections replicated. The BERT and CLIP text
-towers, the object tower and the object-aware variants raise
-NotImplementedError there (ROADMAP A8c); no pod recipe uses them.
+`enable_model_parallel`) every tower runs tensor-parallel, split by
+Megatron's rules as oatx's `param_specs` splits it: the ViT's blocks
+(token-sharded under `sequence_parallel`), the layers of every text family
+and of the object tower; the projections and the variants' heads
+(`vid_local_proj`, `text_local_proj`, `txt_proj_2`, `obj_proj`, the ViT's
+`region_norm`) stay whole. Each variant runs its streams through the split
+towers: global_local its second text stream (whole hidden tokens after the
+last layer's sum) and its 1-frame object frame (T = 1 + N, the token axis
+padded to the group's width under sequence parallelism; `patches` read
+from the gathered stream); region_mem taps layer K of the split ViT on the
+gathered stream. Every model rank then computes the same loss, so these
+heads' gradients are whole on every rank.
 
 Under pipeline stages (`trainer.pipeline`, parallel/sharding.py calls
 `enable_pipeline`) the video tower's block stack runs over the model
@@ -165,23 +172,15 @@ class DualTower(nn.Module):
     def enable_model_parallel(self, axis, split) -> None:
         """Run the towers tensor-parallel over `axis` (parallel/tensor.py
         ModelAxis); `split`: the parameter names parallel/sharding.py splits
-        over it. Raises for what the port does not split (module docstring)."""
-        cfg = self.cfg
-        for what, bad in (("the text family " + repr(cfg.text_family),
-                           cfg.text_family != "distilbert"),
-                          (f"the variant {cfg.variant!r}", cfg.variant != "baseline"),
-                          ("the object tower (stream 3)", cfg.object_tower is not None)):
-            if bad:
-                raise NotImplementedError(
-                    f"model_parallel={axis.size} with {what}: the port splits the ViT and "
-                    "DistilBERT towers of the baseline variant only (not ported yet: "
-                    "ROADMAP A8c)")
+        over it (module docstring)."""
 
         def under(prefix):
             return {n[len(prefix):] for n in split if n.startswith(prefix)}
 
         self.video_model.enable_model_parallel(axis, under("video_model."))
         self.text_model.enable_model_parallel(axis, under("text_model."))
+        if self.cfg.object_tower is not None:
+            self.object_tower.enable_model_parallel(axis, under("object_tower."))
 
     def enable_pipeline(self, layout) -> None:
         """Run the video tower's blocks as `layout`'s pipeline stages
@@ -195,7 +194,10 @@ class DualTower(nn.Module):
 
     def tp_partial_params(self):
         """Parameters whose gradient each model rank holds in part."""
-        return self.video_model.tp_partial_params() + self.text_model.tp_partial_params()
+        out = self.video_model.tp_partial_params() + self.text_model.tp_partial_params()
+        if self.cfg.object_tower is not None:
+            out += self.object_tower.tp_partial_params()
+        return out
 
     def compute_text(self, input_ids: torch.Tensor,
                      attention_mask: Optional[torch.Tensor] = None,

@@ -394,16 +394,10 @@ class SpaceTimeTransformer(nn.Module):
         this module) of the parameters parallel/sharding.py splits; every
         block's qkv, proj, fc1 and fc2 weight must be among them."""
         cfg = self.cfg
-        if cfg.num_heads % axis.size:
-            raise ValueError(f"model_parallel={axis.size} does not divide the video "
-                             f"tower's {cfg.num_heads} heads")
         want = [f"blocks.{i}.{m}.{w}.weight" for i in range(cfg.depth)
                 for m, w in (("attn", "qkv"), ("attn", "proj"), ("timeattn", "qkv"),
                              ("timeattn", "proj"), ("mlp", "fc1"), ("mlp", "fc2"))]
-        missing = [n for n in want if n not in split]
-        if missing:
-            raise ValueError(f"model_parallel={axis.size} does not divide the widths of "
-                             f"{missing[:3]}")
+        axis = tpl.layer_axis(axis, cfg.num_heads, "the video tower", want, split)
         axis = dataclasses.replace(axis, sequence_parallel=cfg.sequence_parallel)
         self.tp = axis
         for blk in self.blocks:

@@ -47,16 +47,21 @@ time.
 Tensor parallelism over a model axis (`model_parallel` mp > 1,
 parallel/mesh.py): oatx's Megatron rules (`_spec_for`, `param_specs`,
 :26-61) on each parameter's oatx leaf (`oatx_leaf`'s taken dimension):
-fc1 / lin1 / qkv / q_lin / k_lin / v_lin weights split their output rows,
-fc2 / lin2 / proj / out_lin their input columns, DistilBERT's word table its
-vocabulary rows; every bias, norm, embedding, the patch embedding and the
-projections replicate, and so does a weight whose taken dimension does not
-divide by mp, as in oatx. A split tensor is held as its `ModelShard`: this
+fc1 / lin1 / qkv / q_lin / k_lin / v_lin weights split their output rows
+(BERT's query / key / value and intermediate.dense, CLIP text's packed
+in_proj_weight and c_fc among them), fc2 / lin2 / proj / out_lin their
+input columns (BERT's attention.output.dense and output.dense, CLIP text's
+out_proj and c_proj), the (Distil)BERT word table its vocabulary rows;
+every bias, norm, embedding (CLIP's token_embedding, not named `word` in
+oatx, among them), the patch embedding, the poolers, the object tower's
+embed and pool_query, and the projections replicate, and so does a weight
+whose taken dimension does not divide by mp, as in oatx. A split tensor is held as its `ModelShard`: this
 rank's rows or columns, the parameter replaced under its own name by a
 parameter of the local shape (`place_model_parallel`), and the towers told
 to run on it (models/towers.py `enable_model_parallel`). oatx splits the
-fused qkv's 3·D outputs contiguously, so at mp 4 its rank 0 would hold q's
-first 9 heads of 12; attention on whole heads needs each rank's q, k and v
+fused qkv's 3·D outputs (the ViT's and the object tower's qkv, CLIP text's
+in_proj_weight) contiguously, so at mp 4 its rank 0 would hold q's first 9
+heads of 12; attention on whole heads needs each rank's q, k and v
 of the same heads, so the port's rank r holds rows [r·D/mp, (r + 1)·D/mp)
 of each of q, k and v (`ModelShard.groups` = 3): the same number of bytes as
 oatx's shard, other rows. `fsdp` and `zero1` compose with the split as

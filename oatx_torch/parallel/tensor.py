@@ -44,6 +44,21 @@ class ModelAxis:
         return num_heads // self.size
 
 
+def layer_axis(axis: ModelAxis, heads: int, tower: str, want, split) -> ModelAxis:
+    """The axis a tower's layers run on (sequence_parallel off: only the
+    ViT's stream is token-sharded, as oatx constrains it alone), once its
+    heads divide by the group's width and every name in `want` is among
+    `split` (the parameters parallel/sharding.py splits, which leaves a
+    weight whole where its width does not divide); ValueError otherwise."""
+    if heads % axis.size:
+        raise ValueError(f"model_parallel={axis.size} does not divide {tower}'s {heads} heads")
+    missing = [n for n in want if n not in split]
+    if missing:
+        raise ValueError(f"model_parallel={axis.size} does not divide the widths of "
+                         f"{missing[:3]}")
+    return dataclasses.replace(axis, sequence_parallel=False)
+
+
 def local_rows(t: torch.Tensor, axis: ModelAxis, groups: int = 1) -> torch.Tensor:
     """This rank's entries of a whole vector (a column-parallel bias) seen as
     (groups, size, n): the fused qkv's bias takes groups = 3, so the rank's

@@ -489,35 +489,17 @@ def test_check_layout(keys, world, error):
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(variant="global_local"), "A8c"), (dict(variant="region_mem"), "A8c"),
-    ("bert", "A8c"), ("clip", "A8c"), ("objects", "A8c"),
-    (dict(video=dict(num_heads=2, embed_dim=32)), "heads")])
+    pytest.param(dict(video=dict(num_heads=2, embed_dim=32)), "heads",
+                 id="change5-heads")])  # the case's name kept
 def test_towers_outside_the_slice_raise(change, error):
-    """Under a model axis the towers and variants the port does not split
-    raise NotImplementedError naming ROADMAP A8c; heads that do not divide
-    raise ValueError."""
-    from oatx_torch.models.bert import BertConfig
-    from oatx_torch.models.clip_text import ClipTextConfig
-    from oatx_torch.models.object_tower import ObjectTowerConfig
-
+    """Under a model axis heads that do not divide raise ValueError (every
+    text family, the object tower and the variants split:
+    tests/test_torch_tp_towers.py, which holds their heads cases too)."""
     pcfg = _cfgs()[1]
-    if change == "bert":
-        pcfg = dataclasses.replace(pcfg, text_family="bert", text=BertConfig(
-            vocab_size=100, dim=32, n_layers=1, n_heads=4, hidden_dim=64))
-    elif change == "clip":
-        pcfg = dataclasses.replace(pcfg, text_family="clip", text=ClipTextConfig(
-            vocab_size=100, context_length=8, width=32, layers=1, heads=4, embed_dim=32))
-    elif change == "objects":
-        pcfg = dataclasses.replace(pcfg, object_tower=ObjectTowerConfig(
-            feature_dim=2054, dim=32, n_heads=4, hidden_dim=64, top_k=4, n_layers=1))
-    elif "video" in change:
-        pcfg = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video,
-                                                                   **change["video"]))
-    else:
-        pcfg = dataclasses.replace(pcfg, **change)
+    pcfg = dataclasses.replace(pcfg, video=dataclasses.replace(pcfg.video, **change["video"]))
     model = ptowers.DualTower(pcfg, "cpu", torch.Generator().manual_seed(0))
     layout = pmesh.Layout(0, 4, 1, 4)
-    with pytest.raises(NotImplementedError if error == "A8c" else ValueError, match=error):
+    with pytest.raises(ValueError, match=error):
         pshard.place(model, None, layout)
 
 

@@ -40,14 +40,17 @@ test wrote:
                the whole gradients; at the end the whole parameters and
                optimizer state, the held and predicted state bytes, each
                share's size and the collectives' traffic;
-  tp           {'cases': {name: shard's case keys + 'mp' (the model axis'
-               width)}}: shard's steps on the rows of the rank's data
+  tp           {'cases': {name: shard's case keys (with 'freeze') + 'mp'
+               (the model axis' width)}}: shard's steps on the rows of the rank's data
                position, the model split over its model group
                (parallel/sharding.py): per step the metrics; after step 1
                the whole gradients (shares and model-axis parts gathered)
                and the traffic; at the end the whole parameters and
                optimizer state, the held and predicted state bytes, the
-               split parameters' names; with 'saved' the bytes of the video
+               split parameters' names and those of the gradients a rank
+               holds in part (the towers' tp_partial_params; any text
+               family, variant and object tower 'cfg' names); with 'saved'
+               the bytes of the video
                blocks' inputs that the first forward saves for the backward
                (saved_tensors_hooks);
   tp_trainer   {'jobs': [{'raw', 'save_dir', 'resume', 'min_size'}], 'clips', 'batch'
@@ -332,6 +335,8 @@ def tp(p, rank, world):
         sharding.FSDP_MIN_SIZE = case["min_size"]
         layout = mesh.current_layout(case.get("dcn", 1), case["mp"])
         opt_kw = dict(case.get("opt", {}))
+        if case.get("freeze"):
+            opt_kw["trainable_filter"] = optim.exclude_subtrees(None, case["freeze"])
         state = steplib.init_state(case["cfg"], optim.make_optimizer(**opt_kw),
                                    device="cpu", state_dict=case["state_dict"],
                                    shard_mode=case["mode"], layout=layout)
@@ -367,6 +372,8 @@ def tp(p, rank, world):
                                                 model_parallel=layout.model_parallel)
         rec["split"] = sorted(n for n, q in model.named_parameters()
                               if getattr(q, "_oatx_tp", None) is not None)
+        partial = {id(q) for q in model.tp_partial_params()}
+        rec["partial"] = sorted(n for n, q in model.named_parameters() if id(q) in partial)
         rec["replicated_values"] = {n: q.detach().clone() for n, q in model.named_parameters()
                                     if getattr(q, "_oatx_tp", None) is None
                                     and getattr(q, "_oatx_shard", None) is None}
