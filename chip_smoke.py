@@ -5,8 +5,8 @@
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
-                          [--only-tp] [--only-pp] [--dp-nccl] [--tp-nccl]
-                          [--pp-nccl]
+                          [--only-tp] [--only-pp] [--only-serve-extras]
+                          [--dp-nccl] [--tp-nccl] [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -24,7 +24,8 @@ per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
 --only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
-phase 13 (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then phase 11's pod recipes
+phase 13, --only-serve-extras phase 3's extras (a) and (b) (no record, no
+`ok` line). --dp-nccl runs phase 10 (b) and then phase 11's pod recipes
 alone with one rank per visible card over NCCL (2 or more cards).
 --tp-nccl runs the pod recipes as shipped (model_parallel 4) with a rank
 on each of 4 cards over NCCL (TP_NCCL_RUNS; no record, no `ok` line).
@@ -64,7 +65,24 @@ printed):
      unprofiled p50, device time by kernel group). The launch counters are
      set to 0 just before and read just after; every kernel must have run 12
      times per video-tower forward. The served embedding is held against the
-     same model with the plain versions.
+     same model with the plain versions. Extras (serve_extras): (a) the same
+     config served with --quantize int8 --index-quantize int8 (the same
+     requests, counted under "serve_int8": 12 launches of kernels 1 and 2 a
+     video forward; the embedding against the same int8 model on the plain
+     versions, cosine >= E2E_MIN_COSINE, and against the full-precision
+     model, cosine > INT8_MIN_COSINE, oatx's bar; the int8 report, the
+     model's device bytes int8 and full, the int8 corpus's top-5 overlap
+     with an f32 index of the same rows; p50 per bucket by phase 3's method,
+     EXTRA_LAT_ROUNDS × EXTRA_LAT_REQUESTS requests); (b) `python -m
+     oatx_torch.cli.export_serving` full and --quantize int8, the two
+     processes started together while (a) checks its server, each artifact
+     served through cli.serve --artifact: /embed_video at batches 1, 3 and 4
+     (3 is no bucket) and /embed_text counted under "artifact" (12 + 12
+     launches a video forward: the kernels run inside the exported
+     program), each embedding against the in-process service of the same
+     weights (cosine >= E2E_MIN_COSINE, largest difference printed), the
+     artifact's bytes and its p50 at batch 4; then the host µs that a call
+     through each kernel's custom op costs above a direct launch.
   4. train — the flagship pretraining step that bench.py builds (ViT-B/16
      divided space-time over 4×224² + DistilBERT-base, 256-d projections,
      bf16 compute with f32 master weights, NormSoftmax at 0.05, AdamW at
@@ -137,6 +155,9 @@ printed):
      DATA_WINDOW_STRIDE: the windows ensemble to one row per video, the
      embeddings and t2v / v2t metrics are finite (R@1 printed, not
      checked), 12 launches of kernels 1 and 2 per video-tower forward.
+     Then `oatx_torch.cli.build_index.main` on the same split, windows and
+     checkpoint (the same launches as cli.test; one id per video) and one
+     /search of a cli.serve server on the index it saved.
   8. towers — every tower a config can name, through the entry points, at
      full width, bf16, batch 16, random weights from seed 0; each run's
      launches are counted around it and must equal want_launches, and its
@@ -1316,8 +1337,9 @@ def group_ms(recs, n, top_of="other"):
     return groups, sorted(other.items(), key=lambda kv: -kv[1])[:TOP_OTHER]
 
 
-def bucket_latency(url, svc, payload_v, payload_t):
-    """LAT_ROUNDS rounds of LAT_REQUESTS video + text requests after warm-up;
+def bucket_latency(url, svc, payload_v, payload_t, rounds_n=LAT_ROUNDS,
+                   requests=LAT_REQUESTS):
+    """`rounds_n` rounds of `requests` video + text requests after warm-up;
     each round's service-time percentiles come back from /stats, and the
     client's wall time per video request gives the HTTP layer's share."""
     from oatx_torch.serve.embed_service import LatencyStats
@@ -1326,23 +1348,23 @@ def bucket_latency(url, svc, payload_v, payload_t):
         post(url + "/embed_video", payload_v)
         post(url + "/embed_text", payload_t)
     rounds = []
-    for _ in range(LAT_ROUNDS):
+    for _ in range(rounds_n):
         svc.stats = {"video": LatencyStats(), "text": LatencyStats()}
         wall = []
-        for _ in range(LAT_REQUESTS):
+        for _ in range(requests):
             t0 = time.perf_counter()
             post(url + "/embed_video", payload_v)
             wall.append((time.perf_counter() - t0) * 1e3)
             post(url + "/embed_text", payload_t)
         s = get(url + "/stats")
-        if s["video"]["count"] != LAT_REQUESTS or s["text"]["count"] != LAT_REQUESTS:
+        if s["video"]["count"] != requests or s["text"]["count"] != requests:
             raise AssertionError(f"/stats counted {s['video']['count']} video, "
-                                 f"{s['text']['count']} text requests of {LAT_REQUESTS}")
+                                 f"{s['text']['count']} text requests of {requests}")
         rounds.append({"video_p50_ms": s["video"]["p50_ms"],
                        "video_p90_ms": s["video"]["p90_ms"],
                        "text_p50_ms": s["text"]["p50_ms"],
                        "http_video_p50_ms": float(np.median(wall))})
-    rec = {"requests": LAT_REQUESTS, "rounds": rounds}
+    rec = {"requests": requests, "rounds": rounds}
     for key in rounds[0]:
         vals = [r[key] for r in rounds]
         mid = float(np.median(vals))
@@ -1359,7 +1381,7 @@ def finite_matrix(name, rows, shape):
     return a
 
 
-def serve_phase(tmp, smi):
+def serve_phase(tmp, smi, record=None):
     from oatx_torch.cli.serve import build_service, make_server
     from oatx_torch.config.schema import ExperimentCfg
     from oatx_torch.ops.kernels.ln_mlp import ln_mlp
@@ -1461,11 +1483,333 @@ def serve_phase(tmp, smi):
               f"max_abs_err {err:.3e} (|ref|max {np.abs(ref).max():.3e})", flush=True)
         if not cos >= E2E_MIN_COSINE:
             raise AssertionError(f"served embedding cosine {cos} < {E2E_MIN_COSINE}")
+        if record is not None:  # phase 3's p50s, beside which the extras print theirs
+            record["p50"] = {b: {k: r[k] for k in ("video_p50_ms", "text_p50_ms")}
+                             for b, r in perf.items()}
         return launches
     finally:
         server.shutdown()
         server.server_close()
         th.join(timeout=10)
+
+
+# ------------------------------------------------------------ serve extras
+# The serving flags on phase 3's config: (a) the int8 server
+# (--quantize int8 --index-quantize int8), (b) an artifact exported by
+# cli.export_serving, full and int8, served through cli.serve --artifact.
+EXTRA_LAT_ROUNDS = 3      # rounds per bucket of the extra servers' latency pass
+EXTRA_LAT_REQUESTS = 20   # timed requests a round (phase 3: 100)
+ARTIFACT_BATCHES = (1, 3, 4)  # 3 is no bucket: the program's symbolic batch
+# The int8 server's embedding against the full-precision one on the same
+# weights: oatx's own bar (tests/test_quant_serving.py:113-114).
+INT8_MIN_COSINE = 0.98
+DISPATCH_CALLS = 200      # calls a turn of the custom-op dispatch reading
+
+
+def model_bytes(model):
+    """Bytes of a model's parameters and buffers (on the card)."""
+    return int(sum(t.nbytes for t in list(model.parameters()) + list(model.buffers())))
+
+
+def cosines(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return (got * want).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(want, axis=-1)
+
+
+def start_exports(tmp):
+    """`python -m oatx_torch.cli.export_serving` on the card, full and int8,
+    started together; → {mode: (Popen, artifact dir, log path)}."""
+    procs = {}
+    for mode in ("full", "int8"):
+        out = os.path.join(tmp, f"artifact_{mode}")
+        log = os.path.join(tmp, f"export_{mode}.log")
+        cmd = [sys.executable, "-m", "oatx_torch.cli.export_serving", "-c", CONFIG,
+               "--out", out] + (["--quantize", "int8"] if mode == "int8" else [])
+        with open(log, "w") as f:
+            procs[mode] = (subprocess.Popen(cmd, cwd=HERE, stdout=f, stderr=subprocess.STDOUT),
+                           out, log)
+    return procs
+
+
+def wait_exports(procs, t0):
+    """Each export's JSON line and its wall; raises if one failed."""
+    lines = {}
+    for mode, (proc, out, log) in procs.items():
+        rc = proc.wait(timeout=900)
+        text = open(log).read()
+        if rc != 0:
+            raise AssertionError(f"export_serving {mode}: rc {rc}\n{text[-4000:]}")
+        lines[mode] = json.loads(text.strip().splitlines()[-1])
+        lines[mode]["wall_s"] = time.perf_counter() - t0
+    return lines
+
+
+def dispatch_cost(dev, smi):
+    """Host µs a call of each kernel's custom op above a direct `_launch` on
+    the same inputs, at serving bucket 1's shapes, in turns (op, direct,
+    direct, op; DISPATCH_CALLS calls a turn, ended by a synchronize). Not a
+    counted run."""
+    from oatx_torch.ops.kernels import ln_mlp as plm
+    from oatx_torch.ops.kernels import space_attention as psa
+
+    g = torch.Generator(dev).manual_seed(3)
+    bf = torch.bfloat16
+
+    def r(*shape, dtype=torch.float32):
+        return (0.05 * torch.randn(*shape, device=dev, generator=g)).to(dtype)
+
+    mlp = (r(785, 768, dtype=bf), 1 + r(768), r(768), r(3072, 768, dtype=bf), r(3072),
+           r(768, 3072, dtype=bf), r(768), 1e-6)
+    qkv = r(1, 785, 3, 12, 64, dtype=bf)
+    sa = (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], 4)
+    cases = {"ln_mlp": (lambda: torch.ops.oatx_torch.ln_mlp(*mlp), lambda: plm._launch(*mlp)),
+             "space_attention": (lambda: torch.ops.oatx_torch.space_attention(*sa, False),
+                                 lambda: psa._launch(*sa))}
+    out = {}
+    for name, (op, direct) in cases.items():
+        us = {"op": [], "direct": []}
+        for which in ("op", "direct", "direct", "op"):
+            fn = op if which == "op" else direct
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            us[which].append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+        out[name] = {"op_us": float(np.mean(us["op"])), "direct_us": float(np.mean(us["direct"])),
+                     "turns_us": us}
+        out[name]["dispatch_us"] = out[name]["op_us"] - out[name]["direct_us"]
+    out["per_video_forward_us"] = 12 * (out["ln_mlp"]["dispatch_us"]
+                                        + out["space_attention"]["dispatch_us"])
+    print(f"serve extras: custom-op dispatch ({smi}): " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_int8(smi, index_path, full, exports, t_phase):
+    """(a): the int8 server on phase 3's config and a 64-row index; its
+    latency pass waits for `exports` (start_exports) to end, so that their
+    host work does not reach the p50s. → (launches, the service, summary,
+    p50 per bucket, the exports' JSON lines)."""
+    from oatx_torch.cli.serve import build_service, make_server
+    from oatx_torch.serve.retrieval_index import RetrievalIndex
+
+    rng = np.random.default_rng(17)
+    frames, dim = 4, full.cfg.projection_dim
+    t0 = time.perf_counter()
+    svc, tok, index, our = build_service(
+        ["-c", CONFIG, "--port", "0", "--index", index_path, "--quantize", "int8",
+         "--index-quantize", "int8"])
+    built_s = time.perf_counter() - t0
+    server = make_server(svc, tok, index, our)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        clip1 = rng.integers(0, 256, (1, frames, 256, 256, 3), dtype=np.uint8)
+        clip4 = rng.integers(0, 256, (4, frames, 256, 256, 3), dtype=np.uint8)
+        texts = ["a man is cooking in a kitchen", "a video", "two dogs play"]
+        launches = {}
+        svc.tower_calls = {"video": 0, "text": 0}
+        with counted(launches):  # ---- the main path, counted ----
+            e1 = finite_matrix("int8 embed_video b1", post(url + "/embed_video", {
+                "video_b64": npy_b64(clip1)})["embeddings"], (1, dim))
+            finite_matrix("int8 embed_video b4", post(url + "/embed_video", {
+                "video_b64": npy_b64(clip4)})["embeddings"], (4, dim))
+            finite_matrix("int8 embed_text", post(url + "/embed_text", {"texts": texts})[
+                "embeddings"], (3, dim))
+            r = post(url + "/index_video", {"video_b64": npy_b64(clip4),
+                                            "ids": ["new0", "new1", "new2", "new3"]})
+            if r != {"indexed": 4, "size": 68}:
+                raise AssertionError(f"int8 /index_video: {r}")
+            res = post(url + "/search", {"texts": texts[:2], "k": 5})["results"]
+            stats = get(url + "/stats")
+        forwards = svc.tower_calls["video"]
+        for name in ("ln_mlp", "space_attention"):
+            if forwards == 0 or launches[name] != 12 * forwards:
+                raise AssertionError(f"int8 server: {name} {launches[name]} launches for "
+                                     f"{forwards} video forwards, want 12 per forward")
+        for row in res:
+            scores = [h["score"] for h in row]
+            if len(row) != 5 or scores != sorted(scores, reverse=True):
+                raise AssertionError(f"int8 /search result not a ranked top-5: {row}")
+        if stats["index"] != {"size": 68, "dim": dim} or stats["video"]["count"] != 3:
+            raise AssertionError(f"int8 /stats: {stats}")
+        if svc.model.video_model.blocks[0].mlp.fc1.weight_q8.dtype != torch.int8 or \
+                index._corpus()[0].dtype != torch.int8:
+            raise AssertionError("int8 server: weights or corpus not held as int8")
+        # the served embedding against the same quantized model on the plain
+        # versions, and against the full-precision model (oatx's bar)
+        with plain_versions():
+            ref = svc.embed_video(clip1)
+        cos_plain = float(cosines(e1, ref)[0])
+        cos_full = float(cosines(e1, full.embed_video(clip1))[0])
+        # the int8 corpus's top-5 against an f32 index of the same rows
+        t = tok(texts, max_length=svc.seq_len)
+        q = svc.embed_text(t["input_ids"], t["attention_mask"])
+        f32 = RetrievalIndex(index._emb, index.ids, pad_multiple=index.pad_multiple,
+                             device=svc.device)
+        overlap = [len({h["id"] for h in a} & {h["id"] for h in b}) / 5
+                   for a, b in zip(index.search(q, 5), f32.search(q, 5))]
+        summary = {"built_s": built_s, "forwards": forwards, "launches": launches,
+                   "cosine_vs_plain": cos_plain, "max_abs_err_vs_plain":
+                   float(np.abs(e1 - ref).max()), "cosine_vs_full": cos_full,
+                   "quantization_report": svc.quant_report,
+                   "device_bytes_int8": model_bytes(svc.model),
+                   "device_bytes_full": model_bytes(full.model),
+                   "top5_overlap_vs_f32_index": overlap}
+        print(f"serve extras (a) int8 server ({smi}): " + json.dumps(summary), flush=True)
+        if not cos_plain >= E2E_MIN_COSINE:
+            raise AssertionError(f"int8 served embedding vs plain cosine {cos_plain} < "
+                                 f"{E2E_MIN_COSINE}")
+        if not cos_full > INT8_MIN_COSINE:
+            raise AssertionError(f"int8 served embedding vs full cosine {cos_full} <= "
+                                 f"{INT8_MIN_COSINE}")
+        lines = wait_exports(exports, t_phase)
+        p50 = extra_latency(url, svc, rng, texts, svc.buckets)
+        return launches, svc, summary, p50, lines
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+
+
+def extra_latency(url, svc, rng, texts, buckets, trace_at=4):
+    """p50 per bucket by phase 3's method (`bucket_latency`), fewer requests;
+    at bucket `trace_at` also a device trace of PROFILED_REQUESTS video
+    requests (device busy, idle share of the p50, device ms by group)."""
+    out = {}
+    for b in buckets:
+        clips = rng.integers(0, 256, (b, 4, 256, 256, 3), dtype=np.uint8)
+        payload_v = json.dumps({"video_b64": npy_b64(clips)}).encode()
+        payload_t = json.dumps({"texts": (texts * b)[:b]}).encode()
+        rec = bucket_latency(url, svc, payload_v, payload_t, EXTRA_LAT_ROUNDS,
+                             EXTRA_LAT_REQUESTS)
+        out[b] = {k: rec[k] for k in ("video_p50_ms", "video_p50_spread", "text_p50_ms",
+                                      "http_video_p50_ms")}
+        if b == trace_at:  # one video forward a request at bucket 4
+            busy, _, groups, _ = device_trace(
+                lambda: post(url + "/embed_video", payload_v), PROFILED_REQUESTS,
+                expect=[("space_attention_kernel", 12), ("ln_mlp_", 12)])
+            out[b].update(video_device_busy_ms=busy,
+                          video_idle_share=1 - busy / rec["video_p50_ms"],
+                          video_device_ms_by_group=groups)
+    return out
+
+
+def serve_artifact(mode, path, line, ref, smi):
+    """(b): one artifact served through cli.serve --artifact. → (launches,
+    summary)."""
+    from oatx_torch.cli.serve import build_service, make_server
+
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    svc, tok, _, our = build_service(["-c", CONFIG, "--port", "0", "--artifact", path])
+    loaded_s = time.perf_counter() - t0
+    server = make_server(svc, tok, None, our)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        clips = {b: rng.integers(0, 256, (b, 4, 256, 256, 3), dtype=np.uint8)
+                 for b in ARTIFACT_BATCHES}
+        texts = ["a man is cooking in a kitchen", "a video", "two dogs play"]
+        launches, got = {}, {}
+        with counted(launches):  # ---- the main path, counted ----
+            for b, c in clips.items():
+                got[b] = finite_matrix(f"artifact {mode} b{b}", post(
+                    url + "/embed_video", {"video_b64": npy_b64(c)})["embeddings"],
+                    (b, ref.cfg.projection_dim))
+            finite_matrix(f"artifact {mode} text", post(url + "/embed_text", {
+                "texts": texts})["embeddings"], (3, ref.cfg.projection_dim))
+        forwards = len(ARTIFACT_BATCHES)  # one program call a request
+        for name in ("ln_mlp", "space_attention"):
+            if launches[name] != 12 * forwards:
+                raise AssertionError(f"artifact {mode}: {name} {launches[name]} launches for "
+                                     f"{forwards} video forwards, want 12 per forward")
+        cos, err = {}, {}
+        for b, c in clips.items():
+            want = ref.embed_video(c)
+            cos[b] = float(cosines(got[b], want).min())
+            err[b] = float(np.abs(got[b] - want).max())
+        lat = extra_latency(url, svc, rng, texts, (4,))[4]
+        summary = {"mode": mode, "bytes": line["bytes"], "export_wall_s": line["wall_s"],
+                   "loaded_s": loaded_s, "launches": launches, "forwards": forwards,
+                   "cosine_vs_in_process": cos, "max_abs_err_vs_in_process": err,
+                   "bucket4": lat}
+        print(f"serve extras (b) artifact {mode} ({smi}): " + json.dumps(summary), flush=True)
+        for b, c in cos.items():
+            if not c >= E2E_MIN_COSINE:
+                raise AssertionError(f"artifact {mode} b{b}: cosine {c} vs the in-process "
+                                     f"service < {E2E_MIN_COSINE}")
+        return launches, summary
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+
+
+def serve_extras(tmp, smi, base=None):
+    """Phase 3's extras, (a) and (b) (module docstring). `base`: phase 3's
+    record (its p50 per bucket), None when run alone. → the launches of
+    (a) and of (b)."""
+    from oatx_torch import resolve_device
+    from oatx_torch.config.schema import ExperimentCfg, build_tower_config, precision_dtype
+    from oatx_torch.models.towers import DualTower
+    from oatx_torch.serve.embed_service import EmbedService
+    from oatx_torch.serve.retrieval_index import RetrievalIndex
+
+    t_phase = time.perf_counter()
+    procs = start_exports(tmp)  # the exports run while (a) checks its server
+    try:
+        exp = ExperimentCfg.from_json(CONFIG)
+        dev = resolve_device()
+        tower_cfg = build_tower_config(
+            exp.arch, compute_dtype=precision_dtype(exp.trainer.precision))
+        full = EmbedService(DualTower(tower_cfg, device=dev,
+                                      generator=torch.Generator(dev).manual_seed(0)),
+                            tower_cfg, device=dev)  # the full-precision service, in process
+        rng = np.random.default_rng(0)
+        index_path = os.path.join(tmp, "index_extras.npz")
+        RetrievalIndex(rng.standard_normal((64, tower_cfg.projection_dim)).astype(np.float32),
+                       [f"corpus{i}" for i in range(64)], pad_multiple=64,
+                       device="cpu").save(index_path)
+        l_int8, int8, summary, p50, lines = serve_int8(smi, index_path, full, procs,
+                                                       t_phase)
+        print(f"serve extras (a) int8 p50 per bucket ({smi}; {EXTRA_LAT_ROUNDS} rounds × "
+              f"{EXTRA_LAT_REQUESTS} requests): " + json.dumps(p50) + "; phase 3's: "
+              + json.dumps((base or {}).get("p50")), flush=True)
+        l_art = {}
+        arts = {}
+        for mode, line in lines.items():
+            if line["platforms"] != [dev.type] or (line["quantize"] is None) != (mode == "full"):
+                raise AssertionError(f"export_serving {mode}: {line}")
+            ref = full if mode == "full" else int8
+            got, arts[mode] = serve_artifact(mode, line["artifact"], line, ref, smi)
+            for k, n in got.items():
+                l_art[k] = l_art.get(k, 0) + n
+        dispatch = dispatch_cost(dev, smi)
+        print(f"serve extras summary ({smi}): " + json.dumps({
+            "int8_p50": {b: r["video_p50_ms"] for b, r in p50.items()},
+            "phase3_p50": {b: r["video_p50_ms"] for b, r in ((base or {}).get("p50")
+                                                             or {}).items()},
+            "int8_cosine_vs_full": summary["cosine_vs_full"],
+            "device_bytes_int8_full": [summary["device_bytes_int8"],
+                                       summary["device_bytes_full"]],
+            "artifact_bytes": {m: a["bytes"] for m, a in arts.items()},
+            "artifact_bucket4_p50": {m: a["bucket4"]["video_p50_ms"] for m, a in arts.items()},
+            "bucket4_device_busy_ms": {"int8_server": p50[4]["video_device_busy_ms"], **{
+                f"artifact_{m}": a["bucket4"]["video_device_busy_ms"] for m, a in arts.items()}},
+            "export_wall_s": {m: a["export_wall_s"] for m, a in arts.items()},
+            "dispatch_us_per_video_forward": dispatch["per_video_forward_us"],
+            "launches": {"serve_int8": l_int8, "artifact": l_art},
+            "phase_s": time.perf_counter() - t_phase}), flush=True)
+        return l_int8, l_art
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def tensor_used(got, ref):
@@ -2636,7 +2980,52 @@ def data_test(root, tmp, smi, dev, ckpt):
            "t2v_R1": res.metrics["t2v_metrics"]["R1"],
            "v2t_R1": res.metrics["v2t_metrics"]["R1"], "wall_s": wall_s}
     print(f"data test ({smi}): " + json.dumps(out), flush=True)
-    return out, launches
+    l_index = data_index(cfg, tmp, smi, ckpt, {"ln_mlp": forwards * depth,
+                                               "space_attention": forwards * depth,
+                                               "space_attention_bwd": 0, "ln_linear": 0})
+    return out, {name: n + l_index[name] for name, n in launches.items()}
+
+
+def data_index(cfg, tmp, smi, ckpt, want):
+    """cli.build_index on the same split, windows and checkpoint as
+    cli.test (phase 7, step 4), then one /search of a server on the index it
+    saved. → its launches, which must equal `want` (cli.test's)."""
+    from oatx_torch.cli import build_index
+    from oatx_torch.cli.serve import build_service, make_server
+    from oatx_torch.serve.retrieval_index import RetrievalIndex
+
+    path = os.path.join(tmp, "msrvtt_index.npz")
+    launches, buf = {}, io.StringIO()
+    t0 = time.perf_counter()
+    with counted(launches), contextlib.redirect_stdout(buf):  # ---- counted ----
+        rc = build_index.main(["-c", cfg, "-r", ckpt, "--sliding_window_stride",
+                               str(DATA_WINDOW_STRIDE), "--index-out", path])
+    wall_s = time.perf_counter() - t0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or line["videos"] != DATA_MSRVTT or line["split"] != "test":
+        raise AssertionError(f"data index: cli.build_index returned {rc}: {line}")
+    check_launches("data index", launches, want)
+    ids = RetrievalIndex.load(path, device="cpu").ids
+    svc, tok, index, our = build_service(["-c", cfg, "--port", "0", "--buckets", "1",
+                                          "--index", path])
+    server = make_server(svc, tok, index, our)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        res = post(url + "/search", {"texts": ["a video of people"], "k": 5})["results"][0]
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+    scores = [h["score"] for h in res]
+    if len(res) != 5 or scores != sorted(scores, reverse=True) or \
+            not all(h["id"] in ids for h in res) or len(set(ids)) != DATA_MSRVTT:
+        raise AssertionError(f"data index: /search on the saved index: {res}")
+    print(f"data index ({smi}): " + json.dumps({**line, "wall_s": wall_s,
+                                                "launches": launches, "search_top5": res}),
+          flush=True)
+    return launches
 
 
 def data_phase(smi, dev):
@@ -5345,6 +5734,9 @@ def main() -> int:
                     help="build the kernels and run the pod recipes as shipped "
                          "(model_parallel 4) with one rank on each of 4 cards over NCCL "
                          "(no record, no ok line)")
+    ap.add_argument("--only-serve-extras", action="store_true",
+                    help="build the kernels and run phase 3's extras alone: the int8 "
+                         "server and the exported artifacts (no record, no ok line)")
     ap.add_argument("--only-pp", action="store_true",
                     help="build the kernels and run the pp phase alone (no record, "
                          "no ok line): the quick loop on that phase")
@@ -5388,6 +5780,12 @@ def main() -> int:
     print(f"build: nvcc {secs:.1f} s for {[s.name for s in _build.sources()]} "
           f"(sm_90a); ptxas: {json.dumps(ptxas)}", flush=True)
 
+    if opts.only_serve_extras:
+        with tempfile.TemporaryDirectory() as tmp:
+            serve_extras(tmp, smi)
+        print("chip_smoke: --only-serve-extras ran the int8 server and the artifacts alone",
+              flush=True)
+        return 0
     if opts.only_trainer:
         trainer_phase(smi, dev)
         print("chip_smoke: --only-trainer ran the trainer phase alone", flush=True)
@@ -5493,7 +5891,9 @@ def main() -> int:
         for k in kernels) + f" [{smi}]", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        phases = {"serve": serve_phase(tmp, smi)}
+        base = {}
+        phases = {"serve": serve_phase(tmp, smi, base)}
+        phases["serve_int8"], phases["artifact"] = serve_extras(tmp, smi, base)
     phases["train"] = train_phase(smi, dev)
     phases["trainer"] = trainer_phase(smi, dev)
     phases["objects"] = objects_phase(smi, dev)

@@ -17,8 +17,12 @@ Endpoints:
 
 Runs on CUDA unless `--device cpu` is given. Without `-r` or
 arch.load_checkpoint the towers hold random weights from seed 0. Warmup runs
-every bucket (and builds the kernels) before the socket opens. Not in this
-slice: --quantize, --artifact and --index-quantize (they raise).
+every bucket (and builds the kernels) before the socket opens.
+`--quantize int8` serves weight-only int8 towers (serve/quant.py);
+`--index-quantize int8` holds the device corpus as per-row int8 whatever
+the index file holds; `--artifact DIR` serves an artifact written by
+`oatx_torch.cli.export_serving` through serve/export.py's ExportedEmbedder
+(no model built, no warmup; the config is still read for the tokenizer).
 """
 
 from __future__ import annotations
@@ -57,14 +61,18 @@ def build_service(argv, device=None):
                    help="torch device (default: the current CUDA device)")
     p.add_argument("--index", default=None,
                    help="corpus index .npz (RetrievalIndex.save) enabling /search")
-    p.add_argument("--index-quantize", default=None, choices=["int8"])
-    p.add_argument("--quantize", default=None, choices=["int8"])
-    p.add_argument("--artifact", default=None)
+    p.add_argument("--index-quantize", default=None, choices=["int8"],
+                   help="hold the device corpus as per-row int8, whatever the index "
+                        "file holds")
+    p.add_argument("--quantize", default=None, choices=["int8"],
+                   help="weight-only int8 kernels for the in-process backend; for an "
+                        "artifact, quantize at export time instead "
+                        "(oatx_torch.cli.export_serving --quantize)")
+    p.add_argument("--artifact", default=None,
+                   help="serve from an artifact directory (oatx_torch.cli.export_serving) "
+                        "instead of building the model; the config is still read for "
+                        "the tokenizer")
     our, rest = p.parse_known_args(argv)
-    for flag in ("index_quantize", "quantize", "artifact"):
-        if getattr(our, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to oatx_torch yet")
     dev = resolve_device(device if device is not None else our.device)
 
     exp = load_experiment(rest, test=True)
@@ -73,23 +81,30 @@ def build_service(argv, device=None):
     tokenizer = resolve_tokenizer(
         exp.cfg, corpus=lambda: dataset_captions(exp.cfg) or ["a video"],
         search_dirs=search)
-    tower_cfg = build_tower_config(
-        exp.cfg.arch, compute_dtype=precision_dtype(exp.cfg.trainer.precision))
-    model = DualTower(tower_cfg, device=dev,
-                      generator=torch.Generator(dev).manual_seed(0))
-    if ckpt:
-        if not ckpt.endswith((".pth", ".pt", ".tar")):
-            raise NotImplementedError(
-                f"{ckpt}: only reference-format .pth checkpoints load in the port")
-        load_checkpoint(model, ckpt)
-    buckets = tuple(int(b) for b in our.buckets.split(","))
-    svc = EmbedService(model, tower_cfg, buckets=buckets, device=dev)
-    svc.warmup(frames=exp.cfg.arch.video_params.num_frames)
+    if our.artifact:
+        from oatx_torch.serve.export import ExportedEmbedder
+
+        svc = ExportedEmbedder(our.artifact, device=dev)
+    else:
+        tower_cfg = build_tower_config(
+            exp.cfg.arch, compute_dtype=precision_dtype(exp.cfg.trainer.precision))
+        model = DualTower(tower_cfg, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+        if ckpt:
+            if not ckpt.endswith((".pth", ".pt", ".tar")):
+                raise NotImplementedError(
+                    f"{ckpt}: only reference-format .pth checkpoints load in the port")
+            load_checkpoint(model, ckpt)
+        buckets = tuple(int(b) for b in our.buckets.split(","))
+        svc = EmbedService(model, tower_cfg, buckets=buckets, quantize=our.quantize,
+                           device=dev)
+        svc.warmup(frames=exp.cfg.arch.video_params.num_frames)
     index = None
     if our.index:
         from oatx_torch.serve.retrieval_index import RetrievalIndex
 
-        index = RetrievalIndex.load(our.index, device=dev)
+        kw = {"quantize": our.index_quantize} if our.index_quantize else {}
+        index = RetrievalIndex.load(our.index, device=dev, **kw)
     return svc, tokenizer, index, our
 
 

@@ -42,8 +42,11 @@ Gradient: `ln_linear` is a torch.autograd.Function. Its backward is
 recomputed from the saved x, and dW and dz go to cuBLAS as bf16 operands with
 f32 outputs (`_common.mm_f32`). No backward kernel is written by hand yet.
 
-On a CPU tensor the forward runs `ln_linear_plain`; on a CUDA tensor it
-launches the kernel or raises. The backward is the same on both.
+The forward is the custom op `oatx_torch::ln_linear` (`ln_linear_op`), so
+that torch.export keeps it in an exported program whole: on a CPU tensor it
+runs `ln_linear_plain`, on a CUDA tensor it launches the kernel or raises,
+on a fake tensor it gives the output's shape. The backward is the same on
+both devices.
 """
 
 from __future__ import annotations
@@ -139,17 +142,34 @@ def _launch(x2, ln_w, ln_b, weight, bias, eps):
     return y
 
 
+@torch.library.custom_op("oatx_torch::ln_linear", mutates_args=(), device_types="cpu")
+def ln_linear_op(x2: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+                 weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward as one op, which torch.export keeps in its graph: the
+    plain version on the CPU, the kernel on CUDA, shapes alone on fake
+    tensors."""
+    return ln_linear_plain(x2, ln_w, ln_b, weight, bias, eps)
+
+
+@ln_linear_op.register_kernel("cuda")
+def _cuda(x2, ln_w, ln_b, weight, bias, eps):
+    return _launch(x2, ln_w, ln_b, weight, bias, eps)
+
+
+@ln_linear_op.register_fake
+def _fake(x2, ln_w, ln_b, weight, bias, eps):
+    return x2.new_empty((x2.shape[0], weight.shape[0]))
+
+
 class _LnLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, ln_w, ln_b, weight, bias, eps):
         ctx.eps = eps
         ctx.save_for_backward(x2, ln_w, ln_b, weight)
         ctx.db_dtype = bias.dtype
-        if x2.device.type == "cpu":
-            return ln_linear_plain(x2, ln_w, ln_b, weight, bias, eps)
-        if not x2.is_cuda:
+        if x2.device.type not in ("cpu", "cuda"):
             raise ValueError(f"ln_linear: unsupported device {x2.device}")
-        return _launch(x2, ln_w, ln_b, weight, bias, eps)
+        return torch.ops.oatx_torch.ln_linear(x2, ln_w, ln_b, weight, bias, eps)
 
     @staticmethod
     def backward(ctx, dy):

@@ -43,9 +43,12 @@ h are recomputed from the saved x, and the six products go to cuBLAS as bf16
 operands with f32 outputs (`_common.mm_f32`). No backward kernel is written
 by hand yet.
 
-On a CPU tensor the forward runs `ln_mlp_plain`; on a CUDA tensor it
-launches the kernels or raises. The backward is the same on both. One call
-counts one launch in `ln_mlp.launches`, whichever device kernels it runs.
+The forward is the custom op `oatx_torch::ln_mlp` (`ln_mlp_op`), so that
+torch.export keeps it in an exported program whole: on a CPU tensor it runs
+`ln_mlp_plain`, on a CUDA tensor it launches the kernels or raises, on a
+fake tensor it gives the output's shape. The backward is the same on both
+devices. One call counts one launch in `ln_mlp.launches`, whichever device
+kernels it runs, inside an exported program too.
 """
 
 from __future__ import annotations
@@ -174,17 +177,37 @@ def _launch(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps):
     return y
 
 
+@torch.library.custom_op("oatx_torch::ln_mlp", mutates_args=(), device_types="cpu")
+def ln_mlp_op(x2: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
+              fc1_w: torch.Tensor, fc1_b: torch.Tensor, fc2_w: torch.Tensor,
+              fc2_b: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward as one op, which torch.export keeps in its graph: the
+    plain version on the CPU, the kernels on CUDA, shapes alone on fake
+    tensors."""
+    return ln_mlp_plain(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps)
+
+
+# looks `_launch` up at each call, so a caller may put another build in its
+# place (chip_smoke.py's --parent-* turns)
+@ln_mlp_op.register_kernel("cuda")
+def _cuda(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps):
+    return _launch(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps)
+
+
+@ln_mlp_op.register_fake
+def _fake(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps):
+    return x2.new_empty((x2.shape[0], fc2_w.shape[0]))
+
+
 class _LnMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps):
         ctx.eps = eps
         ctx.save_for_backward(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w)
         ctx.db2_dtype = fc2_b.dtype
-        if x2.device.type == "cpu":
-            return ln_mlp_plain(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps)
-        if not x2.is_cuda:
+        if x2.device.type not in ("cpu", "cuda"):
             raise ValueError(f"ln_mlp: unsupported device {x2.device}")
-        return _launch(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps)
+        return torch.ops.oatx_torch.ln_mlp(x2, ln_w, ln_b, fc1_w, fc1_b, fc2_w, fc2_b, eps)
 
     @staticmethod
     def backward(ctx, dy):

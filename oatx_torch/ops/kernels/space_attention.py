@@ -52,15 +52,18 @@ order. The function it computes is autograd of `space_attention_plain`,
 which is oatx's jax.vjp of `_space_attention_reference` (:123-127):
 P = exp(S − lse) in f32, dV = bf16(P)ᵀ·dO, dP = dO·Vᵀ, D = rowsum(P ⊙ dP),
 dS = P ⊙ (dP − D), dQ = dS·K, dK = dSᵀ·Q, products from bf16 operands
-summed in f32. On a CPU tensor the forward runs `space_attention_plain` and
+summed in f32. The forward is the custom op `oatx_torch::space_attention`
+(`space_attention_op`), so that torch.export keeps it in an exported
+program whole. On a CPU tensor the forward runs `space_attention_plain` and
 the backward autograd of it; on a CUDA tensor each launches its kernels or
-raises.
+raises; on a fake tensor the op gives the output's shape.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Tuple
 
 import torch
 
@@ -239,23 +242,44 @@ def space_attention_backward(q, k, v, dout, num_frames: int, lse=None):
     return _launch_backward(q, k, v, dout, lse, num_frames)
 
 
+@torch.library.custom_op("oatx_torch::space_attention", mutates_args=(), device_types="cpu")
+def space_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
+                       with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one op, which torch.export keeps in its graph: the
+    plain version on the CPU, the kernel on CUDA, shapes alone on fake
+    tensors. → (output, each row's log-sum-exp (B, H, T) when the kernel
+    wrote it, else an empty f32 tensor)."""
+    return space_attention_plain(q, k, v, num_frames), q.new_empty(0, dtype=torch.float32)
+
+
+@space_attention_op.register_kernel("cuda")
+def _cuda(q, k, v, num_frames, with_lse):
+    out, lse = _launch(q, k, v, num_frames, with_lse)
+    return out, lse if lse is not None else q.new_empty(0, dtype=torch.float32)
+
+
+@space_attention_op.register_fake
+def _fake(q, k, v, num_frames, with_lse):
+    b, t, h, _ = q.shape
+    lse_shape = (b, h, t) if with_lse and q.is_cuda else (0,)
+    return q.new_empty(q.shape), q.new_empty(lse_shape, dtype=torch.float32)
+
+
 class _SpaceAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, num_frames):
         ctx.num_frames = num_frames
-        if q.device.type == "cpu":
-            ctx.save_for_backward(q, k, v)
-            return space_attention_plain(q, k, v, num_frames)
-        if not q.is_cuda:
+        if q.device.type not in ("cpu", "cuda"):
             raise ValueError(f"space_attention: unsupported device {q.device}")
-        out, lse = _launch(q, k, v, num_frames, with_lse=any(ctx.needs_input_grad[:3]))
-        ctx.save_for_backward(q, k, v, lse)
+        with_lse = q.is_cuda and any(ctx.needs_input_grad[:3])
+        out, lse = torch.ops.oatx_torch.space_attention(q, k, v, num_frames, with_lse)
+        ctx.save_for_backward(q, k, v, lse if with_lse else None)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, *lse = ctx.saved_tensors
-        return (*space_attention_backward(q, k, v, dout, ctx.num_frames, *lse), None)
+        q, k, v, lse = ctx.saved_tensors
+        return (*space_attention_backward(q, k, v, dout, ctx.num_frames, lse), None)
 
 
 def space_attention(q, k, v, num_frames: int):

@@ -9,8 +9,10 @@ the result (which waits for the device). `MicroBatcher` coalesces concurrent
 single-clip requests from its own thread; the kernels launch on that
 thread's current CUDA stream.
 
-Not in this slice: weight-only int8 (`quantize`) and the exported-artifact
-backend — both raise.
+quantize="int8" serves weight-only int8 towers (serve/quant.py): the model
+is quantized in place on the device, its kernels held as int8 and
+dequantized where each is used; any other mode raises ValueError, as in
+oatx. The exported-artifact backend is serve/export.py's ExportedEmbedder.
 """
 
 from __future__ import annotations
@@ -18,47 +20,15 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from oatx_torch import DeviceLike, resolve_device
 from oatx_torch.data.transforms import TransformConfig, eval_transform
-
-
-@dataclass
-class LatencyStats:
-    samples_ms: List[float] = field(default_factory=list)
-    max_samples: int = 100_000  # ring buffer: a long-running service must not
-    _next: int = 0              # grow (or re-percentile) without bound
-
-    def add(self, ms: float) -> None:
-        if len(self.samples_ms) < self.max_samples:
-            self.samples_ms.append(ms)
-        else:
-            self.samples_ms[self._next] = ms
-            self._next = (self._next + 1) % self.max_samples
-
-    def percentile(self, p: float) -> float:
-        if not self.samples_ms:
-            return float("nan")
-        return float(np.percentile(self.samples_ms, p))
-
-    def summary(self) -> Dict[str, Optional[float]]:
-        # None (JSON null) when empty — json.dumps would otherwise emit bare
-        # NaN, which strict JSON parsers reject
-        if not self.samples_ms:
-            return {"count": 0, "p50_ms": None, "p90_ms": None,
-                    "p99_ms": None, "mean_ms": None}
-        return {
-            "count": len(self.samples_ms),
-            "p50_ms": self.percentile(50),
-            "p90_ms": self.percentile(90),
-            "p99_ms": self.percentile(99),
-            "mean_ms": float(np.mean(self.samples_ms)),
-        }
+from oatx_torch.serve.quant import quantize_model
+from oatx_torch.serve.stats import LatencyStats
 
 
 class EmbedService:
@@ -66,12 +36,15 @@ class EmbedService:
 
     def __init__(self, model, tower_cfg, buckets: Sequence[int] = (1, 4, 16),
                  seq_len: int = 30, scan_chunk: int = 8,
-                 quantize: Optional[str] = None, device: DeviceLike = None):
-        if quantize:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: weight-only int8 serving is not ported yet")
+                 quantize: Optional[str] = None, quant_min_elems: int = 4096,
+                 device: DeviceLike = None):
+        if quantize and quantize != "int8":
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        # quant_min_elems mirrors oatx's knob, so small towers can quantize too
+        self.quant_report = (quantize_model(self.model, min_elems=quant_min_elems)
+                             if quantize else None)
         self.cfg = tower_cfg
         self.buckets = sorted(buckets)
         self.seq_len = seq_len

@@ -1,8 +1,12 @@
 """Corpus retrieval index: device-resident embeddings + top-k cosine search
-(port of oatx/serve/retrieval_index.py:67-273, without int8).
+(port of oatx/serve/retrieval_index.py).
 
   * the corpus lives on the device as one L2-normalized f32 matrix, padded up
     to `pad_multiple` rows; pad rows are masked to -inf;
+  * quantize="int8": the device corpus is per-row symmetric int8 with an
+    f32 scale a row, from the padded f32 buffer by oatx's arithmetic, and
+    scores are (q @ int8 rowsᵀ cast to q's dtype) · scale; the host copy
+    (and `save`) stays exact f32;
   * `search()` is one matmul + `torch.topk` (oatx computes it outside any
     Pallas kernel);
   * corpora longer than `score_chunk` rows score chunk by chunk, with a
@@ -14,7 +18,7 @@
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +30,35 @@ def _normalize(x: np.ndarray) -> np.ndarray:
     x = np.asarray(x, np.float32)
     n = np.linalg.norm(x, axis=-1, keepdims=True)
     return x / np.maximum(n, 1e-8)
+
+
+def ids_for_result(res) -> List[str]:
+    """One corpus id per `EvalResult.video_embeds` row (oatx
+    retrieval_index.py:39-64).
+
+    Mirrors the row-collapsing rules of eval.retrieval_eval.evaluate:
+    sliding-window ensembling keeps first-appearance group order, and the
+    full-cut caption_group protocol keeps one video per group in
+    first-appearance order. Plain runs are one row per sample."""
+    metas = res.meta
+    if not metas:
+        return [str(i) for i in range(res.video_embeds.shape[0])]
+
+    def _collapse(key: str) -> List[str]:
+        seen, out = set(), []
+        for m in metas:
+            g = m[key]
+            if g not in seen:
+                seen.add(g)
+                out.append(str(m.get("paths", g)))
+        return out
+
+    for key in ("caption_group", "window_group"):
+        if key in metas[0]:
+            ids = _collapse(key)
+            if len(ids) == res.video_embeds.shape[0]:
+                return ids
+    return [str(m.get("paths", i)) for i, m in enumerate(metas)]
 
 
 class RetrievalIndex:
@@ -43,11 +76,10 @@ class RetrievalIndex:
     ):
         if pad_multiple < 1 or score_chunk < 1:
             raise ValueError("pad_multiple and score_chunk must be >= 1")
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: the int8 corpus is not ported yet")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.device = resolve_device(device)
-        self.quantize = None
+        self.quantize = quantize
         self.pad_multiple = int(pad_multiple)
         # chunked scoring needs chunk-divisible pad lengths
         self.score_chunk = (max(int(score_chunk), self.pad_multiple)
@@ -56,7 +88,8 @@ class RetrievalIndex:
         self.query_buckets = sorted(int(b) for b in query_buckets)
         self.ids: List[str] = []
         self._emb = np.zeros((0, 0), np.float32)  # normalized, unpadded (host)
-        self._device_corpus: Optional[torch.Tensor] = None
+        # the padded corpus on the device, and its int8 rows' scales or None
+        self._device_corpus: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None
         if embeddings is not None:
             if ids is None:
                 raise ValueError("ids required when embeddings are given")
@@ -90,21 +123,32 @@ class RetrievalIndex:
                        // self.score_chunk * self.score_chunk)
         return pad_len
 
-    def _corpus(self) -> torch.Tensor:
+    def _corpus(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         if self._device_corpus is None:
             buf = np.zeros((self._padded_len(), self._emb.shape[1]), np.float32)
             buf[: len(self.ids)] = self._emb
-            self._device_corpus = torch.from_numpy(buf).to(self.device)
+            scale = None
+            if self.quantize == "int8":
+                amax = np.max(np.abs(buf), axis=1)
+                scale = np.maximum(amax, np.finfo(np.float32).tiny) / 127.0
+                buf = np.clip(np.rint(buf / scale[:, None]), -127, 127).astype(np.int8)
+                scale = torch.from_numpy(scale.astype(np.float32)).to(self.device)
+            self._device_corpus = torch.from_numpy(buf).to(self.device), scale
         return self._device_corpus
 
-    def _topk(self, corpus: torch.Tensor, q: torch.Tensor, k: int):
+    def _topk(self, q: torch.Tensor, k: int):
+        corpus, scale = self._corpus()
         q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(1e-8)
         n_valid = len(self.ids)
         rows = corpus.shape[0]
         chunk = self.score_chunk if rows > self.score_chunk else rows
         scores, idx = [], []
         for start in range(0, rows, chunk):  # pad_len is chunk-divisible
-            sims = q @ corpus[start: start + chunk].T  # the only live buffer
+            # (B, chunk): the only live buffer; an int8 chunk is cast to q's
+            # dtype and its rows' scales factored out of the product
+            sims = q @ corpus[start: start + chunk].T.to(q.dtype)
+            if scale is not None:
+                sims = sims * scale[None, start: start + chunk]
             valid = torch.arange(start, start + chunk, device=q.device) < n_valid
             sims = sims.masked_fill(~valid[None, :], float("-inf"))
             # k may exceed a chunk (oatx refuses that); the chunks together
@@ -137,7 +181,7 @@ class RetrievalIndex:
                 out.extend(self.search(queries[i: i + step], k))
             return out
         q = torch.from_numpy(queries).to(self.device)
-        scores, idx = self._topk(self._corpus(), q, k)
+        scores, idx = self._topk(q, k)
         scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         return [
             [{"id": self.ids[int(j)], "score": float(s), "rank": r}

@@ -285,7 +285,7 @@ def test_port_decoder_trains_through_cli(tmp_path):
     assert sorted(os.listdir(tmp_path / "videos"))[0].endswith(".avi")
 
 
-@pytest.mark.parametrize("cli", ["train", "test", "serve"])
+@pytest.mark.parametrize("cli", ["train", "test", "serve", "export_serving", "build_index"])
 def test_entry_points_refuse_the_cpu_unless_asked(tmp_path, cli, monkeypatch):
     """Without a card (hidden here if there is one) and without --device
     cpu, each entry point raises before it writes anything."""
@@ -296,9 +296,12 @@ def test_entry_points_refuse_the_cpu_unless_asked(tmp_path, cli, monkeypatch):
     mod = importlib.import_module(f"oatx_torch.cli.{cli}")
     cfg = _write(tmp_path / "c.json", smoke_raw(tmp_path))
     main = mod.build_service if cli == "serve" else mod.main
+    out = {"export_serving": ["--out", str(tmp_path / "art")],
+           "build_index": ["--index-out", str(tmp_path / "index.npz")]}.get(cli, [])
     with pytest.raises(RuntimeError, match="CUDA"):
-        main(["-c", cfg])
+        main(["-c", cfg] + out)
     assert not (tmp_path / "exps").exists()
+    assert not (tmp_path / "art").exists() and not (tmp_path / "index.npz").exists()
 
 
 def test_cli_train_refuses_multihost(tmp_path, monkeypatch):

@@ -17,6 +17,8 @@ plain version rounds each cotangent back to bf16 at every cast), so a few
 bf16 ulps (2^-8 ≈ 4e-3 each) separate them: GRAD_REL 2e-2.
 """
 
+import json
+
 import pytest
 import torch
 
@@ -905,3 +907,80 @@ def test_pipeline_sends_cuda_tensors_over_gloo(card, tmp_path):
         assert res["traffic"][sent]["bytes"] == nbytes
         assert res["traffic"]["pp_host"]["bytes"] == 2 * nbytes  # its send and its receive
         assert res["traffic"]["pp_bcast"]["bytes"] == 3 * 4 * 2
+
+
+def _op_inputs(name, card):
+    """Inputs of each kernel's custom op at serving bucket 1's shapes."""
+    g = torch.Generator(card).manual_seed(17)
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(*shape, device=card, generator=g)).to(dtype)
+
+    if name == "ln_mlp":
+        return (r(785, 768, dtype=bf), 1 + r(768, scale=0.1), r(768, scale=0.1),
+                r(3072, 768, scale=768 ** -0.5, dtype=bf), r(3072, scale=0.1),
+                r(768, 3072, scale=3072 ** -0.5, dtype=bf), r(768, scale=0.1), 1e-6)
+    if name == "ln_linear":
+        return (r(785, 768, dtype=bf), 1 + r(768, scale=0.1), r(768, scale=0.1),
+                r(2304, 768, scale=768 ** -0.5, dtype=bf), r(2304, scale=0.1), 1e-6)
+    qkv = r(1, 785, 3, 12, 64, dtype=bf)
+    return (qkv[:, :, 0] * 0.125, qkv[:, :, 1], qkv[:, :, 2], 4, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ln_mlp", "ln_linear", "space_attention"])
+def test_custom_op_on_cuda_is_the_launch(card, name):
+    """Each kernel's custom op (`torch.ops.oatx_torch.<name>`) on CUDA
+    tensors is its `_launch`: bitwise the same output (and kernel 2's
+    log-sum-exp) as a direct launch on the same inputs, one count each."""
+    mod = {"ln_mlp": plm, "ln_linear": pll, "space_attention": psa}[name]
+    counter = getattr(mod, name)
+    args = _op_inputs(name, card)
+    before = counter.launches
+    got = getattr(torch.ops.oatx_torch, name)(*args)
+    want = mod._launch(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    if name == "space_attention":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[1].shape == (1, 12, 785)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_exported_artifact_launches_the_kernels(card, tmp_path):
+    """A 12-block bf16 tower exported on the card (serve/export.py): the
+    program calls the kernels' ops, so each video forward launches kernels 1
+    and 2 twelve times each, at batch 1 and at a batch that is no bucket;
+    its embeddings agree with the in-process service on the same weights."""
+    import numpy as np
+
+    from oatx_torch.serve import embed_service as pes
+    from oatx_torch.serve import export as pex
+
+    cfg = ptowers.TowerConfig(
+        video=pvst.SpaceTimeViTConfig(img_size=32, embed_dim=128, depth=12, num_heads=2,
+                                      num_frames=2, time_init="random"),
+        text=pdb.DistilBertConfig(vocab_size=100, dim=64, hidden_dim=128, n_layers=1,
+                                  n_heads=4),
+        projection_dim=32, compute_dtype=torch.bfloat16)
+    model = ptowers.DualTower(cfg, device=card, generator=torch.Generator(card).manual_seed(0))
+    out = pex.save_artifact(tmp_path / "art", model, cfg, frames=2, canon=40, seq_len=8)
+    assert json.loads((out / "meta.json").read_text())["platforms"] == ["cuda"]
+    emb = pex.ExportedEmbedder(out)
+    svc = pes.EmbedService(model, cfg, buckets=(1, 4), seq_len=8, device=card)
+    rng = np.random.default_rng(0)
+    for n in (1, 3):
+        clips = rng.integers(0, 256, (n, 2, 40, 40, 3), dtype=np.uint8)
+        before = (plm.ln_mlp.launches, psa.space_attention.launches)
+        got = emb.embed_video(clips)
+        torch.cuda.synchronize()
+        assert (plm.ln_mlp.launches - before[0],
+                psa.space_attention.launches - before[1]) == (12, 12)
+        want = svc.embed_video(clips)
+        cos = (got * want).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(want, axis=-1)
+        assert np.isfinite(got).all() and float(cos.min()) >= 0.999
+    with pytest.raises(ValueError, match="not cpu"):
+        pex.ExportedEmbedder(out, device="cpu")

@@ -182,8 +182,13 @@ def test_retrieval_index_npz_format_crosses(tmp_path):
     want, got = jidx.search(q, 5), pidx.search(q, 5)
     np.testing.assert_allclose([[h["score"] for h in r] for r in got],
                                [[h["score"] for h in r] for r in want], atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        pri.RetrievalIndex(emb, ids, quantize="int8", device="cpu")
+    # the int8 corpus (quantize="int8"): oatx's ranking on the same rows
+    q8 = pri.RetrievalIndex(emb, ids, quantize="int8", pad_multiple=8, device="cpu")
+    jq8 = jri.RetrievalIndex(emb, ids, quantize="int8", pad_multiple=8)
+    for got_row, want_row in zip(q8.search(q, 5), jq8.search(q, 5)):
+        assert [h["id"] for h in got_row] == [h["id"] for h in want_row]
+        np.testing.assert_allclose([h["score"] for h in got_row],
+                                   [h["score"] for h in want_row], atol=1e-5)
 
 
 # ---------------------------------------------------------- text & configs
@@ -284,8 +289,16 @@ def test_cli_serves_oatx_checkpoint_like_oatx(tmp_path):
                               [f"c{i}" for i in range(6)], pad_multiple=8)
     jidx.save(str(tmp_path / "index.npz"))
 
-    with pytest.raises(NotImplementedError):
-        pserve.build_service(["-r", ckpt, "--quantize", "int8"], device="cpu")
+    # --quantize int8 --index-quantize int8: oatx's int8 service and corpus
+    qsvc, _, qindex, _ = pserve.build_service(
+        ["-r", ckpt, "--device", "cpu", "--buckets", "1", "--quantize", "int8",
+         "--index-quantize", "int8", "--index", str(tmp_path / "index.npz")])
+    jqsvc = jes.EmbedService(params, jcfg, buckets=(1,), seq_len=30, quantize="int8")
+    clip = _clips(1, seed=32, canon=48)
+    np.testing.assert_allclose(qsvc.embed_video(clip), jqsvc.embed_video(clip),
+                               atol=ATOL, rtol=0)
+    assert qsvc.quant_report["quantized_kernels"] > 0 and qindex.quantize == "int8"
+    assert qindex._corpus()[0].dtype == torch.int8
     svc, tok, index, our = pserve.build_service(
         ["-r", ckpt, "--device", "cpu", "--buckets", "1,4", "--port", "0",
          "--index", str(tmp_path / "index.npz")])
@@ -356,7 +369,9 @@ def test_port_imports_no_jax_and_no_oatx():
             "oatx_torch.data.host_transforms, oatx_torch.eval.retrieval_eval, "
             "oatx_torch.models.bert, oatx_torch.models.clip_text, "
             "oatx_torch.models.object_tower, oatx_torch.models.prompt_learner, "
-            "oatx_torch.data.clip_tokenizer, oatx_torch.cli.build_region_memory; "
+            "oatx_torch.data.clip_tokenizer, oatx_torch.cli.build_region_memory, "
+            "oatx_torch.serve.quant, oatx_torch.serve.export, oatx_torch.serve.stats, "
+            "oatx_torch.cli.export_serving, oatx_torch.cli.build_index; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench', 'pandas', 'PIL', 'cv2', "
             "'regex', 'ftfy', 'transformers')); "
