@@ -5,8 +5,8 @@
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
-                          [--only-tp] [--only-pp] [--only-serve-extras]
-                          [--dp-nccl] [--tp-nccl] [--pp-nccl]
+                          [--only-tp] [--only-pp] [--only-extract]
+                          [--only-serve-extras] [--dp-nccl] [--tp-nccl] [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -24,9 +24,10 @@ per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
 --only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
-phase 13, --only-serve-extras phase 3's extras (a) and (b) (no record, no
-`ok` line). --dp-nccl runs phase 10 (b) and then phase 11's pod recipes
-alone with one rank per visible card over NCCL (2 or more cards).
+phase 13, --only-extract phase 14, --only-serve-extras phase 3's extras (a)
+and (b) (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then
+phase 11's pod recipes alone with one rank per visible card over NCCL (2
+or more cards).
 --tp-nccl runs the pod recipes as shipped (model_parallel 4) with a rank
 on each of 4 cards over NCCL (TP_NCCL_RUNS; no record, no `ok` line).
 --pp-nccl runs the pod recipes with pipeline true on their 4 stages, a rank
@@ -37,8 +38,8 @@ printed):
   1. environment — the card's name and power limit (nvidia-smi), torch and
      CUDA versions, and the nvcc build of every kernel in oatx_torch/csrc;
   2. kernels — each hand-written kernel against its plain PyTorch version on
-     the card (bf16): kernel 1 (ln_mlp) at R = 785, 3140, 3152 and 6280 rows
-     (3152: the object-aware recipes' 1-frame object frame at batch 16; its
+     the card (bf16): kernel 1 (ln_mlp) at R = 197, 785, 3140, 3152 and
+     6280 rows (3152: the object-aware recipes' 1-frame object frame at batch 16; its
      record at bucket 4's 3140, with the ms of each split of its second
      product), kernel 2 (space_attention) and its backward kernels
      (space_attention_bwd, against autograd of the plain version and, not
@@ -47,7 +48,10 @@ printed):
      the object frame; `by_batch` key "16_F1") and over SA_TAIL_DRAWS more
      draws at B = 4 (records at bucket 4, `by_batch` for each shape),
      kernel 3 (ln_linear) at the
-     train step's LN→qkv shape, each with its time (CUDA events, and device
+     train step's LN→qkv shape; kernels 1 and 2 also at one 224² frame
+     of ViT-B/16 (phase 14's shapes: R = 197; B = 1 over one frame, T =
+     197, `by_batch` key "1_F1"; the plain version timed there too), each
+     with its time (CUDA events, and device
      busy time from traces that must hold every kernel launched), achieved
      TFLOP/s, ptxas registers and spills, the plain version's time, one
      PyTorch library call's (SDPA and its backward for kernel 2) and the
@@ -340,6 +344,40 @@ printed):
      kernels among them) from a 2-step trace, the derived bubble (P − 1) /
      (M + P − 1), beside each recipe in one process at model_parallel 1
      on cuda:0 at the same batch.
+ 14. extract — offline object extraction (data/extraction.py,
+     cli/extract.py, ops/roi_align.py). (a) EXTRACT_CLIP_FRAMES MJPEG clips
+     of 320×240 written by the port's writer (one shorter than the 8-slot
+     grid), under SyntheticVideoText's names; (b) `oatx_torch.cli.extract`
+     with --detector roi_backbone on local_region_loss.json's tower
+     (ViT-B/16 at 224², bf16, random weights from seed 0), EXTRACT_WORKERS
+     threads, EXTRACT_REGIONS regions: 64 frames, 12 launches of kernels 1
+     and 2 a frame (counted around the call: `launches_by_phase["extract"]`),
+     every .npz's x (10, 2048) finite and exactly 0 from column 768 on, its
+     bbox inside the frame, its info complete; (c) the same run through the
+     plain versions (no launch): each region's features within cosine
+     E2E_MIN_COSINE; (d) a second run writes nothing and skips every clip,
+     --missing-only lists none, then after one .npz is deleted exactly that
+     clip, whose loss list run with --overwrite writes it again (the same
+     boxes, features within the same cosine); (e) --detector torch on
+     BoxColour, scripted in the phase, on the card through the CLI against
+     the same module on the CPU through extract_dataset, every file within
+     EXTRACT_TORCH_ATOL; (f) local_region_loss.json's loader
+     (SyntheticVideoText over the clips, object_dir the extracted tree,
+     strict loading) and Trainer at EXTRACT_TRAIN_BATCH, EXTRACT_TRAIN_STEPS
+     counted steps (`launches_by_phase["extract_train"]`, as want_launches
+     derives with two streams): every loss term finite; (g) printed: frames/s
+     of (b) and of the same run on one worker, device busy ms a frame from a
+     CUDA-only trace of EXTRACT_TRACED_FRAMES frames through one extractor
+     (warmed, and run before (b): a process's first use of the card's
+     libraries falls there), the idle share of (b)'s pool and of one thread,
+     the phase's seconds.
+In the run without arguments phases 10-13 overlap: their kernels are timed
+first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
+while this process takes the phases' one-process references (so those
+references' step ms are taken beside the ranks, not alone), and each phase
+holds its ranks' records against them once they exit. A `chip_smoke lap`
+line after each step gives its seconds; the line "chip_smoke seconds by
+step" gathers them before the record.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel JSON record.
 """
@@ -423,7 +461,7 @@ GRAD_MIN_GLOBAL_COSINE = 0.999
 # f32 instead of bf16 (zero at init): bf16 roundings only. Measured 8.4e-4
 # on an H100.
 FUSED_LOSS_RTOL = 1e-2
-LAT_REQUESTS = 100     # timed requests per bucket and round, after warm-up
+LAT_REQUESTS = 30      # timed requests per bucket and round, after warm-up
 LAT_ROUNDS = 3         # rounds per bucket: the p50's spread inside one call
 LAT_WARMUP = 5
 PROFILED_REQUESTS = 10
@@ -446,6 +484,17 @@ KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_",)),
 
 def sh(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+T_START = time.perf_counter()
+LAPS = [("start", T_START)]  # (label, perf_counter): the run's time budget, step by step
+
+
+def lap(label):
+    """Print the seconds since the previous lap and since the start."""
+    LAPS.append((label, time.perf_counter()))
+    print(f"chip_smoke lap {label}: {LAPS[-1][1] - LAPS[-2][1]:.1f} s, "
+          f"{LAPS[-1][1] - T_START:.1f} s since start", flush=True)
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -519,10 +568,12 @@ def check_close(name, got, want, atol, allow=None):
     return rec
 
 
-# serving buckets 1 and 4; the object-aware recipes' object frame at batch 16
-# (16·197); bucket 16's halves and the train step
-LN_MLP_ROWS = (785, 3140, 3152, 6280)
+# one 224² frame (cli.extract's roi_backbone); serving buckets 1 and 4; the
+# object-aware recipes' object frame at batch 16 (16·197); bucket 16's halves
+# and the train step
+LN_MLP_ROWS = (197, 785, 3140, 3152, 6280)
 LN_MLP_RECORD_ROWS = 3140        # the record's ms, errors and bound
+LN_MLP_PLAIN_ROWS = (197, 3140)  # where the plain version is timed too
 LN_MLP_SPLITS = (1, 2, 3, 6)     # K ranges of the second product, timed at each R
 LN_MLP_EXPECT = (("ln_mlp_", 1),)  # device kernels a call launches at least (device_trace)
 
@@ -629,7 +680,7 @@ def kernel_ln_mlp(dev, g, parent=None):
             plm._down_split = rule
         rec["ms_by_split"] = {sp: t[0] for sp, t in splits.items()}
         rec["device_ms_by_split"] = {sp: t[1] for sp, t in splits.items()}
-        if R == LN_MLP_RECORD_ROWS:
+        if R in LN_MLP_PLAIN_ROWS:
             rec["plain_ms"] = time_ms(lambda: plm.ln_mlp_plain(*args), iters=5)
         if parent is not None:
             with ln_mlp_library(parent):
@@ -650,7 +701,7 @@ def kernel_ln_mlp(dev, g, parent=None):
         **{k: top[k] for k in ("max_abs_err", "max_rel_err", "tol_used", "ref_rms",
                                "ref_max", "atol", "ms", "plain_ms", "bound_ms", "bound_by",
                                "flops", "library_ms")},
-        "by_rows": {R: {k: v for k, v in r.items() if k not in ("flops", "plain_ms")}
+        "by_rows": {R: {k: v for k, v in r.items() if k != "flops"}
                     for R, r in by_rows.items()},
         "shape": f"x ({LN_MLP_RECORD_ROWS}, {D}) bf16, hidden {H}",
     }
@@ -658,9 +709,11 @@ def kernel_ln_mlp(dev, g, parent=None):
 
 # (batch, frames): serving bucket 1, bucket 4 (the record), bucket 16's halves
 # and the train step at 4 frames; the object-aware recipes' 1-frame object
-# frame at their batch of 16 (T = 197)
-SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1))
+# frame at their batch of 16 (T = 197); one 224² frame (cli.extract's
+# roi_backbone)
+SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1), (1, 1))
 SA_RECORD_BATCH = 4       # the record's ms, errors and bound (serving bucket 4)
+SA_PLAIN_SHAPES = ((SA_RECORD_BATCH, 4), (1, 1))  # where the plain version is timed too
 SA_SPLITS = (1, 2, 3, 4)  # blocks per frame group, timed at each batch (--sweep-query-splits)
 SA_FWD_EXPECT = (("space_attention_kernel", 1),)
 SA_BWD_EXPECT = (("space_attention_cls_bwd_kernel", 1), ("space_attention_bwd_kernel", 1),
@@ -937,7 +990,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
                 psa._query_split = rule
             rec["ms_by_split"] = {sp: t[0] for sp, t in splits.items()}
             rec["device_ms_by_split"] = {sp: t[1] for sp, t in splits.items()}
-        if (B, Fr) == (SA_RECORD_BATCH, 4):
+        if (B, Fr) in SA_PLAIN_SHAPES:
             rec["plain_ms"] = time_ms(lambda: psa.space_attention_plain(q, k, v, Fr), iters=5)
 
         # the backward kernels alone, from the forward's log-sum-exp
@@ -1012,7 +1065,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
     top["occupancy"] = {"blocks_per_sm": blocks.value, "warps_per_sm": 4 * blocks.value,
                         "smem_bytes_per_block": smem.value}
     shape = f"q/k/v ({SA_RECORD_BATCH}, {T}, {Hh}, {Dh}) bf16, {Fr} frames"
-    drop = ("flops", "plain_ms")
+    drop = ("flops",)
     return [{
         "name": "space_attention", "route": "cuda",
         "source": "oatx_torch/csrc/space_attention.cu",
@@ -1497,8 +1550,8 @@ def serve_phase(tmp, smi, record=None):
 # The serving flags on phase 3's config: (a) the int8 server
 # (--quantize int8 --index-quantize int8), (b) an artifact exported by
 # cli.export_serving, full and int8, served through cli.serve --artifact.
-EXTRA_LAT_ROUNDS = 3      # rounds per bucket of the extra servers' latency pass
-EXTRA_LAT_REQUESTS = 20   # timed requests a round (phase 3: 100)
+EXTRA_LAT_ROUNDS = 2      # rounds per bucket of the extra servers' latency pass
+EXTRA_LAT_REQUESTS = 10   # timed requests a round (phase 3: LAT_REQUESTS)
 ARTIFACT_BATCHES = (1, 3, 4)  # 3 is no bucket: the program's symbolic batch
 # The int8 server's embedding against the full-precision one on the same
 # weights: oatx's own bar (tests/test_quant_serving.py:113-114).
@@ -1989,7 +2042,7 @@ TRAINER_LEN_EPOCH = 16   # steps per epoch (len_epoch cycles of one loader)
 REMAT_SETTINGS = (None, "full", "dots", "dots_all")
 REMAT_STEPS = 3          # counted steps per remat setting at batch 16
 LARGE_BATCH = 64         # large_batch_pod.json's per-chip batch
-LARGE_STEPS = 6
+LARGE_STEPS = 3
 RESUME_LOSS_RTOL = 1e-3  # the resumed epoch's losses against the uninterrupted run's
 TEXT_LEN = 30            # the Collator's max_text_len (the reference's)
 WORDS = ("alpha", "beta", "gamma", "delta", "eps", "zeta")  # caption i: alpha{i} beta{i} ...
@@ -2674,8 +2727,10 @@ def trainer_phase(smi, dev):
     ds = MemoryClips(CORPUS_CLIPS, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         norm, launches = norm_recipe(tmp, smi, dev, ds)
+    lap("5 trainer: norm and its resume")
     remat, more = remat_runs(smi, dev, ds)
     launches += more
+    lap("5 trainer: remat")
     large, more = large_batch_recipe(smi, dev)
     launches += more
     rows = [("norm@16 trainer", norm)] + [(f"norm@16 remat {k}", v) for k, v in remat.items()] \
@@ -3851,6 +3906,102 @@ DP_CYCLES = 2            # (a): cycles of cli.train (a CC3M and a WebVid step ea
 DP_LOSS_RTOL = 2e-3      # (b) step 1's loss terms against one process at batch 16
 DP_RANK_TIMEOUT_S = 600
 DP_RECIPES = ("norm", "global_local", "region_mem")
+RANK_GROUPS_AT_ONCE = 2  # rank groups of phases 10-13 sharing the card at a time
+
+
+class Ranks:
+    """`world` ranks of this script started again with --dp-rank and
+    --dp-phase `phase` (gloo: all on cuda:0; nccl: one card each), writing
+    into `tmp` (default: a temporary directory of their own), with `env`
+    (default: this process's environment)."""
+
+    def __init__(self, world, backend, phase, tmp=None, env=None):
+        self.own = None if tmp else tempfile.TemporaryDirectory()
+        self.tmp = tmp or self.own.name
+        self.world, self.phase, self.t0 = world, phase, time.time()
+        url = "file://" + os.path.join(self.tmp, "store")
+        self.logs = [os.path.join(self.tmp, f"rank{r}.log") for r in range(world)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), "--dp-world",
+             str(world), "--dp-init", url, "--dp-backend", backend, "--dp-out", self.tmp,
+             "--dp-phase", phase], stdout=open(self.logs[r], "w"), stderr=subprocess.STDOUT,
+            env=env) for r in range(world)]
+
+    def running(self):
+        return any(p.poll() is None for p in self.procs)
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def wait(self):
+        """→ each rank's record (rank{r}.json), after their exit; their log
+        tails printed and AssertionError if one failed. `wall_s`: from the
+        start to the last record written."""
+        try:
+            for p in self.procs:
+                p.wait(timeout=DP_RANK_TIMEOUT_S)
+        finally:
+            self.stop()
+        if any(p.returncode for p in self.procs):
+            for r, log in enumerate(self.logs):
+                print(f"{self.phase} rank {r} log tail:\n" + open(log).read()[-3000:],
+                      flush=True)
+            raise AssertionError(f"{self.phase}: ranks exited "
+                                 f"{[p.returncode for p in self.procs]}")
+        files = [os.path.join(self.tmp, f"rank{r}.json") for r in range(self.world)]
+        self.wall_s = max(os.path.getmtime(f) for f in files) - self.t0
+        return [json.load(open(f)) for f in files]
+
+    def cleanup(self):
+        self.stop()
+        if self.own is not None:
+            self.own.cleanup()
+
+
+class RankGroups:
+    """Phases 10-13's gloo rank groups, started in the order given, at most
+    RANK_GROUPS_AT_ONCE at a time, by a thread that starts the next when a
+    group exits, while the main process runs those phases' one-process
+    references. The ranks' step ms are no speed anyway (they share the card
+    and gloo stages CUDA tensors through the host). Every group gets the
+    environment as it is here, not as phase 10 (a) sets it for a while."""
+
+    def __init__(self, specs):
+        self.specs, self.groups, self.halt = list(specs), {}, threading.Event()
+        self.env = dict(os.environ)
+        self.started = {phase: threading.Event() for phase, _ in self.specs}
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            for phase, world in self.specs:
+                while not self.halt.is_set() and sum(
+                        g.running() for g in self.groups.values()) >= RANK_GROUPS_AT_ONCE:
+                    time.sleep(0.2)
+                if self.halt.is_set():
+                    break
+                self.groups[phase] = Ranks(world, "gloo", phase, env=self.env)
+                self.started[phase].set()
+        finally:  # a group never started fails in group(), not in a wait forever
+            for e in self.started.values():
+                e.set()
+
+    def group(self, phase):
+        self.started[phase].wait()
+        if phase not in self.groups:
+            raise AssertionError(f"{phase}: its ranks were never started")
+        return self.groups[phase]
+
+    def stop(self):
+        """Start no more groups; stop and remove those started."""
+        self.halt.set()
+        self.thread.join()
+        for g in self.groups.values():
+            g.cleanup()
 
 
 def dp_recipe(name, steps):
@@ -4035,49 +4186,40 @@ def dp_reference(name, base, tmp, dev, world):
     return dp_run(name, lambda: Trainer(exp, train, [], device=dev), dp_steps(name), dev)
 
 
-def dp_ranks(smi, dev, world=DP_WORLD, backend="gloo"):
+def dp_refs(dev, world=DP_WORLD):
+    """Phase 10 (b)'s one process for each recipe (dp_reference) → {recipe:
+    (record, first step's gradients)}."""
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        return {name: dp_reference(name, base, tmp, dev, world) for name in DP_RECIPES}
+
+
+def dp_ranks(smi, dev, world=DP_WORLD, backend="gloo", group=None, refs=None):
     """Phase 10 (b): `world` ranks, this script started again with
-    --dp-rank (gloo: all on cuda:0; nccl: one card each), each recipe
-    against one process on the same global batch. → (record, launches)."""
+    --dp-rank (gloo: all on cuda:0; nccl: one card each; `group`: started
+    already), each recipe against one process on the same global batch
+    (`refs`: dp_refs's, taken already). → (record, launches)."""
     gc.collect()
     torch.cuda.empty_cache()
     where = "one card over gloo" if backend == "gloo" else f"{world} cards over NCCL"
-    with tempfile.TemporaryDirectory() as tmp:
-        url = "file://" + os.path.join(tmp, "store")
-        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                                   "--dp-world", str(world), "--dp-init", url,
-                                   "--dp-backend", backend, "--dp-out", tmp],
-                                  stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
-                 for r in range(world)]
-        try:
-            for p in procs:
-                p.wait(timeout=DP_RANK_TIMEOUT_S)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall_s = time.perf_counter() - t0
-        if any(p.returncode for p in procs):
-            for r, log in enumerate(logs):
-                print(f"dp rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
-            raise AssertionError(f"dp (b): ranks exited {[p.returncode for p in procs]}")
-        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+    group = group or Ranks(world, backend, "dp")
+    try:
+        tmp = group.tmp
+        ranks = group.wait()
+        wall_s = group.wall_s
         print(f"dp (b) {backend} on CUDA tensors, probe ({smi}): "
               + json.dumps([r["probe"] for r in ranks]), flush=True)
         if not all(r["probe"]["ok"] for r in ranks):
             print(f"dp (b) waits: {backend} refused CUDA tensors between the ranks", flush=True)
             return {"probe": [r["probe"] for r in ranks]}, []
-        base = MemoryClips(CORPUS_CLIPS, seed=0)
+        refs = refs or dp_refs(dev, world)
         out = {"backend": backend, "world": world, "ranks_wall_s": wall_s, "runs": {}}
         for name in DP_RECIPES:
             runs = [r["runs"][name] for r in ranks]
             if any(r["grad_sums"] != runs[0]["grad_sums"] or r["terms"] != runs[0]["terms"]
                    for r in runs):
                 raise AssertionError(f"dp (b) {name}: the ranks disagree")
-            one, ref = dp_reference(name, base, tmp, dev, world)
+            one, ref = refs.pop(name)
             got = torch.load(os.path.join(tmp, f"grads_{name}.pt"))
             rel = {k: abs(runs[0]["terms"][k][0] - v[0]) / abs(v[0])
                    for k, v in one["terms"].items()}
@@ -4112,6 +4254,8 @@ def dp_ranks(smi, dev, world=DP_WORLD, backend="gloo"):
                 raise AssertionError(f"dp (b) {name}: {world} ranks disagree with one "
                                      f"process: {rel}, {rec['grad_worst']}, all-reduced "
                                      f"{grad_bytes} of {rec['trainable_f32_bytes']} bytes")
+    finally:
+        group.cleanup()
     launches = [r["runs"][name]["launches"] for r in ranks for name in r["runs"]]
     return out, launches
 
@@ -4183,14 +4327,22 @@ def dp_world1(root, tmp, smi, dev):
     return out, launches
 
 
-def dp_phase(smi, dev):
-    """Data parallelism across processes (module docstring, phase 10)."""
-    t0 = time.perf_counter()
+def dp_pre(smi, dev):
+    """Phase 10's work in the main process before the ranks' records: (a),
+    then (b)'s one-process references → ((a)'s record, its launches, the
+    references)."""
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "corpora")
         write_corpora(root)
         a, launches = dp_world1(root, tmp, smi, dev)
-    b, more = dp_ranks(smi, dev)
+    return a, launches, dp_refs(dev)
+
+
+def dp_phase(smi, dev, group, pre):
+    """Data parallelism across processes (module docstring, phase 10): the
+    ranks of `group` against dp_pre's `pre`."""
+    a, launches, refs = pre
+    b, more = dp_ranks(smi, dev, group=group, refs=refs)
     launches += more
     print(f"dp summary ({smi}): " + json.dumps({
         "a_bitwise": a["terms_bitwise"] and a["params_bitwise"], "a_wall_s": a["wall_s"],
@@ -4198,7 +4350,7 @@ def dp_phase(smi, dev):
                                        "grad_global_cosine", "grad_tol_used",
                                        "traffic_per_step", "rank_step_ms", "peak_mem_gib")}
               for name, r in b.get("runs", {}).items()},
-        "b_probe": b.get("probe"), "phase_s": time.perf_counter() - t0}), flush=True)
+        "b_probe": b.get("probe")}), flush=True)
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
@@ -4420,37 +4572,28 @@ def shard_one_process(tag, exp, ds, batch, world, dev, resume=None, save=None):
     return run, grads, params
 
 
-def shard_ranks(smi, dev, world=DP_WORLD, backend="gloo"):
+def shard_pre(dev, world=DP_WORLD):
+    """Phase 11's one process at batch world·DP_RANK_BATCH over the ranks'
+    global batches (shard_one_process): its record and step 1's
+    gradients."""
+    one, ref, _ = shard_one_process("shard one process", shard_exp(None),
+                                    MemoryClips(CORPUS_CLIPS, seed=0), DP_RANK_BATCH, world, dev)
+    return one, ref
+
+
+def shard_ranks(smi, dev, world=DP_WORLD, backend="gloo", group=None, pre=None):
     """Phase 11: `world` ranks, this script started again with --dp-rank
-    and --dp-phase shard (gloo: all on cuda:0; nccl: one card each). → the
-    record and the ranks' launches."""
+    and --dp-phase shard (gloo: all on cuda:0; nccl: one card each;
+    `group`: started already; `pre`: shard_pre's, for gloo). → the record
+    and the ranks' launches."""
     gc.collect()
     torch.cuda.empty_cache()
     where = "one card over gloo" if backend == "gloo" else f"{world} cards over NCCL"
-    with tempfile.TemporaryDirectory() as tmp:
-        url = "file://" + os.path.join(tmp, "store")
-        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                                   "--dp-world", str(world), "--dp-init", url,
-                                   "--dp-backend", backend, "--dp-out", tmp,
-                                   "--dp-phase", "shard"],
-                                  stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
-                 for r in range(world)]
-        try:
-            for p in procs:
-                p.wait(timeout=DP_RANK_TIMEOUT_S)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        wall_s = time.perf_counter() - t0
-        if any(p.returncode for p in procs):
-            for r, log in enumerate(logs):
-                print(f"shard rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
-            raise AssertionError(f"shard: ranks exited {[p.returncode for p in procs]}")
-        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+    group = group or Ranks(world, backend, "shard")
+    try:
+        tmp = group.tmp
+        ranks = group.wait()
+        wall_s = group.wall_s
         print(f"shard {backend} on CUDA tensors, probe ({smi}): "
               + json.dumps([r["probe"] for r in ranks]), flush=True)
         if not all(r["probe"]["ok"] for r in ranks):
@@ -4480,24 +4623,25 @@ def shard_ranks(smi, dev, world=DP_WORLD, backend="gloo"):
                 raise AssertionError(f"shard {name}: a rank holds the replicated state")
             out["runs"][name] = rec
         if backend == "gloo":
-            shard_check_gloo(out, tmp, dev, world, smi)
+            shard_check_gloo(out, tmp, dev, world, smi, pre)
         else:
             shard_nccl_peaks(out, dev, smi)
+    finally:
+        group.cleanup()
     note = (" (rank step ms NOT a speed: the ranks share one card and gloo stages CUDA tensors "
             "through the host)" if backend == "gloo" else "")
     print(f"shard {world} ranks on {where} ({smi}){note}: " + json.dumps(out), flush=True)
     return out, launches
 
 
-def shard_check_gloo(out, tmp, dev, world, smi):
+def shard_check_gloo(out, tmp, dev, world, smi, pre):
     """Phase 11's checks against one process at batch 16 on the same global
-    batches: step 1's loss terms and whole gradients; the whole parameters
-    after the last step against the replicated ranks' (the same arithmetic:
-    bitwise); the fsdp snapshot of epoch 1 restored in one process repeats
-    the ranks' next step."""
+    batches (`pre`: shard_pre's): step 1's loss terms and whole
+    gradients; the whole parameters after the last step against the
+    replicated ranks' (the same arithmetic: bitwise); the fsdp snapshot of
+    epoch 1 restored in one process repeats the ranks' next step."""
     base = MemoryClips(CORPUS_CLIPS, seed=0)
-    one, ref, ref_params = shard_one_process("shard one process", shard_exp(None), base,
-                                             DP_RANK_BATCH, world, dev)
+    one, ref = pre
     out["one_process"] = {k: one[k] for k in ("terms", "step_ms", "peak_mem_gib", "held_bytes",
                                               "predicted_bytes")}
     rep_params = torch.load(os.path.join(tmp, "replicated_params.pt"))
@@ -4548,18 +4692,17 @@ def shard_nccl_peaks(out, dev, smi):
             "terms", "step_ms", "peak_mem_gib", "held_bytes", "predicted_bytes")}
 
 
-def shard_phase(smi, dev):
-    """Sharded training state across ranks (module docstring, phase 11)."""
-    t0 = time.perf_counter()
-    out, launches = shard_ranks(smi, dev)
+def shard_phase(smi, dev, group, pre):
+    """Sharded training state across ranks (module docstring, phase 11):
+    the ranks of `group` against shard_pre's `pre`."""
+    out, launches = shard_ranks(smi, dev, group=group, pre=pre)
     print(f"shard summary ({smi}): " + json.dumps({
         "runs": {name: {k: r.get(k) for k in (
             "held_gb", "step1_rel_diff", "grad_tol_used", "grad_global_cosine",
             "params_bitwise_vs_replicated", "traffic_per_step", "rank_step_ms", "peak_mem_gib",
             "saves", "save_bound_mib")}
             for name, r in out["runs"].items()},
-        "resume": out["resume_fsdp_to_one_process"]["rel_diff"],
-        "phase_s": time.perf_counter() - t0}), flush=True)
+        "resume": out["resume_fsdp_to_one_process"]["rel_diff"]}), flush=True)
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
@@ -4978,30 +5121,12 @@ def tp_rank_main(rank, world, url, out, backend):
     return 0
 
 
-def tp_ranks(world, backend, tmp, phase="tp"):
+def tp_ranks(world, backend, tmp, phase="tp", group=None):
     """`world` ranks of this script started again with --dp-rank and
     --dp-phase `phase` ('tp' or 'pp'; gloo: all on cuda:0; nccl: one card
-    each) → each rank's record (their log tails printed if one fails)."""
-    url = "file://" + os.path.join(tmp, "store")
-    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
-                               "--dp-world", str(world), "--dp-init", url,
-                               "--dp-backend", backend, "--dp-out", tmp, "--dp-phase", phase],
-                              stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
-             for r in range(world)]
-    try:
-        for p in procs:
-            p.wait(timeout=DP_RANK_TIMEOUT_S)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode for p in procs):
-        for r, log in enumerate(logs):
-            print(f"{phase} rank {r} log tail:\n" + open(log).read()[-3000:], flush=True)
-        raise AssertionError(f"{phase}: ranks exited {[p.returncode for p in procs]}")
-    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+    each), writing into `tmp` (`group`: started already, writing into its
+    own) → each rank's record (their log tails printed if one fails)."""
+    ranks = (group or Ranks(world, backend, phase, tmp)).wait()
     print(f"{phase} {backend} probe: " + json.dumps([r["probe"] for r in ranks]), flush=True)
     if not all(r["probe"]["ok"] for r in ranks):
         raise AssertionError(f"{phase}: {backend} refused the model group's collectives on "
@@ -5016,10 +5141,10 @@ def tp_ranks(world, backend, tmp, phase="tp"):
     return ranks
 
 
-def tp_kernels(dev):
+def tp_kernels(dev, smi):
     """Kernels 1 and 2 at the shard shapes a rank gives them (TP_SHAPES_OF),
     against their plain versions; kernel 1 with a zero fc2 bias, as the
-    model group calls it → {kernel: {shape: record}}."""
+    model group calls it; printed → {kernel: {shape: record}}."""
     g = torch.Generator(dev).manual_seed(12)
     mlp = wide_ln_mlp(dev, g, TP_MLP, zero_b2=True)
     sa_fwd, sa_bwd = wide_space_attention(dev, g, TP_SA)
@@ -5031,35 +5156,52 @@ def tp_kernels(dev):
         out["ln_mlp"][label] = {"shape": f"{R}x{D}->{H}", **mlp[f"{R}x{D}->{H}"]}
         out["space_attention"][label] = {"shape": key, **sa_fwd[key]}
         out["space_attention_bwd"][label] = {"shape": key, **sa_bwd[key]}
-    return out
-
-
-def tp_phase(smi, dev):
-    """Tensor and sequence parallelism over a model axis (module docstring,
-    phase 12) → (launches of the ranks' main paths, the kernels' records at
-    the shard shapes)."""
-    t0 = time.perf_counter()
-    kernels = tp_kernels(dev)
-    for name, recs in kernels.items():
+    for name, recs in out.items():
         print(f"tp kernels {name} at the shard shapes ({smi}): " + json.dumps(recs), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def tp_pre(dev):
+    """Phase 12's references for each of TP_RUNS: one process at TP_BATCH
+    on the ranks' rows (tp_run) and the f32 step (tp_f32_step) → {run:
+    (record, its step-1 gradients, f32 terms, f32 gradients)}. One process
+    has no model axis, so sequence_parallel changes nothing there: runs that
+    differ only in it share one run; the f32 step through the plain
+    versions is the same function with fused_mlp on or off, so the runs of
+    one recipe share it."""
     base = MemoryClips(CORPUS_CLIPS, seed=0)
+    refs, ones, f32_steps = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        t1 = time.perf_counter()
-        ranks = tp_ranks(TP_WORLD, "gloo", tmp)
-        ranks_s = time.perf_counter() - t1
-        out = {"world": TP_WORLD, "model_parallel": TP_WORLD, "batch_per_group": TP_BATCH,
-               "ranks_wall_s": ranks_s, "runs": {}}
         for name, kind, video, tower, steps in TP_RUNS:
             exp = tp_recipe(kind, steps, video)
             ds, col = tp_data(kind, exp, base, os.path.join(tmp, "reference"))
+            key = (kind, steps, json.dumps(tower, sort_keys=True))
+            if key not in ones:
+                ones[key] = tp_run(f"tp {name} one process", set_model_parallel(exp, 1), ds,
+                                   TP_BATCH, dev, tower=tower, digests=False, col=col)
+            if kind not in f32_steps:
+                f32_steps[kind] = tp_f32_step(tp_recipe(kind, 1, video), ds, col, dev, tower)
+            refs[name] = ones[key] + f32_steps[kind]
+    return refs
+
+
+def tp_phase(smi, dev, group, refs):
+    """Tensor and sequence parallelism over a model axis (module docstring,
+    phase 12): the ranks of `group` against tp_pre's `refs` → launches of
+    the ranks' main paths."""
+    try:
+        ranks = tp_ranks(TP_WORLD, "gloo", group.tmp, group=group)
+        tmp = group.tmp
+        out = {"world": TP_WORLD, "model_parallel": TP_WORLD, "batch_per_group": TP_BATCH,
+               "ranks_wall_s": group.wall_s, "runs": {}}
+        for name, kind, video, tower, steps in TP_RUNS:
+            exp = tp_recipe(kind, steps, video)
             runs = [r["runs"][name] for r in ranks]
-            one, ref = tp_run(f"tp {name} one process", set_model_parallel(exp, 1), ds,
-                              TP_BATCH, dev, tower=tower, col=col)
+            one, ref, f32_terms, exact = refs.pop(name)
             got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
             check = grad_check(got, ref)
-            f32_terms, exact = tp_f32_step(tp_recipe(kind, 1, video), ds, col, dev, tower)
             f32 = tp_f32_reading(got, ref, exact)
             del got, ref, exact
             rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
@@ -5138,15 +5280,16 @@ def tp_phase(smi, dev):
                            f"{runs[0]['bwd_launches_per_step']}")
             if bad:
                 raise AssertionError(f"tp {name}: " + "; ".join(bad))
+    finally:
+        group.cleanup()
     launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
     print(f"tp summary ({smi}): " + json.dumps({
         "runs": {n: {k: r[k] for k in ("step1_rel_diff", "step1_rel_diff_f32",
                                        "grad_tol_used", "grad_global_cosine", "grad_f32",
                                        "held_bytes", "traffic_per_step",
                                        "launches_per_forward", "bwd_launches_per_step")}
-                 for n, r in out["runs"].items()},
-        "phase_s": time.perf_counter() - t0}), flush=True)
-    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
+                 for n, r in out["runs"].items()}}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
 def set_model_parallel(exp, mp):
@@ -5478,10 +5621,10 @@ def pp_rank_main(rank, world, url, out, backend):
     return 0
 
 
-def pp_kernels(dev):
+def pp_kernels(dev, smi):
     """Kernels 1 and 2 (forward and backward) at a stage's micro-batch
-    shapes of the pod recipes (PP_SHAPES_OF) against their plain versions
-    → {kernel: {shape: record}}."""
+    shapes of the pod recipes (PP_SHAPES_OF) against their plain versions;
+    printed → {kernel: {shape: record}}."""
     g = torch.Generator(dev).manual_seed(13)
     mlp = wide_ln_mlp(dev, g, PP_MLP)
     sa_fwd, sa_bwd = wide_space_attention(dev, g, PP_SA)
@@ -5493,36 +5636,46 @@ def pp_kernels(dev):
         out["ln_mlp"][label] = {"shape": f"{R}x{D}->{H}", **mlp[f"{R}x{D}->{H}"]}
         out["space_attention"][label] = {"shape": key, **sa_fwd[key]}
         out["space_attention_bwd"][label] = {"shape": key, **sa_bwd[key]}
-    return out
-
-
-def pp_phase(smi, dev):
-    """Pipeline stages over the model axis (module docstring, phase 13) →
-    (launches of the ranks' main paths, the kernels' records at the
-    micro-batch shapes)."""
-    t0 = time.perf_counter()
-    kernels = pp_kernels(dev)
-    for name, recs in kernels.items():
+    for name, recs in out.items():
         print(f"pp kernels {name} at the micro-batch shapes ({smi}): " + json.dumps(recs),
               flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def pp_key(tower):
+    """The one-process reference a run of PP_RUNS is held against: zero1
+    changes no number, so plain's serves it."""
+    return "fused_qkv" if tower.get("fused_qkv") else "plain"
+
+
+def pp_pre(dev):
+    """Phase 13's one-process references (pp_run at PP_BATCH) → {pp_key:
+    (record, step-1 gradients)}."""
     base = MemoryClips(CORPUS_CLIPS, seed=0)
-    with tempfile.TemporaryDirectory() as tmp:
-        t1 = time.perf_counter()
-        ranks = tp_ranks(PP_WORLD, "gloo", tmp, phase="pp")
-        ranks_s = time.perf_counter() - t1
+    refs = {}
+    for name, trainer, tower, steps in PP_RUNS:
+        if pp_key(tower) not in refs:
+            refs[pp_key(tower)] = pp_run(
+                f"pp {name} one process", set_model_parallel(pp_exp(steps, **trainer), 1),
+                base, PP_BATCH, dev, tower=tower, digests=False)[:2]
+    return refs
+
+
+def pp_phase(smi, dev, group, refs):
+    """Pipeline stages over the model axis (module docstring, phase 13):
+    the ranks of `group` against pp_pre's `refs` → launches of the ranks'
+    main paths."""
+    base = MemoryClips(CORPUS_CLIPS, seed=0)
+    try:
+        ranks = tp_ranks(PP_WORLD, "gloo", group.tmp, phase="pp", group=group)
+        tmp, ranks_s = group.tmp, group.wall_s
         out = {"world": PP_WORLD, "stages": PP_WORLD, "microbatches": PP_MICRO,
                "batch_per_group": PP_BATCH, "ranks_wall_s": ranks_s, "runs": {}}
-        refs = {}
         for name, trainer, tower, steps in PP_RUNS:
-            exp = pp_exp(steps, **trainer)
             runs = [r["runs"][name] for r in ranks]
-            key = "fused_qkv" if tower.get("fused_qkv") else "plain"
-            if key not in refs:  # zero1 changes no number: plain's reference serves
-                refs[key] = pp_run(f"pp {name} one process", set_model_parallel(exp, 1), base,
-                                   PP_BATCH, dev, tower=tower, digests=False)
-            one, ref, _ = refs[key]
+            one, ref = refs[pp_key(tower)]
             got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
             check = grad_check(got, ref)
             del got
@@ -5582,15 +5735,16 @@ def pp_phase(smi, dev):
                 bad.append(f"launches per forward {lpf}, derived {want_lpf}")
             if bad:
                 raise AssertionError(f"pp {name}: " + "; ".join(bad))
-        del refs
+    finally:
+        group.cleanup()
     launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
     print(f"pp summary ({smi}): " + json.dumps({
         "runs": {n: {k: r.get(k) for k in ("step1_rel_diff", "grad_tol_used",
                                            "grad_global_cosine", "held_bytes", "traffic",
                                            "launches_per_forward", "eval_min_cosine")}
                  for n, r in out["runs"].items()},
-        "ranks_wall_s": ranks_s, "phase_s": time.perf_counter() - t0}), flush=True)
-    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
+        "ranks_wall_s": ranks_s}), flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
 def pp_resume(save_dir, base, dev):
@@ -5689,6 +5843,331 @@ def pp_nccl(smi, dev):
     return out
 
 
+# ------------------------------------------------------------- phases 10-13
+RANK_WORLDS = {"dp": DP_WORLD, "shard": DP_WORLD, "tp": TP_WORLD, "pp": PP_WORLD}
+
+
+def rank_phases(smi, dev, names=("dp", "shard", "tp", "pp")):
+    """Phases 10-13 (those in `names`): tp's and pp's kernels timed first,
+    alone; then the phases' gloo rank groups (RankGroups) while this
+    process takes their one-process references; then each phase holds its
+    ranks' records against them → ({phase: launches}, {phase: kernel
+    records at its shapes})."""
+    kernels = {n: f(dev, smi) for n, f in (("tp", tp_kernels), ("pp", pp_kernels))
+               if n in names}
+    if kernels:
+        lap("12-13 kernels at the shard and micro-batch shapes")
+    groups = RankGroups((n, RANK_WORLDS[n]) for n in names)
+    try:
+        takes = {"dp": lambda: dp_pre(smi, dev), "tp": lambda: tp_pre(dev),
+                 "pp": lambda: pp_pre(dev), "shard": lambda: shard_pre(dev)}
+        pre = {}
+        for n in [n for n in takes if n in names]:
+            pre[n] = takes[n]()
+            lap(f"{n}: the references")
+        checks = {"dp": dp_phase, "shard": shard_phase, "tp": tp_phase, "pp": pp_phase}
+        launches = {}
+        for n in names:
+            launches[n] = checks[n](smi, dev, groups.group(n), pre.pop(n))
+            lap(f"{n}: the ranks held against them")
+    finally:
+        groups.stop()
+    return launches, kernels
+
+
+# ----------------------------------------------------------------- extract
+EXTRACT_CONFIG = OBJECT_CONFIGS["global_local"]  # local_region_loss.json: ViT-B/16 at 224², bf16
+EXTRACT_CLIP_SIZE = (320, 240)
+EXTRACT_CLIP_FRAMES = (5, 16, 24, 32, 40, 48, 56, 64)  # the first is shorter than the grid
+EXTRACT_SLOTS = 8           # cli.extract's --frames default: the uniform 8-slot grid
+EXTRACT_WORKERS = 4         # extract_dataset's default pool of threads
+EXTRACT_REGIONS = 10
+EXTRACT_WIDTH = 768         # ViT-B/16's embed_dim: the features' columns before the zero pad
+EXTRACT_TORCH_ATOL = 1e-5   # (e): the scripted detector on the card against the CPU
+EXTRACT_TORCH_SLOTS = 2
+EXTRACT_TRACED_FRAMES = 8
+EXTRACT_TRAIN_BATCH = 4     # (f): 8 clips, 2 steps
+EXTRACT_TRAIN_STEPS = 2
+EXTRACT_EXPECT = (("ln_mlp_", 12), ("space_attention_kernel", 12))
+
+
+class BoxColour(torch.nn.Module):
+    """(e)'s detector, scripted in the phase: each of 4 fixed boxes' mean
+    colour through a linear layer, the boxes in the frame's pixels."""
+
+    def __init__(self):
+        super().__init__()
+        self.proj = torch.nn.Linear(3, 64)
+
+    def forward(self, img: torch.Tensor):
+        h, w = img.shape[1], img.shape[2]
+        rel = torch.tensor([[0.0, 0.0, 0.5, 0.5], [0.25, 0.25, 1.0, 0.75],
+                            [0.5, 0.0, 1.0, 1.0], [0.1, 0.6, 0.4, 0.9]], device=img.device)
+        boxes = rel * torch.tensor([float(w), float(h), float(w), float(h)],
+                                   device=img.device)
+        b = boxes.long()
+        feats = []
+        for i in range(4):
+            feats.append(img[:, b[i, 1]:b[i, 3], b[i, 0]:b[i, 2]].mean(dim=(1, 2)))
+        return (self.proj(torch.stack(feats)), boxes, torch.arange(4, device=img.device),
+                torch.linspace(0.9, 0.5, 4, device=img.device))
+
+
+def extract_cli(argv):
+    """oatx_torch.cli.extract.main(argv) → (its stdout lines, its stderr)."""
+    from oatx_torch.cli import extract as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli.extract {argv}: exit {rc}\n{err.getvalue()}")
+    return out.getvalue().splitlines(), err.getvalue()
+
+
+def extract_stats(argv, want):
+    """The stats line of a cli.extract run, held to `want` (its counts)."""
+    stats = json.loads(extract_cli(argv)[0][-1])
+    got = {k: stats[k] for k in want}
+    if got != want:
+        raise AssertionError(f"cli.extract {argv}: stats {stats}, expected {want}")
+    return stats
+
+
+def read_npz(path):
+    with np.load(path, allow_pickle=True) as z:
+        return z["x"], z["bbox"], z["info"].item()
+
+
+def check_extracted(root, items, width):
+    """Every slot of every clip under root: x (regions, 2048) finite with
+    columns width onward exactly 0, bbox inside the frame, info with
+    objects_id, objects_conf, image_w and image_h → {(clip, slot): x}."""
+    fw, fh = EXTRACT_CLIP_SIZE
+    feats = {}
+    for vid, _ in items:
+        for s in range(EXTRACT_SLOTS):
+            x, bbox, info = read_npz(os.path.join(root, vid, f"{s}.npz"))
+            k = EXTRACT_REGIONS
+            bad = []
+            if x.shape != (k, 2048) or x.dtype != np.float32 or not np.isfinite(x).all():
+                bad.append(f"x {x.shape} {x.dtype}")
+            elif np.any(x[:, width:]) or not np.any(x[:, :width]):
+                bad.append("x not zero past the tower's width, or zero before it")
+            if bbox.shape != (k, 4) or not (np.all(bbox >= 0) and np.all(bbox[:, 2] <= fw)
+                                            and np.all(bbox[:, 3] <= fh)
+                                            and np.all(bbox[:, :2] <= bbox[:, 2:])):
+                bad.append(f"bbox {bbox.tolist()}")
+            if sorted(info) != ["image_h", "image_w", "objects_conf", "objects_id"] or \
+                    (info["image_w"], info["image_h"]) != (fw, fh) or \
+                    np.shape(info["objects_id"]) != (k,) or np.shape(info["objects_conf"]) != (k,):
+                bad.append(f"info {info}")
+            if bad:
+                raise AssertionError(f"extract {vid}/{s}.npz: {bad}")
+            feats[vid, s] = x[:, :width]
+    return feats
+
+
+def region_cosines(got, want):
+    """Cosine of each region's features between two runs, over every file."""
+    a = np.concatenate([got[k] for k in sorted(want)]).astype(np.float64)
+    b = np.concatenate([want[k] for k in sorted(want)]).astype(np.float64)
+    return (a * b).sum(-1) / np.linalg.norm(a, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+def extract_torch_detector(tmp, lst, items, dev):
+    """(e): BoxColour scripted and saved, run on the card through cli.extract
+    and on the CPU through extract_dataset: every file within
+    EXTRACT_TORCH_ATOL."""
+    from oatx_torch.data import extraction as ex
+
+    torch.manual_seed(0)
+    art = os.path.join(tmp, "box_colour.torchscript")
+    torch.jit.script(BoxColour()).save(art)
+    card, cpu = os.path.join(tmp, "torch_card"), os.path.join(tmp, "torch_cpu")
+    n = len(items)
+    want = {"processed": n, "skipped": 0, "failed": 0, "frames": n * EXTRACT_TORCH_SLOTS}
+    extract_stats(["--list", lst, "--out", card, "--frames", str(EXTRACT_TORCH_SLOTS),
+                   "--detector", "torch", "--detector-weights", art, "--device", str(dev)],
+                  want)
+    stats = ex.extract_dataset(items, cpu, ex.load_torch_detector(art, "cpu"),
+                               num_extraction_frames=EXTRACT_TORCH_SLOTS)
+    if {k: stats[k] for k in want} != want:
+        raise AssertionError(f"extract (e) on the CPU: {stats}")
+    worst = 0.0
+    for vid, _ in items:
+        for s in range(EXTRACT_TORCH_SLOTS):
+            got, ref = read_npz(os.path.join(card, vid, f"{s}.npz")), \
+                read_npz(os.path.join(cpu, vid, f"{s}.npz"))
+            pairs = [(got[0], ref[0]), (got[1], ref[1])] + \
+                [(got[2][k], ref[2][k]) for k in ref[2]]
+            for a, b in pairs:
+                if np.shape(a) != np.shape(b):
+                    raise AssertionError(f"extract (e) {vid}/{s}: {np.shape(a)} vs {np.shape(b)}")
+                worst = max(worst, float(np.abs(np.asarray(a, np.float64) - b).max()))
+    if worst > EXTRACT_TORCH_ATOL:
+        raise AssertionError(f"extract (e): the card's files {worst:.3e} from the CPU's "
+                             f"(> {EXTRACT_TORCH_ATOL})")
+    return {"files": n * EXTRACT_TORCH_SLOTS, "max_abs_diff": worst}
+
+
+def extract_train(videos, objects, dev):
+    """(f): local_region_loss.json's global_local loader (SyntheticVideoText
+    over the clips, object_dir the extracted tree, strict loading) and its
+    Trainer, EXTRACT_TRAIN_STEPS counted steps at EXTRACT_TRAIN_BATCH."""
+    from oatx_torch.cli.common import dataset_captions
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data.factory import build_loaders
+    from oatx_torch.data.tokenizer import WordPieceTokenizer
+    from oatx_torch.train.trainer import Trainer
+
+    with open(EXTRACT_CONFIG) as f:
+        raw = json.load(f)
+    dl = raw["data_loader"][0]["args"]
+    dl.update(dataset_name="SyntheticVideoText", data_dir=videos, object_dir=objects,
+              batch_size=EXTRACT_TRAIN_BATCH, num_workers=4)
+    dl["video_params"].update(num_videos=len(EXTRACT_CLIP_FRAMES), loading="strict")
+    raw["trainer"].update(epochs=1, len_epoch=EXTRACT_TRAIN_STEPS, init_val=False,
+                          monitor="off", verbosity=0)
+    exp = ExperimentCfg.from_dict(raw)
+    tok = WordPieceTokenizer.build_from_corpus(dataset_captions(exp)
+                                               + [f"obj{i}" for i in range(1600)])
+    tr = Trainer(exp, build_loaders(exp, tok), [], device=dev)
+    depth = tr.tower_cfg.video.depth
+    rec = StepRecorder(tr)
+    launches = {}
+    with counted(launches):  # ---- the hand-off to training, counted ----
+        tr.train()
+    check_launches("extract (f)", launches, want_launches(
+        depth, EXTRACT_TRAIN_STEPS, False, backward_depths=(depth, depth)))
+    terms = rec.term_values()
+    if len(terms["loss"]) != EXTRACT_TRAIN_STEPS or \
+            not all(np.isfinite(v).all() for v in terms.values()):
+        raise AssertionError(f"extract (f): loss terms {terms}")
+    return {"steps": EXTRACT_TRAIN_STEPS, "batch": EXTRACT_TRAIN_BATCH,
+            "terms": terms}, launches
+
+
+def extract_phase(smi, dev):
+    """Offline object extraction (module docstring, phase 14) → (its record,
+    the launches of (b), the launches of (f))."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from oatx_torch.cli import extract as cli
+    from oatx_torch.data import video_reader as vr
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the clips, named as SyntheticVideoText names them
+        videos = os.path.join(tmp, "videos")
+        os.makedirs(videos)
+        fw, fh = EXTRACT_CLIP_SIZE
+        items = [(f"clip{i:04d}", os.path.join(videos, f"clip{i:04d}.avi"))
+                 for i in range(len(EXTRACT_CLIP_FRAMES))]
+        with ThreadPoolExecutor(8) as pool:
+            for fut in [pool.submit(vr.write_test_video, p, fw, fh, n, 8, i)
+                        for i, ((_, p), n) in enumerate(zip(items, EXTRACT_CLIP_FRAMES))]:
+                fut.result()
+        lst = os.path.join(tmp, "items.tsv")
+        with open(lst, "w") as f:
+            f.write("".join(f"{v}\t{p}\n" for v, p in items))
+        n = len(items)
+        frames = n * EXTRACT_SLOTS
+        objects, plain = os.path.join(tmp, "objects"), os.path.join(tmp, "plain")
+        roi = ["--list", lst, "--workers", str(EXTRACT_WORKERS), "--regions",
+               str(EXTRACT_REGIONS), "--detector", "roi_backbone", "--detector-config",
+               EXTRACT_CONFIG, "--device", str(dev)]
+        all_done = {"processed": n, "skipped": 0, "failed": 0, "frames": frames}
+
+        # (g) device busy a frame and the idle share: one extractor, warmed
+        # (the process's first use of the card's libraries is not timed),
+        # then a CUDA-only trace of EXTRACT_TRACED_FRAMES frames (not counted)
+        det = cli._build_roi_backbone(EXTRACT_CONFIG, None, EXTRACT_REGIONS, dev)
+        sample = [vr.decode_indices(p, [0])[0] for _, p in items][:EXTRACT_TRACED_FRAMES]
+        for fr in sample:
+            det(fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in sample:
+            det(fr)
+        one_ms = (time.perf_counter() - t0) * 1e3 / len(sample)
+        turn = [0]
+
+        def next_frame():
+            turn[0] += 1
+            return det(sample[turn[0] % len(sample)])
+
+        busy, _, groups, _ = device_trace(next_frame, len(sample), expect=EXTRACT_EXPECT)
+        del det
+        out.update(device_busy_ms_per_frame=busy, device_ms_by_group=groups,
+                   one_thread_ms_per_frame=one_ms, idle_share_one_thread=1 - busy / one_ms)
+
+        # (b) the ViT-B/16 tower through cli.extract, counted
+        launches = {}
+        t0 = time.perf_counter()
+        with counted(launches):  # ---- the main path, counted ----
+            stats = extract_stats([*roi, "--out", objects], all_done)
+        out["cli_wall_s"] = time.perf_counter() - t0
+        check_launches("extract (b)", launches, {"ln_mlp": 12 * frames,
+                                                 "space_attention": 12 * frames,
+                                                 "space_attention_bwd": 0, "ln_linear": 0})
+        width = EXTRACT_WIDTH
+        got = check_extracted(objects, items, width)
+        out.update(frames=frames, frames_per_s=stats["frames_per_sec"],
+                   pool_s=stats["seconds"], launches=launches,
+                   idle_share_pool=1 - busy * stats["frames_per_sec"] / 1e3)
+        one = extract_stats([*roi, "--out", os.path.join(tmp, "one"), "--workers", "1"],
+                            all_done)
+        out["frames_per_s_one_worker"] = one["frames_per_sec"]
+
+        # (c) the same extraction through the plain versions
+        plain_launches = {}
+        with plain_versions(), counted(plain_launches):
+            extract_stats([*roi, "--out", plain], all_done)
+        if any(plain_launches.values()):
+            raise AssertionError(f"extract (c): the plain run launched {plain_launches}")
+        cos = region_cosines(got, check_extracted(plain, items, width))
+        out["min_region_cosine"] = float(cos.min())
+        if out["min_region_cosine"] < E2E_MIN_COSINE:
+            raise AssertionError(f"extract (c): region cosine {cos.min():.6f} against the "
+                                 f"plain versions (< {E2E_MIN_COSINE})")
+
+        # (d) resumability: a second run skips every clip; the loss list
+        extract_stats([*roi, "--out", objects],
+                      {"processed": 0, "skipped": n, "failed": 0, "frames": 0})
+        miss = ["--list", lst, "--out", objects, "--missing-only"]
+        if extract_cli(miss)[0]:
+            raise AssertionError("extract (d): --missing-only lists clips after a full run")
+        gone = os.path.join(objects, items[3][0], "5.npz")
+        before = read_npz(gone)
+        os.remove(gone)
+        listed, _ = extract_cli(miss)
+        if listed != [f"{items[3][0]}\t{items[3][1]}"]:
+            raise AssertionError(f"extract (d): --missing-only lists {listed}")
+        loss_list = os.path.join(tmp, "loss_list.tsv")
+        with open(loss_list, "w") as f:
+            f.write("\n".join(listed) + "\n")
+        extract_stats([*roi, "--list", loss_list, "--out", objects, "--overwrite"],
+                      {"processed": 1, "skipped": 0, "failed": 0, "frames": EXTRACT_SLOTS})
+        after = read_npz(gone)
+        rewrite_cos = region_cosines({0: after[0][:, :width]}, {0: before[0][:, :width]})
+        if extract_cli(miss)[0] or not np.array_equal(after[1], before[1]) or \
+                rewrite_cos.min() < E2E_MIN_COSINE:
+            raise AssertionError("extract (d): the rewritten file differs or the loss list "
+                                 "is not empty")
+        out["rewrite_min_cosine"] = float(rewrite_cos.min())
+
+        # (e) a TorchScript detector on the card
+        out["torch_detector"] = extract_torch_detector(tmp, lst, items, dev)
+
+        # (f) the extracted tree feeds global_local's Trainer
+        out["train"], train_launches = extract_train(videos, objects, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"extract ({smi}): " + json.dumps(out), flush=True)
+    return launches, train_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -5740,6 +6219,9 @@ def main() -> int:
     ap.add_argument("--only-pp", action="store_true",
                     help="build the kernels and run the pp phase alone (no record, "
                          "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-extract", action="store_true",
+                    help="build the kernels and run the extract phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
     ap.add_argument("--pp-nccl", action="store_true",
                     help="build the kernels and run the pod recipes with pipeline true "
                          "on their 4 stages, one rank on each of 4 cards over NCCL (no "
@@ -5779,6 +6261,7 @@ def main() -> int:
     ptxas = {k: ptxas_report(log) for k, log in _build.build_logs.items()}
     print(f"build: nvcc {secs:.1f} s for {[s.name for s in _build.sources()]} "
           f"(sm_90a); ptxas: {json.dumps(ptxas)}", flush=True)
+    lap("environment and build")
 
     if opts.only_serve_extras:
         with tempfile.TemporaryDirectory() as tmp:
@@ -5807,20 +6290,24 @@ def main() -> int:
         print("chip_smoke: --only-wide ran the wide phase alone", flush=True)
         return 0
     if opts.only_dp:
-        dp_phase(smi, dev)
+        rank_phases(smi, dev, ("dp",))
         print("chip_smoke: --only-dp ran the dp phase alone", flush=True)
         return 0
     if opts.only_shard:
-        shard_phase(smi, dev)
+        rank_phases(smi, dev, ("shard",))
         print("chip_smoke: --only-shard ran the shard phase alone", flush=True)
         return 0
     if opts.only_tp:
-        tp_phase(smi, dev)
+        rank_phases(smi, dev, ("tp",))
         print("chip_smoke: --only-tp ran the tp phase alone", flush=True)
         return 0
     if opts.only_pp:
-        pp_phase(smi, dev)
+        rank_phases(smi, dev, ("pp",))
         print("chip_smoke: --only-pp ran the pp phase alone", flush=True)
+        return 0
+    if opts.only_extract:
+        extract_phase(smi, dev)
+        print("chip_smoke: --only-extract ran the extract phase alone", flush=True)
         return 0
     if opts.pp_nccl:
         pp_nccl(smi, dev)
@@ -5848,9 +6335,12 @@ def main() -> int:
     parent_sa = (load_parent_space_attention(opts.parent_space_attention)
                  if opts.parent_space_attention else None)
     g = torch.Generator(dev).manual_seed(0)
-    kernels = [kernel_ln_mlp(dev, g, parent_mlp), *kernel_space_attention(dev, g, parent_sa,
-                                                              opts.sweep_query_splits),
-               kernel_ln_linear(dev, g, parent)]
+    kernels = [kernel_ln_mlp(dev, g, parent_mlp)]
+    lap("2 kernels: ln_mlp")
+    kernels += kernel_space_attention(dev, g, parent_sa, opts.sweep_query_splits)
+    lap("2 kernels: space_attention")
+    kernels.append(kernel_ln_linear(dev, g, parent))
+    lap("2 kernels: ln_linear")
     by_name = {k["name"]: k for k in kernels}
     fb = fwd_bwd_ms(dev, g, parent)
     fb["space_attention_bwd"] = fb["space_attention"]
@@ -5889,21 +6379,33 @@ def main() -> int:
         f"fwd_bwd_ms at the train shape {k['fwd_bwd_ms']:.4f} "
         f"(device busy {k['fwd_bwd_device_ms']:.4f})"
         for k in kernels) + f" [{smi}]", flush=True)
+    lap("2 kernels")
 
     with tempfile.TemporaryDirectory() as tmp:
         base = {}
         phases = {"serve": serve_phase(tmp, smi, base)}
+        lap("3 serve")
         phases["serve_int8"], phases["artifact"] = serve_extras(tmp, smi, base)
+        lap("3 serve extras")
     phases["train"] = train_phase(smi, dev)
+    lap("4 train")
     phases["trainer"] = trainer_phase(smi, dev)
+    lap("5 trainer")
     phases["objects"] = objects_phase(smi, dev)
+    lap("6 objects")
     phases["data"] = data_phase(smi, dev)
+    lap("7 data")
     phases["towers"] = towers_phase(smi, dev)
+    lap("8 towers")
     phases["wide"], wide = wide_phase(smi, dev)
-    phases["dp"] = dp_phase(smi, dev)
-    phases["shard"] = shard_phase(smi, dev)
-    phases["tp"], tp = tp_phase(smi, dev)
-    phases["pp"], pp = pp_phase(smi, dev)
+    lap("9 wide")
+    launches, rank_kernels = rank_phases(smi, dev)
+    phases.update(launches)
+    tp, pp = rank_kernels["tp"], rank_kernels["pp"]
+    phases["extract"], phases["extract_train"] = extract_phase(smi, dev)
+    lap("14 extract")
+    print("chip_smoke seconds by step: " + json.dumps(
+        {b[0]: round(b[1] - a[1], 1) for a, b in zip(LAPS, LAPS[1:])}), flush=True)
     for name, recs in wide.items():
         by_name[name]["wide"] = recs
     for name, recs in tp.items():

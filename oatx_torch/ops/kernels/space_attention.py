@@ -100,14 +100,15 @@ def _lib():
     lib = _build.load("space_attention")
     f = lib.space_attention_fwd_bf16_hd
     if f.argtypes is None:
-        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + \
-            [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
+        # f.argtypes last: a thread that finds it set finds the rest set too
+        lib.max_tokens = lib.space_attention_max_tokens()
         g = lib.space_attention_bwd_bf16_hd
         g.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 15 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         g.restype = ctypes.c_int
-        lib.max_tokens = lib.space_attention_max_tokens()
+        f.restype = ctypes.c_int
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12 + \
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 

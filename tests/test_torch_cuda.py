@@ -53,15 +53,16 @@ def card():
 @pytest.mark.parametrize("rows,d,hidden", [
     (6280, 768, 3072), (3140, 768, 3072), (785, 768, 3072), (33, 768, 3072), (1, 768, 3072),
     (300, 128, 512), (1, 128, 512), (50, 48, 192), (129, 1024, 4096),
-    (3152, 768, 3072), (12560, 768, 3072)])
+    (3152, 768, 3072), (12560, 768, 3072), (197, 768, 3072)])
 def test_ln_mlp_kernel_matches_plain(card, rows, d, hidden):
     """The ViT-B MLP at the serving and train row counts (6280 = 49·128 + 8,
     785 = 6·128 + 17: the second product split over the hidden dimension at
     785, 33 and 1 rows), the small train step's widths (hidden 512 and out
     128, which the 256-column tile does not divide), D under one 64-column
-    chunk (48), ViT-L's 1024 → 4096 → 1024, and the object-aware recipes'
+    chunk (48), ViT-L's 1024 → 4096 → 1024, the object-aware recipes'
     batch of 16: the 1-frame object frame (3152 = 24·128 + 80 rows) and the
-    4-frame clip (12560)."""
+    4-frame clip (12560), and one 224² frame as cli.extract sends it (197 =
+    128 + 69: a second row tile mostly past the end)."""
     g = torch.Generator(card).manual_seed(rows)
     bf = torch.bfloat16
     x = torch.randn(rows, d, device=card, generator=g).to(bf)
@@ -984,3 +985,60 @@ def test_cuda_exported_artifact_launches_the_kernels(card, tmp_path):
         assert np.isfinite(got).all() and float(cos.min()) >= 0.999
     with pytest.raises(ValueError, match="not cpu"):
         pex.ExportedEmbedder(out, device="cpu")
+
+
+@pytest.mark.cuda
+def test_roi_align_on_the_card_matches_the_cpu(card):
+    """ROI-align over ViT-B/16's 14 × 14 grid of 768 channels, forward and
+    the features' gradient, on the card against the CPU (f32, boxes on the
+    edges, of zero area and reaching outside [0, 1])."""
+    from oatx_torch.ops.roi_align import roi_align
+
+    g = torch.Generator().manual_seed(0)
+    feat = torch.randn(2, 14, 14, 768, generator=g)
+    boxes = torch.cat([torch.tensor([[[0.0, 0.0, 1.0, 1.0], [0.5, 0.5, 0.5, 0.5],
+                                      [-0.2, 0.1, 1.3, 0.4]]]).expand(2, 3, 4),
+                       torch.rand(2, 7, 4, generator=g).sort(dim=-1).values],
+                      dim=1)
+    cot = torch.randn(2, 10, 2, 2, 768, generator=g)
+    out = {}
+    for dev in ("cpu", card):
+        f = feat.to(dev).requires_grad_()
+        y = roi_align(f, boxes.to(dev), output_size=2)
+        (grad,) = torch.autograd.grad(y, f, cot.to(dev))
+        out[str(dev)] = (y.detach().cpu(), grad.cpu())
+    (y0, g0), (y1, g1) = out["cpu"], out[str(card)]
+    torch.testing.assert_close(y1, y0, atol=1e-6 * float(y0.abs().max()), rtol=0)
+    torch.testing.assert_close(g1, g0, atol=1e-6 * float(g0.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_roi_backbone_extractor_threads_share_the_card(card):
+    """RoiBackboneExtractor on a small bf16 tower (Dh 64): four threads
+    extract at once what one thread extracts alone, each frame launching
+    each kernel once a block."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from oatx_torch.data.extraction import RoiBackboneExtractor
+
+    cfg = ptowers.TowerConfig(
+        video=pvst.SpaceTimeViTConfig(img_size=64, embed_dim=128, depth=2, num_heads=2,
+                                      num_frames=2, time_init="random"),
+        text=pdb.DistilBertConfig(vocab_size=100, dim=64, hidden_dim=128, n_layers=1,
+                                  n_heads=4),
+        projection_dim=32, compute_dtype=torch.bfloat16)
+    model = ptowers.DualTower(cfg, device=card).eval()
+    ex = RoiBackboneExtractor(model, cfg, num_regions=5, device=card)
+    frames = np.random.default_rng(0).integers(0, 256, (16, 48, 80, 3), dtype=np.uint8)
+    alone = [ex(f)[0] for f in frames]
+    before = (plm.ln_mlp.launches, psa.space_attention.launches)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        together = list(pool.map(lambda f: ex(f)[0], frames))
+    torch.cuda.synchronize()
+    assert (plm.ln_mlp.launches - before[0], psa.space_attention.launches - before[1]) == \
+        (2 * 16, 2 * 16)
+    for a, b in zip(alone, together):
+        assert a.shape == (5, 2048) and np.isfinite(a).all() and not a[:, 128:].any()
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * float(np.abs(a).max()))

@@ -371,7 +371,9 @@ def test_port_imports_no_jax_and_no_oatx():
             "oatx_torch.models.object_tower, oatx_torch.models.prompt_learner, "
             "oatx_torch.data.clip_tokenizer, oatx_torch.cli.build_region_memory, "
             "oatx_torch.serve.quant, oatx_torch.serve.export, oatx_torch.serve.stats, "
-            "oatx_torch.cli.export_serving, oatx_torch.cli.build_index; "
+            "oatx_torch.cli.export_serving, oatx_torch.cli.build_index, "
+            "oatx_torch.ops.roi_align, oatx_torch.data.extraction, "
+            "oatx_torch.cli.extract; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench', 'pandas', 'PIL', 'cv2', "
             "'regex', 'ftfy', 'transformers')); "
