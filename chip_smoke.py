@@ -5,7 +5,7 @@
                           [--parent-space-attention LIB] [--sweep-query-splits]
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
-                          [--only-tp] [--only-pp] [--only-extract]
+                          [--only-tp] [--only-pp] [--only-extract] [--only-viz]
                           [--only-serve-extras] [--dp-nccl] [--tp-nccl] [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
@@ -24,8 +24,8 @@ per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
 --only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
-phase 13, --only-extract phase 14, --only-serve-extras phase 3's extras (a)
-and (b) (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then
+phase 13, --only-extract phase 14, --only-viz phase 15, --only-serve-extras
+phase 3's extras (a) and (b) (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then
 phase 11's pod recipes alone with one rank per visible card over NCCL (2
 or more cards).
 --tp-nccl runs the pod recipes as shipped (model_parallel 4) with a rank
@@ -49,8 +49,11 @@ printed):
      draws at B = 4 (records at bucket 4, `by_batch` for each shape),
      kernel 3 (ln_linear) at the
      train step's LN→qkv shape; kernels 1 and 2 also at one 224² frame
-     of ViT-B/16 (phase 14's shapes: R = 197; B = 1 over one frame, T =
-     197, `by_batch` key "1_F1"; the plain version timed there too), each
+     of ViT-B/16 (phases 14 and 15's shapes: R = 197; B = 1 over one frame,
+     T = 197, `by_batch` key "1_F1"; the plain version timed there too) and
+     at region_mem's eval chunk of 8 (phase 15: R = 1576 and 6280, B = 8
+     over one frame, "8_F1", and over 4 frames; the plain version timed
+     there too), each
      with its time (CUDA events, and device
      busy time from traces that must hold every kernel launched), achieved
      TFLOP/s, ptxas registers and spills, the plain version's time, one
@@ -371,6 +374,37 @@ printed):
      (warmed, and run before (b): a process's first use of the card's
      libraries falls there), the idle share of (b)'s pool and of one thread,
      the phase's seconds.
+ 15. viz — visualization and region maps (cli/visualize.py,
+     visualization/*, utils/html_viz.py, eval/retrieval_eval.
+     export_region_maps, utils/profiler.py, cli/average_checkpoints.py).
+     (a) `oatx_torch.cli.visualize --backbone tower` on
+     configs/ft/msrvtt/zsl/normal.json as shipped (ViT-B/16 at 224²,
+     DistilBERT, bf16) from a port snapshot of its seed-0 towers (-r), one
+     MJPEG clip of the port's writer and VIZ_CAPTION: 12 + 12 launches of
+     kernels 1 and 2 (counted around the call: `launches_by_phase["viz"]`),
+     the projected patches (196, 256) within VIZ_MIN_COSINE of the same
+     forward through the plain versions, one PNG a heuristic noun, each 448
+     × 274 by the port's PNG reader; the 1-frame forward's host ms and
+     device busy ms (VIZ_TIMED_FORWARDS, a CUDA-only trace); (b) `--backbone
+     clip` from a random CLIP ViT-B/16 state_dict (visual side by
+     `convert.clip_vision_to_torch`, the text side the port's ClipText's)
+     and a synthetic BPE table, f32, on the card and on the CPU: patches
+     (196, 512), finite, within VIZ_CLIP_TOL of the CPU's; (c)
+     `oatx_torch.cli.test` on configs/pt/webvid/region_mem.json as shipped
+     with `"visualizer": {"type": "RetrievalVis"}`, over VIZ_REGION_CLIPS
+     WebVid-layout clips, their 8_frame_object files from `cli.extract
+     --detector stub` and phase 8's seeded (1600, 512) bank from
+     `cli.build_region_memory`: launches as derived (evaluate's chunks of 8
+     and one export forward a batch, each of the clip and the object
+     frame), one 672 × 224 region map a sample, the gallery listing every
+     caption with its top 5, the region logits within VIZ_MIN_COSINE of
+     the same export through the plain versions; (d) the 1-frame forward
+     under `profiler.trace`, once bare and once under
+     `annotate("viz_tower")`: `summarize_trace` names kernels 1 and 2 and
+     `summarize_by_source` puts the annotated forward's 24 of them under
+     viz_tower; `memory_summary` has cuda0_mem_mb; (e) `cli.
+     average_checkpoints` of (a)'s seed-0 and seed-1 snapshots is exactly
+     their f64 mean cast back. The phase's seconds close its line.
 In the run without arguments phases 10-13 overlap: their kernels are timed
 first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
 while this process takes the phases' one-process references (so those
@@ -571,9 +605,9 @@ def check_close(name, got, want, atol, allow=None):
 # one 224² frame (cli.extract's roi_backbone); serving buckets 1 and 4; the
 # object-aware recipes' object frame at batch 16 (16·197); bucket 16's halves
 # and the train step
-LN_MLP_ROWS = (197, 785, 3140, 3152, 6280)
+LN_MLP_ROWS = (197, 785, 1576, 3140, 3152, 6280)
 LN_MLP_RECORD_ROWS = 3140        # the record's ms, errors and bound
-LN_MLP_PLAIN_ROWS = (197, 3140)  # where the plain version is timed too
+LN_MLP_PLAIN_ROWS = (197, 1576, 3140, 6280)  # where the plain version is timed too
 LN_MLP_SPLITS = (1, 2, 3, 6)     # K ranges of the second product, timed at each R
 LN_MLP_EXPECT = (("ln_mlp_", 1),)  # device kernels a call launches at least (device_trace)
 
@@ -710,10 +744,11 @@ def kernel_ln_mlp(dev, g, parent=None):
 # (batch, frames): serving bucket 1, bucket 4 (the record), bucket 16's halves
 # and the train step at 4 frames; the object-aware recipes' 1-frame object
 # frame at their batch of 16 (T = 197); one 224² frame (cli.extract's
-# roi_backbone)
-SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1), (1, 1))
+# roi_backbone, cli.visualize); region_mem's eval chunk of 8 object frames
+# (cli.test)
+SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1), (1, 1), (8, 1))
 SA_RECORD_BATCH = 4       # the record's ms, errors and bound (serving bucket 4)
-SA_PLAIN_SHAPES = ((SA_RECORD_BATCH, 4), (1, 1))  # where the plain version is timed too
+SA_PLAIN_SHAPES = ((SA_RECORD_BATCH, 4), (1, 1), (8, 4), (8, 1))  # where the plain is timed too
 SA_SPLITS = (1, 2, 3, 4)  # blocks per frame group, timed at each batch (--sweep-query-splits)
 SA_FWD_EXPECT = (("space_attention_kernel", 1),)
 SA_BWD_EXPECT = (("space_attention_cls_bwd_kernel", 1), ("space_attention_bwd_kernel", 1),
@@ -6168,6 +6203,391 @@ def extract_phase(smi, dev):
     return launches, train_launches
 
 
+# --------------------------------------------------------------------- viz
+VIZ_CAPTION = "a dog chases the ball past a tree near the house"
+VIZ_MIN_COSINE = 0.9999     # the kernels' forward against the plain versions' (phase 14's
+                            # regions held 0.99999, above E2E_MIN_COSINE)
+VIZ_CLIP_TOL = 1e-4         # the CLIP path on the card against the CPU, of each output's scale
+VIZ_TIMED_FORWARDS = 10     # 1-frame forwards timed by the host clock and traced (device busy)
+VIZ_REGION_CLIPS = 8        # WebVid-layout clips of (c)
+VIZ_REGION_CLIP = (320, 240, 32)
+VIZ_MAPS_LIMIT = 16         # export_region_maps' default limit
+VIZ_TOWER = {"ln_mlp": 12, "space_attention": 12, "space_attention_bwd": 0, "ln_linear": 0}
+VIZ_TOWER_PATCHES = (196, 256)  # ViT-B/16's 14² patches through vid_proj
+VIZ_CLIP_PATCHES = (196, 512)   # CLIP ViT-B/16's 14² patches through proj
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def run_cli(module, argv):
+    """module.main(argv) with its stdout captured → its lines; a non-zero
+    exit raises."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv}: exit {rc}\n{out.getvalue()}")
+    return out.getvalue().splitlines()
+
+
+def rendered(seen):
+    """heatmap.render_caption_heatmaps recording its word embeddings and
+    patches into `seen`."""
+    from oatx_torch.visualization import heatmap
+
+    render = heatmap.render_caption_heatmaps
+
+    def recording(caption, words, patches, frame, prefix, *a, **k):
+        seen.update(words=np.stack(words), patches=patches, frame=frame)
+        return render(caption, words, patches, frame, prefix, *a, **k)
+
+    return patched(heatmap, "render_caption_heatmaps", recording)
+
+
+def check_heatmaps(tag, lines, prefix):
+    """The CLI printed one PNG a heuristic noun of VIZ_CAPTION, each
+    448 × 274 RGB by the port's own reader."""
+    from oatx_torch.visualization.heatmap import is_probable_noun
+    from oatx_torch.visualization.png import read_png
+
+    want = [f"{prefix}_token_{i}.png" for i, w in enumerate(VIZ_CAPTION.split(" "))
+            if is_probable_noun(w)]
+    if lines[-len(want):] != want or len(want) < 3:
+        raise AssertionError(f"viz {tag}: printed {lines[-len(want):]}, expected {want}")
+    shapes = {read_png(p).shape for p in want}
+    if shapes != {(274, 448, 3)}:
+        raise AssertionError(f"viz {tag}: PNG shapes {shapes}")
+    return len(want)
+
+
+def viz_profile(model, video, tmp):
+    """(d): the 1-frame forward under profiler.trace, an untimed forward
+    first and then one under annotate("viz_tower"), both padded like
+    cuda_trace; summarize_trace must name kernels 1 and 2, and
+    summarize_by_source, read over the trace's kernel 1 and 2 device kernels
+    alone, must put the annotated forward's half of them under viz_tower
+    and the other forward's under "?". A trace that lost kernel records is
+    taken again (TRACE_ATTEMPTS)."""
+    from oatx_torch.utils import profiler
+
+    keys = ("ln_mlp_", "space_attention_kernel")  # kernel 1's device kernels and kernel 2's
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        d = os.path.join(tmp, f"trace{attempt}")
+        with torch.no_grad(), profiler.trace(d):
+            trace_pad()
+            model.compute_video(video)
+            with profiler.annotate("viz_tower"):
+                model.compute_video(video)
+            torch.cuda.synchronize()
+            trace_pad()
+        with open(os.path.join(d, "trace.0.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        # one up-projection kernel a launch of kernel 1, one kernel a launch of kernel 2
+        held = {k: sum(k in e["name"] for e in kern)
+                for k in ("ln_mlp_up_kernel", "space_attention_kernel")}
+        if all(n == 24 for n in held.values()):
+            break
+        print(f"viz (d): trace attempt {attempt} holds {held} of 24 each", file=sys.stderr,
+              flush=True)
+    else:
+        raise AssertionError("viz (d): every trace lost kernel records")
+    names = [r["name"] for r in profiler.summarize_trace(d, top=10 ** 6)]
+    if not all(any(k in n for n in names) for k in keys):
+        raise AssertionError(f"viz (d): summarize_trace names no {keys}: {names[:20]}")
+    only = os.path.join(tmp, "trace_kernels")
+    os.makedirs(only)
+    with open(os.path.join(only, "trace.json"), "w") as f:
+        json.dump({"traceEvents": [e for e in events if e.get("cat") not in (
+            "kernel", "gpu_memcpy", "gpu_memset") or any(k in e["name"] for k in keys)]}, f)
+    by_source = {r["source"]: r for r in profiler.summarize_by_source(only)}
+    ops = {s: r["ops_per_step"] for s, r in by_source.items()}
+    half = sum(any(k in e["name"] for k in keys) for e in kern) // 2
+    if ops != {"viz_tower": half, "?": half}:
+        raise AssertionError(f"viz (d): kernels 1 and 2 by source {ops}, {half} each expected")
+    return {"trace_attempts": attempt, "summarize_trace_top5": [
+        {k: r[k] for k in ("name", "total_ms")} for r in profiler.summarize_trace(d, top=5)],
+        "by_source_kernels_1_2": {s: r["ms_per_step"] for s, r in by_source.items()},
+        "by_source_all": profiler.summarize_by_source(d, top=4)}
+
+
+def viz_tower(tmp, clip, smi, dev, out):
+    """(a): cli.visualize --backbone tower on zsl/normal.json from a port
+    snapshot of its seed-0 towers (-r), counted; → (launches, the two
+    snapshots)."""
+    from oatx_torch.cli import visualize as cli
+    from oatx_torch.config.parser import load_experiment
+    from oatx_torch.config.schema import build_tower_config, precision_dtype
+    from oatx_torch.models.towers import DualTower
+    from oatx_torch.utils import profiler
+
+    with open(CONFIG) as f:
+        raw = json.load(f)
+    run = os.path.join(tmp, "run")
+    os.makedirs(run)
+    with open(os.path.join(run, "config.json"), "w") as f:  # -r reads its parent's config
+        json.dump(raw, f)
+    exp = load_experiment(["-c", CONFIG], test=True)
+    cfg = build_tower_config(exp.cfg.arch,
+                             compute_dtype=precision_dtype(exp.cfg.trainer.precision))
+    snaps = []
+    for seed in (0, 1):  # seed 1: the second snapshot of (e)
+        model = DualTower(cfg, dev, torch.Generator(dev).manual_seed(seed))
+        snaps.append(os.path.join(run, f"seed{seed}"))
+        os.makedirs(snaps[-1])
+        torch.save({"model": {k: v.cpu() for k, v in model.state_dict().items()},
+                    "optimizer": {}, "step": 0}, os.path.join(snaps[-1], "state.pt"))
+        del model
+    seen, stash = {}, {}
+    compute = DualTower.compute_video
+
+    def stashing(self, video):
+        stash.update(model=self, video=video)
+        return compute(self, video)
+
+    prefix = os.path.join(tmp, "tower")
+    launches = {}
+    t0 = time.perf_counter()
+    with rendered(seen), patched(DualTower, "compute_video", stashing), \
+            counted(launches):  # ---- the main path, counted ----
+        lines = run_cli(cli, ["-c", CONFIG, "-r", snaps[0], "--video", clip, "--caption",
+                              VIZ_CAPTION, "--out", prefix, "--device", str(dev)])
+    out["tower_cli_s"] = time.perf_counter() - t0
+    check_launches("viz tower", launches, VIZ_TOWER)
+    out["tower_pngs"] = check_heatmaps("tower", lines, prefix)
+    model, video = stash["model"], stash["video"]
+    with torch.no_grad(), plain_versions():
+        plain = model.vid_proj(model.compute_video(video)["patches"][0].float()).cpu().numpy()
+    cos = cosines(seen["patches"], plain)
+    out["tower_patches"] = list(seen["patches"].shape)
+    out["tower_min_cosine"] = float(cos.min())
+    if seen["patches"].shape != VIZ_TOWER_PATCHES or cos.min() < VIZ_MIN_COSINE or \
+            not np.isfinite(seen["words"]).all():
+        raise AssertionError(f"viz tower: patches {seen['patches'].shape}, cosine {cos.min()} "
+                             f"against the plain versions (< {VIZ_MIN_COSINE})")
+    # the 1-frame forward: host ms by the clock, device busy ms from a trace
+    with torch.no_grad():
+        fwd = lambda: model.compute_video(video)  # noqa: E731
+        fwd()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VIZ_TIMED_FORWARDS):
+            fwd()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / VIZ_TIMED_FORWARDS
+        busy, _, groups, _ = device_trace(fwd, VIZ_TIMED_FORWARDS, expect=EXTRACT_EXPECT)
+    out.update(forward_host_ms=host, forward_device_busy_ms=busy,
+               forward_device_ms_by_group=groups, forward_idle_share=1 - busy / host)
+    out["profiler"] = viz_profile(model, video, tmp)
+    out["memory_summary"] = profiler.memory_summary()
+    if "cuda0_mem_mb" not in out["memory_summary"]:
+        raise AssertionError(f"viz (d): memory_summary {out['memory_summary']}")
+    stash.clear()
+    del model, video
+    return launches, snaps
+
+
+def viz_clip(tmp, clip, smi, dev, out):
+    """(b): cli.visualize --backbone clip from a random CLIP ViT-B/16 .pt
+    with its text side, on the card (f32) and on the CPU."""
+    from oatx_torch.cli import visualize as cli
+    from oatx_torch.data.clip_tokenizer import ClipBatchTokenizer, ClipTokenizer
+    from oatx_torch.models import clip_text as ct
+    from oatx_torch.models import clip_vision as cv
+    from oatx_torch.models import convert
+
+    vision = cv.ClipVision(cv.ClipVisionConfig(), dev, torch.Generator(dev).manual_seed(0))
+    text = ct.ClipText(ct.ClipTextConfig(), dev, torch.Generator(dev).manual_seed(1))
+    ckpt = os.path.join(tmp, "clip_vit_b16.pt")
+    torch.save({**convert.clip_vision_to_torch(vision),
+                **{k: v.cpu() for k, v in text.state_dict().items()}}, ckpt)
+    del vision, text
+    os.makedirs(os.path.join(tmp, "bpe"))
+    bpe = ClipBatchTokenizer(ClipTokenizer.for_tests([VIZ_CAPTION])).save_vocab(
+        os.path.join(tmp, "bpe", "vocab"))
+    runs = {}
+    for where in (str(dev), "cpu"):
+        seen, prefix = {}, os.path.join(tmp, "clip_" + where.split(":")[0])
+        t0 = time.perf_counter()
+        with rendered(seen):
+            lines = run_cli(cli, ["--backbone", "clip", "--clip-ckpt", ckpt, "--bpe-vocab", bpe,
+                                  "--video", clip, "--caption", VIZ_CAPTION,
+                                  "--out", prefix, "--device", where])
+        out[f"clip_cli_s_{where.split(':')[0]}"] = time.perf_counter() - t0
+        out["clip_pngs"] = check_heatmaps(f"clip on {where}", lines, prefix)
+        runs[where] = seen
+    got, want = runs[str(dev)], runs["cpu"]
+    errs = {k: float(np.abs(got[k] - want[k]).max() / np.abs(want[k]).max())
+            for k in ("patches", "words")}
+    out["clip_patches"] = list(got["patches"].shape)
+    out["clip_rel_err_vs_cpu"] = errs
+    if got["patches"].shape != VIZ_CLIP_PATCHES or not np.isfinite(got["patches"]).all() or \
+            max(errs.values()) > VIZ_CLIP_TOL:
+        raise AssertionError(f"viz clip: patches {got['patches'].shape}, the card against "
+                             f"the CPU {errs} (> {VIZ_CLIP_TOL} of scale)")
+
+
+def viz_region(tmp, smi, dev, out):
+    """(c): cli.test on region_mem.json as shipped over WebVid-layout clips,
+    their stub object files and the phase-8 bank, with RetrievalVis,
+    counted; → launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from oatx_torch.cli import build_region_memory
+    from oatx_torch.cli import test as cli
+    from oatx_torch.data import video_reader as vr
+    from oatx_torch.eval import retrieval_eval as R
+    from oatx_torch.visualization.png import read_png
+
+    n = VIZ_REGION_CLIPS
+    web = os.path.join(tmp, "webvid")
+    os.makedirs(os.path.join(web, "test"))
+    os.makedirs(os.path.join(web, "meta_data"))
+    vids = [str(5000 + i) for i in range(n)]
+    caps = [data_caption("r", 5000 + i) for i in range(n)]
+    with open(os.path.join(web, "meta_data", "webvid_validation_success_full.tsv"), "w") as f:
+        f.write("caption\tvideoid\n" + "".join(f"{c}\t{v}\n" for c, v in zip(caps, vids)))
+    w, h, nf = VIZ_REGION_CLIP
+    items = [(v, os.path.join(web, "test", v + ".mp4")) for v in vids]
+    with ThreadPoolExecutor(8) as pool:
+        for fut in [pool.submit(vr.write_test_video, p, w, h, nf, 8, 5000 + i)
+                    for i, (_, p) in enumerate(items)]:
+            fut.result()
+    lst = os.path.join(tmp, "region_items.tsv")
+    with open(lst, "w") as f:
+        f.write("".join(f"{v}\t{p}\n" for v, p in items))
+    objects = os.path.join(web, "8_frame_object")
+    extract_stats(["--list", lst, "--out", os.path.join(objects, "test")],
+                  {"processed": n, "skipped": 0, "failed": 0, "frames": n * EXTRACT_SLOTS})
+    vocab, npy = os.path.join(tmp, "objects_vocab.txt"), os.path.join(tmp, "region_memory.npy")
+    with open(vocab, "w") as f:
+        f.write("".join(f"obj{i}\n" for i in range(REGION_CLASSES)))
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = build_region_memory.main(["--vocab", vocab, "--out", npy, "--backend", "clip"])
+    if rc != 0 or np.load(npy).shape != (REGION_CLASSES, 512):
+        raise AssertionError(f"viz region: the bank builder returned {rc}: {said.getvalue()}")
+    with open(OBJECT_CONFIGS["region_mem"]) as f:
+        raw = json.load(f)
+    dl = raw["data_loader"][0]["args"]
+    dl.update(data_dir=web, object_dir=objects, num_workers=4)
+    dl["object_params"]["region_memory_path"] = npy
+    raw["trainer"].update(save_dir=os.path.join(tmp, "exps"), verbosity=1)
+    raw["visualizer"] = {"type": "RetrievalVis"}
+    cfg = os.path.join(tmp, "region_mem_vis.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    batch = dl["batch_size"]
+    stash, logits = {}, {"kernels": [], "plain": []}
+    export = R.export_region_maps
+
+    @contextlib.contextmanager
+    def capturing(model, into):
+        fwd = model.forward_region_mem
+
+        def capture(b):
+            res = fwd(b)
+            into.append(res["region_sim_logits"].float().cpu().numpy())
+            return res
+
+        model.forward_region_mem = capture
+        try:
+            yield
+        finally:
+            del model.forward_region_mem
+
+    def exporting(model, tower_cfg, loader, out_dir, *a, **k):
+        stash.update(model=model, cfg=tower_cfg, loader=loader)
+        with capturing(model, logits["kernels"]):
+            return export(model, tower_cfg, loader, out_dir, *a, **k)
+
+    launches = {}
+    t0 = time.perf_counter()
+    with patched(R, "export_region_maps", exporting), counted(launches):  # -- main path --
+        run_cli(cli, ["-c", cfg, "--no_timestamp", "--device", str(dev)])
+    out["region_cli_s"] = time.perf_counter() - t0
+    # evaluate: batches padded to `batch`, chunks of 8; the export: one
+    # forward a batch; each forward runs the clip and the object frame
+    batches = -(-n // batch)
+    check_launches("viz region", launches, want_launches(
+        12, 0, False, forwards=batches * -(-batch // 8) + batches, backward_depths=(12, 12)))
+    web_dir = os.path.join(tmp, "exps", "web", raw["name"])
+    maps = sorted(os.listdir(os.path.join(web_dir, "region_maps")))
+    want = sorted(f"{i}_predict.png" for i in range(min(VIZ_MAPS_LIMIT, n)))
+    shapes = {read_png(os.path.join(web_dir, "region_maps", m)).shape for m in maps}
+    if maps != want or shapes != {(224, 672, 3)}:
+        raise AssertionError(f"viz region: maps {maps} of {shapes}")
+    with open(os.path.join(web_dir, "index.html")) as f:
+        page = f.read()
+    queries = page.split('<div class="query">')[1:]
+    if len(queries) != n or any(q.count('<div class="meta">#') != 5 for q in queries) or \
+            any(f'<div class="caption">{c}</div>' not in page for c in caps):
+        raise AssertionError(f"viz region: index.html holds {len(queries)} queries")
+    with capturing(stash["model"], logits["plain"]), plain_versions():
+        export(stash["model"], stash["cfg"], stash["loader"], os.path.join(tmp, "plain_maps"),
+               device=dev)
+    got, want = (np.concatenate(logits[k]) for k in ("kernels", "plain"))
+    got, want = got.reshape(len(got), -1), want.reshape(len(want), -1)
+    cos = cosines(got, want)  # a sample's (K, 196) logits each
+    out.update(region_maps=len(maps), gallery_queries=len(queries),
+               region_logits_min_cosine=float(cos.min()),
+               region_logits_cosine_all=float(cosines(got.reshape(-1), want.reshape(-1))),
+               region_launches=launches)
+    if cos.min() < VIZ_MIN_COSINE:
+        raise AssertionError(f"viz region: region_sim_logits cosine {cos.min()} against the "
+                             f"plain versions (< {VIZ_MIN_COSINE})")
+    stash.clear()
+    return launches
+
+
+def viz_average(tmp, snaps, dev, out):
+    """(e): cli.average_checkpoints of (a)'s two snapshots reloads to
+    exactly their f64 mean cast to f32, through import_initial_weights."""
+    from oatx_torch.cli import average_checkpoints as cli
+    from oatx_torch.train import checkpoint as ckptlib
+
+    soup = os.path.join(tmp, "soup")
+    line = json.loads(run_cli(cli, [*snaps, "--out", soup, "--device", str(dev)])[-1])
+    a, b = (torch.load(os.path.join(p, ckptlib.STATE_FILE), weights_only=True)["model"]
+            for p in snaps)
+    got = torch.load(os.path.join(soup, ckptlib.STATE_FILE), weights_only=True)["model"]
+    bad = [k for k in a if not torch.equal(got[k], ((a[k].double() + b[k].double()) / 2)
+                                           .to(a[k].dtype))]
+    if bad or sorted(got) != sorted(a) or line["averaged"] != 2 or \
+            line["param_tensors"] != len(a):
+        raise AssertionError(f"viz average: {line}, {len(bad)} tensors off the mean: {bad[:3]}")
+    out["average"] = line
+
+
+def viz_phase(smi, dev):
+    """Visualization and region maps (module docstring, phase 15) → the
+    launches of (a) and (c)."""
+    from oatx_torch.data import video_reader as vr
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.avi")  # one MJPEG clip of the port's writer
+        vr.write_test_video(clip, 320, 240, 16, 8, 7)
+        tower, snaps = viz_tower(tmp, clip, smi, dev, out)
+        viz_clip(tmp, clip, smi, dev, out)
+        region = viz_region(tmp, smi, dev, out)
+        viz_average(tmp, snaps, dev, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"viz ({smi}): " + json.dumps(out), flush=True)
+    return {k: tower[k] + region[k] for k in tower}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -6221,6 +6641,9 @@ def main() -> int:
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--only-extract", action="store_true",
                     help="build the kernels and run the extract phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-viz", action="store_true",
+                    help="build the kernels and run the viz phase alone (no record, "
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--pp-nccl", action="store_true",
                     help="build the kernels and run the pod recipes with pipeline true "
@@ -6308,6 +6731,10 @@ def main() -> int:
     if opts.only_extract:
         extract_phase(smi, dev)
         print("chip_smoke: --only-extract ran the extract phase alone", flush=True)
+        return 0
+    if opts.only_viz:
+        viz_phase(smi, dev)
+        print("chip_smoke: --only-viz ran the viz phase alone", flush=True)
         return 0
     if opts.pp_nccl:
         pp_nccl(smi, dev)
@@ -6404,6 +6831,8 @@ def main() -> int:
     tp, pp = rank_kernels["tp"], rank_kernels["pp"]
     phases["extract"], phases["extract_train"] = extract_phase(smi, dev)
     lap("14 extract")
+    phases["viz"] = viz_phase(smi, dev)
+    lap("15 viz")
     print("chip_smoke seconds by step: " + json.dumps(
         {b[0]: round(b[1] - a[1], 1) for a, b in zip(LAPS, LAPS[1:])}), flush=True)
     for name, recs in wide.items():

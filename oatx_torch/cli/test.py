@@ -8,12 +8,13 @@ Weights from -r (a snapshot of this package's trainer) or
 arch.load_checkpoint (a reference .pth or a snapshot); the eval split of the
 first data_loader entry is embedded, sliding windows are ensembled when
 asked, and the t2v / v2t metrics printed, with multiple-choice accuracy for
-LSMDC_choice and the four streams of global_local. Runs on CUDA unless
---device names another. Not in this slice, and refused before anything is
-built: region_mem's region-map export and the HTML retrieval gallery
-(ROADMAP A14, with A11's visualization). A stream-3 model also reports
-the o2v / o2t streams (metrics `o2v_t2v_metrics`, ...), as oatx's test.py
-does.
+LSMDC_choice and the four streams of global_local. A stream-3 model also
+reports the o2v / o2t streams (metrics `o2v_t2v_metrics`, ...), as oatx's
+test.py does. Then the qualitative exports, as oatx's: region_mem's region
+binary maps under <web_dir>/region_maps (eval/retrieval_eval.
+export_region_maps), and with `visualizer.type` "RetrievalVis" the HTML
+ranking gallery <web_dir>/index.html (utils/html_viz.py). Runs on CUDA
+unless --device names another.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from oatx_torch.models.towers import DualTower
     from oatx_torch.train import checkpoint as ckptlib
     from oatx_torch.train.trainer import verbose
+    from oatx_torch.utils.html_viz import RetrievalVis
     from oatx_torch.utils.logging import setup_logging
 
     p = argparse.ArgumentParser(add_help=False)
@@ -48,12 +50,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dev = resolve_device(our.device)
 
     exp = load_experiment(rest, test=True)
-    if exp.cfg.arch.variant == "region_mem":
-        raise NotImplementedError("cli.test writes region_mem's region maps, which are not "
-                                  "ported yet (ROADMAP A14, with A11's visualization)")
-    if exp.cfg.visualizer.get("type") == "RetrievalVis":
-        raise NotImplementedError("the RetrievalVis gallery is not ported yet (ROADMAP A14, "
-                                  "with A11's visualization)")
     logger = setup_logging(None, "oatx_torch.test", exp.cfg.trainer.verbosity)
     split = exp.args.split or "test"
     stride = exp.args.sliding_window_stride
@@ -114,6 +110,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             for name, m in ms.items():
                 logger.info(verbose(0, m, f"{ds.dataset_name}[{stream}]",
                                     name.replace("_metrics", "")))
+
+    # qualitative exports: region_mem's binary maps, the HTML ranking gallery
+    if exp.cfg.arch.variant == "region_mem":
+        maps_dir = exp.web_dir / "region_maps"
+        paths = R.export_region_maps(model, tower_cfg, loader, str(maps_dir), device=dev)
+        logger.info("wrote %d region binary maps → %s", len(paths), maps_dir)
+    if exp.cfg.visualizer.get("type") == "RetrievalVis":
+        vis = RetrievalVis(str(exp.web_dir), title=exp.cfg.name)
+        caps = [m_.get("raw_captions", "") for m_ in result.meta]
+        vids = [m_.get("paths", "") for m_ in result.meta]
+        if caps and vids and result.sims.shape[0] == len(caps):
+            vis.from_sims(result.sims, caps, vids)
+            logger.info("wrote retrieval gallery → %s", vis.write())
 
     if getattr(exp.args, "sims_out", None):
         np.save(exp.args.sims_out, result.sims)

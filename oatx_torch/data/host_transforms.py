@@ -5,10 +5,12 @@ plus the bilinear resize oatx's tar path takes from PIL).
   * host_reference_rrc — torchvision's RandomResizedCrop over the full
     decoded frame, drawn from an explicit numpy Generator, bilinear to out²
     (the `train_crop: reference_full_frame` ablation lane);
-  * pil_bilinear_resize — PIL's `Image.resize(..., BILINEAR)` on uint8 RGB,
-    bit for bit: a triangle filter widened by the downscale factor, 22-bit
-    fixed-point taps, a horizontal pass to uint8, then a vertical pass
-    (Pillow's Resample.c), so the port needs no PIL.
+  * pil_bilinear_resize — PIL's `Image.resize(..., BILINEAR)`, bit for bit,
+    so the port needs no PIL: a triangle filter widened by the downscale
+    factor, a horizontal pass, then a vertical pass (Pillow's Resample.c).
+    On uint8 RGB the taps are 22-bit fixed point and each pass rounds to
+    uint8; on a float32 grid (mode "F", the heatmaps' upsample) the taps
+    stay in double and each pass stores float32.
 """
 
 from __future__ import annotations
@@ -89,9 +91,9 @@ def host_canonicalize(frames_u8: np.ndarray, canon: int = 256) -> np.ndarray:
 _PRECISION_BITS = 32 - 8 - 2
 
 
-def _pil_taps(in_size: int, out_size: int):
-    """Pillow's precompute_coeffs for the bilinear filter (support 1) and
-    normalize_coeffs_8bpc → (first index (out,), int taps (out, k))."""
+def _pil_coeffs(in_size: int, out_size: int):
+    """Pillow's precompute_coeffs for the bilinear filter (support 1) →
+    (first index (out,), taps (out, k) in double, each row summing to 1)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 1.0 * filterscale
@@ -103,28 +105,37 @@ def _pil_taps(in_size: int, out_size: int):
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
         x = np.arange(xmax)
-        w = np.maximum(0.0, 1.0 - np.abs((x + xmin - center + 0.5) / filterscale))
+        w = np.maximum(0.0, 1.0 - np.abs((x + xmin - center + 0.5) * (1.0 / filterscale)))
         ww = w.sum()
         taps[xx, :xmax] = w / ww if ww != 0.0 else w
         first[xx] = xmin
-    scaled = taps * (1 << _PRECISION_BITS)
-    return first, np.where(scaled < 0, np.trunc(scaled - 0.5),
-                           np.trunc(scaled + 0.5)).astype(np.int64)
+    return first, taps
 
 
 def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    first, taps = _pil_taps(img.shape[axis], out_size)
+    """One direction of Pillow's resample: uint8 through normalize_coeffs_8bpc's
+    fixed-point taps, rounded and clipped; float32 (mode "F") through the
+    double taps, the sum in double stored as float32."""
+    first, taps = _pil_coeffs(img.shape[axis], out_size)
     idx = np.minimum(first[:, None] + np.arange(taps.shape[1]), img.shape[axis] - 1)
-    src = np.take(img.astype(np.int64), idx, axis=axis)  # axis → (out, k)
-    shape = [1] * src.ndim
+    shape = [1] * (img.ndim + 1)
     shape[axis], shape[axis + 1] = taps.shape
+    if img.dtype == np.float32:
+        src = np.take(img.astype(np.float64), idx, axis=axis)  # axis → (out, k)
+        return (src * taps.reshape(shape)).sum(axis=axis + 1).astype(np.float32)
+    scaled = taps * (1 << _PRECISION_BITS)
+    taps = np.where(scaled < 0, np.trunc(scaled - 0.5), np.trunc(scaled + 0.5)).astype(np.int64)
+    src = np.take(img.astype(np.int64), idx, axis=axis)
     acc = (src * taps.reshape(shape)).sum(axis=axis + 1) + (1 << (_PRECISION_BITS - 1))
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
 def pil_bilinear_resize(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
-    """PIL `Image.resize((out_w, out_h), Image.BILINEAR)` of a uint8 (H, W, 3)."""
+    """PIL `Image.resize((out_w, out_h), Image.BILINEAR)` of a uint8 (H, W, 3)
+    image, or of a float32 (H, W) one (mode "F")."""
     h, w = img.shape[:2]
+    if img.dtype not in (np.uint8, np.float32):
+        raise TypeError(f"pil_bilinear_resize takes uint8 or float32, got {img.dtype}")
     if (out_w, out_h) == (w, h):
         return img.copy()
     out = img

@@ -12,14 +12,15 @@ With an object tower (stream 3) and batches that carry 'object' features,
 `evaluate` also embeds them (`compute_object`), ensembles them over the same
 window groups, and reports the o2v (object ↔ video) and o2t (text ↔ object)
 streams when their rows match the videos' (oatx :90-159; the reference's
-test.py:287-291). Not in this slice: the region-map export of region_mem
-(`export_region_maps`, ROADMAP A14).
+test.py:287-291). `export_region_maps` writes region_mem's region-grounding
+binary maps (visualization/binary_map.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -31,6 +32,7 @@ from oatx_torch.data.loader import ShardedLoader, device_prefetch, padded_batche
 from oatx_torch.losses import contrastive as C
 from oatx_torch.metrics.retrieval import REQUIRES_QUERY_MASKS
 from oatx_torch.train import step as steplib
+from oatx_torch.visualization.binary_map import save_binary_map
 
 
 @dataclasses.dataclass
@@ -199,7 +201,28 @@ def evaluate_streams(model, tower_cfg, loader: ShardedLoader,
             for stream, (a, b) in streams.items()}
 
 
-def export_region_maps(*args, **kwargs):
-    """region_mem's binary-map export (oatx :264-303): not ported yet."""
-    raise NotImplementedError("export_region_maps is not ported yet (ROADMAP A14, "
-                              "with A11's visualization)")
+@torch.no_grad()
+def export_region_maps(model, tower_cfg, loader: ShardedLoader, out_dir: str, limit: int = 16,
+                       device: DeviceLike = None) -> List[str]:
+    """region_mem's region-grounding maps (oatx :264-303; the reference's
+    test_region_mem.py:128-170): a forward over each batch in the eval
+    transform, the sigmoid of its region_sim_logits, and for each sample
+    up to `limit` one PNG `{n}_predict.png` of [raw object frame | GT patch
+    mask of the top object | its predicted similarity], labelled with the
+    caption's first 40 characters → the paths."""
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    aug = steplib.make_augmenter(train=False, tower_cfg=tower_cfg)
+    paths: List[str] = []
+    for batch in loader:
+        meta = batch.pop("meta", [])
+        out = model.forward_region_mem(aug(None, steplib._to_device(batch, dev)))
+        sims = torch.sigmoid(out["region_sim_logits"]).float().cpu().numpy()
+        for i in range(sims.shape[0]):
+            if len(paths) >= limit:
+                return paths
+            label = meta[i]["raw_captions"][:40] if i < len(meta) else ""
+            paths.append(save_binary_map(os.path.join(out_dir, f"{len(paths)}_predict.png"),
+                                         batch["object_frame"][i, 0], batch["patch_masks"][i][0],
+                                         sims[i][0], label=label))
+    return paths

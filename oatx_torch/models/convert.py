@@ -26,7 +26,10 @@ subtree.
 
 `clip_text_from_torch` and `distilbert_from_torch` take an OpenAI CLIP or
 HF DistilBERT state_dict (bare or prefixed keys) to the port's tower
-(`cli/build_region_memory.py`'s `--clip-ckpt` / `--ckpt`).
+(`cli/build_region_memory.py`'s `--clip-ckpt` / `--ckpt`), and
+`clip_vision_from_torch` a CLIP state_dict's visual side to the port's
+ClipVision (`cli/visualize.py --backbone clip`); `clip_vision_to_torch`
+writes that side back under `visual.`.
 """
 
 from __future__ import annotations
@@ -282,6 +285,33 @@ def clip_text_from_torch(sd: Dict[str, Any], device=None):
                            if not k.startswith("visual.") and k in model.state_dict()},
                           strict=True)
     return model, cfg
+
+
+def clip_vision_from_torch(sd: Dict[str, Any], device=None):
+    """An OpenAI / vendored-CLIP state_dict (full, or its `visual.*` keys, or
+    those bare) → (ClipVision, ClipVisionConfig), the geometry inferred as
+    oatx's `clip_vision_from_torch` infers it (:403-452): width and patch
+    from conv1, the grid from the positional embedding, heads = width / 64."""
+    from oatx_torch.models import clip_vision as cv
+
+    sd = _strip_prefix(sd, ("visual.",), "conv1.weight")
+    conv1 = sd["conv1.weight"]
+    width, patch = int(conv1.shape[0]), int(conv1.shape[-1])
+    grid = int(round((sd["positional_embedding"].shape[0] - 1) ** 0.5))
+    cfg = cv.ClipVisionConfig(
+        input_resolution=grid * patch, patch_size=patch, width=width, heads=width // 64,
+        layers=len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")}),
+        output_dim=int(sd["proj"].shape[1]))
+    model = cv.ClipVision(cfg, device)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()
+                           if k in model.state_dict()}, strict=True)
+    return model, cfg
+
+
+def clip_vision_to_torch(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A ClipVision → its `visual.`-prefixed vendored-CLIP state_dict on the
+    host (oatx :455-487; round-trips with clip_vision_from_torch)."""
+    return {f"visual.{k}": v.detach().cpu() for k, v in model.state_dict().items()}
 
 
 def distilbert_from_torch(sd: Dict[str, Any], cfg, device=None):

@@ -108,6 +108,7 @@ from oatx_torch.parallel import sharding
 from oatx_torch.train import checkpoint as ckptlib
 from oatx_torch.train import optim as optimlib
 from oatx_torch.train import step as steplib
+from oatx_torch.utils import profiler as proflib
 from oatx_torch.utils.logging import setup_logging
 from oatx_torch.utils.tb import TensorboardWriter
 from oatx_torch.utils.watchdog import StepWatchdog
@@ -537,9 +538,8 @@ class Trainer:
         path = self.profile_dir / "trace.json"
         prof.export_chrome_trace(str(path))
         self.logger.info("profiler trace captured → %s", path)
-        key = "device_time_total" if self.device.type == "cuda" else "cpu_time_total"
-        for ev in prof.key_averages().table(sort_by=key, row_limit=5).splitlines():
-            self.logger.info("  trace: %s", ev)
+        for row in proflib.summarize_trace(str(self.profile_dir), top=5):
+            self.logger.info("  trace: %-48s %9.2f ms total", row["name"][:48], row["total_ms"])
 
     # ------------------------------------------------------------------ valid
 

@@ -345,14 +345,27 @@ def test_cli_train_refuses_multihost(tmp_path, monkeypatch):
 @pytest.mark.parametrize("what", ["region_mem", "RetrievalVis"])
 def test_cli_test_refuses_unported_exports(tmp_path, what):
     """oatx's cli.test writes region_mem's region maps and the RetrievalVis
-    gallery; the port has neither yet and raises before it builds a model."""
+    gallery. The port refused both until it ported them; now it writes each
+    where oatx's does, under <save_dir>/web/<name> (held against oatx in
+    tests/test_torch_viz.py)."""
     from oatx_torch.cli import test as ptest
 
     raw = smoke_raw(tmp_path)
+    raw["data_loader"][0]["args"]["split"] = "test"
     if what == "region_mem":
         raw["arch"]["variant"] = "region_mem"
+        raw["arch"]["args"]["video_params"]["depth"] = 6  # the recipe's region tap
+        raw["data_loader"][0]["args"]["object_dir"] = str(tmp_path / "objects")
     else:
         raw["visualizer"] = {"type": "RetrievalVis"}
-    with pytest.raises(NotImplementedError, match="A14"):
-        ptest.main(["-c", _write(tmp_path / "c.json", raw), "--device", "cpu"])
-    assert not (tmp_path / "exps").exists()
+    assert ptest.main(["-c", _write(tmp_path / "c.json", raw), "--no_timestamp",
+                       "--device", "cpu"]) == 0
+    web = tmp_path / "exps" / "web" / raw["name"]
+    if what == "region_mem":
+        assert sorted(os.listdir(web / "region_maps")) == sorted(f"{i}_predict.png"
+                                                                  for i in range(16))
+        assert not (web / "index.html").exists()
+    else:
+        assert not (web / "region_maps").exists()
+        page = (web / "index.html").read_text()
+        assert page.count('<div class="query">') == 16 and 'src="clip00' in page

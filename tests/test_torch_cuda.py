@@ -1042,3 +1042,114 @@ def test_roi_backbone_extractor_threads_share_the_card(card):
     for a, b in zip(alone, together):
         assert a.shape == (5, 2048) and np.isfinite(a).all() and not a[:, 128:].any()
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * float(np.abs(a).max()))
+
+
+# ------------------------------------------------------ visualization
+
+def _cosines(a, b):
+    a, b = a.double().reshape(a.shape[0], -1), b.double().reshape(b.shape[0], -1)
+    return (a * b).sum(-1) / a.norm(dim=-1) / b.norm(dim=-1)
+
+
+@pytest.mark.cuda
+def test_visualize_tower_patches_match_the_plain_versions(card, tmp_path, monkeypatch):
+    """cli.visualize --backbone tower on a small bf16 config (64², D 128,
+    2 heads of 64, 2 blocks): the frame's forward launches kernels 1 and 2
+    once a block, and its projected patches hold a cosine of 0.9999 or more
+    against the same run through the plain versions on the card."""
+    import os
+
+    import numpy as np
+
+    from oatx_torch.cli import visualize as pvis
+    from oatx_torch.data import video_reader as pvr
+    from oatx_torch.visualization import heatmap as pheat
+    from oatx_torch.visualization.png import read_png
+
+    with open(os.path.join(os.path.dirname(__file__), "..", "configs", "smoke",
+                           "synthetic.json")) as f:
+        raw = json.load(f)
+    raw["arch"]["args"]["video_params"]["num_heads"] = 2  # Dh 64: kernel 2's head size
+    raw["data_loader"][0]["args"]["data_dir"] = str(tmp_path / "videos")
+    raw["trainer"].update(save_dir=str(tmp_path / "exps"), precision="bf16")
+    (tmp_path / "c.json").write_text(json.dumps(raw))
+    clip = str(tmp_path / "clip.avi")
+    pvr.write_test_video(clip, 320, 240, 16, 8, 3)
+    seen = []
+    render = pheat.render_caption_heatmaps
+
+    def recording(caption, words, patches, frame, prefix, *a, **k):
+        seen.append(torch.from_numpy(patches))
+        return render(caption, words, patches, frame, prefix, *a, **k)
+
+    monkeypatch.setattr(pheat, "render_caption_heatmaps", recording)
+    argv = ["-c", str(tmp_path / "c.json"), "--video", clip, "--caption",
+            "a dog chases the ball", "--device", "cuda"]
+    before = (plm.ln_mlp.launches, psa.space_attention.launches)
+    assert pvis.main([*argv, "--out", str(tmp_path / "k")]) == 0
+    torch.cuda.synchronize()
+    assert (plm.ln_mlp.launches - before[0], psa.space_attention.launches - before[1]) == (2, 2)
+    monkeypatch.setattr(pvst, "ln_mlp", plm.ln_mlp_plain)
+    monkeypatch.setattr(patt, "space_attention", psa.space_attention_plain)
+    assert pvis.main([*argv, "--out", str(tmp_path / "p")]) == 0
+    assert seen[0].shape == (16, 64) and bool(torch.isfinite(seen[0]).all())
+    assert float(_cosines(seen[0], seen[1]).min()) >= 0.9999
+    pngs = sorted(tmp_path.glob("k_token_*.png"))
+    assert [p.name for p in pngs] == ["k_token_1.png", "k_token_2.png", "k_token_4.png"]
+    assert all(read_png(str(p)).shape == (274, 448, 3) for p in pngs)
+    assert np.isfinite(seen[1].numpy()).all()
+
+
+@pytest.mark.cuda
+def test_export_region_maps_on_the_card(card, tmp_path, monkeypatch):
+    """export_region_maps over a region_mem tower at ViT-B widths (2 blocks,
+    the tap after block 1), 2 batches of 3 with limit 5: each batch's forward
+    launches kernels 1 and 2 once a block of the clip and of the object
+    frame, five 224 × 672 panels are written, and each predicted map holds a
+    cosine of 0.9999 or more against the plain versions' on the card."""
+    import numpy as np
+
+    from oatx_torch.eval import retrieval_eval as peval
+    from oatx_torch.visualization.png import read_png
+
+    cfg = _tower_cfg(region_tap_layer=1)
+    cfg = ptowers.TowerConfig(**{**cfg.__dict__, "variant": "region_mem"})
+    model = ptowers.DualTower(cfg, device=card, generator=torch.Generator(card).manual_seed(0))
+    model.eval()
+    rng = np.random.default_rng(0)
+    batches = [{"video": rng.integers(0, 256, (3, 2, 256, 256, 3), dtype=np.uint8),
+                "object_frame": rng.integers(0, 256, (3, 1, 240, 320, 3), dtype=np.uint8),
+                "input_ids": rng.integers(1, 100, (3, 6)).astype(np.int32),
+                "attention_mask": np.ones((3, 6), np.int32),
+                "patch_masks": (rng.uniform(size=(3, 4, 196)) > 0.7).astype(np.float32),
+                "text_region_embedding": 0.02 * rng.standard_normal((3, 4, 512))
+                .astype(np.float32),
+                "meta": [{"raw_captions": f"caption {b}{i} " * 8} for i in range(3)]}
+               for b in range(2)]
+    preds = {}
+    save = peval.save_binary_map
+
+    def saving(path, frame, gt, pred, label=None):
+        preds.setdefault(tmp_path.name, []).append(torch.from_numpy(np.array(pred)))
+        return save(path, frame, gt, pred, label=label)
+
+    monkeypatch.setattr(peval, "save_binary_map", saving)
+
+    def export(out):
+        preds.clear()
+        return peval.export_region_maps(model, cfg, [dict(b) for b in batches], str(out),
+                                        limit=5, device=card), torch.stack(preds[tmp_path.name])
+
+    before = (plm.ln_mlp.launches, psa.space_attention.launches)
+    with torch.no_grad():
+        paths, got = export(tmp_path / "k")
+    torch.cuda.synchronize()
+    assert (plm.ln_mlp.launches - before[0], psa.space_attention.launches - before[1]) == (8, 8)
+    assert [p.rsplit("/", 1)[1] for p in paths] == [f"{i}_predict.png" for i in range(5)]
+    assert all(read_png(p).shape == (224, 672, 3) for p in paths)
+    monkeypatch.setattr(pvst, "ln_mlp", plm.ln_mlp_plain)
+    monkeypatch.setattr(patt, "space_attention", psa.space_attention_plain)
+    with torch.no_grad():
+        _, want = export(tmp_path / "p")
+    assert got.shape == (5, 196) and bool(((got > 0) & (got < 1)).all())
+    assert float(_cosines(got, want).min()) >= 0.9999

@@ -349,8 +349,9 @@ def test_cli_serves_oatx_checkpoint_like_oatx(tmp_path):
 def test_port_imports_no_jax_and_no_oatx():
     """A fresh interpreter (isolated: no site hooks) imports the serving,
     train-step, trainer, data-plane and CLI entry points, every tower and
-    the CLIP tokenizer without pulling in jax or the oatx package, nor
-    pandas, PIL, cv2, regex, ftfy or transformers (the card's machine has
+    the CLIP tokenizer, the visualization and profiling tools without
+    pulling in jax or the oatx package, nor pandas, PIL, cv2, nltk,
+    matplotlib, sklearn, regex, ftfy or transformers (the card's machine has
     none of them)."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "import oatx_torch.serve.embed_service, oatx_torch.cli.serve, "
@@ -373,10 +374,15 @@ def test_port_imports_no_jax_and_no_oatx():
             "oatx_torch.serve.quant, oatx_torch.serve.export, oatx_torch.serve.stats, "
             "oatx_torch.cli.export_serving, oatx_torch.cli.build_index, "
             "oatx_torch.ops.roi_align, oatx_torch.data.extraction, "
-            "oatx_torch.cli.extract; "
+            "oatx_torch.cli.extract, oatx_torch.cli.visualize, "
+            "oatx_torch.cli.average_checkpoints, oatx_torch.models.clip_vision, "
+            "oatx_torch.visualization.heatmap, oatx_torch.visualization.binary_map, "
+            "oatx_torch.visualization.plots, oatx_torch.visualization.png, "
+            "oatx_torch.visualization.font, oatx_torch.utils.html_viz, "
+            "oatx_torch.utils.profiler; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'oatx', 'flax', 'optax', 'bench', 'pandas', 'PIL', 'cv2', "
-            "'regex', 'ftfy', 'transformers')); "
+            "'nltk', 'matplotlib', 'sklearn', 'regex', 'ftfy', 'transformers')); "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-I", "-c", code, REPO], capture_output=True,
                        text=True, timeout=300)

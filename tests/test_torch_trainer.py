@@ -38,6 +38,7 @@ from oatx_torch.data import loader as PL
 from oatx_torch.data.tokenizer import WordPieceTokenizer as PTok
 from oatx_torch.train import step as pstep
 from oatx_torch.train.trainer import Trainer as PTrainer
+from oatx_torch.utils.profiler import summarize_trace
 from torch_port_helpers import MemoryClips, oatx_params
 
 torch.set_num_threads(1)
@@ -256,8 +257,9 @@ def test_trainer_needs_a_card_unless_told_cpu(tmp_path):
         PTrainer(PExp.from_dict(_raw(tmp_path)), [])
 
 
-def test_profile_window_and_ema_validation(tmp_path, keep_sigterm):
-    """profile_epoch writes a torch.profiler trace of the window; with an EMA
+def test_profile_window_and_ema_validation(tmp_path, keep_sigterm, monkeypatch):
+    """profile_epoch writes a torch.profiler trace of the window and logs its
+    summarize_trace(top=5) rows as oatx's Trainer logs them; with an EMA
     kept, validation runs on the EMA parameters and the model gets its own
     back afterwards."""
     raw = _raw(tmp_path, len_epoch=3, epochs=1, init_val=False, ema_decay=0.5,
@@ -274,8 +276,15 @@ def test_profile_window_and_ema_validation(tmp_path, keep_sigterm):
         return validate(epoch)
 
     tr._validate = recording
+    logged = []
+    info = tr.logger.info
+    monkeypatch.setattr(tr.logger, "info", lambda msg, *a: (logged.append(msg % a), info(msg, *a)))
     hist = tr.train()
     assert (tmp_path / "log" / "profile" / "trace.json").is_file()
+    rows = summarize_trace(str(tmp_path / "log" / "profile"), top=5)
+    assert len(rows) == 5
+    assert [m for m in logged if m.startswith("  trace: ")] == [
+        f"  trace: {r['name'][:48]:<48} {r['total_ms']:9.2f} ms total" for r in rows]
     ema = tr.state.optimizer.named_state()["ema"]
     assert len(seen) == 1 and "val_loss_0" in hist[1]
     for n, p in tr.state.model.named_parameters():
