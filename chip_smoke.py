@@ -6,7 +6,8 @@
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
                           [--only-tp] [--only-pp] [--only-extract] [--only-viz]
-                          [--only-serve-extras] [--dp-nccl] [--tp-nccl] [--pp-nccl]
+                          [--only-optim] [--only-serve-extras] [--dp-nccl] [--tp-nccl]
+                          [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -24,7 +25,8 @@ per frame group at each shape, the choice that `_query_split` encodes.
 --only-trainer builds the kernels and runs phase 5 alone, --only-objects
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
 --only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
-phase 13, --only-extract phase 14, --only-viz phase 15, --only-serve-extras
+phase 13, --only-extract phase 14, --only-viz phase 15, --only-optim phase
+16, --only-serve-extras
 phase 3's extras (a) and (b) (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then
 phase 11's pod recipes alone with one rank per visible card over NCCL (2
 or more cards).
@@ -267,7 +269,17 @@ printed):
      exactly sharding.state_bytes and, sharded, below the replicated
      state's; launches per rank as want_launches derives; the fsdp snapshot
      of epoch 1 restored in one process repeats the ranks' step 3 within
-     DP_LOSS_RTOL. Printed: the collectives' bytes and calls a step by
+     DP_LOSS_RTOL. Then the same under Adafactor (SHARD_ADAFACTOR_MODES:
+     zero1 and fsdp): step 1's terms and gradients as above (step 1
+     precedes any update), each rank's held bytes exactly
+     state_bytes(kind="Adafactor"), its factor_sums / factor_split /
+     factor_mean / block_rms bytes exactly optim_traffic's; and Adafactor on fixed
+     gradients (optim_fixed: norm.json's seeded towers, OPTIM_FIXED_STEPS
+     steps, no forward) under zero1 and fsdp, the whole parameters and
+     v_row / v_col / v within OPTIM_FIXED_RTOL of one process's on the card;
+     each Adafactor rank's peak memory at most the AdamW rank's of the same
+     mode, in training and in the update alone on those fixed gradients
+     (adafactor_peaks). Printed: the collectives' bytes and calls a step by
      purpose, step ms and peak memory per rank. With --dp-nccl (a rank on
      each card): SHARD_NCCL_RUNS, vit_huge_pod.json under fsdp
      (model_parallel 4 → 1, batch 8 a rank as 2 micro-batches, dots_all, 3
@@ -308,8 +320,12 @@ printed):
      rank for each video stream (24 for the two-stream variants; 0 of
      kernel 1 for fused_mlp false) and kernel 2's backward once a block
      the loss reaches (tp_reached: 12 a step, 24 for global_local, 12 + 6
-     for region_mem). Printed: step ms, peak and collectives a rank
-     (gloo: no speed). With --tp-nccl (4 cards):
+     for region_mem). TP_RUNS' last, 'adafactor', is norm.json with SP on
+     for 1 step under Adafactor (TP_OPTIMIZER): the same checks, its held
+     bytes state_bytes(kind="Adafactor") of the split and its optimizer
+     bytes optim_traffic's; then optim_fixed at model_parallel TP_WORLD
+     against one process, as phase 11's. Printed: step ms, peak and
+     collectives a rank (gloo: no speed). With --tp-nccl (4 cards):
      vit_huge_pod.json and vit_large_pod.json as shipped, a rank a card
      over NCCL: per rank peak GiB, step ms, MFU (a rank's FLOPs over one
      card's peak) and idle share (a 2-step trace), beside each recipe in
@@ -405,6 +421,28 @@ printed):
      viz_tower; `memory_summary` has cuda0_mem_mb; (e) `cli.
      average_checkpoints` of (a)'s seed-0 and seed-1 snapshots is exactly
      their f64 mean cast back. The phase's seconds close its line.
+ 16. optim — the optimizer families (train/optim.py: Adafactor, Lion,
+     momentum SGD, each as oatx's optax chain computes it). norm.json at
+     full width and depth (ViT-B/16 over 4 × 224², DistilBERT-base, bf16)
+     through Trainer.train() under each of OPTIM_FAMILIES at norm.json's lr
+     2e-4, at its batch of 16 over OPTIM_CLIPS clips (the same clips every
+     step), OPTIM_EPOCHS epochs of OPTIM_LEN_EPOCH steps, a snapshot after
+     epoch 1: launches as want_launches derives, every loss finite and the
+     mean of the last 2 below the first 2's; the held state (parameters,
+     gradients, the family's state) exactly sharding.state_bytes(kind=...);
+     the first step's gradients (at the weights before any update, the same
+     seed-0 init for every family) through the kernels against the plain
+     versions by grad_check and phase 5's bars (family_grads), and the
+     update alone on them timed (update_ms: OPTIM_UPDATE_REPS steps;
+     beside Adafactor's, an AdamW's over the same parameters); the
+     snapshot resumed (resume_epoch2): the state bitwise, the later
+     epochs' loss terms again within RESUME_LOSS_RTOL, a
+     CUDA-only trace of 2 of its steps (idle share). Then vit_huge_pod.json
+     (ViT-H/14 at 8 as 2 × 4, dots_all, model_parallel 1) under Adafactor
+     for OPTIM_HUGE_STEPS steps: launches, finite terms, held bytes exactly
+     state_bytes, the peak device memory and step ms printed beside phase
+     9's AdamW run of the same recipe (with --only-optim: "not measured in
+     this run"). Phases 11 and 12 run the families' sharded layouts.
 In the run without arguments phases 10-13 overlap: their kernels are timed
 first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
 while this process takes the phases' one-process references (so those
@@ -3911,7 +3949,8 @@ def wide_recipe(name, smi, dev, ds):
 def wide_phase(smi, dev):
     """Kernels 1-3 at the ViT-L/16 and ViT-H/14 widths, then both pod
     recipes through Trainer.train() (module docstring, phase 9). Returns
-    the launch counts of the recipes' runs and the kernels' records."""
+    the launch counts of the recipes' runs, the kernels' records and the
+    recipes' records."""
     t0 = time.perf_counter()
     g = torch.Generator(dev).manual_seed(9)
     sa_fwd, sa_bwd = wide_space_attention(dev, g)
@@ -3930,7 +3969,7 @@ def wide_phase(smi, dev):
                                      "idle_share", "device_ms_by_group", "peak_mem_gib",
                                      "grad_tol_used", "grad_global_cosine")}
         for name, r in runs.items()}) + f", phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels
+    return {name: sum(l[name] for l in launches) for name in launches[0]}, kernels, runs
 
 
 # ---------------------------------------------------------------------- dp
@@ -4391,6 +4430,7 @@ def dp_phase(smi, dev, group, pre):
 
 # ------------------------------------------------------------------- shard
 SHARD_MODES = (None, "zero1", "fsdp")  # phase 11's rank runs: replicated, then each mode
+SHARD_ADAFACTOR_MODES = ("zero1", "fsdp")  # then each under Adafactor (phase 16's family)
 SHARD_EPOCHS, SHARD_LEN_EPOCH = 2, 2   # 4 steps; zero1 and fsdp save each epoch
 # a checkpoint save holds the tensor it gathers and, inside the gloo
 # collective, one more of its size (norm.json on an H100: 179.4-180.0 MiB
@@ -4517,7 +4557,8 @@ def shard_run(tag, trainer_of, steps, dev, keep):
                                                 accum_steps=t.accum_steps))
     held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
     mode = tr.shard_mode if tr.layout.spans_processes else None
-    want = sharding.state_bytes(shapes, tr.layout.data_size, mode, ema=bool(t.ema_decay))
+    want = sharding.state_bytes(shapes, tr.layout.data_size, mode, ema=bool(t.ema_decay),
+                                kind=tr.exp.optimizer.type)
     terms = rec.term_values()
     if not all(np.isfinite(x) for vals in terms.values() for x in vals):
         raise AssertionError(f"{tag}: loss terms not finite: {terms}")
@@ -4562,7 +4603,9 @@ def shard_rank_main(rank, world, url, out, backend):
             base = MemoryClips(CORPUS_CLIPS, seed=0)
             if backend == "gloo":
                 runs = [(mode or "replicated", shard_exp(mode), DP_RANK_BATCH, base)
-                        for mode in SHARD_MODES]
+                        for mode in SHARD_MODES] + [
+                    (f"adafactor_{mode}", with_optimizer(shard_exp(mode), "Adafactor"),
+                     DP_RANK_BATCH, base) for mode in SHARD_ADAFACTOR_MODES]
             else:
                 runs = [(name, shard_exp(mode, WIDE_CONFIGS.get(name, LARGE_CONFIG), e, n, **kw),
                          SHARD_NCCL_BATCH[name], shard_corpus(name, world))
@@ -4583,6 +4626,16 @@ def shard_rank_main(rank, world, url, out, backend):
                     torch.save(params, os.path.join(out, f"{name}_params.pt"))
                 record["runs"][name] = run
                 del grads, params
+            if backend == "gloo":  # Adafactor and AdamW on fixed gradients (optim_fixed)
+                record["fixed"], record["fixed_adamw"] = {}, {}
+                for mode in SHARD_ADAFACTOR_MODES:
+                    rec, params, named = optim_fixed(dev, mode, keep=rank == 0)
+                    if rank == 0:
+                        torch.save((params, named), os.path.join(out, f"fixed_{mode}.pt"))
+                    record["fixed"][mode] = rec
+                    del params, named
+                    record["fixed_adamw"][mode] = optim_fixed(dev, mode, keep=False,
+                                                              kind="adamw")[0]
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(record, f)
     finally:
@@ -4610,10 +4663,10 @@ def shard_one_process(tag, exp, ds, batch, world, dev, resume=None, save=None):
 def shard_pre(dev, world=DP_WORLD):
     """Phase 11's one process at batch world·DP_RANK_BATCH over the ranks'
     global batches (shard_one_process): its record and step 1's
-    gradients."""
+    gradients; and optim_fixed in one process (its parameters and state)."""
     one, ref, _ = shard_one_process("shard one process", shard_exp(None),
                                     MemoryClips(CORPUS_CLIPS, seed=0), DP_RANK_BATCH, world, dev)
-    return one, ref
+    return one, ref, optim_fixed(dev)[1:]
 
 
 def shard_ranks(smi, dev, world=DP_WORLD, backend="gloo", group=None, pre=None):
@@ -4658,6 +4711,9 @@ def shard_ranks(smi, dev, world=DP_WORLD, backend="gloo", group=None, pre=None):
                 raise AssertionError(f"shard {name}: a rank holds the replicated state")
             out["runs"][name] = rec
         if backend == "gloo":
+            out["fixed_ranks"] = {m: [r["fixed"][m] for r in ranks]
+                                  for m in SHARD_ADAFACTOR_MODES}
+            out["adafactor_peaks"] = adafactor_peaks(ranks)
             shard_check_gloo(out, tmp, dev, world, smi, pre)
         else:
             shard_nccl_peaks(out, dev, smi)
@@ -4673,32 +4729,56 @@ def shard_check_gloo(out, tmp, dev, world, smi, pre):
     """Phase 11's checks against one process at batch 16 on the same global
     batches (`pre`: shard_pre's): step 1's loss terms and whole
     gradients; the whole parameters after the last step against the
-    replicated ranks' (the same arithmetic: bitwise); the fsdp snapshot of
-    epoch 1 restored in one process repeats the ranks' next step."""
+    replicated ranks' (the same arithmetic: bitwise) under AdamW, the
+    optimizer's traffic against optim_traffic's under Adafactor; the ranks'
+    optim_fixed against one process's (optim_fixed_check); the fsdp
+    snapshot of epoch 1 restored in one process repeats the ranks' next
+    step."""
     base = MemoryClips(CORPUS_CLIPS, seed=0)
-    one, ref = pre
+    one, ref, fixed = pre
     out["one_process"] = {k: one[k] for k in ("terms", "step_ms", "peak_mem_gib", "held_bytes",
                                               "predicted_bytes")}
     rep_params = torch.load(os.path.join(tmp, "replicated_params.pt"))
+    from oatx_torch.parallel.mesh import Layout
+
+    layout = Layout(0, world)
     for name, rec in out["runs"].items():
         got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
         check = grad_check(got, ref)
         rel = {k: abs(rec["terms"][k][0] - v[0]) / abs(v[0]) for k, v in one["terms"].items()}
         params = torch.load(os.path.join(tmp, f"{name}_params.pt"))
         diff = max(float((params[k] - rep_params[k]).abs().max()) for k in rep_params)
+        # step 1 precedes any update: its terms and gradients are the one
+        # process's under every family. AdamW's shares update with the
+        # replicated ranks' arithmetic (bitwise); Adafactor's sums cross the
+        # ranks (optim_fixed's check), and its traffic is optim_traffic's
+        adafactor = name.startswith("adafactor_")
         rec.update(step1_rel_diff=rel, params_max_abs_diff_vs_replicated=diff,
                    params_bitwise_vs_replicated=state_equal(params, rep_params),
                    **{k: check[k] for k in ("grad_norm", "plain_grad_norm", "grad_norm_rel_diff",
                                             "grad_global_cosine", "grad_tol_used",
                                             "grad_tensors", "grad_worst")})
+        optimizer_traffic = None
+        if adafactor:
+            optimizer_traffic = {
+                "got": {k: rec["traffic_per_step"].get(k, {}).get("bytes", 0)
+                        for k in OPTIM_PURPOSES},
+                "derived": optim_traffic(norm_shapes(), layout, rec["mode"])}
+            rec["optimizer_traffic"] = optimizer_traffic
         if max(rel.values()) > DP_LOSS_RTOL or check["grad_tol_used"] > 1 \
                 or check["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
                 or check["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE \
-                or not rec["params_bitwise_vs_replicated"]:
+                or not (adafactor or rec["params_bitwise_vs_replicated"]) \
+                or (adafactor and optimizer_traffic["got"] != optimizer_traffic["derived"]):
             raise AssertionError(f"shard {name}: against one process {rel}, "
                                  f"{check['grad_worst']}; parameters against the replicated "
-                                 f"ranks' differ by up to {diff}")
+                                 f"ranks' differ by up to {diff}; optimizer traffic "
+                                 f"{optimizer_traffic}")
         del got, params
+    out["fixed"] = {mode: optim_fixed_check(
+        f"shard Adafactor {mode}", os.path.join(tmp, f"fixed_{mode}.pt"),
+        fixed, out["fixed_ranks"][mode], layout, mode)
+        for mode in SHARD_ADAFACTOR_MODES}
     # the fsdp ranks' snapshot of epoch 1, restored in one process (epoch 2)
     resumed, _, _ = shard_one_process(
         "shard resumed in one process", shard_exp(None), base, DP_RANK_BATCH, world, dev,
@@ -4708,6 +4788,32 @@ def shard_check_gloo(out, tmp, dev, world, smi, pre):
     out["resume_fsdp_to_one_process"] = {"terms": resumed["terms"], "rel_diff": rel}
     if max(rel.values()) > DP_LOSS_RTOL:
         raise AssertionError(f"shard resume: one process from the fsdp snapshot {rel}")
+
+
+def adafactor_peaks(ranks):
+    """Phase 11's Adafactor ranks' device memory beside AdamW's in each of
+    SHARD_ADAFACTOR_MODES, rank by rank: the training runs' peak GiB and
+    the update's own peak on fixed gradients (optim_fixed's
+    update_peak_mib: what `step()` allocates above what the rank held as it
+    began). Adafactor's state is smaller and its update builds no tensor of
+    a parameter's whole size for a share, so each must be at most AdamW's
+    → the reading, or AssertionError."""
+    out = {}
+    for mode in SHARD_ADAFACTOR_MODES:
+        out[mode] = {
+            "peak_mem_gib": {"adafactor": [r["runs"][f"adafactor_{mode}"]["peak_mem_gib"]
+                                           for r in ranks],
+                             "adamw": [r["runs"][mode]["peak_mem_gib"] for r in ranks]},
+            "update_peak_mib": {"adafactor": [r["fixed"][mode]["update_peak_mib"]
+                                              for r in ranks],
+                                "adamw": [r["fixed_adamw"][mode]["update_peak_mib"]
+                                          for r in ranks]}}
+    bad = [(mode, what) for mode, rec in out.items() for what, by in rec.items()
+           if any(a > b for a, b in zip(by["adafactor"], by["adamw"]))]
+    if bad:
+        raise AssertionError(f"shard Adafactor: a rank's device memory above AdamW's in {bad}: "
+                             f"{out}")
+    return out
 
 
 def shard_nccl_peaks(out, dev, smi):
@@ -4737,7 +4843,8 @@ def shard_phase(smi, dev, group, pre):
             "params_bitwise_vs_replicated", "traffic_per_step", "rank_step_ms", "peak_mem_gib",
             "saves", "save_bound_mib")}
             for name, r in out["runs"].items()},
-        "resume": out["resume_fsdp_to_one_process"]["rel_diff"]}), flush=True)
+        "resume": out["resume_fsdp_to_one_process"]["rel_diff"],
+        "adafactor_peaks": out["adafactor_peaks"]}), flush=True)
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
@@ -4754,7 +4861,9 @@ TP_RUNS = (  # (name, recipe, video_params keys, tower keys, steps) of phase 12 
     ("global_local", "global_local", dict(sequence_parallel=True), {}, 2),
     ("region_mem", "region_mem", dict(sequence_parallel=True), {}, 2),
     ("bert_stream3", "bert_stream3", {}, {}, 1),
-    ("clip", "clip", {}, {}, 1))
+    ("clip", "clip", {}, {}, 1),
+    ("adafactor", "norm", dict(sequence_parallel=True), {}, 1))
+TP_OPTIMIZER = {"adafactor": "Adafactor"}  # runs under another family than the recipe's AdamW
 TP_LOSS_RTOL = 2e-3   # step 1's loss terms against one process at 16
 # TP_F32_NOTE: step 1's loss terms and whole gradients of the ranks and of
 # one process (both bf16) are also read against the same step of one
@@ -5080,7 +5189,8 @@ def tp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
         raise AssertionError(f"{tag}: loss terms not finite: {terms}")
     mode = tr.shard_mode if layout.spans_processes else None
     predicted = sharding.state_bytes(whole, layout.data_size, mode, ema=bool(t.ema_decay),
-                                     model_parallel=layout.model_parallel)
+                                     model_parallel=layout.model_parallel,
+                                     kind=exp.optimizer.type)
     held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
     torch.cuda.synchronize()
     # step intervals, without those the trace of the last two steps touches
@@ -5132,7 +5242,7 @@ def tp_rank_main(rank, world, url, out, backend):
             if backend == "gloo":
                 base = MemoryClips(CORPUS_CLIPS, seed=0)
                 for name, kind, video, tower, steps in TP_RUNS:
-                    exp = tp_recipe(kind, steps, video)
+                    exp = tp_optimizer(name, tp_recipe(kind, steps, video))
                     ds, col = tp_data(kind, exp, base, os.path.join(out, f"rank{rank}"))
                     run, grads = tp_run(f"tp {name} rank {rank}", exp, ds, TP_BATCH, dev,
                                         tower=tower, col=col)
@@ -5140,6 +5250,12 @@ def tp_rank_main(rank, world, url, out, backend):
                         torch.save(grads, os.path.join(out, f"{name}_grads.pt"))
                     record["runs"][name] = run
                     del grads
+                # Adafactor on fixed gradients at the model axis (optim_fixed)
+                rec, params, named = optim_fixed(dev, None, TP_WORLD, keep=rank == 0)
+                if rank == 0:
+                    torch.save((params, named), os.path.join(out, "fixed_mp.pt"))
+                record["fixed"] = rec
+                del params, named
             else:
                 for name, epochs, steps in TP_NCCL_RUNS:
                     exp = recipe(WIDE_CONFIGS[name], epochs=epochs, len_epoch=steps,
@@ -5210,15 +5326,16 @@ def tp_pre(dev):
     refs, ones, f32_steps = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, kind, video, tower, steps in TP_RUNS:
-            exp = tp_recipe(kind, steps, video)
+            exp = tp_optimizer(name, tp_recipe(kind, steps, video))
             ds, col = tp_data(kind, exp, base, os.path.join(tmp, "reference"))
-            key = (kind, steps, json.dumps(tower, sort_keys=True))
+            key = (kind, steps, json.dumps(tower, sort_keys=True), exp.optimizer.type)
             if key not in ones:
                 ones[key] = tp_run(f"tp {name} one process", set_model_parallel(exp, 1), ds,
                                    TP_BATCH, dev, tower=tower, digests=False, col=col)
             if kind not in f32_steps:
                 f32_steps[kind] = tp_f32_step(tp_recipe(kind, 1, video), ds, col, dev, tower)
             refs[name] = ones[key] + f32_steps[kind]
+    refs["fixed"] = optim_fixed(dev)[1:]  # optim_fixed's check in one process
     return refs
 
 
@@ -5226,13 +5343,15 @@ def tp_phase(smi, dev, group, refs):
     """Tensor and sequence parallelism over a model axis (module docstring,
     phase 12): the ranks of `group` against tp_pre's `refs` → launches of
     the ranks' main paths."""
+    from oatx_torch.parallel.mesh import Layout
+
     try:
         ranks = tp_ranks(TP_WORLD, "gloo", group.tmp, group=group)
         tmp = group.tmp
         out = {"world": TP_WORLD, "model_parallel": TP_WORLD, "batch_per_group": TP_BATCH,
                "ranks_wall_s": group.wall_s, "runs": {}}
         for name, kind, video, tower, steps in TP_RUNS:
-            exp = tp_recipe(kind, steps, video)
+            exp = tp_optimizer(name, tp_recipe(kind, steps, video))
             runs = [r["runs"][name] for r in ranks]
             one, ref, f32_terms, exact = refs.pop(name)
             got = torch.load(os.path.join(tmp, f"{name}_grads.pt"))
@@ -5276,6 +5395,12 @@ def tp_phase(smi, dev, group, refs):
                                             "grad_norm_rel_diff", "grad_global_cosine",
                                             "grad_tol_used", "grad_tensors", "grad_worst")},
                    "grad_f32": f32}
+            if name in TP_OPTIMIZER:  # the optimizer's own collectives (optim_traffic)
+                rec["optimizer_traffic"] = {
+                    "got": {k: runs[0]["traffic"].get(k, {}).get("bytes", 0) / steps
+                            for k in OPTIM_PURPOSES},
+                    "derived": optim_traffic(norm_shapes(), Layout(0, TP_WORLD, 1, TP_WORLD),
+                                             None)}
             out["runs"][name] = rec
             print(f"tp {name}: {kind} at model_parallel {TP_WORLD}, {TP_WORLD} ranks on one "
                   f"card over gloo against one process at {TP_BATCH} ({smi}; rank step ms NOT "
@@ -5301,6 +5426,9 @@ def tp_phase(smi, dev, group, refs):
                            f"{runs[0]['predicted_bytes']['bytes']}")
             if got_traffic != want:
                 bad.append(f"collective bytes {got_traffic}, derived {want}")
+            if name in TP_OPTIMIZER and rec["optimizer_traffic"]["got"] \
+                    != rec["optimizer_traffic"]["derived"]:
+                bad.append(f"optimizer traffic {rec['optimizer_traffic']}")
             if rec["tp_norm_bytes_per_step"] != runs[0]["partial_bytes"]:
                 bad.append(f"tp_norm bytes {rec['tp_norm_bytes_per_step']}, derived "
                            f"{runs[0]['partial_bytes']}")
@@ -5315,6 +5443,11 @@ def tp_phase(smi, dev, group, refs):
                            f"{runs[0]['bwd_launches_per_step']}")
             if bad:
                 raise AssertionError(f"tp {name}: " + "; ".join(bad))
+        out["fixed"] = optim_fixed_check(
+            "tp Adafactor mp 2", os.path.join(tmp, "fixed_mp.pt"), refs.pop("fixed"),
+            [r["fixed"] for r in ranks], Layout(0, TP_WORLD, 1, TP_WORLD), None)
+        print(f"tp Adafactor on fixed gradients at model_parallel {TP_WORLD} against one "
+              f"process ({smi}): " + json.dumps(out["fixed"]), flush=True)
     finally:
         group.cleanup()
     launches = [r["runs"][n]["launches"] for r in ranks for n in r["runs"]]
@@ -5325,6 +5458,11 @@ def tp_phase(smi, dev, group, refs):
                                        "launches_per_forward", "bwd_launches_per_step")}
                  for n, r in out["runs"].items()}}), flush=True)
     return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
+def tp_optimizer(name, exp):
+    """exp under the optimizer family TP_OPTIMIZER names for run `name`."""
+    return with_optimizer(exp, TP_OPTIMIZER[name]) if name in TP_OPTIMIZER else exp
 
 
 def set_model_parallel(exp, mp):
@@ -5566,7 +5704,7 @@ def pp_run(tag, exp, ds, batch, dev, trace=False, keep_grads=True, tower=None,
     mode = tr.shard_mode if layout.spans_processes else None
     predicted = sharding.state_bytes(whole_shapes, layout.data_size, mode,
                                      ema=bool(t.ema_decay), model_parallel=stages,
-                                     pipeline=stages > 1)
+                                     pipeline=stages > 1, kind=exp.optimizer.type)
     held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
     derived = pp_traffic(cfg, batch // accum, layout.stage if stages > 1 else 0, stages,
                          steps, accum, n_val, staged=dist.get_backend() == "gloo"
@@ -6588,6 +6726,396 @@ def viz_phase(smi, dev):
     return {k: tower[k] + region[k] for k in tower}
 
 
+# ------------------------------------------------------------------- optim
+# phase 16: the optimizer families (train/optim.py) on norm.json and ViT-H,
+# and the fixed-gradient Adafactor check that phases 11 and 12 run on ranks
+OPTIM_FAMILIES = ("Adafactor", "Lion", "SGD")  # each at norm.json's lr 2e-4
+OPTIM_CLIPS = 16          # one batch of norm.json's 16: every step reads the same clips
+# 9 steps; a snapshot after epoch 1, resumed. The recipe's first update at
+# random init lifts the loss (AdamW too: phases 5 and 11), and it falls below
+# the first two steps' mean from step 6 or so
+OPTIM_EPOCHS, OPTIM_LEN_EPOCH = 3, 3
+OPTIM_HUGE_STEPS = 4      # vit_huge_pod under Adafactor: one epoch, no validation
+OPTIM_FIXED_STEPS = 2     # Adafactor steps on fixed gradients (optim_fixed)
+OPTIM_FIXED_RTOL = 1e-5   # ranks against one process there: f32, of each tensor's largest
+OPTIM_PURPOSES = ("factor_sums", "factor_split", "factor_mean", "block_rms")
+OPTIM_UPDATE_REPS = 5     # timed optimizer steps alone (update_ms)
+
+
+def with_optimizer(exp, kind, lr=None):
+    """exp with optimizer.type `kind` (and optimizer.args.lr `lr`, if
+    given)."""
+    from oatx_torch.config.schema import ExperimentCfg
+
+    raw = json.loads(json.dumps(exp.raw))
+    raw["optimizer"]["type"] = kind
+    if lr is not None:
+        raw["optimizer"].setdefault("args", {})["lr"] = lr
+    return ExperimentCfg.from_dict(raw)
+
+
+def norm_shapes():
+    """norm.json's parameter shapes, whole (a meta-device DualTower)."""
+    from oatx_torch.config.schema import build_tower_config
+    from oatx_torch.models.towers import DualTower
+
+    cfg = build_tower_config(recipe(NORM_CONFIG).arch)
+    with torch.device("meta"):
+        model = DualTower(cfg, device="meta", generator=torch.Generator())
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def optim_traffic(shapes, layout, mode):
+    """Adafactor's bytes a step a rank hands to collectives, by purpose,
+    derived from the factoring rule (sharding.factoring) and the layout:
+    'factor_sums' the row and column sums of g² of an fsdp share (zero1's
+    come from the whole gradient every rank holds); 'factor_split' under a model axis the sums over a
+    split dim; 'factor_mean' v_row's sums over a split d1; 'block_rms' one
+    f32 a leaf for each group of ranks holding parts of it (its data-axis
+    shares, its model-axis parts)."""
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train import optim
+
+    depths = sharding._depths(shapes)
+    mp = layout.split_size
+    data = sharding.plan(shapes, layout, mode) if mode else {}
+    out = dict.fromkeys(OPTIM_PURPOSES, 0)
+    data_leaves, split_leaves = set(), set()
+    for n, s in shapes.items():
+        split = sharding._model_split(n, s, depths, mp)
+        if n in data:
+            data_leaves.add(optim._leaf_key(n))
+        if split is not None:
+            split_leaves.add(optim._leaf_key(n))
+        f = sharding.factoring(n, s, depths)
+        if f is None:
+            continue
+        k = None if split is None else f.perm.index(split[0])
+        rows = math.prod(f.row_shape) // (mp if k not in (None, f.d0) else 1)
+        cols = math.prod(f.col_shape) // (mp if k not in (None, f.d1) else 1)
+        if n in data and mode == "fsdp":  # zero1's sums come from the whole gradient
+            out["factor_sums"] += 4 * (rows + cols)
+        out["factor_split"] += 4 * (rows if k == f.d0 else cols if k == f.d1 else 0)
+        if k == f.d1:
+            out["factor_mean"] += 4 * (rows // (f.dims[f.d1] // mp))
+    out["block_rms"] = 4 * (len(data_leaves) + len(split_leaves))
+    return out
+
+
+def optim_fixed(dev, mode=None, mp=1, keep=True, kind="adafactor"):
+    """norm.json's towers (seed 0), placed by `mode` and a model axis of
+    `mp` on this process's layout, under family `kind` as norm.json sets it
+    (lr 2e-4, weight decay 0.01), OPTIM_FIXED_STEPS steps on fixed
+    gradients: each parameter's whole gradient drawn on the card from a
+    seed of its own, the same on every rank and in one process, this rank's
+    part set as its .grad; no forward, so the steps differ only in the
+    optimizer's arithmetic and its collectives → (record: the optimizer's
+    traffic a step, held and predicted state bytes, the update's peak (MiB
+    a step allocates above what the rank held as it began, the most of the
+    steps); the whole parameters and optimizer state on the host where
+    `keep`, else None)."""
+    from oatx_torch.config.schema import build_tower_config, precision_dtype
+    from oatx_torch.parallel import collectives as coll
+    from oatx_torch.parallel import mesh as meshlib
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train import optim
+    from oatx_torch.train import step as steplib
+
+    exp = recipe(NORM_CONFIG)
+    cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(exp.trainer.precision))
+    layout = meshlib.current_layout(1, mp)
+    state = steplib.init_state(
+        cfg, optim.make_optimizer(lr=exp.optimizer.lr, weight_decay=exp.optimizer.weight_decay,
+                                  kind=kind),
+        device=dev, generator=torch.Generator(dev).manual_seed(0), shard_mode=mode,
+        layout=layout)
+    model, opt = state.model, state.optimizer
+    whole = {n: tuple((getattr(p, "_oatx_tp", None) or getattr(p, "_oatx_shard", None)
+                       or p).shape) for n, p in model.named_parameters()}
+    coll.reset_traffic()
+    peak = 0
+    for step in range(OPTIM_FIXED_STEPS):
+        for i, (n, p) in enumerate(model.named_parameters()):
+            g = torch.randn(whole[n], device=dev,
+                            generator=torch.Generator(dev).manual_seed(1 + 1000 * step + i))
+            p.grad = sharding.held_part(g, p).contiguous()
+        del g
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt.step()
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated(dev) - before)
+    traffic = {k: coll.TRAFFIC[k]["bytes"] / OPTIM_FIXED_STEPS for k in OPTIM_PURPOSES
+               if k in coll.TRAFFIC}
+    rec = {"mode": mode or "replicated", "model_parallel": mp, "kind": kind,
+           "traffic_per_step": traffic, "update_peak_mib": peak / 2 ** 20,
+           "held_bytes": sharding.held_bytes(model, opt)["total"],
+           "predicted_bytes": sharding.state_bytes(
+               whole, layout.data_size, mode if layout.spans_processes else None,
+               model_parallel=layout.model_parallel, kind=kind)["bytes"]}
+    params = sharding.full_state_dict(model, to_host=True, keep=keep)
+    named = opt.named_state(to_host=True, keep=keep)
+    del state, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, params, named
+
+
+def optim_fixed_check(tag, path, ref, rec, layout, mode):
+    """The whole parameters and Adafactor state a rank group saved at `path`
+    (optim_fixed's, rank 0's) against one process's (`ref`): every tensor
+    within OPTIM_FIXED_RTOL of its largest entry; the ranks' held bytes
+    exactly state_bytes; the optimizer's traffic a step exactly
+    optim_traffic's → the reading, or AssertionError."""
+    got_params, got_opt = torch.load(path)
+    want_params, want_opt = ref
+    worst, used = None, 0.0
+    pairs = [("params", got_params, want_params)] + [
+        (k, got_opt[k], want_opt[k]) for k in ("v_row", "v_col", "v")]
+    for what, got, want in pairs:
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{tag}: {what} names differ")
+        for n, w in want.items():
+            err = float((got[n] - w).abs().max())
+            u = err / (OPTIM_FIXED_RTOL * max(float(w.abs().max()), 1e-30))
+            if u > used:
+                used, worst = u, (what, n, err)
+    want_traffic = optim_traffic(norm_shapes(), layout, mode)
+    got_traffic = {k: rec[0]["traffic_per_step"].get(k, 0) for k in OPTIM_PURPOSES}
+    out = {"tol_used": used, "worst": worst, "held_bytes": [r["held_bytes"] for r in rec],
+           "predicted_bytes": rec[0]["predicted_bytes"], "traffic_per_step": got_traffic,
+           "traffic_derived": want_traffic, "count": got_opt["count"]}
+    if used > 1 or any(r["held_bytes"] != r["predicted_bytes"] for r in rec) \
+            or any({k: r["traffic_per_step"].get(k, 0) for k in OPTIM_PURPOSES}
+                   != want_traffic for r in rec) or got_opt["count"] != OPTIM_FIXED_STEPS:
+        raise AssertionError(f"{tag}: Adafactor on fixed gradients against one process: "
+                             f"{out}")
+    return out
+
+
+def update_ms(opt, reps=OPTIM_UPDATE_REPS):
+    """`opt.step()` on the gradients its parameters hold, `reps` times after
+    one warm-up: the median ms between CUDA events around each call (the
+    device's view, host gaps included) and of the call's return on the host
+    (no sync inside)."""
+    opt.step()
+    torch.cuda.synchronize()
+    dev_ms, host_ms = [], []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        opt.step()
+        b.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+    return {"ms": float(np.median(dev_ms)), "host_ms": float(np.median(host_ms)),
+            "reps": reps}
+
+
+def family_grads(tag, model, loss_cfg, fixed):
+    """One step's gradients of `model` on `fixed` through the kernels
+    against the plain versions (bf16 both), held to phase 5's grad_check
+    bars → grad_check's keys. The plain gradients stay on the
+    parameters."""
+    from oatx_torch.train import step as steplib
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = steplib.loss_fn(model, loss_cfg, fixed)
+        loss.backward()
+        return {n: (p.grad.detach().clone() if p.grad is not None else None)
+                for n, p in model.named_parameters()}
+
+    got = grads()
+    with plain_versions():
+        ref = grads()
+    missing = [n for n, g in got.items() if g is None or not bool(torch.isfinite(g).all())]
+    if missing:
+        raise AssertionError(f"{tag}: {len(missing)} parameters without a finite "
+                             f"gradient through the kernels, e.g. {missing[:5]}")
+    rec = grad_check(got, ref)
+    if rec["grad_tol_used"] > 1 or rec["grad_norm_rel_diff"] > GRAD_NORM_RTOL \
+            or rec["grad_global_cosine"] < GRAD_MIN_GLOBAL_COSINE:
+        raise AssertionError(f"{tag}: gradients through the kernels disagree with the plain "
+                             f"versions: {rec}")
+    return rec
+
+
+def optim_family_run(kind, tmp, smi, dev, ds):
+    """norm.json at full width and depth under optimizer family `kind`
+    through Trainer.train() (module docstring, phase 16) → (record,
+    [launches of the run, launches of the resumed run])."""
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train import step as steplib
+    from oatx_torch.train.trainer import Trainer
+
+    exp = with_optimizer(recipe(NORM_CONFIG, epochs=OPTIM_EPOCHS, len_epoch=OPTIM_LEN_EPOCH,
+                                save_period=1, verbosity=1, init_val=False), kind)
+    batch = exp.data_loaders[0].batch_size
+    tag = f"optim {kind} norm@{batch}"
+
+    def loaders():
+        return corpus_loaders(ds, batch, with_valid=False)
+
+    train, _ = loaders()
+    held0 = fresh_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(exp, train, [], save_dir=os.path.join(tmp, kind), device=dev)
+    build_s = time.perf_counter() - t0
+    depth = tr.tower_cfg.video.depth
+    shapes = {n: tuple(p.shape) for n, p in tr.state.model.named_parameters()}
+    # the weights the family's first step starts from (the seed-0 init)
+    start = {n: p.detach().clone() for n, p in tr.state.model.named_parameters()}
+    rec = StepRecorder(tr)
+    steps = OPTIM_EPOCHS * OPTIM_LEN_EPOCH
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_launches(tag, launches, want_launches(depth, steps, False))
+    losses, terms = rec.loss_values(), rec.term_values()
+    held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
+    want = sharding.state_bytes(shapes, 1, None, kind=kind)
+    out = {"optimizer": kind, "lr": exp.optimizer.lr, "weight_decay": exp.optimizer.weight_decay,
+           "batch": batch, "clips": len(ds), "losses": losses, "trainer_build_s": build_s,
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held0,
+           "held_bytes": held, "predicted_bytes": want, "launches": launches,
+           **speed(rec.step_ms(OPTIM_LEN_EPOCH), batch, flops_per_clip_step(tr.tower_cfg))}
+    if not all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"{tag}: loss not finite or not falling: {losses}")
+    if held["total"] != want["bytes"]:
+        raise AssertionError(f"{tag}: holds {held} bytes, state_bytes gives {want}")
+    # the first step's gradients, at the weights before any update, kernels
+    # against the plain versions (not counted, no update): past the first
+    # update norm.json's loss leaps (6.5 → 16) and its bf16 gradients
+    # there are noise in both versions, which grad_check cannot hold
+    # (PERF.md, PR 20)
+    host = next(iter(train[0]))
+    host.pop("meta")
+    fixed = steplib.make_augmenter(train=False, tower_cfg=tr.tower_cfg)(
+        None, {k: torch.from_numpy(a).to(dev) for k, a in host.items()})
+    model = tr.state.model
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(start.pop(n))
+    out.update(family_grads(tag, model, tr.loss_cfg, fixed))
+    # the update alone on the plain gradients (the weights move on; the
+    # resume below starts from the snapshot): this family's and, beside it
+    # once, AdamW's over the same parameters
+    out["update"] = update_ms(tr.state.optimizer)
+    if kind == "Adafactor":
+        from oatx_torch.train import optim
+
+        out["adamw_update"] = update_ms(optim.make_optimizer(lr=exp.optimizer.lr)(
+            model.named_parameters()))
+    model.zero_grad(set_to_none=True)
+    del fixed, tr, rec, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the epoch-1 snapshot, resumed: the state bitwise, the later epochs' loss
+    # terms again, and a trace of 2 of its steps (the loop's idle share)
+    expect = [("ln_mlp_", depth), ("space_attention_kernel", depth),
+              ("space_attention_bwd_kernel", depth)]
+    out["resume"], launches2, trace = resume_epoch2(
+        tag, exp, loaders, os.path.join(tmp, kind, "checkpoint-epoch1"), dev, OPTIM_LEN_EPOCH,
+        expect, want_launches(depth, steps - OPTIM_LEN_EPOCH, False), terms)
+    out.update(trace or {})
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    return out, [launches, launches2]
+
+
+def optim_huge(smi, dev, adamw):
+    """vit_huge_pod.json (ViT-H/14 at 8 as 2 × 4, dots_all, model_parallel
+    1) under Adafactor through Trainer.train(), OPTIM_HUGE_STEPS steps: peak
+    device memory and step ms beside phase 9's AdamW run of the same recipe
+    (`adamw`: its record, None when phase 9 did not run) → (record,
+    launches)."""
+    from oatx_torch.parallel import sharding
+    from oatx_torch.train.trainer import Trainer
+
+    exp = with_optimizer(recipe(WIDE_CONFIGS["vit_huge_pod"], model_parallel=1, epochs=1,
+                                len_epoch=OPTIM_HUGE_STEPS, init_val=False, verbosity=1),
+                         "Adafactor")
+    t = exp.trainer
+    batch = exp.data_loaders[0].batch_size
+    tag = f"optim Adafactor vit_huge_pod@{batch}"
+    ds = MemoryClips(CORPUS_CLIPS, seed=0)
+    train, _ = corpus_loaders(ds, batch, with_valid=False)
+    held0 = fresh_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(exp, train, [], device=dev)
+    build_s = time.perf_counter() - t0
+    v = tr.tower_cfg.video
+    shapes = {n: tuple(p.shape) for n, p in tr.state.model.named_parameters()}
+    rec = StepRecorder(tr)
+    launches = {}
+    t0 = time.perf_counter()
+    with counted(launches):  # ---- the main path, counted ----
+        tr.train()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check_launches(tag, launches, want_launches(v.depth, OPTIM_HUGE_STEPS, v.remat,
+                                                accum_steps=t.accum_steps))
+    terms = rec.term_values()
+    held = sharding.held_bytes(tr.state.model, tr.state.optimizer)
+    want = sharding.state_bytes(shapes, 1, None, kind="adafactor")
+    adamw_want = sharding.state_bytes(shapes, 1, None, kind="adamw")
+    out = {"recipe": "vit_huge_pod.json", "optimizer": "Adafactor", "batch": batch,
+           "accum_steps": t.accum_steps, "remat": v.remat_policy if v.remat else "off",
+           "steps": OPTIM_HUGE_STEPS, "terms": terms, "trainer_build_s": build_s,
+           "train_wall_s": wall_s, "peak_mem_gib": peak, "mem_held_gib": held0,
+           "held_bytes": held, "predicted_bytes": want,
+           "adamw_predicted_bytes": adamw_want, "launches": launches,
+           **speed(rec.step_ms(OPTIM_HUGE_STEPS), batch, flops_per_clip_step(tr.tower_cfg)),
+           "adamw": ({k: adamw[k] for k in ("peak_mem_gib", "step_ms", "step_ms_spread",
+                                             "steps", "mem_held_gib")}
+                     if adamw else "not measured in this run (phase 9 did not run)")}
+    del tr, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
+    if not all(np.isfinite(x) for vals in terms.values() for x in vals):
+        raise AssertionError(f"{tag}: loss terms not finite: {terms}")
+    if held["total"] != want["bytes"]:
+        raise AssertionError(f"{tag}: holds {held} bytes, state_bytes gives {want}")
+    return out, launches
+
+
+def optim_phase(smi, dev, adamw_huge=None):
+    """The optimizer families (module docstring, phase 16) → launches of
+    its main paths."""
+    t0 = time.perf_counter()
+    ds = MemoryClips(OPTIM_CLIPS, seed=0)
+    runs, launches = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in OPTIM_FAMILIES:
+            runs[kind], more = optim_family_run(kind, tmp, smi, dev, ds)
+            launches += more
+            lap(f"16 optim: {kind}")
+    huge, more = optim_huge(smi, dev, adamw_huge)
+    launches.append(more)
+    lap("16 optim: vit_huge_pod")
+    print(f"optim summary ({smi}): " + json.dumps({
+        **{kind: {k: r.get(k) for k in ("losses", "step_ms", "idle_share", "peak_mem_gib",
+                                         "grad_tol_used", "grad_global_cosine", "update",
+                                         "adamw_update")}
+           | {"held_bytes": r["held_bytes"]["total"], "resume_max_rel_diff":
+              r["resume"]["max_rel_diff"]}
+           for kind, r in runs.items()},
+        "vit_huge_pod": {"adafactor": {k: huge[k] for k in ("peak_mem_gib", "step_ms",
+                                                              "step_ms_spread")},
+                         "adamw": huge["adamw"],
+                         "state_bytes": {"adafactor": huge["predicted_bytes"]["bytes"],
+                                         "adamw": huge["adamw_predicted_bytes"]["bytes"]}}})
+        + f", phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: sum(l[name] for l in launches) for name in launches[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -6644,6 +7172,9 @@ def main() -> int:
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--only-viz", action="store_true",
                     help="build the kernels and run the viz phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-optim", action="store_true",
+                    help="build the kernels and run the optim phase alone (no record, "
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--pp-nccl", action="store_true",
                     help="build the kernels and run the pod recipes with pipeline true "
@@ -6736,6 +7267,10 @@ def main() -> int:
         viz_phase(smi, dev)
         print("chip_smoke: --only-viz ran the viz phase alone", flush=True)
         return 0
+    if opts.only_optim:
+        optim_phase(smi, dev)
+        print("chip_smoke: --only-optim ran the optim phase alone", flush=True)
+        return 0
     if opts.pp_nccl:
         pp_nccl(smi, dev)
         print("chip_smoke: --pp-nccl ran the pod recipes with pipeline stages on 4 cards "
@@ -6824,7 +7359,7 @@ def main() -> int:
     lap("7 data")
     phases["towers"] = towers_phase(smi, dev)
     lap("8 towers")
-    phases["wide"], wide = wide_phase(smi, dev)
+    phases["wide"], wide, wide_runs = wide_phase(smi, dev)
     lap("9 wide")
     launches, rank_kernels = rank_phases(smi, dev)
     phases.update(launches)
@@ -6833,6 +7368,8 @@ def main() -> int:
     lap("14 extract")
     phases["viz"] = viz_phase(smi, dev)
     lap("15 viz")
+    phases["optim"] = optim_phase(smi, dev, wide_runs["vit_huge_pod"])
+    lap("16 optim")
     print("chip_smoke seconds by step: " + json.dumps(
         {b[0]: round(b[1] - a[1], 1) for a, b in zip(LAPS, LAPS[1:])}), flush=True)
     for name, recs in wide.items():

@@ -191,7 +191,7 @@ class DataLoaderCfg:
 
 @dataclasses.dataclass
 class OptimizerCfg:
-    type: str = "AdamW"        # AdamW | Adafactor | Lion | SGD (only AdamW is ported)
+    type: str = "AdamW"        # AdamW | Adafactor | Lion | SGD, any case (train/optim.py)
     lr: float = 2e-4
     weight_decay: float = 0.01
     grad_clip: Optional[float] = None

@@ -8,9 +8,10 @@ port's own copy of the mapping in oatx/models/convert.py:321-384
 included: linear kernels (in, out) → weights (out, in), conv kernels
 HWIO → OIHW.
 
-`opt_state_from_optax` carries an optax AdamW state (oatx's `make_optimizer`
-chain) across through the same key map, so a JAX run can continue in the
-port: `AdamW.load_named_state(opt_state_from_optax(...))`.
+`opt_state_from_optax` carries the optax state of oatx's `make_optimizer`
+chain, any family, across through the same key map, so a JAX run can
+continue in the port: `load_named_state(opt_state_from_optax(...))` on the
+port's optimizer of that family (train/optim.py).
 
 `load_checkpoint` reads a `.pth` in the {'state_dict', 'epoch'} format that
 oatx's `convert.export_torch_checkpoint` writes (and the reference saves),
@@ -191,9 +192,9 @@ def state_dict_from_oatx(params: Params, tower_cfg) -> Dict[str, torch.Tensor]:
 
 
 def _find_state(state, has: str):
-    """The first node of a nested optax state (tuples of NamedTuples) that
-    has every attribute named in `has`."""
-    if all(hasattr(state, a) for a in has.split()):
+    """The first node of a nested optax state (tuples of NamedTuples) with
+    every field named in `has`."""
+    if all(a in getattr(state, "_fields", ()) for a in has.split()):
         return state
     if isinstance(state, (tuple, list)):
         for sub in state:
@@ -203,16 +204,99 @@ def _find_state(state, has: str):
     return None
 
 
+def _leaves(tree, path=()):
+    """[(path, leaf)] of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k], path + (k,))]
+    return [(path, np.asarray(tree))]
+
+
+def _unflatten(items):
+    out: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def _factored_leaf_shape(v_row: np.ndarray, v_col: np.ndarray):
+    """The shape of the leaf whose factored moments have these shapes: v_row
+    drops its largest dim d0, v_col its second largest d1."""
+    from oatx_torch.parallel import sharding
+
+    vr, vc = tuple(v_row.shape), tuple(v_col.shape)
+    for d0 in range(len(vr) + 1):
+        for d1 in range(len(vr) + 1):
+            if d0 == d1:
+                continue
+            shape = list(vr)
+            shape.insert(d0, vc[d0 if d0 < d1 else d0 - 1])
+            if (tuple(np.delete(shape, d1)) == vc
+                    and sharding.factored_dims(shape) == (d1, d0)):
+                return tuple(shape)
+    raise ValueError(f"no leaf factors into v_row {vr} and v_col {vc}")
+
+
+def _factored_from_optax(fac, tower_cfg) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax's FactoredState → {'v_row', 'v_col', 'v'} under the port's
+    names (train/optim.py Adafactor). A leaf that optax factors holds (1,)
+    placeholders in v, one it does not in v_row and v_col. A port
+    parameter's factored moments are its layer's slice of the leaf's, in
+    oatx's layout; the whole v goes through state_dict_from_oatx as a
+    parameter does. Which leaf each port name comes from is read off
+    state_dict_from_oatx of a probe tree: leaf j filled with j, of its
+    leaf's rank and depth."""
+    from oatx_torch.parallel import sharding
+
+    rows, cols, whole = _leaves(fac.v_row), _leaves(fac.v_col), _leaves(fac.v)
+    factored = [r.shape != (1,) or c.shape != (1,) for (_, r), (_, c) in zip(rows, cols)]
+    shapes = [_factored_leaf_shape(r, c) if f else v.shape
+              for f, (_, r), (_, c), (_, v) in zip(factored, rows, cols, whole)]
+    probe = [(path, np.full((s[0],) + (1,) * (len(s) - 1), j, np.float64))
+             for j, ((path, _), s) in enumerate(zip(whole, shapes))]
+    leaf_of = {n: int(t.reshape(-1)[0])
+               for n, t in state_dict_from_oatx(_unflatten(probe), tower_cfg).items()}
+    v = state_dict_from_oatx(_unflatten(
+        [(path, np.zeros(pr.shape, np.float32) if f else a)
+         for f, (path, a), (_, pr) in zip(factored, whole, probe)]), tower_cfg)
+    out: Dict[str, Dict[str, torch.Tensor]] = {"v_row": {}, "v_col": {}, "v": {}}
+    for n, j in leaf_of.items():
+        if not factored[j]:
+            out["v"][n] = v[n]
+            continue
+        m = sharding._STACKED.match(n)
+        for key, src in (("v_row", rows[j][1]), ("v_col", cols[j][1])):
+            out[key][n] = torch.from_numpy(np.array(src[int(m.group(2))] if m else src))
+    return out
+
+
 def opt_state_from_optax(opt_state, tower_cfg) -> Dict[str, Any]:
-    """optax AdamW state → {'count', 'mu', 'nu'[, 'ema']} with the moments
-    (and the EMA params, when the chain has one) keyed like the port's
-    parameters, for `train.optim.AdamW.load_named_state`."""
-    adam = _find_state(opt_state, "count mu nu")
-    if adam is None:
-        raise ValueError("no AdamW (ScaleByAdamState) in the optimizer state")
-    out: Dict[str, Any] = {"count": int(np.asarray(adam.count)),
-                           "mu": state_dict_from_oatx(adam.mu, tower_cfg),
-                           "nu": state_dict_from_oatx(adam.nu, tower_cfg)}
+    """The optax state of oatx's `make_optimizer` chain (any family) → the
+    port's `named_state` schema keyed like its parameters, for
+    `train.optim` `load_named_state`: AdamW's ScaleByAdamState → {'count',
+    'mu', 'nu'}; Adafactor's FactoredState → {'count', 'v_row', 'v_col',
+    'v'}; Lion's ScaleByLionState → {'count', 'mu'}; SGD's TraceState →
+    {'count', 'trace'}, the count from the LR schedule's state (0 with a
+    constant lr, whose chain counts nothing); with the EMA params, when the
+    chain has them, under 'ema'."""
+    if (adam := _find_state(opt_state, "count mu nu")) is not None:
+        out: Dict[str, Any] = {"count": int(np.asarray(adam.count)),
+                               "mu": state_dict_from_oatx(adam.mu, tower_cfg),
+                               "nu": state_dict_from_oatx(adam.nu, tower_cfg)}
+    elif (fac := _find_state(opt_state, "count v_row v_col v")) is not None:
+        out = {"count": int(np.asarray(fac.count)), **_factored_from_optax(fac, tower_cfg)}
+    elif (lion := _find_state(opt_state, "count mu")) is not None:
+        out = {"count": int(np.asarray(lion.count)),
+               "mu": state_dict_from_oatx(lion.mu, tower_cfg)}
+    elif (trace := _find_state(opt_state, "trace")) is not None:
+        sched = _find_state(opt_state, "count")
+        out = {"count": int(np.asarray(sched.count)) if sched is not None else 0,
+               "trace": state_dict_from_oatx(trace.trace, tower_cfg)}
+    else:
+        raise ValueError("no optimizer state of a known family (AdamW, Adafactor, Lion, "
+                         "SGD) in the optax state")
     ema = _find_state(opt_state, "ema")
     if ema is not None:
         out["ema"] = state_dict_from_oatx(ema.ema, tower_cfg)

@@ -73,7 +73,11 @@ reduce_from_model's forward, the vocabulary-parallel lookup's included),
 reduce-scatters, forward and backward alike) and 'tp_norm' (the model
 group's sum of the gradients each rank holds in part: parallel/sharding.py
 `reduce_model_partials`). A remat recompute runs its forward collectives
-again, and they count again.
+again, and they count again. Adafactor's step (train/optim.py) sums over
+the ranks holding parts of a leaf: 'factor_sums' (an fsdp share's row
+and column sums of g²), 'factor_split' (the sums over a dim the model axis
+splits), 'factor_mean' (v_row's sums over a split dim, for its mean) and
+'block_rms' (each leaf's sum of squares of its update).
 
 Pipeline stages over the model axis (parallel/pipeline.py) send between
 neighbouring stages of a model group, point to point on the default

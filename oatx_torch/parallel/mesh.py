@@ -35,7 +35,9 @@ What each trainer key gives:
     ValueError, as in oatx (trainer.py:301-309);
   * `dcn_slices` × `model_parallel` must divide the world (ValueError, as
     in make_mesh);
-  * `zero1` shards the AdamW moments (and the EMA) over the data axis and
+  * `zero1` shards the optimizer's moments (and the EMA) over the data
+    axis (train/optim.py says which: Adafactor's factored rows and columns
+    stay whole) and
     `fsdp` the parameters, gradients and moments (parallel/sharding.py);
     neither crosses slices. On one process the data axis is 1 wide and both
     replicate (oatx/train/trainer.py:186-187);

@@ -82,7 +82,7 @@ tower's blocks are split by depth, stage s holding blocks [s·L/P,
 other parameter is whole on every rank; no Megatron split applies.
 `place_pipeline` drops the other stages' blocks from the model and keeps a
 `StagePlan` of the whole model's state-dict keys; `full_state_dict` and
-`load_full_state_dict` (and AdamW's named_state) go through it: a block's
+`load_full_state_dict` (and the optimizer's named_state) go through it: a block's
 tensor comes from its stage's rank of the model group by a broadcast, one
 tensor at a time. `zero1` composes: the moments of what a rank holds
 (its blocks and the whole rest) shard over the data axis of its stage, by
@@ -103,6 +103,7 @@ import math
 import re
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -132,6 +133,21 @@ def _depths(names: Iterable[str]) -> Dict[str, int]:
     return {k: len(v) for k, v in seen.items()}
 
 
+def layer_perm(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
+    """The permutation that takes the port's tensor to oatx's layout of one
+    layer: a Linear's (out, in) weight is oatx's (in, out) kernel, a conv's
+    (out, in, kh, kw) its (kh, kw, in, out); every other tensor as it is."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    parent = parts[-2] if len(parts) > 1 else ""
+    if leaf == "in_proj_weight" or (leaf == "weight" and len(shape) == 2
+                                    and parent not in _TABLES):
+        return (1, 0)
+    if leaf == "weight" and len(shape) == 4:
+        return (2, 3, 1, 0)
+    return tuple(range(len(shape)))
+
+
 def oatx_leaf(name: str, shape: Sequence[int],
               depths: Dict[str, int]) -> Tuple[Tuple[int, ...], Optional[int]]:
     """(shape of the oatx leaf the parameter belongs to, index of the dim
@@ -142,9 +158,9 @@ def oatx_leaf(name: str, shape: Sequence[int],
     parent = parts[-2] if len(parts) > 1 else ""
     grand = parts[-3] if len(parts) > 2 else ""
     taken = None
-    if leaf == "in_proj_weight" or (leaf == "weight" and len(shape) == 2
-                                    and parent not in _TABLES):
-        dims = shape[::-1]  # a Linear's (out, in) is oatx's (in, out) kernel
+    perm = layer_perm(name, shape)
+    dims = tuple(shape[d] for d in perm)
+    if perm == (1, 0):
         kind = "qkv" if leaf == "in_proj_weight" else parent
         if kind == "dense":  # BERT: intermediate.dense / (attention.)output.dense
             kind = {"intermediate": "fc1", "output": "fc2"}.get(grand, kind)
@@ -152,17 +168,66 @@ def oatx_leaf(name: str, shape: Sequence[int],
             taken = 1
         elif kind in _ROW:
             taken = 0
-    elif leaf == "weight" and len(shape) == 4:
-        dims = (shape[2], shape[3], shape[1], shape[0])  # conv (kh, kw, in, out)
-    else:
-        dims = shape
-        if parent == "word_embeddings" and len(shape) == 2:
-            taken = 0
+    elif parent == "word_embeddings" and len(shape) == 2:
+        taken = 0
     m = _STACKED.match(name)
     if m:
         dims = (depths[m.group(1)],) + dims
         taken = None if taken is None else taken + 1
     return dims, taken
+
+
+FACTOR_MIN = 128  # optax.adafactor's min_dim_size_to_factor
+
+
+@dataclasses.dataclass(frozen=True)
+class Factoring:
+    """Adafactor's factoring of one parameter (optax `_factored_dims` on its
+    oatx leaf), in oatx's layout of one layer: the port's tensor permuted by
+    `perm` has the whole dims `dims`; v_row is the mean of g² over `d0`
+    (the leaf's largest dim), v_col over `d1` (its second largest)."""
+    perm: Tuple[int, ...]
+    dims: Tuple[int, ...]
+    d0: int
+    d1: int
+
+    @property
+    def row_shape(self) -> Tuple[int, ...]:
+        return tuple(n for i, n in enumerate(self.dims) if i != self.d0)
+
+    @property
+    def col_shape(self) -> Tuple[int, ...]:
+        return tuple(n for i, n in enumerate(self.dims) if i != self.d1)
+
+
+def factored_dims(dims: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """optax `_factored_dims` on an oatx leaf's dims: (d1, d0), its second
+    largest and largest dim, or None when the second largest is under
+    FACTOR_MIN."""
+    if len(dims) < 2:
+        return None
+    order = np.argsort(dims)  # optax's own call: ties keep their order
+    d1, d0 = int(order[-2]), int(order[-1])
+    return None if dims[d1] < FACTOR_MIN else (d1, d0)
+
+
+def factoring(name: str, shape: Sequence[int], depths: Dict[str, int]) -> Optional[Factoring]:
+    """The Factoring of a parameter of whole `shape`, or None where optax
+    keeps a whole v: a leaf whose second-largest dim is under FACTOR_MIN
+    (a stacked bias or norm, a patch embedding). The dims come from the
+    oatx leaf, stacked layers included; a leaf factored over its depth axis
+    would tie the layers' moments together, and raises."""
+    dims, _ = oatx_leaf(name, shape, depths)
+    got = factored_dims(dims)
+    if got is None:
+        return None
+    d1, d0 = got
+    if _STACKED.match(name):
+        if 0 in (d0, d1):
+            raise ValueError(f"Adafactor would factor {name}'s oatx leaf {dims} over "
+                             "its depth axis")
+        dims, d0, d1 = dims[1:], d0 - 1, d1 - 1
+    return Factoring(layer_perm(name, shape), tuple(dims), d0, d1)
 
 
 _STAGED = re.compile(r"^((?:video_model\.)?blocks)\.(\d+)\.")  # in a DualTower, a lone tower
@@ -349,40 +414,55 @@ def plan(shapes: Dict[str, Sequence[int]], layout: Layout,
     return out
 
 
+MOMENTS = {"adamw": 2, "lion": 1, "sgd": 1, "adafactor": 1}  # elementwise state a parameter
+
+
 def state_bytes(shapes: Dict[str, Sequence[int]], data_size: int, mode: Optional[str],
                 ema: bool = False, model_parallel: int = 1,
-                pipeline: bool = False) -> Dict[str, int]:
-    """Per-rank bytes of f32 parameters + gradients + AdamW moments (+ EMA) under
-    `mode` (None: replicated) on a data axis of `data_size` and a model axis
-    of `model_parallel` (`shapes` whole), its Megatron splits or, with
-    `pipeline`, its stages (a rank holds L/P of the video blocks: stage 0's
-    are counted, the same bytes as any stage's) → {'bytes', 'padding' (of
-    those, the flat shards' zero padding), 'replicated' (the same state
-    unsharded on both axes)}. Every parameter is counted with a gradient."""
+                pipeline: bool = False, kind: str = "adamw") -> Dict[str, int]:
+    """Per-rank bytes of f32 parameters + gradients + the optimizer family's
+    state (+ EMA) under `mode` (None: replicated) on a data axis of
+    `data_size` and a model axis of `model_parallel` (`shapes` whole), its
+    Megatron splits or, with `pipeline`, its stages (a rank holds L/P of the
+    video blocks: stage 0's are counted, the same bytes as any stage's) →
+    {'bytes', 'padding' (of those, the flat shards' zero padding),
+    'replicated' (the same state unsharded on both axes)}. Every parameter
+    is counted with a gradient. The state (train/optim.py): AdamW's mu and
+    nu, Lion's mu, SGD's trace, all shaped like the parameter and placed as
+    it says; Adafactor's whole v where `factoring` gives None, else v_row and
+    v_col, whole on the data axis and split on the model axis where the dim
+    they keep is."""
+    k = kind.lower()
     data_size = max(data_size, 1)
     depths = _depths(shapes)
-    moments = 3 if ema else 2
     total = pad = full = 0
     video_depth = _video_depth(shapes)
     for name, shape in shapes.items():
         whole = math.prod(int(s) for s in shape)
-        full += (2 + moments) * whole
+        fac = factoring(name, shape, depths) if k == "adafactor" else None
+        moments = (0 if fac is not None else MOMENTS[k]) + (1 if ema else 0)
+        vectors = 0 if fac is None else math.prod(fac.row_shape) + math.prod(fac.col_shape)
+        full += (2 + moments) * whole + vectors
         owner = _stage_of(name, video_depth, model_parallel) if pipeline else None
         if owner is not None and owner > 0:  # another stage's block
             continue
         dims, taken = oatx_leaf(name, shape, depths)
         split = None if pipeline else _model_split(name, shape, depths, model_parallel)
         n = whole // model_parallel if split is not None else whole
+        if fac is not None and split is not None:
+            kept = fac.perm.index(split[0])
+            vectors = (math.prod(fac.row_shape) // (model_parallel if kept != fac.d0 else 1)
+                       + math.prod(fac.col_shape) // (model_parallel if kept != fac.d1 else 1))
         chunk = -(-n // data_size)
         extra = chunk - n / data_size
         if mode == "fsdp" and fsdp_placement(dims, taken, data_size):
-            total += (2 + moments) * chunk
+            total += (2 + moments) * chunk + vectors
             pad += (2 + moments) * extra
         elif mode == "zero1" and zero1_placement(dims, data_size):
-            total += 2 * n + moments * chunk
+            total += 2 * n + moments * chunk + vectors
             pad += moments * extra
         else:
-            total += (2 + moments) * n
+            total += (2 + moments) * n + vectors
     return {"bytes": 4 * total, "padding": round(4 * pad), "replicated": 4 * full}
 
 
@@ -619,16 +699,18 @@ class StagePlan:
         """The stage holding `key` (None: every stage holds it whole)."""
         return self.owners.get(key)
 
-    def fetch(self, key: str, local: Optional[torch.Tensor]) -> torch.Tensor:
+    def fetch(self, key: str, local: Optional[torch.Tensor],
+              like: Optional[Tuple[Tuple[int, ...], torch.dtype]] = None) -> torch.Tensor:
         """The whole tensor of a block's `key` (or of a tensor of its shape
-        and dtype: a gradient, a moment) on every rank of the model group,
+        and dtype: a gradient, a moment; or of `like`'s (shape, dtype):
+        Adafactor's factored moments) on every rank of the model group,
         from its stage's rank (`local`: this rank's, when it is that stage;
         every rank of the group calls it)."""
         src = self.layout.model_ranks()[self.owners[key]]
         if src == self.layout.rank:
             buf = local.detach().contiguous()
         else:
-            shape, dtype = self.keys[key]
+            shape, dtype = like or self.keys[key]
             buf = torch.empty(shape, dtype=dtype, device=self.device)
         return coll.broadcast_from(buf, src, self.group, "state_gather")
 
@@ -718,7 +800,7 @@ def place(model: nn.Module, mode: Optional[str], layout: Layout) -> Dict[str, Fl
     """Split `model` over `layout`'s model axis (Megatron's splits, or its
     pipeline stages when `layout.pipeline`), plan `mode` ('fsdp',
     'zero1' or None) for its parameters on the data axis and put fsdp in
-    place → the data-axis plan (AdamW's `zero1` under zero1). Every rank
+    place → the data-axis plan (the optimizer's `zero1` under zero1). Every rank
     must call it (it makes the layout's groups)."""
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     model.layout = layout

@@ -5,12 +5,13 @@ Layout, as oatx's: ckpt_dir/<name>/ is one snapshot (`checkpoint-epoch{N}`,
 `model_best`, `preempt-epoch{N}`) and ckpt_dir/<name>.meta.json its metadata
 {epoch, monitor_best, step[, cycles_done]}. The snapshot is the port's own
 format: `state.pt`, a torch.save of {'model': the model's state_dict,
-'optimizer': AdamW.named_state() (count, mu, nu and the EMA when kept),
+'optimizer': the optimizer's named_state() (the count, its family's state,
+train/optim.py, and the EMA when kept),
 'step'}. oatx's Orbax snapshots do not restore here.
 
 A snapshot is written into a temporary directory and renamed into place, so
 a crash mid-write leaves no readable half-snapshot. `async_save=True` copies
-every tensor to host memory before it returns (AdamW updates the parameters
+every tensor to host memory before it returns (the optimizer updates the parameters
 in place, so the next step must not start before the copy is done) and
 writes the file in a background thread; `wait_for_async_saves` joins it.
 

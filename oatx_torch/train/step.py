@@ -1,8 +1,8 @@
 """The train step of the dual tower (port of oatx/train/step.py:33-433).
 
 One step: forward both towers on the batch, the variant's loss, backward,
-AdamW (train/optim.py). oatx jits a pure function of (params, opt_state);
-here the model and its optimizer are updated in place (PyTorch's idiom, and
+the optimizer (train/optim.py: AdamW, Adafactor, Lion or SGD). oatx jits a
+pure function of (params, opt_state); here the model and its optimizer are updated in place (PyTorch's idiom, and
 the counterpart of oatx donating its state), and the step returns a new
 `TrainState` whose `step` counts the updates made.
 
@@ -82,7 +82,7 @@ gradients are not all-reduced: after the last micro-batch each sharded
 parameter's whole gradient is reduce-scattered once to its mean share, the
 replicated leaves all-reduced, in f32 (`grad_reduce_dtype` does not apply,
 as in oatx's GSPMD path). `grad_norm` is the whole gradient's on every
-layout (AdamW.grad_norm).
+layout (train/optim.py Family.grad_norm).
 """
 
 from __future__ import annotations
@@ -101,14 +101,14 @@ from oatx_torch.models.towers import DualTower, TowerConfig
 from oatx_torch.parallel import collectives as coll
 from oatx_torch.parallel import sharding
 from oatx_torch.parallel.mesh import current_layout
-from oatx_torch.train.optim import AdamW
+from oatx_torch.train.optim import Family
 
 Batch = Dict[str, Any]
 
 
 class TrainState(NamedTuple):
     model: DualTower
-    optimizer: AdamW
+    optimizer: Family
     step: int
 
 
@@ -372,7 +372,7 @@ def make_eval_step(cfg: TowerConfig, augment: Optional[Callable] = None,
     return eval_step
 
 
-def init_state(cfg: TowerConfig, optimizer: Callable[..., AdamW],
+def init_state(cfg: TowerConfig, optimizer: Callable[..., Family],
                device: DeviceLike = None, generator: Optional[torch.Generator] = None,
                state_dict: Optional[Dict[str, torch.Tensor]] = None,
                shard_mode: Optional[str] = None, layout=None) -> TrainState:

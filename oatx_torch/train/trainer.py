@@ -191,7 +191,7 @@ class Trainer:
             # the object NCE terms fire only on batches that carry object
             # features (step.loss_fn checks 'object'): the object tower
             # trains only when the loss asks for it and a train loader
-            # supplies them, and is frozen otherwise, or AdamW's weight decay
+            # supplies them, and is frozen otherwise, or the weight decay
             # would erode its untrained weights (oatx :150-168)
             object_in_data = any(
                 getattr(getattr(l, "dataset", None), "opts", None) is not None
@@ -211,7 +211,7 @@ class Trainer:
 
         # fresh init → optional reference-checkpoint import → rank 0's values
         # everywhere → split over the model axis and placed (fsdp, else
-        # zero1; oatx :186-197) → AdamW over it
+        # zero1; oatx :186-197) → the optimizer over it
         model = DualTower(self.tower_cfg, dev, torch.Generator(dev).manual_seed(t.seed))
         if exp.arch.load_checkpoint:
             self.logger.info("importing initial weights from %s", exp.arch.load_checkpoint)
@@ -245,7 +245,7 @@ class Trainer:
             mode = self.shard_mode if layout.spans_processes else None
             want = sharding.state_bytes(shapes, layout.data_size, mode, ema=bool(t.ema_decay),
                                         model_parallel=layout.model_parallel,
-                                        pipeline=layout.pipeline)
+                                        pipeline=layout.pipeline, kind=exp.optimizer.type)
             self.logger.info(
                 "%s over a data axis of %d (x %d dcn slices, x %d model ranks): %d of %d "
                 "parameters sharded, %.3f GB of state a rank (replicated: %.3f GB, "

@@ -1153,3 +1153,39 @@ def test_export_region_maps_on_the_card(card, tmp_path, monkeypatch):
         _, want = export(tmp_path / "p")
     assert got.shape == (5, 196) and bool(((got > 0) & (got < 1)).all())
     assert float(_cosines(got, want).min()) >= 0.9999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["adamw", "adafactor", "lion", "sgd"])
+def test_optimizer_step_on_the_card_matches_the_cpu(card, kind):
+    """Three steps of each family on CUDA tensors against the same steps on
+    the CPU, over a factored Linear, a stacked pair, a table and small
+    leaves, with the clip and the EMA on: f32 both, within 1e-5 of each
+    tensor's largest entry (the two round in another order; Lion's sign
+    of a sum near 0 could flip, which the draws here avoid)."""
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"lin.weight": (640, 256), "blocks.0.fc1.weight": (512, 128),
+              "blocks.1.fc1.weight": (512, 128), "blocks.0.fc1.bias": (512,),
+              "blocks.1.fc1.bias": (512,), "embeddings.word_embeddings.weight": (300, 128),
+              "norm.weight": (128,)}
+    init = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+    grads = [{n: torch.randn(s, generator=gen) * (k + 1) for n, s in shapes.items()}
+             for k in range(3)]
+    out = {}
+    for dev in ("cpu", card):
+        params = {n: torch.nn.Parameter(t.clone().to(dev)) for n, t in init.items()}
+        opt = poptim.make_optimizer(lr=1e-2, kind=kind, grad_clip=1.0, ema_decay=0.9)(
+            params.items())
+        for g in grads:
+            for n, p in params.items():
+                p.grad = g[n].to(dev)
+            opt.step()
+        out[str(dev)] = ({n: p.detach().cpu() for n, p in params.items()},
+                         opt.named_state(to_host=True))
+    (cpu_p, cpu_s), (dev_p, dev_s) = out["cpu"], out[str(card)]
+    pairs = [(dev_p, cpu_p)] + [(dev_s[k], cpu_s[k]) for k in cpu_s if k != "count"]
+    for got, want in pairs:
+        assert sorted(got) == sorted(want)
+        for n, w in want.items():
+            err = float((got[n] - w).abs().max())
+            assert err <= 1e-5 * float(w.abs().max()), (kind, n, err)

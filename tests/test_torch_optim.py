@@ -175,9 +175,10 @@ def test_adamw_state_round_trips():
 
 
 def test_optimizer_kinds_and_filters():
-    for kind in ("adafactor", "lion", "sgd"):
-        with pytest.raises(NotImplementedError):
-            poptim.make_optimizer(kind=kind)
+    for kind, cls in (("adafactor", poptim.Adafactor), ("Lion", poptim.Lion),
+                      ("SGD", poptim.SGD), ("AdamW", poptim.AdamW)):
+        opt = poptim.make_optimizer(kind=kind)([("w", torch.nn.Parameter(torch.ones(3)))])
+        assert type(opt) is cls
     with pytest.raises(ValueError):
         poptim.make_optimizer(kind="rmsprop")
     with pytest.raises(ValueError):

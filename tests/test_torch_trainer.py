@@ -11,7 +11,8 @@ from different generators, so both train through the eval transform here
 (each Trainer's augment and train step rebuilt with it).
 
 Tolerances: per-step losses and validation losses rtol 1e-4 (the f32 steps
-of test_torch_train.py compound over 4 AdamW updates); retrieval metrics,
+of test_torch_train.py compound over 4 updates, under AdamW and each other
+family of `optimizer.type`); retrieval metrics,
 the monitor's decisions and the snapshots written are equal.
 """
 
@@ -98,8 +99,11 @@ def keep_sigterm():
         signal.signal(s, h)
 
 
-def test_trainer_matches_oatx(tmp_path, keep_sigterm):
+@pytest.mark.parametrize("kind", ["AdamW", "Adafactor", "Lion", "SGD"])
+def test_trainer_matches_oatx(tmp_path, keep_sigterm, kind):
+    """Each optimizer family of `optimizer.type` (train/optim.py)."""
     raw = _raw(tmp_path)
+    raw["optimizer"]["type"] = kind
     _init_pth(tmp_path, raw)
     ds = MemoryClips(n=16, frames=2, canon=32)
     runs = {}

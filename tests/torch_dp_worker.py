@@ -79,6 +79,13 @@ test wrote:
                over the position's shard of the clips and every eval
                step's input_ids and embeddings recorded; a job whose
                Trainer raises ValueError records the message ('error');
+  optim        {'cases': {name: {'cfg', 'state_dict', 'grads' (whole
+               gradients, one dict a step), 'mode', 'mp', 'pipeline',
+               'min_size', 'opt' (make_optimizer's keywords)}}}: the state
+               placed by the layout and `mode`, each step's gradients set as
+               the rank holds them (sharding.held_part), the optimizer's
+               step alone → the whole parameters and optimizer state, the
+               held and predicted state bytes and the traffic per step;
   shard_trainer {'jobs': [{'raw', 'save_dir', 'resume', 'min_size'}], 'clips',
                'batch', 'log_dir'}: Trainer.train() per job over the rank's
                shard of MemoryClips (with 'global_batches' as in trainer),
@@ -666,6 +673,36 @@ def pp_trainer(p, rank, world):
     return out
 
 
+def optim(p, rank, world):
+    from oatx_torch.parallel import mesh, sharding
+    from oatx_torch.train import optim as optimlib
+    from oatx_torch.train import step as steplib
+
+    out = {}
+    for name, case in p["cases"].items():
+        sharding.FSDP_MIN_SIZE = case["min_size"]
+        layout = mesh.current_layout(1, case["mp"], case["pipeline"])
+        state = steplib.init_state(case["cfg"], optimlib.make_optimizer(**case["opt"]),
+                                   device="cpu", state_dict=case["state_dict"],
+                                   shard_mode=case["mode"], layout=layout)
+        model, opt = state.model, state.optimizer
+        coll.reset_traffic()
+        for grads in case["grads"]:
+            for n, q in model.named_parameters():
+                q.grad = sharding.held_part(grads[n], q).clone()
+            opt.step()
+        steps = len(case["grads"])
+        traffic = {k: {f: v // steps for f, v in rec.items()} for k, rec in coll.TRAFFIC.items()}
+        whole = {k: tuple(v.shape) for k, v in case["state_dict"].items()}
+        out[name] = {"params": sharding.full_state_dict(model), "opt": opt.named_state(),
+                     "held": sharding.held_bytes(model, opt), "traffic": traffic,
+                     "predicted": sharding.state_bytes(
+                         whole, layout.data_size, case["mode"], ema=bool(opt.ema_decay),
+                         model_parallel=layout.model_parallel, pipeline=layout.pipeline,
+                         kind=case["opt"].get("kind", "adamw"))}
+    return out
+
+
 def main():
     mode, rank, world, url, src, dst = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -676,7 +713,8 @@ def main():
         payload = torch.load(src, weights_only=False)
         out = {"collectives": collectives, "step": step, "trainer": trainer,
                "shard": shard, "shard_trainer": shard_trainer, "tp": tp,
-               "tp_trainer": tp_trainer, "pp": pp, "pp_trainer": pp_trainer}[mode](
+               "tp_trainer": tp_trainer, "pp": pp, "pp_trainer": pp_trainer,
+               "optim": optim}[mode](
             payload, rank, world)
         torch.save(out, f"{dst}.rank{rank}")
     finally:
