@@ -6,8 +6,8 @@
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
                           [--only-tp] [--only-pp] [--only-extract] [--only-viz]
-                          [--only-optim] [--only-serve-extras] [--dp-nccl] [--tp-nccl]
-                          [--pp-nccl]
+                          [--only-optim] [--only-finetune] [--only-serve-extras]
+                          [--dp-nccl] [--tp-nccl] [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -26,24 +26,27 @@ per frame group at each shape, the choice that `_query_split` encodes.
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
 --only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
 phase 13, --only-extract phase 14, --only-viz phase 15, --only-optim phase
-16, --only-serve-extras
+16, --only-finetune phase 17, --only-serve-extras
 phase 3's extras (a) and (b) (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then
 phase 11's pod recipes alone with one rank per visible card over NCCL (2
 or more cards).
---tp-nccl runs the pod recipes as shipped (model_parallel 4) with a rank
-on each of 4 cards over NCCL (TP_NCCL_RUNS; no record, no `ok` line).
+--tp-nccl runs the pod recipes as shipped (model_parallel 4: ViT-H/14,
+ViT-L/16 and pod_v5p's ViT-B/16 over 16 frames) with a rank on each of 4
+cards over NCCL (TP_NCCL_RUNS; no record, no `ok` line).
 --pp-nccl runs the pod recipes with pipeline true on their 4 stages, a rank
 on each of 4 cards over NCCL (PP_NCCL_RUNS; no record, no `ok` line).
 
 Phases (any failure raises: the exit code is then not 0 and no `ok` line is
 printed):
   1. environment — the card's name and power limit (nvidia-smi), torch and
-     CUDA versions, and the nvcc build of every kernel in oatx_torch/csrc;
+     CUDA versions, the decoding libraries the machine holds (nvJPEG's and
+     NVDEC's headers and libraries: decode_probe), and the nvcc build of
+     every kernel in oatx_torch/csrc;
   2. kernels — each hand-written kernel against its plain PyTorch version on
      the card (bf16): kernel 1 (ln_mlp) at R = 197, 785, 3140, 3152 and
      6280 rows (3152: the object-aware recipes' 1-frame object frame at batch 16; its
      record at bucket 4's 3140, with the ms of each split of its second
-     product), kernel 2 (space_attention) and its backward kernels
+     product up to R = LN_MLP_SPLIT_ROWS), kernel 2 (space_attention) and its backward kernels
      (space_attention_bwd, against autograd of the plain version and, not
      checked, both against the exact f64 gradient) at B = 1, 4 and 8 of the
      serving shapes (4 frames, T = 785), at B = 16 over one frame (T = 197,
@@ -55,7 +58,10 @@ printed):
      T = 197, `by_batch` key "1_F1"; the plain version timed there too) and
      at region_mem's eval chunk of 8 (phase 15: R = 1576 and 6280, B = 8
      over one frame, "8_F1", and over 4 frames; the plain version timed
-     there too), each
+     there too), and at pod_v5p's one-card shapes (R = 16·3137 = 50192;
+     B = 16 over 16 frames, T = 3137, "16_F16") and MSR-VTT fine-tuning's
+     batch of 64 (phase 17: R = 64·785 = 50240; B = 64, T = 785), the
+     plain forward and backward timed there too, each
      with its time (CUDA events, and device
      busy time from traces that must hold every kernel launched), achieved
      TFLOP/s, ptxas registers and spills, the plain version's time, one
@@ -198,9 +204,10 @@ printed):
      epoch of TOWERS_LEN_EPOCH steps over the 32 clips with object extras:
      the dataset serves the file's rows, every loss term (the region BCE
      too) finite, launches with backward_depths (12, 6).
-  9. wide — the repo's two demanding configurations, ViT-L/16 (24 × 1024,
-     16 heads of 64) and ViT-H/14 (32 × 1280, 16 heads of 80, 257 keys a
-     frame group), full width and depth. First the kernels at their shapes
+  9. wide — the repo's demanding configurations, ViT-L/16 (24 × 1024,
+     16 heads of 64), ViT-H/14 (32 × 1280, 16 heads of 80, 257 keys a
+     frame group) and pod_v5p's ViT-B/16 over 16 frames (T = 3137), full
+     width and depth. First the kernels at their shapes
      against the plain versions on the card: kernel 2's forward and backward
      at (4 and 8, 1025, 16, 80) over 4 frames (the forward within
      SPACE_ATTENTION_ATOL + 2^-7·|ref| + the flip allowance, the backward
@@ -210,18 +217,23 @@ printed):
      backward; the cuBLAS chain). Then configs/pt/cc3m_webvid/
      vit_large_pod.json (batch 16, remat off; 2 epochs of 4 steps) and
      vit_huge_pod.json (batch 8 as 2 micro-batches of 4, remat dots_all; 6
-     steps) with `model_parallel` 1 (the only change: one card cannot hold
-     a model axis of 4) through Trainer.train() over the trainer phase's 32
-     4-frame clips, one loader (the recipes' CC3M loader is cut), init_val
-     and a validation each epoch, no checkpoints: every loss term finite
-     (the loss is printed, not checked: warm-up is 2500 steps), launches as
-     want_launches derives them with accum_steps, one step's gradients on a
-     fixed batch at full depth through the kernels against the plain
+     steps) and pod_v5p.json (batch 16, remat on, zero1 replicated on one
+     process; 4 steps, the last 2 traced) with `model_parallel` 1 (the only
+     change: one card cannot hold a model axis of 4) through Trainer.train()
+     over 32 seeded clips of as many frames as the tower takes
+     (recipe_clips: the trainer phase's 4-frame clips, 16 frames for
+     pod_v5p, whose loaders sample 4 and 1), one loader (the recipes' CC3M
+     loader is cut), init_val and a validation each epoch, no checkpoints:
+     every loss term finite (the loss is printed, not checked: ViT-L and
+     ViT-H warm up over 2500 steps, pod_v5p's first update at its full lr
+     lifts it), launches as want_launches derives them with accum_steps,
+     one step's gradients on a fixed batch at full depth, at the seed-0
+     weights before any update, through the kernels against the plain
      versions (grad_check over the tensors whose exact gradient is not 0)
      and both against the same step in f32 (WIDE_F32_RATIO's note), step ms
-     (the untraced intervals), clips/s, MFU
-     (train/flops.py), peak memory, and from a CUDA-only trace of the last
-     2 steps the idle share and device ms by group.
+     (the untraced intervals), clips/s, MFU (train/flops.py), peak memory
+     (of the run, without the gradient check's), and from a CUDA-only trace
+     of the last 2 steps the idle share and device ms by group.
  10. dp — data parallelism across processes (train/step.py,
      parallel/collectives.py). (a) `oatx_torch.cli.train` on norm.json over
      phase 7's corpora (written again) under OATX_MULTIHOST=1 with oatx's
@@ -295,7 +307,8 @@ printed):
      plain versions, with ms, bound, plain and library ms (the `tp` key of
      each kernel's record; TP_MLP / TP_SA also hold the object-aware
      recipes' 1-frame object frame at a rank's shapes: R = 16·197, 768 →
-     1536; B 16, F 1, N 196, 6 heads). Then TP_WORLD ranks on cuda:0 over
+     1536; B 16, F 1, N 196, 6 heads; and pod_v5p's at mp 4: R = 16·3137,
+     768 → 768; B 16, F 16, N 196, 3 heads). Then TP_WORLD ranks on cuda:0 over
      gloo, this script started again with --dp-rank and --dp-phase tp:
      phase 11's probe plus bf16 token-axis gathers; then TP_RUNS at
      model_parallel TP_WORLD, one model group at TP_BATCH, through
@@ -326,7 +339,8 @@ printed):
      bytes optim_traffic's; then optim_fixed at model_parallel TP_WORLD
      against one process, as phase 11's. Printed: step ms, peak and
      collectives a rank (gloo: no speed). With --tp-nccl (4 cards):
-     vit_huge_pod.json and vit_large_pod.json as shipped, a rank a card
+     vit_huge_pod.json, vit_large_pod.json and pod_v5p.json (over 16-frame
+     clips; zero1 over a data axis of 1) as shipped, a rank a card
      over NCCL: per rank peak GiB, step ms, MFU (a rank's FLOPs over one
      card's peak) and idle share (a 2-step trace), beside each recipe in
      one process at model_parallel 1 on cuda:0 at the same batch.
@@ -414,7 +428,10 @@ printed):
      and one export forward a batch, each of the clip and the object
      frame), one 672 × 224 region map a sample, the gallery listing every
      caption with its top 5, the region logits within VIZ_MIN_COSINE of
-     the same export through the plain versions; (d) the 1-frame forward
+     the same export through the plain versions, and
+     `plots.tsne_embedding_plot` of its eval embeddings (clips and captions,
+     labels 0 and 1; the port's numpy t-SNE): a 720 × 720 PNG holding both
+     labels' tab10 colours; (d) the 1-frame forward
      under `profiler.trace`, once bare and once under
      `annotate("viz_tower")`: `summarize_trace` names kernels 1 and 2 and
      `summarize_by_source` puts the annotated forward's 24 of them under
@@ -443,6 +460,25 @@ printed):
      state_bytes, the peak device memory and step ms printed beside phase
      9's AdamW run of the same recipe (with --only-optim: "not measured in
      this run"). Phases 11 and 12 run the families' sharded layouts.
+ 17. finetune — configs/ft/msrvtt/fine_tune/normal_1_cl.json as shipped
+     (ViT-B/16 over 4 × 224² + DistilBERT-base, bf16, batch 64, AdamW at
+     3e-5, init_val) through `oatx_torch.cli.train`, its arch.load_checkpoint
+     pointed at a port snapshot of norm.json (phase 5's checkpoint-epoch1
+     when it ran in this process, else a seed-0 one from save_checkpoint),
+     over an MSR-VTT jsfusion layout of the port's writer (FT_TRAIN_CLIPS
+     train clips, FT_TEST_CLIPS test clips of FT_FRAMES frames): one epoch of
+     FT_STEPS steps (trainer.len_epoch; the loader cycles), validation on
+     the test clips: the imported weights bitwise the snapshot's before step
+     1, every loss term finite, launches as want_launches derives (12 + 12
+     + 12 a step, 12 + 12 a validation forward), the weights moved, step ms
+     (step 2), clips/s, MFU, peak GiB, the idle share of a CUDA-only trace
+     of the last 2 steps; the snapshot, vocab.txt and config.json written.
+     Then the fine-tuned `<save_dir>/checkpoint-epoch1` served through
+     `cli.serve -r` (build_service, a localhost port): /embed_video of the
+     test clips and /embed_text of their captions, counted (12 + 12
+     launches a video forward), each row within E2E_MIN_COSINE of
+     `cli.build_index` on the same snapshot (evaluate's embeddings), whose
+     launches are counted too.
 In the run without arguments phases 10-13 overlap: their kernels are timed
 first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
 while this process takes the phases' one-process references (so those
@@ -554,6 +590,34 @@ KERNEL_GROUPS = (("ln_mlp", ("ln_mlp_",)),
                  ("nccl", ("nccl",)))
 
 
+def decode_probe():
+    """What the host offers a decoder beyond JPEG on the CPU: nvJPEG's
+    header and library, NVDEC's (nvcuvid) header and library, under the CUDA
+    toolkit and on the loader's paths (`ldconfig -p`, LD_LIBRARY_PATH)."""
+    import glob
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    incs = [os.path.join(cuda, "include"), os.path.join(cuda, "targets", "x86_64-linux",
+                                                        "include"), "/usr/include"]
+    libs = [os.path.join(cuda, "lib64"), os.path.join(cuda, "targets", "x86_64-linux", "lib"),
+            "/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/local/lib"]
+    libs += [d for d in os.environ.get("LD_LIBRARY_PATH", "").split(":") if d]
+    try:
+        loader = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                                timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        loader = ""
+
+    def found(dirs, pattern):
+        return sorted({p for d in dirs for p in glob.glob(os.path.join(d, pattern))})
+
+    return {"nvjpeg.h": found(incs, "nvjpeg.h"),
+            "libnvjpeg": found(libs, "libnvjpeg.so*") + re.findall(r"libnvjpeg\.so\S*", loader),
+            "nvcuvid.h": found(incs, "nvcuvid.h") + found(incs, "cuviddec.h"),
+            "libnvcuvid": found(libs, "libnvcuvid.so*")
+            + re.findall(r"libnvcuvid\.so\S*", loader)}
+
+
 def sh(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
@@ -642,11 +706,13 @@ def check_close(name, got, want, atol, allow=None):
 
 # one 224² frame (cli.extract's roi_backbone); serving buckets 1 and 4; the
 # object-aware recipes' object frame at batch 16 (16·197); bucket 16's halves
-# and the train step
-LN_MLP_ROWS = (197, 785, 1576, 3140, 3152, 6280)
+# and the train step; pod_v5p on one card (16 clips of 16 frames: 16·3137)
+# and MSR-VTT fine-tuning (phase 17: 64 clips of 4 frames, 64·785)
+LN_MLP_ROWS = (197, 785, 1576, 3140, 3152, 6280, 50192, 50240)
 LN_MLP_RECORD_ROWS = 3140        # the record's ms, errors and bound
-LN_MLP_PLAIN_ROWS = (197, 1576, 3140, 6280)  # where the plain version is timed too
+LN_MLP_PLAIN_ROWS = (197, 1576, 3140, 6280, 50192, 50240)  # where the plain is timed too
 LN_MLP_SPLITS = (1, 2, 3, 6)     # K ranges of the second product, timed at each R
+LN_MLP_SPLIT_ROWS = 6280         # the largest R of that sweep (the new rows: the rule's split)
 LN_MLP_EXPECT = (("ln_mlp_", 1),)  # device kernels a call launches at least (device_trace)
 
 
@@ -744,7 +810,7 @@ def kernel_ln_mlp(dev, g, parent=None):
         splits, rule = {}, plm._down_split
         fn = lambda: plm._launch(*args)  # noqa: E731
         try:
-            for sp in LN_MLP_SPLITS:
+            for sp in LN_MLP_SPLITS if R <= LN_MLP_SPLIT_ROWS else ():
                 plm._down_split = lambda *_, sp=sp: sp
                 check_close(f"ln_mlp R={R} split={sp}", fn(), want, LN_MLP_ATOL)
                 splits[sp] = (time_ms(fn), device_trace(fn, 20, expect=LN_MLP_EXPECT)[0])
@@ -783,10 +849,12 @@ def kernel_ln_mlp(dev, g, parent=None):
 # and the train step at 4 frames; the object-aware recipes' 1-frame object
 # frame at their batch of 16 (T = 197); one 224² frame (cli.extract's
 # roi_backbone, cli.visualize); region_mem's eval chunk of 8 object frames
-# (cli.test)
-SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1), (1, 1), (8, 1))
+# (cli.test); pod_v5p on one card (16 clips of 16 frames, T = 3137) and
+# MSR-VTT fine-tuning's batch of 64 (phase 17)
+SA_SHAPES = ((1, 4), (4, 4), (8, 4), (16, 1), (1, 1), (8, 1), (16, 16), (64, 4))
 SA_RECORD_BATCH = 4       # the record's ms, errors and bound (serving bucket 4)
-SA_PLAIN_SHAPES = ((SA_RECORD_BATCH, 4), (1, 1), (8, 4), (8, 1))  # where the plain is timed too
+SA_PLAIN_SHAPES = ((SA_RECORD_BATCH, 4), (1, 1), (8, 4), (8, 1), (16, 16),
+                   (64, 4))  # where the plain version is timed too
 SA_SPLITS = (1, 2, 3, 4)  # blocks per frame group, timed at each batch (--sweep-query-splits)
 SA_FWD_EXPECT = (("space_attention_kernel", 1),)
 SA_BWD_EXPECT = (("space_attention_cls_bwd_kernel", 1), ("space_attention_bwd_kernel", 1),
@@ -1004,7 +1072,8 @@ def sdpa_backward_ms(lib_in):
 
 
 def sa_key(b, frames):
-    """The `by_batch` key of a kernel 2 shape: B at 4 frames, "B_F1" at 1."""
+    """The `by_batch` key of a kernel 2 shape: B at 4 frames, "B_F<frames>"
+    at any other count ("16_F1", "16_F16")."""
     return b if frames == 4 else f"{b}_F{frames}"
 
 
@@ -1083,7 +1152,7 @@ def kernel_space_attention(dev, g, parent=None, sweep=False):
         brec["device_ms"] = device_trace(bcall, 20, expect=SA_BWD_EXPECT)[0]
         brec["tflops"] = bflops / brec["ms"] / 1e9
         brec["device_tflops"] = bflops / brec["device_ms"] / 1e9
-        if (B, Fr) == (SA_RECORD_BATCH, 4):
+        if (B, Fr) in ((SA_RECORD_BATCH, 4), (16, 16), (64, 4)):
             brec["plain_ms"] = time_ms(
                 lambda: space_attention_plain_vjp(qd, k, v, dout, Fr), iters=5)
         brec.update(sdpa_backward_ms(lib_in))
@@ -2124,22 +2193,22 @@ WORDS = ("alpha", "beta", "gamma", "delta", "eps", "zeta")  # caption i: alpha{i
 class MemoryClips:
     """An in-memory corpus of n separable clips: each a distinct colour under
     a sine grating of its own angle and frequency that drifts across its
-    frames, plus noise, as canonical uint8 (F, 256, 256, 3) frames from
-    `seed`; and a caption of six words that no other caption shares (at
+    `frames` frames, plus noise, as canonical uint8 (F, 256, 256, 3) frames
+    from `seed`; and a caption of six words that no other caption shares (at
     random init DistilBERT's CLS output is nearly the same for captions that
     share most of their words, and a few steps do not tell them apart).
     `get_sample(i, rng)` is what the port's ShardedLoader reads."""
 
     dataset_name = "MemoryClips"
 
-    def __init__(self, n, seed):
+    def __init__(self, n, seed, frames=CORPUS_FRAMES):
         rng = np.random.default_rng(seed)
         yy, xx = np.mgrid[0:CANON, 0:CANON].astype(np.float32) / CANON
-        self.videos = np.empty((n, CORPUS_FRAMES, CANON, CANON, 3), np.uint8)
+        self.videos = np.empty((n, frames, CANON, CANON, 3), np.uint8)
         for i in range(n):
             colour = rng.uniform(40, 215, 3).astype(np.float32)
             theta, freq, phase = np.pi * i / n, 2 + i % 5, rng.uniform(0, 2 * np.pi)
-            for f in range(CORPUS_FRAMES):
+            for f in range(frames):
                 wave = np.sin(2 * np.pi * freq * (xx * np.cos(theta) + yy * np.sin(theta))
                               + phase + 0.3 * f)
                 img = colour + 35 * wave[..., None] + rng.normal(0, 6, (CANON, CANON, 3))
@@ -2795,11 +2864,16 @@ def objects_phase(smi, dev):
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
-def trainer_phase(smi, dev):
-    """Trainer.train() at full width (module docstring, phase 5)."""
+def trainer_phase(smi, dev, keep_dir=None):
+    """Trainer.train() at full width (module docstring, phase 5); with
+    `keep_dir`, norm.json's checkpoint-epoch1 is moved there (phase 17's
+    initial weights)."""
     ds = MemoryClips(CORPUS_CLIPS, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         norm, launches = norm_recipe(tmp, smi, dev, ds)
+        if keep_dir is not None:
+            os.rename(os.path.join(tmp, "norm", "checkpoint-epoch1"),
+                      os.path.join(keep_dir, "checkpoint-epoch1"))
     lap("5 trainer: norm and its resume")
     remat, more = remat_runs(smi, dev, ds)
     launches += more
@@ -2836,10 +2910,7 @@ def write_corpora(root):
     """The WebVid, CC3M and MSR-VTT layouts the adapters read (oatx's adapter
     tests' layouts), each clip / still seeded apart (fixture_seeded), written
     by the port's writer on 8 threads. MJPEG-in-AVI content sits under the
-    adapters' `.mp4` names. → seconds spent."""
-    import pickle
-    from concurrent.futures import ThreadPoolExecutor
-
+    adapters' `.mp4` names. → (seconds spent, files)."""
     from oatx_torch.data import video_reader as vr
 
     jobs = []
@@ -2873,30 +2944,50 @@ def write_corpora(root):
                                               base + i)))
         with open(os.path.join(cc, "meta_data", tsv), "w") as f:
             f.write("\n".join(rows) + "\n")
-    ms = os.path.join(root, "msrvtt")
+    vids = [f"video{i}" for i in range(DATA_MSRVTT)]
+    jobs += msrvtt_layout(os.path.join(root, "msrvtt"), vids[:4], vids, DATA_MSRVTT_FRAMES)
+    return run_jobs(jobs), len(jobs)
+
+
+def msrvtt_layout(ms, train, test, frames):
+    """The MSR-VTT jsfusion layout oatx's adapter tests write under `ms`:
+    MSR_VTT.json with three captions a clip, the train and val lists,
+    each test clip's designated caption; → the clips' write jobs (test
+    clip i seeded 4000 + i, train clip i 6000 + i; ids may be in both)."""
+    import pickle
+
+    from oatx_torch.data import video_reader as vr
+
+    w, h, _ = DATA_CLIP_SIZE
     sdir = os.path.join(ms, "high-quality", "structured-symlinks")
     os.makedirs(sdir, exist_ok=True)
     os.makedirs(os.path.join(ms, "annotation"), exist_ok=True)
     os.makedirs(os.path.join(ms, "videos", "all"), exist_ok=True)
-    vids = [f"video{i}" for i in range(DATA_MSRVTT)]
-    anns = [{"image_id": v, "caption": data_caption(f"m{c}x", i)}
-            for i, v in enumerate(vids) for c in range(3)]
+    seeds = {**{v: 6000 + i for i, v in enumerate(train)}, **{v: 4000 + i for i, v in
+                                                              enumerate(test)}}
+    anns = [{"image_id": v, "caption": data_caption(f"m{c}x", seeds[v])}
+            for v in seeds for c in range(3)]
     with open(os.path.join(ms, "annotation", "MSR_VTT.json"), "w") as f:
         json.dump({"annotations": anns}, f)
     with open(os.path.join(sdir, "train_list_jsfusion.txt"), "w") as f:
-        f.write("\n".join(vids[:4]) + "\n")
+        f.write("\n".join(train) + "\n")
     with open(os.path.join(sdir, "val_list_jsfusion.txt"), "w") as f:
-        f.write("\n".join(vids) + "\n")
+        f.write("\n".join(test) + "\n")
     with open(os.path.join(sdir, "jsfusion_val_caption_idx.pkl"), "wb") as f:
-        pickle.dump({v: i % 3 for i, v in enumerate(vids)}, f)
-    for i, v in enumerate(vids):
-        jobs.append((vr.write_test_video, (os.path.join(ms, "videos", "all", v + ".mp4"), w, h,
-                                          DATA_MSRVTT_FRAMES, 8, 4000 + i)))
+        pickle.dump({v: i % 3 for i, v in enumerate(test)}, f)
+    return [(vr.write_test_video, (os.path.join(ms, "videos", "all", v + ".mp4"), w, h, frames,
+                                   8, seed)) for v, seed in seeds.items()]
+
+
+def run_jobs(jobs):
+    """(fn, args) jobs on 8 threads → seconds spent."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
         for fut in [pool.submit(fn, *args) for fn, args in jobs]:
             fut.result()
-    return time.perf_counter() - t0, len(jobs)
+    return time.perf_counter() - t0
 
 
 def decode_rate(root, workers):
@@ -2959,10 +3050,11 @@ def cycle_speed(rec, trace_at, per_epoch, batch, flops):
 
 
 @contextlib.contextmanager
-def recorded_trainers(out, trace_at=None):
+def recorded_trainers(out, trace_at=None, on_init=None):
     """Every Trainer built inside gets a StepRecorder (appended to `out` with
     the Trainer's history when train() returns), tracing PROFILED_STEPS
-    steps from `trace_at` on."""
+    steps from `trace_at` on; `on_init(trainer)` runs once it is built,
+    before its first step."""
     from oatx_torch.train import trainer as trainer_mod
 
     cls = trainer_mod.Trainer
@@ -2974,6 +3066,8 @@ def recorded_trainers(out, trace_at=None):
         expect = [("ln_mlp_", depth), ("space_attention_kernel", depth),
                   ("space_attention_bwd_kernel", depth)]
         out.append({"trainer": self, "rec": StepRecorder(self, trace_at, expect)})
+        if on_init is not None:
+            on_init(self)
 
     def rec_train(self):
         hist = train(self)
@@ -3637,8 +3731,14 @@ def towers_phase(smi, dev):
 WIDE_CONFIGS = {  # the pod recipes, run with model_parallel 1 on one card
     "vit_large_pod": os.path.join(HERE, "configs", "pt", "cc3m_webvid", "vit_large_pod.json"),
     "vit_huge_pod": os.path.join(HERE, "configs", "pt", "cc3m_webvid", "vit_huge_pod.json"),
+    # ViT-B/16 over its 16 frames (T = 3137), remat on; its loaders sample 4
+    # and 1 frames, so the corpus's 16-frame clips (recipe_clips) drive the
+    # tower at the length its config sets
+    "pod_v5p": os.path.join(HERE, "configs", "pt", "cc3m_webvid", "pod_v5p.json"),
 }
-WIDE_RUNS = {"vit_large_pod": (2, 4), "vit_huge_pod": (1, 6)}  # (epochs, steps an epoch)
+# (epochs, steps an epoch); pod_v5p's 4: a timed interval (step 2) before the
+# traced last two
+WIDE_RUNS = {"vit_large_pod": (2, 4), "vit_huge_pod": (1, 6), "pod_v5p": (1, 4)}
 # kernel 2 at ViT-H/14's (B, 1 + 4·256, 16, 80) at B 4 (the micro-batch) and
 # 8 (the per-GPU batch), and at ViT-B/16's Dh 64, B 4, 4 frames (the record's)
 WIDE_SA_SHAPES = ((4, 4, 256, 16, 80), (8, 4, 256, 16, 80), (4, 4, 196, 12, 64))
@@ -3869,9 +3969,16 @@ def wide_grads(tag, model, loss_cfg, fixed):
     return rec
 
 
-def wide_recipe(name, smi, dev, ds):
+def recipe_clips(exp, n=CORPUS_CLIPS):
+    """MemoryClips for `exp`: n clips, at least one batch of its first
+    loader, each of as many frames as its video tower takes."""
+    return MemoryClips(max(n, exp.data_loaders[0].batch_size), seed=0,
+                       frames=exp.arch.video_params.num_frames)
+
+
+def wide_recipe(name, smi, dev):
     """One pod recipe through Trainer.train() on one card (module docstring,
-    phase 9); returns its record and launch counts."""
+    phase 9) over recipe_clips; returns its record and launch counts."""
     from oatx_torch.train import step as steplib
     from oatx_torch.train.trainer import Trainer
 
@@ -3881,6 +3988,7 @@ def wide_recipe(name, smi, dev, ds):
     t = exp.trainer
     batch = exp.data_loaders[0].batch_size
     tag = f"wide {name}@{batch}"
+    ds = recipe_clips(exp)
     train, valid = corpus_loaders(ds, batch)
     held = fresh_peak(dev)
     t0 = time.perf_counter()
@@ -3894,6 +4002,18 @@ def wide_recipe(name, smi, dev, ds):
           f"{v.remat_policy if v.remat else 'off'}, accum_steps {accum}, fsdp {t.fsdp}, "
           f"sequence_parallel {v.sequence_parallel}, chunked loss {exp.loss.chunked})",
           flush=True)
+    # one step's gradients on a fixed batch at full depth, the loader's batch
+    # in one pass, at the seed-0 weights before any update (pod_v5p trains
+    # at its full lr from step 1, and past a first update at random init the
+    # bf16 gradients are noise against f32: phase 16's finding): kernels vs
+    # plain versions and both vs the f32 step (not counted)
+    host = next(iter(corpus_loaders(ds, batch, with_valid=False)[0][0]))
+    host.pop("meta")
+    fixed = steplib.make_augmenter(train=False, tower_cfg=cfg)(
+        None, {k: torch.from_numpy(a).to(dev) for k, a in host.items()})
+    grads = wide_grads(tag, tr.state.model, tr.loss_cfg, fixed)
+    del fixed, host
+    fresh_peak(dev)  # the run's peak, without the gradient check's
     per_step = depth * accum
     rec = StepRecorder(tr, trace_at=steps - 1, expect=[
         ("ln_mlp_", per_step * (2 if v.remat else 1)),
@@ -3929,18 +4049,9 @@ def wide_recipe(name, smi, dev, ds):
            "launches": launches,
            "launches_per_step": {k: n for k, n in want_launches(
                depth, 1, v.remat, accum_steps=accum).items() if n},
-           **speed(ms, batch, flops_per_clip_step(cfg)), **(rec.traced() or {})}
-
-    # one step's gradients on a fixed batch at full depth, the loader's batch
-    # in one pass: kernels vs plain versions and both vs the f32 step (not
-    # counted)
-    host = next(iter(train[0]))
-    host.pop("meta")
-    fixed = steplib.make_augmenter(train=False, tower_cfg=cfg)(
-        None, {k: torch.from_numpy(a).to(dev) for k, a in host.items()})
-    out.update(wide_grads(tag, tr.state.model, tr.loss_cfg, fixed))
+           **speed(ms, batch, flops_per_clip_step(cfg)), **(rec.traced() or {}), **grads}
     print(f"{tag} ({smi}): " + json.dumps(out), flush=True)
-    del fixed, tr, rec
+    del tr, rec
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
@@ -3958,10 +4069,9 @@ def wide_phase(smi, dev):
                "ln_mlp": wide_ln_mlp(dev, g), "ln_linear": wide_ln_linear(dev, g)}
     for name, recs in kernels.items():
         print(f"wide kernels {name} ({smi}): " + json.dumps(recs), flush=True)
-    ds = MemoryClips(CORPUS_CLIPS, seed=0)
     runs, launches = {}, []
     for name in WIDE_CONFIGS:
-        runs[name], more = wide_recipe(name, smi, dev, ds)
+        runs[name], more = wide_recipe(name, smi, dev)
         launches.append(more)
     print(f"wide summary ({smi}): " + json.dumps({
         name: {k: r.get(k) for k in ("batch", "accum_steps", "remat", "step_ms",
@@ -4851,7 +4961,7 @@ def shard_phase(smi, dev, group, pre):
 # ---------------------------------------------------------------------- tp
 TP_WORLD = 2          # phase 12: one model group of 2 ranks on cuda:0 over gloo
 TP_BATCH = 16         # norm.json's per-GPU batch, one model group's rows
-TP_STEPS = 4
+TP_STEPS = 2          # norm.json's sp_off / sp_on steps (depth given up for time: ROADMAP)
 TP_RUNS = (  # (name, recipe, video_params keys, tower keys, steps) of phase 12 at
     # model_parallel 2 (tp_recipe); fused_mlp is no config key (in oatx neither): the
     # run sets it on the tower config the Trainer builds
@@ -4883,15 +4993,18 @@ TP_LOSS_RTOL = 2e-3   # step 1's loss terms against one process at 16
 PAD_TEXT_LEN = 60     # the Collator's max_pad_text_len: global_local's caption + tags
 # the kernels at a rank's shapes: kernel 1 on the hidden shard (R, D, 4D/mp),
 # kernel 2 on the local heads (B, frames, N, H/mp, Dh)
-TP_MLP = ((12560, 768, 1536), (12560, 1024, 1024), (4100, 1280, 1280), (3152, 768, 1536))
-TP_SA = ((16, 4, 196, 6, 64), (16, 4, 196, 4, 64), (4, 4, 256, 4, 80), (16, 1, 196, 6, 64))
+TP_MLP = ((12560, 768, 1536), (12560, 1024, 1024), (4100, 1280, 1280), (3152, 768, 1536),
+          (50192, 768, 768))
+TP_SA = ((16, 4, 196, 6, 64), (16, 4, 196, 4, 64), (4, 4, 256, 4, 80), (16, 1, 196, 6, 64),
+         (16, 16, 196, 3, 64))
 TP_SHAPES_OF = {"ViT-B/16 mp 2 @16 (norm.json, phase 12)": (0, 0),
                 "ViT-L/16 mp 4 @16 (vit_large_pod)": (1, 1),
                 "ViT-H/14 mp 4 @4 (vit_huge_pod micro-batch)": (2, 2),
                 "ViT-B/16 mp 2 object frame @16 (local_region_loss, region_mem; "
-                "phase 12)": (3, 3)}
+                "phase 12)": (3, 3),
+                "ViT-B/16 mp 4 @16 over 16 frames (pod_v5p)": (4, 4)}
 # --tp-nccl: (recipe, epochs, steps an epoch) as shipped, a rank on each card
-TP_NCCL_RUNS = (("vit_huge_pod", 1, 5), ("vit_large_pod", 1, 5))
+TP_NCCL_RUNS = (("vit_huge_pod", 1, 5), ("vit_large_pod", 1, 5), ("pod_v5p", 1, 5))
 
 
 def tp_exp(steps, path=NORM_CONFIG, **video):
@@ -5261,9 +5374,8 @@ def tp_rank_main(rank, world, url, out, backend):
                     exp = recipe(WIDE_CONFIGS[name], epochs=epochs, len_epoch=steps,
                                  init_val=False, save_period=10 ** 6, verbosity=1)
                     batch = exp.data_loaders[0].batch_size
-                    run, _ = tp_run(f"tp-nccl {name} rank {rank}", exp,
-                                    MemoryClips(max(CORPUS_CLIPS, batch), seed=0), batch, dev,
-                                    trace=True, keep_grads=False, digests=False)
+                    run, _ = tp_run(f"tp-nccl {name} rank {rank}", exp, recipe_clips(exp),
+                                    batch, dev, trace=True, keep_grads=False, digests=False)
                     record["runs"][name] = run
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(record, f)
@@ -5491,8 +5603,8 @@ def tp_nccl(smi, dev):
                      save_period=10 ** 6, verbosity=1)
         batch = exp.data_loaders[0].batch_size
         one, _ = tp_run(f"tp-nccl {name} one process", set_model_parallel(exp, 1),
-                        MemoryClips(max(CORPUS_CLIPS, batch), seed=0), batch, dev, trace=True,
-                        keep_grads=False, digests=False)
+                        recipe_clips(exp), batch, dev, trace=True, keep_grads=False,
+                        digests=False)
         rel = {k: abs(runs[0]["terms"][k][0] - w[0]) / abs(w[0])
                for k, w in one["terms"].items()}
         keys = ("peak_mem_gib", "step_ms", "step_ms_spread", "mfu", "clips_per_s",
@@ -6647,11 +6759,19 @@ def viz_region(tmp, smi, dev, out):
         with capturing(model, logits["kernels"]):
             return export(model, tower_cfg, loader, out_dir, *a, **k)
 
+    evaluate = R.evaluate
+
+    def evaluating(*a, **k):
+        stash["result"] = r = evaluate(*a, **k)
+        return r
+
     launches = {}
     t0 = time.perf_counter()
-    with patched(R, "export_region_maps", exporting), counted(launches):  # -- main path --
+    with patched(R, "export_region_maps", exporting), patched(R, "evaluate", evaluating), \
+            counted(launches):  # -- main path --
         run_cli(cli, ["-c", cfg, "--no_timestamp", "--device", str(dev)])
     out["region_cli_s"] = time.perf_counter() - t0
+    viz_tsne(stash.pop("result"), tmp, out)
     # evaluate: batches padded to `batch`, chunks of 8; the export: one
     # forward a batch; each forward runs the clip and the object frame
     batches = -(-n // batch)
@@ -6684,6 +6804,26 @@ def viz_region(tmp, smi, dev, out):
                              f"plain versions (< {VIZ_MIN_COSINE})")
     stash.clear()
     return launches
+
+
+def viz_tsne(result, tmp, out):
+    """tsne_embedding_plot of (c)'s eval embeddings, the clips' and the
+    captions' (labels 0 and 1), where neither sklearn nor matplotlib need
+    be: a 720 × 720 PNG with both labels' colours."""
+    from oatx_torch.visualization import plots, tsne
+    from oatx_torch.visualization.png import read_png
+
+    emb = np.concatenate([np.asarray(result.video_embeds), np.asarray(result.text_embeds)])
+    labels = np.repeat([0, 1], len(result.video_embeds))
+    t0 = time.perf_counter()
+    img = read_png(plots.tsne_embedding_plot(emb, labels, os.path.join(tmp, "tsne.png")))
+    colours = {tuple(c) for c in img.reshape(-1, 3)}
+    out["tsne"] = {"points": len(emb), "png": list(img.shape), "s": time.perf_counter() - t0,
+                   "sklearn_or_matplotlib_loaded": sorted(
+                       m for m in sys.modules if m.split(".")[0] in ("sklearn", "matplotlib"))}
+    if img.shape != (tsne.SIZE, tsne.SIZE, 3) or \
+            not {tuple(c) for c in tsne.label_colours(np.array([0, 1]))} <= colours:
+        raise AssertionError(f"viz t-SNE: {out['tsne']}")
 
 
 def viz_average(tmp, snaps, dev, out):
@@ -7116,6 +7256,209 @@ def optim_phase(smi, dev, adamw_huge=None):
     return {name: sum(l[name] for l in launches) for name in launches[0]}
 
 
+# ---------------------------------------------------------------- finetune
+# phase 17: configs/ft/msrvtt/fine_tune/normal_1_cl.json as shipped, from a
+# port snapshot of norm.json, then its own snapshot served
+FT_CONFIG = os.path.join(HERE, "configs", "ft", "msrvtt", "fine_tune", "normal_1_cl.json")
+FT_TRAIN_CLIPS = 128      # MSR-VTT jsfusion train clips: 2 batches of the recipe's 64
+FT_TEST_CLIPS = DATA_MSRVTT
+FT_FRAMES = 8             # frames a written clip holds (the adapter samples 4)
+FT_STEPS = 4              # trainer.len_epoch of the 1 epoch (the loader cycles): step 2
+                          # timed, steps 3-4 traced
+
+
+def ft_seed0_snapshot(tmp, dev):
+    """A seed-0 norm.json state written by save_checkpoint under `tmp` → its
+    path (phase 17's initial weights when phase 5 did not run)."""
+    from oatx_torch.config.schema import ExperimentCfg, build_tower_config, precision_dtype
+    from oatx_torch.train import checkpoint as ckptlib
+    from oatx_torch.train import optim as optimlib
+    from oatx_torch.train import step as steplib
+
+    exp = ExperimentCfg.from_json(NORM_CONFIG)
+    cfg = build_tower_config(exp.arch, compute_dtype=precision_dtype(exp.trainer.precision))
+    state = steplib.init_state(cfg, optimlib.make_optimizer(lr=exp.optimizer.lr),
+                               device=dev, generator=torch.Generator(dev).manual_seed(0))
+    return str(ckptlib.save_checkpoint(tmp, "norm_seed0", state, 0, float("inf")))
+
+
+def ft_serve(cfg, snap, ds):
+    """cli.serve's service on the fine-tuned snapshot (`-r`, as phase 3 builds
+    it) on a localhost port: /embed_video of the test clips and /embed_text
+    of their captions, counted → (video, text embeddings, launches, video
+    forwards, its build seconds)."""
+    from oatx_torch.cli.serve import build_service, make_server
+
+    t0 = time.perf_counter()
+    svc, tok, index, our = build_service(["-c", cfg, "-r", snap, "--port", "0"])
+    build_s = time.perf_counter() - t0
+    server = make_server(svc, tok, index, our)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    samples = [ds.get_sample(i) for i in range(len(ds))]
+    clips = np.stack([x["video"] for x in samples])
+    texts = [x["text"] for x in samples]
+    launches = {}
+    try:
+        svc.tower_calls = {"video": 0, "text": 0}
+        with counted(launches):  # ---- the main path, counted ----
+            vid = post(url + "/embed_video", {"video_b64": npy_b64(clips)})["embeddings"]
+            txt = post(url + "/embed_text", {"texts": texts})["embeddings"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+    dim = len(vid[0])
+    return (finite_matrix("finetune /embed_video", vid, (len(ds), dim)),
+            finite_matrix("finetune /embed_text", txt, (len(ds), dim)), launches,
+            svc.tower_calls["video"], build_s)
+
+
+def ft_index(cfg, snap, tmp):
+    """cli.build_index on the fine-tuned snapshot over the test split,
+    counted, keeping evaluate's embeddings (before the index normalizes
+    them) → (result, launches, forwards, its JSON line)."""
+    from oatx_torch.cli import build_index
+    from oatx_torch.eval import retrieval_eval
+
+    seen, launches, buf = {}, {}, io.StringIO()
+
+    def keeping(*a, **k):
+        seen["result"] = r = evaluate(*a, **k)
+        seen["loader"] = a[2]
+        return r
+
+    evaluate = retrieval_eval.evaluate
+    with patched(retrieval_eval, "evaluate", keeping), counted(launches), \
+            contextlib.redirect_stdout(buf):  # ---- the main path, counted ----
+        rc = build_index.main(["-c", cfg, "-r", snap,
+                               "--index-out", os.path.join(tmp, "ft_index.npz")])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if rc != 0 or line["videos"] != FT_TEST_CLIPS:
+        raise AssertionError(f"finetune index: cli.build_index returned {rc}: {line}")
+    loader = seen["loader"]
+    forwards = -(-len(loader.dataset) // loader.batch_size) * -(-loader.batch_size // 8)
+    return seen["result"], launches, forwards, line
+
+
+def finetune_phase(smi, dev, init=None):
+    """MSR-VTT fine-tuning from a port snapshot of norm.json (`init`: phase
+    5's checkpoint-epoch1; None: a seed-0 one) through cli.train, then the
+    fine-tuned snapshot served by cli.serve and indexed by cli.build_index
+    (module docstring, phase 17) → launches."""
+    from oatx_torch.cli import train as cli_train
+    from oatx_torch.config.schema import ExperimentCfg
+    from oatx_torch.data.factory import build_dataset
+    from oatx_torch.train import checkpoint as ckptlib
+
+    t_phase = time.perf_counter()
+    out = {"config": os.path.relpath(FT_CONFIG, HERE),
+           "init": "a seed-0 norm.json snapshot (save_checkpoint)" if init is None
+           else "phase 5's norm.json checkpoint-epoch1"}
+    with tempfile.TemporaryDirectory() as tmp:
+        init = init or ft_seed0_snapshot(tmp, dev)
+        snap0 = torch.load(os.path.join(init, ckptlib.STATE_FILE), map_location="cpu",
+                           weights_only=True)["model"]
+        root = os.path.join(tmp, "msrvtt")
+        train_ids = [f"video{7000 + i}" for i in range(FT_TRAIN_CLIPS)]
+        test_ids = [f"video{i}" for i in range(FT_TEST_CLIPS)]
+        out["write_s"] = run_jobs(msrvtt_layout(root, train_ids, test_ids, FT_FRAMES))
+        with open(FT_CONFIG) as f:
+            raw = json.load(f)
+        dl = raw["data_loader"][0]["args"]
+        batch = dl["batch_size"]
+        # strict: a file the decoder fails on raises instead of being replaced
+        dl.update(data_dir=root)
+        dl["video_params"]["loading"] = "strict"
+        raw["arch"]["args"]["load_checkpoint"] = init
+        raw["trainer"].update(epochs=1, save_period=1, verbosity=1,
+                              save_dir=os.path.join(tmp, "exps"), len_epoch=FT_STEPS)
+        cfg = os.path.join(tmp, "normal_1_cl.json")
+        with open(cfg, "w") as f:
+            json.dump(raw, f)
+
+        made, launches, imported = [], {}, {}
+
+        def imported_bitwise(trainer):
+            imported["bitwise"] = state_equal(trainer.state.model.state_dict(), snap0)
+
+        held = fresh_peak(dev)
+        t0 = time.perf_counter()
+        with recorded_trainers(made, FT_STEPS - 1, imported_bitwise), \
+                counted(launches):  # ---- the main path, counted ----
+            rc = cli_train.main(["-c", cfg, "--no_timestamp"])
+        out["train_wall_s"] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if rc != 0 or len(made) != 1 or "hist" not in made[0]:
+            raise AssertionError(f"finetune: cli.train returned {rc}, {len(made)} trainers")
+        if not imported.get("bitwise"):
+            raise AssertionError(f"finetune: the imported weights differ from {out['init']}")
+        tr, rec = made[0]["trainer"], made[0]["rec"]
+        depth = tr.tower_cfg.video.depth
+        valid = tr.valid_loaders[0]
+        check_launches("finetune train", launches, want_launches(
+            depth, FT_STEPS, False,
+            forwards=eval_forwards(2, len(valid.dataset), valid.batch_size)))  # init_val + 1
+        terms = rec.term_values()
+        if not all(np.isfinite(v).all() for v in terms.values()):
+            raise AssertionError(f"finetune: a loss term is not finite: {terms}")
+        final = tr.state.model.state_dict()
+        moved = [k for k, v in snap0.items() if v.is_floating_point()
+                 and not torch.equal(final[k].detach().cpu(), v)]
+        floats = sum(v.is_floating_point() for v in snap0.values())
+        if not moved:
+            raise AssertionError("finetune: no weight moved in training")
+        torch.cuda.synchronize()
+        ms = [rec.events[0].elapsed_time(rec.events[1])]  # step 2, before the trace
+        save_dir = os.path.join(tmp, "exps", "models", raw["name"])
+        snap = os.path.join(save_dir, "checkpoint-epoch1")
+        for name in ("vocab.txt", "config.json", "checkpoint-epoch1", "model_best"):
+            if not os.path.exists(os.path.join(save_dir, name)):
+                raise AssertionError(f"finetune: {name} not written in {save_dir}")
+        hist = made[0]["hist"]
+        out.update(batch=batch, steps=FT_STEPS, terms=terms, imported_bitwise=True,
+                   moved_tensors=f"{len(moved)} of {floats}",
+                   val_loss=[tr.init_val_log["val_loss_0"], hist[1]["val_loss_0"]],
+                   t2v_R1=[tr.init_val_log["val_0_t2v_R1"], hist[1]["val_0_t2v_R1"]],
+                   input_wait=hist[1]["input_wait"], peak_mem_gib=peak, mem_held_gib=held,
+                   launches_train=dict(launches),
+                   **speed(ms, batch, flops_per_clip_step(tr.tower_cfg)),
+                   **(rec.traced() or {}))
+        del tr, made, rec, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("17 finetune: cli.train")
+
+        exp = ExperimentCfg.from_json(cfg)
+        ds = build_dataset(exp.data_loaders[0], exp.arch.variant, "test", None,
+                           seed=exp.trainer.seed)
+        vid, txt, l_serve, forwards, build_s = ft_serve(cfg, snap, ds)
+        for name, n in l_serve.items():
+            want = depth * forwards if name in ("ln_mlp", "space_attention") else 0
+            if forwards == 0 or n != want:
+                raise AssertionError(f"finetune serve: {name} {n} launches for {forwards} "
+                                     f"video forwards, want 12 per forward")
+        result, l_index, idx_forwards, line = ft_index(cfg, snap, tmp)
+        check_launches("finetune index", l_index, {
+            "ln_mlp": depth * idx_forwards, "space_attention": depth * idx_forwards,
+            "space_attention_bwd": 0, "ln_linear": 0})
+        cos_v, cos_t = cosines(vid, result.video_embeds), cosines(txt, result.text_embeds)
+        out.update(serve_build_s=build_s, serve_video_forwards=forwards,
+                   launches_serve=l_serve, launches_index=l_index, index=line,
+                   served_vs_index_min_cosine={"video": float(cos_v.min()),
+                                               "text": float(cos_t.min())})
+        if cos_v.min() < E2E_MIN_COSINE or cos_t.min() < E2E_MIN_COSINE:
+            raise AssertionError(f"finetune: served embeddings against cli.build_index's: "
+                                 f"video {cos_v.min()}, text {cos_t.min()} "
+                                 f"(< {E2E_MIN_COSINE})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"finetune ({smi}): step ms {out['step_ms']:.1f}, clips/s {out['clips_per_s']:.1f}, "
+          f"peak {peak:.2f} GiB, idle share {out.get('idle_share', float('nan')):.3f}: "
+          + json.dumps(out), flush=True)
+    return {k: launches[k] + l_serve[k] + l_index[k] for k in launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -7176,6 +7519,9 @@ def main() -> int:
     ap.add_argument("--only-optim", action="store_true",
                     help="build the kernels and run the optim phase alone (no record, "
                          "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-finetune", action="store_true",
+                    help="build the kernels and run the finetune phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
     ap.add_argument("--pp-nccl", action="store_true",
                     help="build the kernels and run the pod recipes with pipeline true "
                          "on their 4 stages, one rank on each of 4 cards over NCCL (no "
@@ -7211,6 +7557,7 @@ def main() -> int:
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    print("decode libraries on the host: " + json.dumps(decode_probe()), flush=True)
     secs = _build.build_all()
     ptxas = {k: ptxas_report(log) for k, log in _build.build_logs.items()}
     print(f"build: nvcc {secs:.1f} s for {[s.name for s in _build.sources()]} "
@@ -7270,6 +7617,10 @@ def main() -> int:
     if opts.only_optim:
         optim_phase(smi, dev)
         print("chip_smoke: --only-optim ran the optim phase alone", flush=True)
+        return 0
+    if opts.only_finetune:
+        finetune_phase(smi, dev)
+        print("chip_smoke: --only-finetune ran the finetune phase alone", flush=True)
         return 0
     if opts.pp_nccl:
         pp_nccl(smi, dev)
@@ -7351,7 +7702,8 @@ def main() -> int:
         lap("3 serve extras")
     phases["train"] = train_phase(smi, dev)
     lap("4 train")
-    phases["trainer"] = trainer_phase(smi, dev)
+    kept = tempfile.TemporaryDirectory()  # phase 5's snapshot, phase 17's initial weights
+    phases["trainer"] = trainer_phase(smi, dev, kept.name)
     lap("5 trainer")
     phases["objects"] = objects_phase(smi, dev)
     lap("6 objects")
@@ -7370,6 +7722,9 @@ def main() -> int:
     lap("15 viz")
     phases["optim"] = optim_phase(smi, dev, wide_runs["vit_huge_pod"])
     lap("16 optim")
+    phases["finetune"] = finetune_phase(smi, dev, os.path.join(kept.name, "checkpoint-epoch1"))
+    kept.cleanup()
+    lap("17 finetune")
     print("chip_smoke seconds by step: " + json.dumps(
         {b[0]: round(b[1] - a[1], 1) for a, b in zip(LAPS, LAPS[1:])}), flush=True)
     for name, recs in wide.items():

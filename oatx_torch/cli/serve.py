@@ -1,7 +1,7 @@
 """Embedding service entry point — HTTP JSON API over the dual towers
 (port of oatx/cli/serve.py; the same endpoints, JSON and startup banner).
 
-    python -m oatx_torch.cli.serve -c <config.json> [-r <ckpt.pth>] --port 8600
+    python -m oatx_torch.cli.serve -c <config.json> [-r <ckpt>] --port 8600
 
 Endpoints:
   GET  /healthz            → {"status": "ok"}
@@ -15,8 +15,13 @@ Endpoints:
   POST /index_video        → {"video_b64": ..., "ids": [...]} — embed clips and
                              add them to the live index (requires --index)
 
-Runs on CUDA unless `--device cpu` is given. Without `-r` or
-arch.load_checkpoint the towers hold random weights from seed 0. Warmup runs
+Runs on CUDA unless `--device cpu` is given. `-r` or arch.load_checkpoint
+names a reference `.pth` or a snapshot directory that this package's
+trainer wrote (`<save_dir>/checkpoint-epoch{N}`, `model_best`), read by
+train/checkpoint.py's import_initial_weights as oatx's server reads its
+own; the tokenizer comes from a vocab.txt beside it (cli.train writes one
+into the save directory). Without either the towers hold random weights
+from seed 0. Warmup runs
 every bucket (and builds the kernels) before the socket opens.
 `--quantize int8` serves weight-only int8 towers (serve/quant.py);
 `--index-quantize int8` holds the device corpus as per-row int8 whatever
@@ -49,9 +54,9 @@ def build_service(argv, device=None):
     from oatx_torch.cli.common import dataset_captions, resolve_tokenizer
     from oatx_torch.config.parser import load_experiment
     from oatx_torch.config.schema import build_tower_config, precision_dtype
-    from oatx_torch.models.convert import load_checkpoint
     from oatx_torch.models.towers import DualTower
     from oatx_torch.serve.embed_service import EmbedService
+    from oatx_torch.train.checkpoint import import_initial_weights
 
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--port", type=int, default=8600)
@@ -91,10 +96,7 @@ def build_service(argv, device=None):
         model = DualTower(tower_cfg, device=dev,
                           generator=torch.Generator(dev).manual_seed(0))
         if ckpt:
-            if not ckpt.endswith((".pth", ".pt", ".tar")):
-                raise NotImplementedError(
-                    f"{ckpt}: only reference-format .pth checkpoints load in the port")
-            load_checkpoint(model, ckpt)
+            import_initial_weights(ckpt, model)
         buckets = tuple(int(b) for b in our.buckets.split(","))
         svc = EmbedService(model, tower_cfg, buckets=buckets, quantize=our.quantize,
                            device=dev)

@@ -1,12 +1,14 @@
-"""Offline analysis plots (port of oatx/visualization/plots.py:11-48): box
-overlays and video-text-object panels, in numpy.
+"""Offline analysis plots (port of oatx/visualization/plots.py): box
+overlays, video-text-object panels and t-SNE embedding maps, in numpy.
 
 Boxes are outlined as `ImageDraw.rectangle(..., width=2)` rasterizes them:
 the corners truncated to whole pixels, then Pillow's rows and columns
-(`_rectangle`), which on a box thinner than 2·width reach past its edge. Text is drawn in the port's bitmap font
-(visualization/heatmap.py says why). oatx's `tsne_embedding_plot` is not
-ported: it takes its t-SNE from sklearn and its scatter from matplotlib,
-which the card's machine lacks, and no oatx path calls it (ROADMAP A11).
+(`_rectangle`), which on a box thinner than 2·width reach past its edge.
+Text is drawn in the port's bitmap font (visualization/heatmap.py says
+why). oatx's `tsne_embedding_plot` takes
+its t-SNE from sklearn and its scatter from matplotlib, which the card's
+machine lacks: the port's is visualization/tsne.py's exact t-SNE and
+scatter, written by png.py.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from oatx_torch.visualization import tsne as _tsne
 from oatx_torch.visualization.font import draw_text
+from oatx_torch.visualization.png import write_png
 
 
 def _rectangle(img: np.ndarray, box, color, width: int) -> None:
@@ -64,3 +68,19 @@ def video_text_object_panel(frames_rgb: np.ndarray, caption: str,
     strip = np.full((28, row.shape[1], 3), 255, np.uint8)
     draw_text(strip, (6, 6), caption[:120], (0, 0, 0))
     return np.concatenate([row, strip], axis=0)
+
+
+def tsne_embedding_plot(embeddings: np.ndarray, labels: Optional[np.ndarray] = None,
+                        out_path: str = "tsne.png", perplexity: float = 10.0,
+                        title: str = "learned embeddings (t-SNE)") -> str:
+    """A 2-D t-SNE scatter of (n, d) embeddings, coloured by `labels`, as a
+    720 × 720 PNG at `out_path`; → out_path. The perplexity is clamped to
+    min(perplexity, max(1, n // 3), n − 1) and n < 2 raises ValueError, as
+    in oatx."""
+    n = len(embeddings)
+    if n < 2:
+        raise ValueError(f"t-SNE needs at least 2 samples, got {n}")
+    xy, _ = _tsne.tsne(np.asarray(embeddings),
+                       perplexity=min(perplexity, max(1, n // 3), n - 1))
+    img, _ = _tsne.render_scatter(xy, None if labels is None else np.asarray(labels), title)
+    return write_png(out_path, img)

@@ -419,3 +419,68 @@ def test_serve_vocab_from_dataset_captions_matches_oatx(tmp_path, monkeypatch):
         vocab[name] = tok.save_vocab(str(tmp_path / f"{name}.txt"))
     got, want = (open(vocab[n]).read() for n in ("port", "oatx"))
     assert got == want and "scene" in got.split()
+
+
+def test_cli_serves_a_port_snapshot(tmp_path, capsys, monkeypatch):
+    """`-r` a snapshot directory written by the port's save_checkpoint
+    (`<save_dir>/checkpoint-epoch1`, with the config.json and vocab.txt
+    that cli.train writes beside it): the server's video embeddings equal cli.build_index's on
+    the same snapshot exactly (evaluate's, before the index normalizes
+    them; one batch of 4 through each), and both
+    towers agree with oatx's EmbedService on the same weights at ATOL. A
+    path that does not exist raises FileNotFoundError."""
+    from oatx_torch.cli import build_index as pbuild
+    from oatx_torch.data.factory import build_dataset
+    from oatx_torch.eval import retrieval_eval as pevaluate
+    from oatx_torch.models.convert import state_dict_from_oatx
+    from oatx_torch.train import checkpoint as pckpt
+    from oatx_torch.train import optim as poptim
+    from oatx_torch.train import step as pstep
+    from torch_port_helpers import to_numpy
+
+    with open(os.path.join(REPO, "configs", "smoke", "synthetic.json")) as f:
+        raw = json.load(f)
+    dl = raw["data_loader"][0]["args"]
+    dl.update(data_dir=str(tmp_path / "videos"), object_dir="", num_workers=2, split="test")
+    dl["video_params"].update(num_videos=4, fixture_seeded=True)
+    raw["arch"]["args"]["video_params"].update(embed_dim=32, depth=1, num_heads=2)
+    raw["arch"]["args"]["text_params"].update(dim=32, hidden_dim=64, n_layers=1, n_heads=2)
+    raw["trainer"].update(precision="f32", verbosity=0)
+    cfg = tmp_path / "c.json"
+    cfg.write_text(json.dumps(raw))
+    jcfg = jschema.build_tower_config(jschema.ExperimentCfg.from_dict(raw).arch)
+    pexp = pschema.ExperimentCfg.from_dict(raw)
+    pcfg = pschema.build_tower_config(pexp.arch)
+    params = oatx_params(jcfg, seed=6)
+    state = pstep.init_state(pcfg, poptim.make_optimizer(lr=1e-3), device="cpu",
+                             state_dict=state_dict_from_oatx(to_numpy(params), pcfg))
+    snap = str(pckpt.save_checkpoint(tmp_path / "exps", "checkpoint-epoch1", state, 1, 1.0))
+    ds = build_dataset(pexp.data_loaders[0], "baseline", "test", None, seed=0)
+    ptok.WordPieceTokenizer.build_from_corpus(
+        [ds.get_sample(i)["text"] for i in range(len(ds))] + CORPUS,
+        vocab_size=100).save_vocab(str(tmp_path / "exps" / "vocab.txt"))
+    (tmp_path / "exps" / "config.json").write_text(json.dumps(raw))
+
+    seen = []
+    evaluate = pevaluate.evaluate
+    monkeypatch.setattr(pevaluate, "evaluate", lambda *a, **k: seen.append(
+        evaluate(*a, **k)) or seen[-1])
+    out = str(tmp_path / "index.npz")
+    assert pbuild.main(["-c", str(cfg), "-r", snap, "--index-out", out, "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert len(seen) == 1 and len(pri.RetrievalIndex.load(out, device="cpu")) == len(ds)
+    svc, tok, _, _ = pserve.build_service(["-c", str(cfg), "-r", snap, "--device", "cpu",
+                                           "--buckets", "1,4"])
+    assert tok.vocab == ptok.load_tokenizer(str(tmp_path / "exps")).vocab
+    clips = np.stack([ds.get_sample(i)["video"] for i in range(len(ds))])
+    got = svc.embed_video(clips)
+    np.testing.assert_array_equal(got, seen[0].video_embeds)
+    jsvc = jes.EmbedService(params, jcfg, buckets=(1, 4), seq_len=svc.seq_len)
+    np.testing.assert_allclose(got, jsvc.embed_video(clips), atol=ATOL, rtol=0)
+    enc = tok(["a dog runs in the park", "a car"], max_length=svc.seq_len)
+    np.testing.assert_allclose(svc.embed_text(enc["input_ids"], enc["attention_mask"]),
+                               jsvc.embed_text(enc["input_ids"], enc["attention_mask"]),
+                               atol=ATOL, rtol=0)
+    with pytest.raises(FileNotFoundError):
+        pserve.build_service(["-c", str(cfg), "-r", str(tmp_path / "exps" / "missing"),
+                              "--device", "cpu"])
