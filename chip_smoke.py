@@ -6,8 +6,8 @@
                           [--only-trainer] [--only-objects] [--only-data]
                           [--only-towers] [--only-wide] [--only-dp] [--only-shard]
                           [--only-tp] [--only-pp] [--only-extract] [--only-viz]
-                          [--only-optim] [--only-finetune] [--only-serve-extras]
-                          [--dp-nccl] [--tp-nccl] [--pp-nccl]
+                          [--only-optim] [--only-finetune] [--only-decode]
+                          [--only-serve-extras] [--dp-nccl] [--tp-nccl] [--pp-nccl]
 
 --parent-ln-linear names a library built from another csrc/ln_linear.cu
 with the same C interface (`ln_linear_fwd_bf16`), e.g. an earlier commit's:
@@ -26,7 +26,7 @@ per frame group at each shape, the choice that `_query_split` encodes.
 phase 6, --only-data phase 7, --only-towers phase 8, --only-wide phase 9,
 --only-dp phase 10, --only-shard phase 11, --only-tp phase 12, --only-pp
 phase 13, --only-extract phase 14, --only-viz phase 15, --only-optim phase
-16, --only-finetune phase 17, --only-serve-extras
+16, --only-finetune phase 17, --only-decode phase 18, --only-serve-extras
 phase 3's extras (a) and (b) (no record, no `ok` line). --dp-nccl runs phase 10 (b) and then
 phase 11's pod recipes alone with one rank per visible card over NCCL (2
 or more cards).
@@ -479,6 +479,37 @@ printed):
      launches a video forward), each row within E2E_MIN_COSINE of
      `cli.build_index` on the same snapshot (evaluate's embeddings), whose
      launches are counted too.
+ 18. decode — H.264 in mp4 (WebVid's and MSR-VTT's codec) through the
+     reader on the card: the host demuxer (native/mp4.cpp), NVDEC through
+     libnvcuvid's own parser, and the NV12 → RGB kernel (csrc/nvdec.cu,
+     ops/kernels/nv12_rgb.py), over the committed fixtures of
+     tests/torch_h264/ (high.mp4: 596×336 High with B-frames; base.mp4:
+     320×240 Constrained Baseline; one.mp4: 1 frame; four.mp4: 4 frames).
+     First NVDEC's caps for 8-bit 4:2:0 H.264 (or the driver's refusal,
+     printed with the call and its error), each fixture's probe and
+     whole-clip plan from the demuxer against oatx's stored probe, and the
+     kernel against its plain version on the same NV12 surfaces (NVDEC's,
+     or seeded uniform bytes of the fixtures' geometry where NVDEC is
+     refused), equal (integer arithmetic), with ms, plain ms and the bytes
+     bound at each shape. Where NVDEC opens: every fixture at every frame,
+     at the 'rand' / 'uniform' samples and past the end, at short sides 0 and
+     224 (and 256 for the training clips) against oatx's stored frames within
+     the reader test's bounds (H264_PIX_MEAN / H264_PIX_MAX; every frame's
+     channel means within H264_MEANS_TOL), NVDEC's coded size against the
+     demuxer's; `cli.train` on norm.json's WebVid loader for
+     DECODE_TRAIN_STEPS steps over a WebVid layout of four.mp4 / one.mp4
+     copies (finite losses, launches counted: nv12_rgb at least once a clip
+     read; the first batch's video against the same batch from oatx's
+     stored frames); ms a clip of read_frames on 1 and 8 threads beside the
+     MJPEG host decoder's, and a handle's first decode (its NVDEC decoder
+     made) against its second (this NVDEC glue has never run: see
+     data/nvdec.py). Where the container withholds the driver's video
+     capability (NVIDIA_DRIVER_CAPABILITIES without 'video'): the refusal
+     must be the one observed (cuvidGetDecoderCaps returning
+     CUDA_ERROR_OUT_OF_MEMORY), or the phase fails; every fixture's decode
+     raises UnsupportedMedia with it, a lax WebVid sample over an mp4 too,
+     and nv12_rgb, which then runs on no path, stays out of the kernels
+     line. Any other NVDEC failure (NvdecError) fails the phase.
 In the run without arguments phases 10-13 overlap: their kernels are timed
 first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
 while this process takes the phases' one-process references (so those
@@ -503,6 +534,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7459,6 +7491,399 @@ def finetune_phase(smi, dev, init=None):
     return {k: launches[k] + l_serve[k] + l_index[k] for k in launches}
 
 
+# ------------------------------------------------------------------ decode
+# phase 18: H.264 in mp4 through the reader on the card (demuxer → NVDEC →
+# the NV12 → RGB kernel), held against oatx's frames stored beside the
+# fixtures (tests/torch_h264/make_fixtures.py, written where FFmpeg is)
+H264_DIR = os.path.join(HERE, "tests", "torch_h264")
+H264_CLIPS = ("high", "base", "one", "four")
+H264_PIX_MEAN, H264_PIX_MAX = 0.05, 4  # tests/test_torch_video_reader.py's bounds
+H264_MEANS_TOL = 0.05    # a frame's per-channel means, for frames whose pixels are not stored
+DECODE_TRAIN_IDS = 8     # WebVid train ids, copies of four.mp4 / one.mp4 in turn
+DECODE_VAL_IDS = 4
+DECODE_TRAIN_STEPS = 2
+DECODE_COST_READS = 32   # read_frames calls (probe + 4 frames) per decode-cost reading
+MJPEG_HOST_MS = "5.87-8.19 ms on 1 thread, 0.80-1.22 ms on 8 (PERF.md, the data phase)"
+
+
+def h264_fixtures():
+    sys.path.insert(0, H264_DIR)
+    import make_fixtures
+
+    return make_fixtures
+
+
+def pixels_close(tag, got, want):
+    """mean |Δ| ≤ H264_PIX_MEAN and max ≤ H264_PIX_MAX per channel value."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{tag}: shape {got.shape}, oatx's {want.shape}")
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    rec = {"mean": float(d.mean()), "max": int(d.max())}
+    if rec["mean"] > H264_PIX_MEAN or rec["max"] > H264_PIX_MAX:
+        raise AssertionError(f"{tag}: against oatx's frames {rec} (bounds mean "
+                             f"{H264_PIX_MEAN}, max {H264_PIX_MAX})")
+    return rec
+
+
+def decode_fixtures(demux):
+    """Each fixture through the reader on the card (its probe, checked by
+    decode_demuxer, from `demux`): at each stored short side every frame
+    (pixels where oatx's are stored, every frame's channel means), the
+    'rand' / 'uniform' samples and indices past the end (each frame bitwise
+    the every-frame decode's at its clamped index, and against oatx's where
+    stored); the coded size NVDEC's parser reports against the demuxer's."""
+    from oatx_torch.data import video_reader as vr
+
+    mf = h264_fixtures()
+    out = {}
+    for clip in H264_CLIPS:
+        path = os.path.join(H264_DIR, clip + ".mp4")
+        ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
+        n, _, w, h = demux[clip]["probe"]
+        rec = {"probe": demux[clip]["probe"]}
+        with vr.VideoHandle(path) as hd:
+            for ss in mf.SHORT_SIDES[clip]:
+                every = hd.decode(list(range(n)), ss)
+                means = every.reshape(n, -1, 3).mean(1)
+                d_means = float(np.abs(means - ref[f"s{ss}_means"]).max())
+                if d_means > H264_MEANS_TOL:
+                    raise AssertionError(f"{clip} at {ss}: a frame's channel mean is "
+                                         f"{d_means} off oatx's")
+                idx = ref[f"s{ss}_idx"]
+                r = {"every_frame": pixels_close(f"{clip} at {ss}, every frame", every[idx],
+                                                 ref[f"s{ss}_frames"]),
+                     "means_max_diff": d_means, "stored": idx.tolist()}
+                for kind, ix in mf.samples(n).items():
+                    got = hd.decode(ix, ss)
+                    at = np.minimum(ix, n - 1)
+                    if not np.array_equal(got, every[at]):
+                        raise AssertionError(f"{clip} at {ss}, {kind} {ix}: frames differ from "
+                                             "the every-frame decode's")
+                    keep = [k for k, i in enumerate(at) if i in set(idx.tolist())]
+                    pos = [int(np.nonzero(idx == at[k])[0][0]) for k in keep]
+                    r[kind] = {"indices": list(ix), "stored_checked": len(keep)}
+                    if keep:
+                        r[kind].update(pixels_close(f"{clip} at {ss}, {kind}", got[keep],
+                                                    ref[f"s{ss}_frames"][pos]))
+                rec[f"s{ss}"] = r
+            fmt = hd.nvdec_decoder(torch.cuda.current_device()).format()
+            cw, ch, full_range, profile = hd.h264_info()
+        if (fmt["coded_width"], fmt["coded_height"]) != (cw, ch) or \
+                (fmt["right"] - fmt["left"], fmt["bottom"] - fmt["top"]) != (w, h) or \
+                fmt["full_range"] != int(full_range):
+            raise AssertionError(f"{clip}: NVDEC's sequence header {fmt}, the demuxer's "
+                                 f"coded {cw}x{ch}, display {w}x{h}, full range {full_range}")
+        rec.update(nvdec_format=fmt, profile_idc=profile)
+        out[clip] = rec
+    return out
+
+
+def decode_kernel(smi, nvdec_ok):
+    """The NV12 → RGB kernel against its plain version on the same NV12
+    surfaces, with its ms, the plain version's and the bound: NVDEC's
+    surfaces of four.mp4 and high.mp4 when NVDEC opens here, else seeded
+    uniform bytes of the same geometry. The record's shape is the main
+    path's: four.mp4's 4 frames to the canonical short side 256, as
+    cli.train reads them."""
+    from oatx_torch.data import video_reader as vr
+    from oatx_torch.ops.kernels import nv12_rgb
+
+    g = torch.Generator("cuda").manual_seed(0)
+    shapes = {}
+    record = None
+    for clip, sides in (("four", (256,)), ("high", (0, 224, 256)), ("base", (0, 224))):
+        path = os.path.join(H264_DIR, clip + ".mp4")
+        with vr.VideoHandle(path) as hd:
+            n, _, w, h = hd.info()
+            cw, ch, full_range, _ = hd.h264_info()
+            if nvdec_ok:
+                nv12 = torch.empty((n, h * 3 // 2, w), dtype=torch.uint8, device="cuda")
+                hd.nvdec_decoder(torch.cuda.current_device()).decode(
+                    hd.h264_plan(list(range(n))), (cw, ch, w, h), nv12,
+                    torch.cuda.current_stream().cuda_stream, path)
+            else:
+                nv12 = torch.randint(0, 256, (n, h * 3 // 2, w), generator=g, device="cuda",
+                                     dtype=torch.uint8)
+            for ss in sides:
+                ow, oh = hd.out_size(ss)
+                got = nv12_rgb.nv12_to_rgb(nv12, ow, oh, full_range)
+                want = nv12_rgb.nv12_to_rgb_plain(nv12, ow, oh, full_range)
+                err = int((got.int() - want.int()).abs().max())
+                if err:
+                    bad = (got != want).any(-1).nonzero()
+                    raise AssertionError(f"nv12_rgb at {clip} {ss}: {err} off the plain version "
+                                         f"at {bad.shape[0]} pixels, first {bad[:4].tolist()}")
+                ms = time_ms(lambda: nv12_rgb.nv12_to_rgb(nv12, ow, oh, full_range), iters=50)
+                plain_ms = time_ms(lambda: nv12_rgb.nv12_to_rgb_plain(nv12, ow, oh, full_range),
+                                   iters=5, warmup=1)
+                b_ms, b_by = bound_ms(nv12.numel() + got.numel(), 0)
+                key = f"{n}x{w}x{h}->{ow}x{oh}"
+                shapes[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "max_abs_err": err, "bytes": nv12.numel() + got.numel()}
+                if record is None:
+                    record = {"name": "nv12_rgb", "route": "cuda",
+                              "source": "oatx_torch/csrc/nvdec.cu",
+                              "replaces": "none: a port-only kernel (oatx converts on the host, "
+                                          "oatx/native/oatx_decode.cpp:130 sws_scale)",
+                              "shape": key, "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": None}
+    record["by_shape"] = shapes
+    record["surfaces"] = "NVDEC's" if nvdec_ok else "seeded uniform bytes (NVDEC refused here)"
+    print(f"decode kernel nv12_rgb ({smi}): " + json.dumps(record), flush=True)
+    return record
+
+
+def decode_demuxer():
+    """The host demuxer on this machine: each fixture's probe against
+    oatx's stored one, and the plan of every frame (segments, packets)."""
+    from oatx_torch.data import video_reader as vr
+
+    out = {}
+    for clip in H264_CLIPS:
+        path = os.path.join(H264_DIR, clip + ".mp4")
+        want = np.load(os.path.join(H264_DIR, clip + ".npz"))["probe"]
+        n, fps, w, h = probe = vr.probe(path)
+        if (n, w, h) != tuple(int(v) for v in want[[0, 2, 3]]) or abs(fps - want[1]) > 1e-9:
+            raise AssertionError(f"{clip}: probe {probe}, oatx's {tuple(want)}")
+        with vr.VideoHandle(path) as hd:
+            plan = hd.h264_plan(list(range(n)))
+            out[clip] = {"probe": probe, "coded": hd.h264_info()[:2],
+                         "segments": len(plan.seg_end), "packets": len(plan.pkt_end),
+                         "annexb_bytes": len(plan.data)}
+    return out
+
+
+def decode_refused(refused):
+    """Where the container withholds NVDEC: the reader raises
+    UnsupportedMedia with the observed refusal for every fixture, and a lax
+    WebVid dataset over them lets it through (nothing decodes in NVDEC's
+    place)."""
+    from oatx_torch.config.schema import DataLoaderCfg
+    from oatx_torch.data import nvdec
+    from oatx_torch.data.factory import build_dataset
+    from oatx_torch.data import video_reader as vr
+
+    for clip in H264_CLIPS:
+        path = os.path.join(H264_DIR, clip + ".mp4")
+        try:
+            vr.decode_indices(path, [0], 224)
+        except vr.UnsupportedMedia as e:
+            if not nvdec.is_observed_refusal(str(e)):
+                raise AssertionError(f"{clip}: UnsupportedMedia without the observed "
+                                     f"refusal {nvdec.OBSERVED_REFUSAL}: {e}")
+        else:
+            raise AssertionError(f"{clip}: decoded although NVDEC refused: {refused}")
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(os.path.join(root, "meta_data"))
+        os.makedirs(os.path.join(root, "train"))
+        shutil.copy(os.path.join(H264_DIR, "four.mp4"), os.path.join(root, "train", "1.mp4"))
+        with open(os.path.join(root, "meta_data", "webvid_training_success_full.tsv"),
+                  "w") as f:
+            f.write("caption\tvideoid\na clip\t1\n")
+        ds = build_dataset(DataLoaderCfg(dataset_name="WebVid", data_dir=root, split="train",
+                                         video_params={"num_frames": 4, "loading": "lax"}),
+                           "baseline", "train")
+        try:
+            ds.get_sample(0, np.random.default_rng(0))
+        except vr.UnsupportedMedia:
+            pass
+        else:
+            raise AssertionError("a lax WebVid sample over an mp4 did not raise UnsupportedMedia")
+    return {"reader": "UnsupportedMedia for every fixture", "lax_webvid": "UnsupportedMedia"}
+
+
+def decode_train(tmp, smi, dev):
+    """cli.train on norm.json's WebVid loader alone for DECODE_TRAIN_STEPS
+    steps over a WebVid layout of four.mp4 / one.mp4 copies; the first
+    batch's video against the same batch built from oatx's stored frames."""
+    from oatx_torch.cli import train as cli_train
+    from oatx_torch.data import loader as loader_mod
+    from oatx_torch.data.host_transforms import host_canonicalize
+    from oatx_torch.ops.kernels import nv12_rgb
+
+    root = os.path.join(tmp, "webvid")
+    os.makedirs(os.path.join(root, "meta_data"))
+    kind_of = {}
+    for split, n, base, tsv in (("train", DECODE_TRAIN_IDS, 1,
+                                 "webvid_training_success_full.tsv"),
+                                ("val", DECODE_VAL_IDS, 1000,
+                                 "webvid_validation_success_full.tsv")):
+        os.makedirs(os.path.join(root, split))
+        rows = ["caption\tvideoid"]
+        for i in range(n):
+            vid = str(base + i)
+            kind_of[vid] = "four" if i % 2 == 0 else "one"
+            shutil.copy(os.path.join(H264_DIR, kind_of[vid] + ".mp4"),
+                        os.path.join(root, split, vid + ".mp4"))
+            rows.append(f"{data_caption('h', base + i)}\t{vid}")
+        with open(os.path.join(root, "meta_data", tsv), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(NORM_CONFIG) as f:
+        raw = json.load(f)
+    raw["data_loader"] = [raw["data_loader"][1]]  # the WebVid loader
+    args = raw["data_loader"][0]["args"]
+    args.update(data_dir=root, metadata_dir=root)
+    args["video_params"]["loading"] = "strict"
+    batch = args["batch_size"]
+    raw["trainer"].update(epochs=1, save_period=1, verbosity=1,
+                          save_dir=os.path.join(tmp, "exps"),
+                          max_samples_per_epoch=DECODE_TRAIN_STEPS * batch)
+    cfg = os.path.join(tmp, "norm_h264.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    first = {}
+    collate = loader_mod.Collator.__call__
+
+    def keep_first(self, samples):
+        out = collate(self, samples)
+        first.setdefault("batch", out)
+        return out
+
+    made, launches = [], {}
+    loader_mod.Collator.__call__ = keep_first
+    nv12_rgb.nv12_to_rgb.launches = 0
+    try:
+        t0 = time.perf_counter()
+        with recorded_trainers(made), counted(launches):  # ---- the main path, counted ----
+            rc = cli_train.main(["-c", cfg, "--no_timestamp"])
+        wall = time.perf_counter() - t0
+    finally:
+        loader_mod.Collator.__call__ = collate
+    launches["nv12_rgb"] = nv12_rgb.nv12_to_rgb.launches
+    if rc != 0 or len(made) != 1 or "hist" not in made[0]:
+        raise AssertionError(f"decode train: cli.train returned {rc}, {len(made)} trainers")
+    tr, rec = made[0]["trainer"], made[0]["rec"]
+    valid = tr.valid_loaders[0]
+    want = want_launches(tr.tower_cfg.video.depth, DECODE_TRAIN_STEPS, False,
+                         forwards=eval_forwards(2, len(valid.dataset), valid.batch_size))
+    check_launches("decode train", {k: v for k, v in launches.items() if k != "nv12_rgb"},
+                   want)
+    reads = DECODE_TRAIN_STEPS * batch
+    if launches["nv12_rgb"] < reads:
+        raise AssertionError(f"decode train: {launches['nv12_rgb']} nv12_rgb launches for "
+                             f"{reads} training clips read")
+    losses = rec.loss_values()
+    if len(losses) != DECODE_TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"decode train: losses {losses}")
+    # the first batch against the same batch from oatx's stored frames
+    got = first["batch"]["video"]
+    refs = {c: np.load(os.path.join(H264_DIR, c + ".npz"))["s256_frames"] for c in ("four",
+                                                                                   "one")}
+    want_v = []
+    for meta in first["batch"]["meta"]:
+        vid = os.path.splitext(os.path.basename(meta["paths"]))[0]
+        frames = refs[kind_of[vid]]
+        frames = np.concatenate([frames, np.repeat(frames[-1:], 4 - len(frames), 0)])
+        want_v.append(host_canonicalize(frames, got.shape[-2]))
+    batch_check = pixels_close("decode train: the first batch's video", np.asarray(got),
+                               np.stack(want_v))
+    out = {"config": "norm.json (WebVid loader)", "batch": batch, "steps": DECODE_TRAIN_STEPS,
+           "losses": losses, "first_batch_vs_oatx": batch_check,
+           "first_batch_clips": [kind_of[os.path.splitext(os.path.basename(m["paths"]))[0]]
+                                 for m in first["batch"]["meta"]],
+           "input_wait": made[0]["hist"][1]["input_wait"], "train_wall_s": wall,
+           "launches": launches}
+    print(f"decode train ({smi}): " + json.dumps(out), flush=True)
+    del tr, made, rec
+    gc.collect()
+    return out, launches
+
+
+def decode_cost(smi, tmp):
+    """ms a clip of read_frames (probe + 4 'rand' frames at short side 256,
+    the datasets' call) over copies of high.mp4 on 1 and 8 threads, and a
+    handle's first decode (which makes its NVDEC decoder) against its
+    second."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from oatx_torch.data import video_reader as vr
+
+    paths = []
+    for i in range(8):
+        p = os.path.join(tmp, f"cost{i}.mp4")
+        shutil.copy(os.path.join(H264_DIR, "high.mp4"), p)
+        paths.append(p)
+    work = [paths[i % len(paths)] for i in range(DECODE_COST_READS)]
+
+    def one(i):
+        frames, _, _ = vr.read_frames(work[i], 4, rng=np.random.default_rng(i), short_side=256)
+        assert frames.shape == (4, 256, 454, 3), frames.shape
+
+    one(0)
+    t0 = time.perf_counter()
+    for i in range(len(work)):
+        one(i)
+    single = (time.perf_counter() - t0) / len(work) * 1e3
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(8)))  # each thread's stream, outside the timing
+        t0 = time.perf_counter()
+        list(pool.map(one, range(len(work))))
+        multi = (time.perf_counter() - t0) / len(work) * 1e3
+    setup = []
+    for p in paths[:4]:
+        with vr.VideoHandle(p) as hd:
+            t0 = time.perf_counter()
+            hd.decode([0, 20, 40, 45], 256)
+            t1 = time.perf_counter()
+            hd.decode([1, 21, 41, 46], 256)
+            t2 = time.perf_counter()
+        setup.append(((t1 - t0) - (t2 - t1)) * 1e3)
+    out = {"ms_per_clip_1_thread": single, "ms_per_clip_8_threads": multi,
+           "first_minus_second_decode_ms": setup, "reads": len(work),
+           "clip": "high.mp4 (596x336, 50 frames, High, B-frames)",
+           "mjpeg_host_decoder": MJPEG_HOST_MS}
+    print(f"decode cost ({smi}): " + json.dumps(out), flush=True)
+    return out
+
+
+def decode_phase(smi, dev):
+    """H.264 in mp4 on the card (module docstring, phase 18) → (the
+    nv12_rgb record, the main path's launches; None where NVDEC cannot be
+    opened, and the kernel then runs on no path here)."""
+    from oatx_torch.data import nvdec
+    from oatx_torch.data import video_reader as vr
+
+    t0 = time.perf_counter()
+    try:
+        caps, refused = nvdec.caps(torch.cuda.current_device()), None
+    except vr.UnsupportedMedia as e:
+        caps, refused = None, str(e)
+    print(f"decode caps (NVDEC, H.264 8-bit 4:2:0; {smi}): "
+          + json.dumps(caps if refused is None else {"refused": refused}), flush=True)
+    if refused is not None and not nvdec.is_observed_refusal(refused):
+        raise AssertionError(f"NVDEC refused without the signature of the one refusal seen "
+                             f"(a container without the video capability: "
+                             f"{nvdec.OBSERVED_REFUSAL}): {refused}")
+    if caps is not None and (not caps["supported"] or caps["max_width"] < 1920
+                             or caps["max_height"] < 1080):
+        raise AssertionError(f"NVDEC's caps for H.264 8-bit 4:2:0: {caps}")
+    demux = decode_demuxer()
+    print(f"decode demuxer ({smi}): " + json.dumps(demux), flush=True)
+    record = decode_kernel(smi, refused is None)
+    summary = {"caps": caps, "refused": refused, "demuxer": demux,
+               "kernel_ms": record["ms"], "kernel_max_abs_err": record["max_abs_err"]}
+    launches = None
+    if refused is not None:
+        summary["without_nvdec"] = decode_refused(refused)
+    else:
+        fixtures = decode_fixtures(demux)
+        print(f"decode fixtures ({smi}): " + json.dumps(fixtures), flush=True)
+        lap("18 decode: fixtures")
+        with tempfile.TemporaryDirectory() as tmp:
+            train, launches = decode_train(tmp, smi, dev)
+            lap("18 decode: cli.train")
+            cost = decode_cost(smi, tmp)
+        summary.update(train_losses=train["losses"],
+                       first_batch_vs_oatx=train["first_batch_vs_oatx"],
+                       decode_ms_per_clip=[cost["ms_per_clip_1_thread"],
+                                           cost["ms_per_clip_8_threads"]],
+                       nvdec_setup_ms=cost["first_minus_second_decode_ms"])
+    summary["phase_s"] = time.perf_counter() - t0
+    print(f"decode summary ({smi}): " + json.dumps(summary), flush=True)
+    return record, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-ln-linear", metavar="LIB",
@@ -7521,6 +7946,9 @@ def main() -> int:
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--only-finetune", action="store_true",
                     help="build the kernels and run the finetune phase alone (no record, "
+                         "no ok line): the quick loop on that phase")
+    ap.add_argument("--only-decode", action="store_true",
+                    help="build the kernels and run the decode phase alone (no record, "
                          "no ok line): the quick loop on that phase")
     ap.add_argument("--pp-nccl", action="store_true",
                     help="build the kernels and run the pod recipes with pipeline true "
@@ -7621,6 +8049,10 @@ def main() -> int:
     if opts.only_finetune:
         finetune_phase(smi, dev)
         print("chip_smoke: --only-finetune ran the finetune phase alone", flush=True)
+        return 0
+    if opts.only_decode:
+        decode_phase(smi, dev)
+        print("chip_smoke: --only-decode ran the decode phase alone", flush=True)
         return 0
     if opts.pp_nccl:
         pp_nccl(smi, dev)
@@ -7725,6 +8157,14 @@ def main() -> int:
     phases["finetune"] = finetune_phase(smi, dev, os.path.join(kept.name, "checkpoint-epoch1"))
     kept.cleanup()
     lap("17 finetune")
+    nv12, decode_launches = decode_phase(smi, dev)
+    if decode_launches is None:  # NVDEC refused: the kernel has no path to run on here
+        print("chip_smoke: nv12_rgb is checked above but left out of the kernels line: the "
+              "H.264 path it serves needs NVDEC, which this machine refuses", flush=True)
+    else:
+        phases["decode"] = decode_launches
+        kernels.append(nv12)
+    lap("18 decode")
     print("chip_smoke seconds by step: " + json.dumps(
         {b[0]: round(b[1] - a[1], 1) for a, b in zip(LAPS, LAPS[1:])}), flush=True)
     for name, recs in wide.items():
@@ -7737,7 +8177,7 @@ def main() -> int:
             "tol_used", "tol_used_bare", "tol_tail", "grad_rel", "grad_rel_exact", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "tflops", "fwd_bwd_ms",
             "fwd_bwd_device_ms", "ptxas", "occupancy", "launches_by_phase", "parent", "by_rows",
-            "by_batch", "wide", "tp", "pp")
+            "by_batch", "by_shape", "wide", "tp", "pp")
     for k in kernels:
         k["launches_by_phase"] = {ph: n[k["name"]] for ph, n in phases.items()
                                   if n.get(k["name"])}

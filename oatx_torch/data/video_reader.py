@@ -7,18 +7,23 @@ short-side-resized in native code, and everything after that runs on the
 device (oatx_torch.data.transforms). The decode call releases the GIL
 (ctypes foreign call), so the loader's thread pool decodes in parallel.
 
-The decoder reads JPEG-coded media only: MJPEG in an AVI (what
+The host decoder reads JPEG-coded media: MJPEG in an AVI (what
 `write_test_video` writes and oatx's `tools/remux.py --codec mjpeg` makes)
-and bare JPEG stills (CC3M). The container is sniffed from the content,
-not the extension. Anything else raises `UnsupportedMedia`, which is not a
-`DecodeError`, an `OSError` or an `AssertionError`: lax loading must not
-swallow it and train on substitute clips. Inter-coded video (H.264 /
-MPEG-4 in mp4) needs NVDEC or FFmpeg (ROADMAP).
+and bare JPEG stills (CC3M). H.264 in mp4 / mov (WebVid's and MSR-VTT's
+codec) is demuxed on the host (native/mp4.cpp: probe and out_size work on
+the CPU) and decoded on the card's NVDEC (data/nvdec.py, whose glue has
+never decoded a frame: unverified); without a card, decoding it raises
+`UnsupportedMedia`. The container is sniffed from the
+content, not the extension. Anything else (MPEG-4 Part 2, HEVC, H.264
+other than 8-bit 4:2:0 progressive, ...) raises `UnsupportedMedia`, which
+is not a `DecodeError`, an `OSError` or an `AssertionError`: lax loading
+must not swallow it and train on substitute clips.
 
 The library builds at first use (never at import) with the host compiler,
-`c++ -O3 -fPIC -std=c++17 -shared` (-O3: the IDCT and filter loops
-vectorize), into oatx_torch/_build/, named by a hash of the source and the
-flags, under a file lock. A build failure raises with the compiler's log.
+`c++ -O3 -fPIC -std=c++17 -shared native/decode.cpp native/mp4.cpp` (-O3:
+the IDCT and filter loops vectorize), into oatx_torch/_build/, named by a
+hash of the sources and the flags, under a file lock. A build failure
+raises with the compiler's log.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +44,8 @@ from oatx_torch.data.sampling import sample_frames
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "native" / "decode.cpp"
+SOURCES = [SOURCE, _PKG / "native" / "mp4.cpp"]
+HEADERS = [_PKG / "native" / "mp4.h"]
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
@@ -53,12 +60,15 @@ class DecodeError(RuntimeError):
 
 
 class UnsupportedMedia(Exception):
-    """Media the decoder does not read (not JPEG-coded, or a JPEG variant
-    outside baseline / extended sequential 8-bit Huffman)."""
+    """Media the port does not read (neither JPEG-coded nor 8-bit 4:2:0
+    H.264 in mp4 / mov, a JPEG variant outside baseline / extended
+    sequential 8-bit Huffman), or H.264 where no card can decode it."""
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for f in SOURCES + HEADERS:
+        h.update(f.name.encode() + f.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     return BUILD_DIR / f"libdecode-{h.hexdigest()[:16]}.so"
 
@@ -68,17 +78,17 @@ def _compiler() -> str:
         if cand and shutil.which(cand):
             return cand
     raise RuntimeError("no C++ compiler found (set CXX): the decoder is built from "
-                       f"{SOURCE} at first use")
+                       f"{SOURCE.parent} at first use")
 
 
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    p = subprocess.run([_compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    p = subprocess.run([_compiler(), *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
                        capture_output=True, text=True)
     if p.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{p.stdout}{p.stderr}")
+        raise RuntimeError(f"building {SOURCE.parent} failed:\n{p.stdout}{p.stderr}")
     os.replace(tmp, out)
 
 
@@ -123,6 +133,18 @@ def _load_lib():
             "oatxt_write_test_image": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int,
                                                       ctypes.c_int, ctypes.c_uint,
                                                       ctypes.c_int]),
+            "oatxt_handle_kind": (ctypes.c_int, [ctypes.c_void_p]),
+            "oatxt_h264_info": (ctypes.c_int, [ctypes.c_void_p, intp, intp, intp, intp]),
+            "oatxt_h264_plan": (ctypes.c_void_p, [ctypes.c_void_p, i64p, ctypes.c_int, intp]),
+            "oatxt_plan_sizes": (None, [ctypes.c_void_p, i64p, intp, intp, intp]),
+            "oatxt_plan_bytes": (ctypes.c_void_p, [ctypes.c_void_p]),
+            "oatxt_plan_pkt_end": (ctypes.c_void_p, [ctypes.c_void_p]),
+            "oatxt_plan_pkt_ts": (ctypes.c_void_p, [ctypes.c_void_p]),
+            "oatxt_plan_seg_end": (ctypes.c_void_p, [ctypes.c_void_p]),
+            "oatxt_plan_wanted": (ctypes.c_void_p, [ctypes.c_void_p]),
+            "oatxt_plan_free": (None, [ctypes.c_void_p]),
+            "oatxt_bilinear_filter": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                     ctypes.c_int, intp, intp, ctypes.c_int]),
         }
         for name, (res, args) in sig.items():
             fn = getattr(lib, name)
@@ -138,6 +160,25 @@ def _raise(lib, rc: int, what: str):
     raise DecodeError(msg)
 
 
+class H264Plan(NamedTuple):
+    """The Annex B stream that decodes a set of display indices (mp4.h):
+    packet i is data[pkt_end[i - 1]:pkt_end[i]], display index pkt_ts[i];
+    segment s is packets [seg_end[s - 1], seg_end[s]), each opening with the
+    SPS and PPS before a sync sample; `wanted` the sorted, unique, clamped
+    display indices."""
+    data: np.ndarray
+    pkt_end: np.ndarray
+    pkt_ts: np.ndarray
+    seg_end: np.ndarray
+    wanted: np.ndarray
+
+
+def _array(ptr: int, n: int, dtype) -> np.ndarray:
+    dt = np.dtype(dtype)
+    return np.frombuffer(ctypes.string_at(ptr, n * dt.itemsize), dt).copy() if n else \
+        np.empty(0, dt)
+
+
 def native_version() -> str:
     return _load_lib().oatxt_version().decode()
 
@@ -150,6 +191,7 @@ class VideoHandle:
         self._lib = _load_lib()
         self._path = path
         self._h = None
+        self._nvdec = None
         rc = ctypes.c_int(0)
         h = self._lib.oatxt_open(os.fsencode(path), ctypes.byref(rc))
         if not h:
@@ -166,9 +208,26 @@ class VideoHandle:
         self.close()
 
     def close(self) -> None:
+        if getattr(self, "_nvdec", None) is not None:
+            self._nvdec.close()
+            self._nvdec = None
         if getattr(self, "_h", None):
             self._lib.oatxt_close(self._h)
             self._h = None
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def nvdec_decoder(self, device: int):
+        """The handle's NVDEC decoder on `device` (one per handle)."""
+        from oatx_torch.data import nvdec
+
+        if self._nvdec is None or self._nvdec.device != device:
+            if self._nvdec is not None:
+                self._nvdec.close()
+            self._nvdec = nvdec.Decoder(device)
+        return self._nvdec
 
     def _handle(self):
         if not self._h:  # NULL through ctypes would crash the native code
@@ -190,9 +249,50 @@ class VideoHandle:
                                         ctypes.byref(oh))
         return int(ow.value), int(oh.value)
 
+    @property
+    def is_h264(self) -> bool:
+        """H.264 in mp4 / mov: demuxed here, decoded by the card's NVDEC."""
+        return self._lib.oatxt_handle_kind(self._handle()) == 1
+
+    def h264_info(self) -> Tuple[int, int, bool, int]:
+        """→ (coded width, coded height, full range, profile_idc) of an H.264 mp4."""
+        cw, ch, fr, prof = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = self._lib.oatxt_h264_info(self._handle(), ctypes.byref(cw), ctypes.byref(ch),
+                                       ctypes.byref(fr), ctypes.byref(prof))
+        if rc != 0:
+            _raise(self._lib, rc, f"h264 info: {self._path}")
+        return int(cw.value), int(ch.value), bool(fr.value), int(prof.value)
+
+    def h264_plan(self, indices: Sequence[int]) -> H264Plan:
+        """The Annex B stream NVDEC decodes for frame `indices` (indices past
+        the end stand for the last frame)."""
+        lib = self._lib
+        idx = np.ascontiguousarray(indices, dtype=np.int64)
+        rc = ctypes.c_int(0)
+        plan = lib.oatxt_h264_plan(self._handle(),
+                                   idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                                   len(idx), ctypes.byref(rc))
+        if not plan:
+            _raise(lib, rc.value, f"h264 plan: {self._path}")
+        try:
+            nb, npk, nseg, nw = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            lib.oatxt_plan_sizes(plan, ctypes.byref(nb), ctypes.byref(npk), ctypes.byref(nseg),
+                                 ctypes.byref(nw))
+            return H264Plan(_array(lib.oatxt_plan_bytes(plan), nb.value, np.uint8),
+                            _array(lib.oatxt_plan_pkt_end(plan), npk.value, np.int64),
+                            _array(lib.oatxt_plan_pkt_ts(plan), npk.value, np.int64),
+                            _array(lib.oatxt_plan_seg_end(plan), nseg.value, np.int32),
+                            _array(lib.oatxt_plan_wanted(plan), nw.value, np.int64))
+        finally:
+            lib.oatxt_plan_free(plan)
+
     def decode(self, indices: Sequence[int], short_side: int = 0) -> np.ndarray:
         """Decode frame indices → uint8 (n, H, W, 3) RGB; indices past the
-        end give the last frame."""
+        end give the last frame. H.264 decodes on the card (data/nvdec.py)."""
+        if self.is_h264:
+            from oatx_torch.data import nvdec
+
+            return nvdec.decode(self, indices, short_side)
         ow, oh = self.out_size(short_side)
         n = len(indices)
         out = np.empty((n, oh, ow, 3), dtype=np.uint8)
@@ -233,6 +333,23 @@ def read_frames(path: str, num_frames: int, sample: str = "rand",
         idxs = sample_frames(num_frames, vlen, sample=sample, fix_start=fix_start, rng=rng)
         frames = h.decode(idxs, short_side=short_side)
     return frames, idxs, vlen
+
+
+def bilinear_filter(src: int, dst: int, one: int, align: int) -> Tuple[np.ndarray, np.ndarray]:
+    """swscale's SWS_BILINEAR filter from `src` to `dst` samples, as the
+    decoder's resize uses it (decode.cpp make_filter): → (pos (dst,) int32,
+    the first source sample of each output; coef (dst, size) int32, summing
+    to `one`)."""
+    lib = _load_lib()
+    cap = 2 * (src // dst + 2) + 8
+    pos = np.empty(dst, np.int32)
+    coef = np.empty(dst * cap, np.int32)
+    ip = ctypes.POINTER(ctypes.c_int)
+    size = lib.oatxt_bilinear_filter(src, dst, one, align, pos.ctypes.data_as(ip),
+                                     coef.ctypes.data_as(ip), cap)
+    if size < 0:
+        _raise(lib, size, f"bilinear filter {src} -> {dst}")
+    return pos, coef[:dst * size].reshape(dst, size).copy()
 
 
 def decode_jpeg_bytes(data: bytes) -> np.ndarray:

@@ -45,11 +45,14 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <memory>
 #include <new>
 #include <string>
 #include <vector>
 
 #include <sys/types.h>
+
+#include "mp4.h"
 
 namespace {
 
@@ -975,8 +978,16 @@ struct Media {
   FILE* f = nullptr;
   uint64_t file_size = 0;
   std::vector<FrameRef> frames;
+  std::unique_ptr<oatxt::H264Track> h264;  // an H.264 mp4: samples, not JPEG frames
   double fps = 0.0;
   int width = 0, height = 0;
+
+  int64_t frame_count() const {
+    return h264 ? (int64_t)h264->samples.size() : (int64_t)frames.size();
+  }
+  oatxt::ReadAt reader() {
+    return [this](uint64_t off, void* dst, size_t n) { return read_at(off, dst, n); };
+  }
 
   ~Media() {
     if (f) std::fclose(f);
@@ -1155,9 +1166,15 @@ int open_media(const char* path, Media& m) {
       m.fps = 1e6 / (double)s.us_per_frame;
     }
   } else if (fourcc(head + 4, "ftyp") || fourcc(head + 4, "moov") || fourcc(head + 4, "mdat") ||
-             fourcc(head + 4, "free") || fourcc(head + 4, "wide")) {
-    return fail(kUnsupported, std::string("an ISO-BMFF (mp4 / mov) file: inter-coded video "
-                                          "needs NVDEC or FFmpeg; remux to MJPEG: ") + path);
+             fourcc(head + 4, "free") || fourcc(head + 4, "wide") || fourcc(head + 4, "skip")) {
+    m.h264.reset(new oatxt::H264Track());
+    std::string err;
+    int rc = oatxt::read_mp4(m.reader(), m.file_size, *m.h264, err);
+    if (rc) return fail(rc, err + ": " + path);
+    m.width = m.h264->width;
+    m.height = m.h264->height;
+    m.fps = m.h264->fps;
+    return kOk;
   } else {
     return fail(kUnsupported, std::string("not an MJPEG AVI or a JPEG still: ") + path);
   }
@@ -1180,6 +1197,8 @@ int open_media(const char* path, Media& m) {
 int decode_core(Media& m, const int64_t* indices, int n, int short_side, uint8_t* out,
                 int out_w, int out_h) {
   if (n <= 0) return 0;
+  if (m.h264)
+    return fail(kUnsupported, "H.264 decodes on the card's NVDEC, not on the host: " + m.path);
   int ow, oh;
   compute_out_size(m.width, m.height, short_side, &ow, &oh);
   if (ow != out_w || oh != out_h) return fail(kBadBuffer, "output buffer has the wrong size");
@@ -1556,7 +1575,8 @@ extern "C" {
 const char* oatxt_last_error() { return g_error.c_str(); }
 
 const char* oatxt_version() {
-  return "oatx_torch decode 1.0 (first-party: baseline/extended JPEG, MJPEG in AVI)";
+  return "oatx_torch decode 1.1 (first-party: baseline/extended JPEG, MJPEG in AVI; "
+         "H.264 in mp4 / mov demuxed for NVDEC)";
 }
 
 // ------------------------------------------------------------- handle API
@@ -1578,7 +1598,7 @@ void oatxt_close(void* h) { delete (Media*)h; }
 
 int oatxt_handle_info(void* h, int64_t* nframes, double* fps, int* width, int* height) {
   Media* m = (Media*)h;
-  *nframes = (int64_t)m->frames.size();
+  *nframes = m->frame_count();
   *fps = m->fps;
   *width = m->width;
   *height = m->height;
@@ -1604,6 +1624,78 @@ int oatxt_probe(const char* path, int64_t* nframes, double* fps, int* width, int
     Media m;
     int rc = open_media(path, m);
     return rc ? rc : oatxt_handle_info(&m, nframes, fps, width, height);
+  });
+}
+
+// ------------------------------------------------------------ H.264 in mp4
+
+// 0: JPEG-coded media (decoded here), 1: H.264 in mp4 / mov (decoded by NVDEC)
+int oatxt_handle_kind(void* h) { return ((Media*)h)->h264 ? 1 : 0; }
+
+// The coded size (whole macroblocks), the SPS's video_full_range_flag and
+// profile_idc of an H.264 handle.
+int oatxt_h264_info(void* h, int* coded_w, int* coded_h, int* full_range, int* profile) {
+  Media* m = (Media*)h;
+  if (!m->h264) return fail(kUnsupported, "not an H.264 mp4: " + m->path);
+  *coded_w = m->h264->coded_width;
+  *coded_h = m->h264->coded_height;
+  *full_range = m->h264->full_range;
+  *profile = m->h264->profile_idc;
+  return kOk;
+}
+
+// The Annex B plan (mp4.h) for display indices `indices` (any order,
+// duplicates allowed; past the end → the last frame, as oatx's reader):
+// a plan object read with oatxt_plan_* and freed with oatxt_plan_free.
+void* oatxt_h264_plan(void* h, const int64_t* indices, int n, int* rc) {
+  Media* m = (Media*)h;
+  oatxt::H264Plan* p = nullptr;
+  *rc = guarded([&] {
+    if (!m->h264) return fail(kUnsupported, "not an H.264 mp4: " + m->path);
+    if (n <= 0) return fail(kBadBuffer, "no frame indices");
+    const int64_t last = m->frame_count() - 1;
+    std::vector<int64_t> want(indices, indices + n);
+    for (auto& i : want) i = std::min(std::max<int64_t>(i, 0), last);
+    std::sort(want.begin(), want.end());
+    want.erase(std::unique(want.begin(), want.end()), want.end());
+    p = new oatxt::H264Plan();
+    std::string err;
+    int r = oatxt::plan_h264(m->reader(), *m->h264, want, *p, err);
+    return r ? fail(r, err + ": " + m->path) : (int)kOk;
+  });
+  if (*rc != kOk) {
+    delete p;
+    return nullptr;
+  }
+  return p;
+}
+
+void oatxt_plan_sizes(void* plan, int64_t* n_bytes, int* n_packets, int* n_segments,
+                      int* n_wanted) {
+  auto* p = (oatxt::H264Plan*)plan;
+  *n_bytes = (int64_t)p->bytes.size();
+  *n_packets = (int)p->pkt_end.size();
+  *n_segments = (int)p->seg_end.size();
+  *n_wanted = (int)p->wanted.size();
+}
+const uint8_t* oatxt_plan_bytes(void* plan) { return ((oatxt::H264Plan*)plan)->bytes.data(); }
+const int64_t* oatxt_plan_pkt_end(void* plan) { return ((oatxt::H264Plan*)plan)->pkt_end.data(); }
+const int64_t* oatxt_plan_pkt_ts(void* plan) { return ((oatxt::H264Plan*)plan)->pkt_ts.data(); }
+const int32_t* oatxt_plan_seg_end(void* plan) { return ((oatxt::H264Plan*)plan)->seg_end.data(); }
+const int64_t* oatxt_plan_wanted(void* plan) { return ((oatxt::H264Plan*)plan)->wanted.data(); }
+void oatxt_plan_free(void* plan) { delete (oatxt::H264Plan*)plan; }
+
+// swscale's SWS_BILINEAR filter from `src` to `dst` samples (make_filter:
+// coefficients summing to `one`, the size rounded up to `align`): pos (dst)
+// and coef (dst × size) when size <= cap; returns size, or <0.
+int oatxt_bilinear_filter(int src, int dst, int one, int align, int* pos, int* coef, int cap) {
+  if (src <= 0 || dst <= 0) return fail(kBadBuffer, "bad filter geometry");
+  return guarded([&] {
+    Filter f = make_filter(src, dst, one, align);
+    if (f.size > cap) return fail(kBadBuffer, "filter wider than the buffer");
+    std::copy(f.pos.begin(), f.pos.end(), pos);
+    std::copy(f.coef.begin(), f.coef.end(), coef);
+    return f.size;
   });
 }
 

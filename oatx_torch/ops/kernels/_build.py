@@ -32,6 +32,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# libraries one source links beyond the CUDA runtime: nvdec.cu calls the
+# driver API (the driver's libcuda, through the toolkit's stub at link time)
+# and dlopens libnvcuvid
+LINK_FLAGS: Dict[str, List[str]] = {"nvdec": ["-lcuda", "-ldl"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -50,6 +54,18 @@ def _nvcc() -> str:
                        "are built from oatx_torch/csrc at first use")
 
 
+def _link_flags(nvcc: str, stem: str) -> List[str]:
+    """LINK_FLAGS of a source, after -L of the toolkit's driver stubs when it
+    links the driver (libcuda.so.1 of the driver is loaded at run time)."""
+    flags = LINK_FLAGS.get(stem, [])
+    if "-lcuda" not in flags:
+        return flags
+    top = Path(nvcc).resolve().parents[1]
+    stubs = [d for d in (top / "lib64" / "stubs", top / "targets" / "x86_64-linux" / "lib" /
+                         "stubs") if d.is_dir()]
+    return [f"-L{d}" for d in stubs] + flags
+
+
 def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
@@ -60,7 +76,7 @@ def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode() + hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(src.stem, [])).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -77,7 +93,8 @@ def build_all() -> float:
         for src in todo:
             out = _lib_path(src)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            p = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            p = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src),
+                                  *_link_flags(nvcc, src.stem)],
                                  stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
             procs.append((src, out, tmp, p))

@@ -18,6 +18,7 @@ bf16 ulps (2^-8 ≈ 4e-3 each) separate them: GRAD_REL 2e-2.
 """
 
 import json
+import os
 
 import pytest
 import torch
@@ -1189,3 +1190,91 @@ def test_optimizer_step_on_the_card_matches_the_cpu(card, kind):
         for n, w in want.items():
             err = float((got[n] - w).abs().max())
             assert err <= 1e-5 * float(w.abs().max()), (kind, n, err)
+
+
+# ----------------------------------------------------- H.264 on the card's NVDEC
+
+H264_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_h264")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full_range", [False, True], ids=["limited", "full"])
+@pytest.mark.parametrize("n,w,h,ow,oh", [
+    (4, 596, 336, 454, 256), (4, 596, 336, 596, 336), (2, 596, 336, 396, 224),
+    (3, 320, 240, 298, 224), (3, 320, 240, 320, 240), (1, 128, 96, 84, 64),
+    (2, 1920, 1080, 454, 256)])
+def test_nv12_rgb_kernel_matches_plain(card, n, w, h, ow, oh, full_range):
+    """The NV12 → RGB kernel against its plain version on the card, on
+    seeded uniform bytes (every clip of swscale's arithmetic reached):
+    integer arithmetic both, so equal."""
+    from oatx_torch.ops.kernels import nv12_rgb
+
+    g = torch.Generator(card).manual_seed(n * w + oh)
+    nv12 = torch.randint(0, 256, (n, h * 3 // 2, w), generator=g, device=card,
+                         dtype=torch.uint8)
+    before = nv12_rgb.nv12_to_rgb.launches
+    got = nv12_rgb.nv12_to_rgb(nv12, ow, oh, full_range)
+    torch.cuda.synchronize()
+    assert nv12_rgb.nv12_to_rgb.launches == before + 1
+    want = nv12_rgb.nv12_to_rgb_plain(nv12, ow, oh, full_range)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), nv12_rgb.nv12_to_rgb_plain(nv12.cpu(), ow, oh, full_range))
+
+
+def _nvdec_refusal():
+    """None where NVDEC opens here, else the reader's refusal, which must be
+    the one observed (a container without the driver's video capability):
+    any other failure fails the calling test."""
+    from oatx_torch.data import nvdec
+    from oatx_torch.data import video_reader as vr
+
+    try:
+        nvdec.caps(torch.cuda.current_device())
+    except vr.UnsupportedMedia as e:
+        assert nvdec.is_observed_refusal(str(e)), str(e)
+        return str(e)
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", ["high", "base", "one", "four"])
+def test_nvdec_fixtures_match_oatx(card, clip):
+    """Each committed H.264 fixture decoded on the card against oatx's
+    stored frames (tests/torch_h264/make_fixtures.py) within the reader
+    test's bounds (mean |Δ| ≤ 0.05, max ≤ 4), every frame's channel means
+    within 0.05."""
+    import numpy as np
+
+    from oatx_torch.data import video_reader as vr
+
+    refused = _nvdec_refusal()
+    if refused:
+        pytest.skip(f"NVDEC is not available on this machine: {refused}")
+    ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
+    path = os.path.join(H264_DIR, clip + ".mp4")
+    n = vr.probe(path)[0]
+    for key in ref.files:
+        if not key.endswith("_idx"):
+            continue
+        ss = int(key[1:-4])
+        every = vr.decode_indices(path, list(range(n)), ss)
+        assert np.abs(every.reshape(n, -1, 3).mean(1) - ref[f"s{ss}_means"]).max() <= 0.05
+        d = np.abs(every[ref[key]].astype(np.int32) - ref[f"s{ss}_frames"].astype(np.int32))
+        assert d.mean() <= 0.05 and d.max() <= 4, (clip, ss, float(d.mean()), int(d.max()))
+        np.testing.assert_array_equal(vr.decode_indices(path, [n + 3, 0], ss),
+                                      every[[n - 1, 0]])
+
+
+@pytest.mark.cuda
+def test_h264_raises_unsupported_media_where_nvdec_is_refused(card):
+    """No fallback hides the device: where the driver refuses NVDEC, the
+    reader raises UnsupportedMedia quoting the refused call."""
+    from oatx_torch.data import nvdec
+    from oatx_torch.data import video_reader as vr
+
+    refused = _nvdec_refusal()
+    if refused is None:
+        pytest.skip("NVDEC opens on this machine (test_nvdec_fixtures_match_oatx decodes)")
+    with pytest.raises(vr.UnsupportedMedia, match="NVDEC cannot be opened here") as e:
+        vr.decode_indices(os.path.join(H264_DIR, "base.mp4"), [0, 3], 224)
+    assert nvdec.is_observed_refusal(str(e.value)), str(e.value)

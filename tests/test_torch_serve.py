@@ -367,6 +367,7 @@ def test_port_imports_no_jax_and_no_oatx():
             "oatx_torch.utils.watchdog, oatx_torch.cli.train, oatx_torch.cli.test, "
             "oatx_torch.cli.common, oatx_torch.data.datasets.adapters, "
             "oatx_torch.data.factory, oatx_torch.data.video_reader, "
+            "oatx_torch.data.nvdec, oatx_torch.ops.kernels.nv12_rgb, "
             "oatx_torch.data.host_transforms, oatx_torch.eval.retrieval_eval, "
             "oatx_torch.models.bert, oatx_torch.models.clip_text, "
             "oatx_torch.models.object_tower, oatx_torch.models.prompt_learner, "
