@@ -480,36 +480,36 @@ printed):
      `cli.build_index` on the same snapshot (evaluate's embeddings), whose
      launches are counted too.
  18. decode — H.264 in mp4 (WebVid's and MSR-VTT's codec) through the
-     reader on the card: the host demuxer (native/mp4.cpp), NVDEC through
-     libnvcuvid's own parser, and the NV12 → RGB kernel (csrc/nvdec.cu,
-     ops/kernels/nv12_rgb.py), over the committed fixtures of
-     tests/torch_h264/ (high.mp4: 596×336 High with B-frames; base.mp4:
-     320×240 Constrained Baseline; one.mp4: 1 frame; four.mp4: 4 frames).
-     First NVDEC's caps for 8-bit 4:2:0 H.264 (or the driver's refusal,
-     printed with the call and its error), each fixture's probe and
-     whole-clip plan from the demuxer against oatx's stored probe, and the
-     kernel against its plain version on the same NV12 surfaces (NVDEC's,
-     or seeded uniform bytes of the fixtures' geometry where NVDEC is
-     refused), equal (integer arithmetic), with ms, plain ms and the bytes
-     bound at each shape. Where NVDEC opens: every fixture at every frame,
-     at the 'rand' / 'uniform' samples and past the end, at short sides 0 and
-     224 (and 256 for the training clips) against oatx's stored frames within
-     the reader test's bounds (H264_PIX_MEAN / H264_PIX_MAX; every frame's
-     channel means within H264_MEANS_TOL), NVDEC's coded size against the
-     demuxer's; `cli.train` on norm.json's WebVid loader for
-     DECODE_TRAIN_STEPS steps over a WebVid layout of four.mp4 / one.mp4
-     copies (finite losses, launches counted: nv12_rgb at least once a clip
-     read; the first batch's video against the same batch from oatx's
-     stored frames); ms a clip of read_frames on 1 and 8 threads beside the
-     MJPEG host decoder's, and a handle's first decode (its NVDEC decoder
-     made) against its second (this NVDEC glue has never run: see
-     data/nvdec.py). Where the container withholds the driver's video
-     capability (NVIDIA_DRIVER_CAPABILITIES without 'video'): the refusal
-     must be the one observed (cuvidGetDecoderCaps returning
-     CUDA_ERROR_OUT_OF_MEMORY), or the phase fails; every fixture's decode
-     raises UnsupportedMedia with it, a lax WebVid sample over an mp4 too,
-     and nv12_rgb, which then runs on no path, stays out of the kernels
-     line. Any other NVDEC failure (NvdecError) fails the phase.
+     reader on the card: the host demuxer (native/mp4.cpp), the port's own
+     host decoder (native/h264.h: CAVLC I and P slices) and the NV12 → RGB
+     kernel (csrc/nvdec.cu, ops/kernels/nv12_rgb.py), over the committed
+     fixtures of tests/torch_h264/. First NVDEC's caps for 8-bit 4:2:0
+     H.264 (or the driver's refusal, which must be the one observed:
+     cuvidGetDecoderCaps returning CUDA_ERROR_OUT_OF_MEMORY where the
+     container withholds the driver's video capability), each fixture's
+     probe and whole-clip plan against oatx's stored probe. Then every
+     CAVLC fixture (cavlc.mp4: 596×336 High, 8×8 transform, 3 references,
+     weighted prediction, 4 slices; cbase.mp4: 320×240 Constrained
+     Baseline, constrained intra; cfour.mp4: 4 frames; cpcm.mp4: I_PCM) at
+     every frame and
+     stored short side (0 / 224 / 256) equal to oatx's SHA-256 and channel
+     means, the 'rand' / 'uniform' samples and past the end equal to the
+     every-frame decode, one nv12_rgb launch a read; base.mp4 / one.mp4
+     equal to oatx's stored frames; high.mp4 / four.mp4 (CABAC, B slices)
+     raising NotImplementedError (ROADMAP A12b). The kernel against its
+     plain version on the host decoder's NV12 pictures, equal (integer
+     arithmetic), with ms, plain ms and the bytes bound at each shape.
+     NVDEC, called directly (the reader does not go there): where refused,
+     each of its fixtures raises UnsupportedMedia with the observed
+     refusal; where it opens, its fixtures against oatx's stored frames
+     within the reader test's bounds (unverified glue: data/nvdec.py).
+     `cli.train` on norm.json's WebVid loader for DECODE_TRAIN_STEPS steps
+     over a WebVid layout of cfour.mp4 / cbase.mp4 copies (finite losses,
+     launches counted: nv12_rgb at least once a clip read; each frame of
+     the first batch equal to the canonical square of a digest-verified
+     frame of its clip, in order). The read rate: ms a clip of read_frames
+     on 1 and 8 threads beside the MJPEG host decoder's, and the host
+     decoder's frames/s per thread alone.
 In the run without arguments phases 10-13 overlap: their kernels are timed
 first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
 while this process takes the phases' one-process references (so those
@@ -529,6 +529,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -7492,14 +7493,16 @@ def finetune_phase(smi, dev, init=None):
 
 
 # ------------------------------------------------------------------ decode
-# phase 18: H.264 in mp4 through the reader on the card (demuxer → NVDEC →
-# the NV12 → RGB kernel), held against oatx's frames stored beside the
-# fixtures (tests/torch_h264/make_fixtures.py, written where FFmpeg is)
+# phase 18: H.264 in mp4 through the reader on the card (host demuxer → the
+# port's host decoder → the NV12 → RGB kernel), held against oatx's frames
+# stored beside the fixtures (tests/torch_h264/make_fixtures.py, written
+# where FFmpeg is): SHA-256 of every frame for the CAVLC clips
 H264_DIR = os.path.join(HERE, "tests", "torch_h264")
-H264_CLIPS = ("high", "base", "one", "four")
-H264_PIX_MEAN, H264_PIX_MAX = 0.05, 4  # tests/test_torch_video_reader.py's bounds
+H264_CLIPS = ("high", "base", "one", "four")   # the NVDEC glue's fixtures
+CAVLC_CLIPS = ("cavlc", "cbase", "cfour", "cpcm")  # the host decoder's
+H264_PIX_MEAN, H264_PIX_MAX = 0.05, 4  # tests/test_torch_video_reader.py's bounds (NVDEC)
 H264_MEANS_TOL = 0.05    # a frame's per-channel means, for frames whose pixels are not stored
-DECODE_TRAIN_IDS = 8     # WebVid train ids, copies of four.mp4 / one.mp4 in turn
+DECODE_TRAIN_IDS = 32    # WebVid train ids (two batches of 16), cfour.mp4 / cbase.mp4 in turn
 DECODE_VAL_IDS = 4
 DECODE_TRAIN_STEPS = 2
 DECODE_COST_READS = 32   # read_frames calls (probe + 4 frames) per decode-cost reading
@@ -7511,6 +7514,11 @@ def h264_fixtures():
     import make_fixtures
 
     return make_fixtures
+
+
+def frame_sha(frame):
+    return np.frombuffer(hashlib.sha256(np.ascontiguousarray(frame).tobytes()).digest(),
+                         np.uint8)
 
 
 def pixels_close(tag, got, want):
@@ -7525,13 +7533,75 @@ def pixels_close(tag, got, want):
     return rec
 
 
-def decode_fixtures(demux):
-    """Each fixture through the reader on the card (its probe, checked by
-    decode_demuxer, from `demux`): at each stored short side every frame
-    (pixels where oatx's are stored, every frame's channel means), the
-    'rand' / 'uniform' samples and indices past the end (each frame bitwise
-    the every-frame decode's at its clamped index, and against oatx's where
-    stored); the coded size NVDEC's parser reports against the demuxer's."""
+def decode_host_fixtures():
+    """Each CAVLC fixture through the reader on the card (host decoder, one
+    nv12_rgb launch a read): at each stored short side every frame's
+    SHA-256 and channel means equal oatx's, and the 'rand' / 'uniform'
+    samples and indices past the end equal the every-frame decode at their
+    clamped indices; base.mp4 / one.mp4 (x264's ultrafast Baseline) equal
+    oatx's stored frames; high.mp4 / four.mp4 (CABAC, B slices) raise
+    NotImplementedError naming ROADMAP A12b. → (the record, the verified
+    frames of each CAVLC clip at 256)."""
+    from oatx_torch.data import video_reader as vr
+    from oatx_torch.ops.kernels import nv12_rgb
+
+    mf = h264_fixtures()
+    out, frames256 = {}, {}
+    for clip in CAVLC_CLIPS:
+        path = os.path.join(H264_DIR, clip + ".mp4")
+        ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
+        rec = {}
+        with vr.VideoHandle(path) as hd:
+            n = hd.info()[0]
+            for ss in mf.SHORT_SIDES[clip]:
+                before = nv12_rgb.nv12_to_rgb.launches
+                every = hd.decode(list(range(n)), ss)
+                if nv12_rgb.nv12_to_rgb.launches != before + 1:
+                    raise AssertionError(f"{clip} at {ss}: the read launched nv12_rgb "
+                                         f"{nv12_rgb.nv12_to_rgb.launches - before} times")
+                bad = [i for i, f in enumerate(every)
+                       if not np.array_equal(frame_sha(f), ref[f"s{ss}_sha256"][i])]
+                if bad:
+                    raise AssertionError(f"{clip} at {ss}: frames {bad} differ from oatx's "
+                                         "(SHA-256)")
+                if not np.array_equal(every.reshape(n, -1, 3).mean(1), ref[f"s{ss}_means"]):
+                    raise AssertionError(f"{clip} at {ss}: channel means differ from oatx's")
+                for kind, ix in mf.samples(n).items():
+                    if not np.array_equal(hd.decode(ix, ss), every[np.minimum(ix, n - 1)]):
+                        raise AssertionError(f"{clip} at {ss}, {kind} {ix}: frames differ from "
+                                             "the every-frame decode's")
+                rec[f"s{ss}"] = {"frames": n, "sha256_equal": n, "shape": list(every.shape)}
+                if ss == 256:
+                    frames256[clip] = every
+        out[clip] = rec
+    for clip in ("base", "one"):
+        path = os.path.join(H264_DIR, clip + ".mp4")
+        ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
+        n = vr.probe(path)[0]
+        for ss in mf.SHORT_SIDES[clip]:
+            every = vr.decode_indices(path, list(range(n)), ss)
+            if not np.array_equal(every[ref[f"s{ss}_idx"]], ref[f"s{ss}_frames"]):
+                raise AssertionError(f"{clip} at {ss}: stored frames differ from oatx's")
+        out[clip] = {"stored_frames_equal": True}
+    for clip in ("high", "four"):
+        try:
+            vr.decode_indices(os.path.join(H264_DIR, clip + ".mp4"), [0], 256)
+        except NotImplementedError as e:
+            if "A12b" not in str(e):
+                raise AssertionError(f"{clip}: NotImplementedError without ROADMAP A12b: {e}")
+            out[clip] = {"refused": str(e).split(": ", 1)[-1]}
+        else:
+            raise AssertionError(f"{clip} (CABAC, B slices) decoded")
+    return out, frames256
+
+
+def decode_nvdec_fixtures(demux):
+    """Where NVDEC opens: each of its fixtures through nvdec.decode (called
+    directly; the reader decodes on the host) at each stored short side
+    against oatx's stored frames within the reader test's bounds, every
+    frame's channel means within H264_MEANS_TOL; NVDEC's coded size against
+    the demuxer's. Unverified glue (data/nvdec.py)."""
+    from oatx_torch.data import nvdec
     from oatx_torch.data import video_reader as vr
 
     mf = h264_fixtures()
@@ -7540,70 +7610,50 @@ def decode_fixtures(demux):
         path = os.path.join(H264_DIR, clip + ".mp4")
         ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
         n, _, w, h = demux[clip]["probe"]
-        rec = {"probe": demux[clip]["probe"]}
+        rec = {}
         with vr.VideoHandle(path) as hd:
             for ss in mf.SHORT_SIDES[clip]:
-                every = hd.decode(list(range(n)), ss)
-                means = every.reshape(n, -1, 3).mean(1)
-                d_means = float(np.abs(means - ref[f"s{ss}_means"]).max())
+                every = nvdec.decode(hd, list(range(n)), ss)
+                d_means = float(np.abs(every.reshape(n, -1, 3).mean(1)
+                                       - ref[f"s{ss}_means"]).max())
                 if d_means > H264_MEANS_TOL:
                     raise AssertionError(f"{clip} at {ss}: a frame's channel mean is "
                                          f"{d_means} off oatx's")
                 idx = ref[f"s{ss}_idx"]
-                r = {"every_frame": pixels_close(f"{clip} at {ss}, every frame", every[idx],
-                                                 ref[f"s{ss}_frames"]),
-                     "means_max_diff": d_means, "stored": idx.tolist()}
-                for kind, ix in mf.samples(n).items():
-                    got = hd.decode(ix, ss)
-                    at = np.minimum(ix, n - 1)
-                    if not np.array_equal(got, every[at]):
-                        raise AssertionError(f"{clip} at {ss}, {kind} {ix}: frames differ from "
-                                             "the every-frame decode's")
-                    keep = [k for k, i in enumerate(at) if i in set(idx.tolist())]
-                    pos = [int(np.nonzero(idx == at[k])[0][0]) for k in keep]
-                    r[kind] = {"indices": list(ix), "stored_checked": len(keep)}
-                    if keep:
-                        r[kind].update(pixels_close(f"{clip} at {ss}, {kind}", got[keep],
-                                                    ref[f"s{ss}_frames"][pos]))
-                rec[f"s{ss}"] = r
+                rec[f"s{ss}"] = {"every_frame": pixels_close(f"{clip} at {ss}", every[idx],
+                                                             ref[f"s{ss}_frames"]),
+                                 "means_max_diff": d_means}
             fmt = hd.nvdec_decoder(torch.cuda.current_device()).format()
-            cw, ch, full_range, profile = hd.h264_info()
+            cw, ch, full_range, _ = hd.h264_info()
         if (fmt["coded_width"], fmt["coded_height"]) != (cw, ch) or \
-                (fmt["right"] - fmt["left"], fmt["bottom"] - fmt["top"]) != (w, h) or \
-                fmt["full_range"] != int(full_range):
+                (fmt["right"] - fmt["left"], fmt["bottom"] - fmt["top"]) != (w, h):
             raise AssertionError(f"{clip}: NVDEC's sequence header {fmt}, the demuxer's "
-                                 f"coded {cw}x{ch}, display {w}x{h}, full range {full_range}")
-        rec.update(nvdec_format=fmt, profile_idc=profile)
+                                 f"coded {cw}x{ch}, display {w}x{h}")
+        rec["nvdec_format"] = fmt
         out[clip] = rec
     return out
 
 
-def decode_kernel(smi, nvdec_ok):
-    """The NV12 → RGB kernel against its plain version on the same NV12
-    surfaces, with its ms, the plain version's and the bound: NVDEC's
-    surfaces of four.mp4 and high.mp4 when NVDEC opens here, else seeded
-    uniform bytes of the same geometry. The record's shape is the main
-    path's: four.mp4's 4 frames to the canonical short side 256, as
-    cli.train reads them."""
+def decode_kernel(smi):
+    """The NV12 → RGB kernel against its plain version on the host
+    decoder's NV12 pictures of the CAVLC fixtures, with its ms, the plain
+    version's and the bound. The record's shape is the main path's:
+    cfour.mp4's 4 frames to the canonical short side 256, as cli.train
+    reads them."""
+    from oatx_torch.data import h264
     from oatx_torch.data import video_reader as vr
     from oatx_torch.ops.kernels import nv12_rgb
 
-    g = torch.Generator("cuda").manual_seed(0)
     shapes = {}
     record = None
-    for clip, sides in (("four", (256,)), ("high", (0, 224, 256)), ("base", (0, 224))):
+    for clip, sides in (("cfour", (256,)), ("cavlc", (0, 224, 256)), ("cbase", (0, 224))):
         path = os.path.join(H264_DIR, clip + ".mp4")
         with vr.VideoHandle(path) as hd:
             n, _, w, h = hd.info()
-            cw, ch, full_range, _ = hd.h264_info()
-            if nvdec_ok:
-                nv12 = torch.empty((n, h * 3 // 2, w), dtype=torch.uint8, device="cuda")
-                hd.nvdec_decoder(torch.cuda.current_device()).decode(
-                    hd.h264_plan(list(range(n))), (cw, ch, w, h), nv12,
-                    torch.cuda.current_stream().cuda_stream, path)
-            else:
-                nv12 = torch.randint(0, 256, (n, h * 3 // 2, w), generator=g, device="cuda",
-                                     dtype=torch.uint8)
+            full_range = hd.h264_info()[2]
+            host = np.empty((n, h * 3 // 2, w), np.uint8)
+            h264.decode_nv12(hd, list(range(n)), host)
+            nv12 = torch.from_numpy(host).cuda()
             for ss in sides:
                 ow, oh = hd.out_size(ss)
                 got = nv12_rgb.nv12_to_rgb(nv12, ow, oh, full_range)
@@ -7629,7 +7679,7 @@ def decode_kernel(smi, nvdec_ok):
                               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                               "library_ms": None}
     record["by_shape"] = shapes
-    record["surfaces"] = "NVDEC's" if nvdec_ok else "seeded uniform bytes (NVDEC refused here)"
+    record["surfaces"] = "the host decoder's NV12 pictures of the CAVLC fixtures"
     print(f"decode kernel nv12_rgb ({smi}): " + json.dumps(record), flush=True)
     return record
 
@@ -7640,7 +7690,7 @@ def decode_demuxer():
     from oatx_torch.data import video_reader as vr
 
     out = {}
-    for clip in H264_CLIPS:
+    for clip in H264_CLIPS + CAVLC_CLIPS:
         path = os.path.join(H264_DIR, clip + ".mp4")
         want = np.load(os.path.join(H264_DIR, clip + ".npz"))["probe"]
         n, fps, w, h = probe = vr.probe(path)
@@ -7654,49 +7704,31 @@ def decode_demuxer():
     return out
 
 
-def decode_refused(refused):
-    """Where the container withholds NVDEC: the reader raises
-    UnsupportedMedia with the observed refusal for every fixture, and a lax
-    WebVid dataset over them lets it through (nothing decodes in NVDEC's
-    place)."""
-    from oatx_torch.config.schema import DataLoaderCfg
+def decode_nvdec_refused(refused):
+    """Where the container withholds NVDEC: its decode, called directly,
+    raises UnsupportedMedia with the observed refusal for every one of its
+    fixtures (the reader does not go there)."""
     from oatx_torch.data import nvdec
-    from oatx_torch.data.factory import build_dataset
     from oatx_torch.data import video_reader as vr
 
     for clip in H264_CLIPS:
-        path = os.path.join(H264_DIR, clip + ".mp4")
-        try:
-            vr.decode_indices(path, [0], 224)
-        except vr.UnsupportedMedia as e:
-            if not nvdec.is_observed_refusal(str(e)):
-                raise AssertionError(f"{clip}: UnsupportedMedia without the observed "
-                                     f"refusal {nvdec.OBSERVED_REFUSAL}: {e}")
-        else:
-            raise AssertionError(f"{clip}: decoded although NVDEC refused: {refused}")
-    with tempfile.TemporaryDirectory() as root:
-        os.makedirs(os.path.join(root, "meta_data"))
-        os.makedirs(os.path.join(root, "train"))
-        shutil.copy(os.path.join(H264_DIR, "four.mp4"), os.path.join(root, "train", "1.mp4"))
-        with open(os.path.join(root, "meta_data", "webvid_training_success_full.tsv"),
-                  "w") as f:
-            f.write("caption\tvideoid\na clip\t1\n")
-        ds = build_dataset(DataLoaderCfg(dataset_name="WebVid", data_dir=root, split="train",
-                                         video_params={"num_frames": 4, "loading": "lax"}),
-                           "baseline", "train")
-        try:
-            ds.get_sample(0, np.random.default_rng(0))
-        except vr.UnsupportedMedia:
-            pass
-        else:
-            raise AssertionError("a lax WebVid sample over an mp4 did not raise UnsupportedMedia")
-    return {"reader": "UnsupportedMedia for every fixture", "lax_webvid": "UnsupportedMedia"}
+        with vr.VideoHandle(os.path.join(H264_DIR, clip + ".mp4")) as hd:
+            try:
+                nvdec.decode(hd, [0], 224)
+            except vr.UnsupportedMedia as e:
+                if not nvdec.is_observed_refusal(str(e)):
+                    raise AssertionError(f"{clip}: UnsupportedMedia without the observed "
+                                         f"refusal {nvdec.OBSERVED_REFUSAL}: {e}")
+            else:
+                raise AssertionError(f"{clip}: NVDEC decoded although it refused: {refused}")
+    return {"nvdec.decode": "UnsupportedMedia for every fixture"}
 
 
-def decode_train(tmp, smi, dev):
+def decode_train(tmp, smi, dev, frames256):
     """cli.train on norm.json's WebVid loader alone for DECODE_TRAIN_STEPS
-    steps over a WebVid layout of four.mp4 / one.mp4 copies; the first
-    batch's video against the same batch built from oatx's stored frames."""
+    steps over a WebVid layout of cfour.mp4 / cbase.mp4 copies; each frame
+    of the first batch's video equal to the canonical square of a frame of
+    its clip verified against oatx's SHA-256 (`frames256`), in order."""
     from oatx_torch.cli import train as cli_train
     from oatx_torch.data import loader as loader_mod
     from oatx_torch.data.host_transforms import host_canonicalize
@@ -7713,7 +7745,7 @@ def decode_train(tmp, smi, dev):
         rows = ["caption\tvideoid"]
         for i in range(n):
             vid = str(base + i)
-            kind_of[vid] = "four" if i % 2 == 0 else "one"
+            kind_of[vid] = "cfour" if i % 2 == 0 else "cbase"
             shutil.copy(os.path.join(H264_DIR, kind_of[vid] + ".mp4"),
                         os.path.join(root, split, vid + ".mp4"))
             rows.append(f"{data_caption('h', base + i)}\t{vid}")
@@ -7766,22 +7798,23 @@ def decode_train(tmp, smi, dev):
     losses = rec.loss_values()
     if len(losses) != DECODE_TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"decode train: losses {losses}")
-    # the first batch against the same batch from oatx's stored frames
-    got = first["batch"]["video"]
-    refs = {c: np.load(os.path.join(H264_DIR, c + ".npz"))["s256_frames"] for c in ("four",
-                                                                                   "one")}
-    want_v = []
-    for meta in first["batch"]["meta"]:
-        vid = os.path.splitext(os.path.basename(meta["paths"]))[0]
-        frames = refs[kind_of[vid]]
-        frames = np.concatenate([frames, np.repeat(frames[-1:], 4 - len(frames), 0)])
-        want_v.append(host_canonicalize(frames, got.shape[-2]))
-    batch_check = pixels_close("decode train: the first batch's video", np.asarray(got),
-                               np.stack(want_v))
+    got = np.asarray(first["batch"]["video"])
+    canon = {c: host_canonicalize(f, got.shape[-2]) for c, f in frames256.items()}
+    picked = []
+    for i, meta in enumerate(first["batch"]["meta"]):
+        clip = kind_of[os.path.splitext(os.path.basename(meta["paths"]))[0]]
+        ks = []
+        for t, frame in enumerate(got[i]):
+            hit = [k for k, c in enumerate(canon[clip]) if np.array_equal(c, frame)]
+            if not hit:
+                raise AssertionError(f"decode train: sample {i} frame {t} ({clip}) is no "
+                                     "verified frame of its clip")
+            ks.append(hit[0])
+        if ks != sorted(ks) or (clip == "cfour" and ks != [0, 1, 2, 3]):
+            raise AssertionError(f"decode train: sample {i} ({clip}) holds frames {ks}")
+        picked.append([clip, ks])
     out = {"config": "norm.json (WebVid loader)", "batch": batch, "steps": DECODE_TRAIN_STEPS,
-           "losses": losses, "first_batch_vs_oatx": batch_check,
-           "first_batch_clips": [kind_of[os.path.splitext(os.path.basename(m["paths"]))[0]]
-                                 for m in first["batch"]["meta"]],
+           "losses": losses, "first_batch_frames": picked,
            "input_wait": made[0]["hist"][1]["input_wait"], "train_wall_s": wall,
            "launches": launches}
     print(f"decode train ({smi}): " + json.dumps(out), flush=True)
@@ -7791,18 +7824,19 @@ def decode_train(tmp, smi, dev):
 
 
 def decode_cost(smi, tmp):
-    """ms a clip of read_frames (probe + 4 'rand' frames at short side 256,
-    the datasets' call) over copies of high.mp4 on 1 and 8 threads, and a
-    handle's first decode (which makes its NVDEC decoder) against its
-    second."""
+    """The H.264 read rate: ms a clip of read_frames (probe + 4 'rand'
+    frames at short side 256, the datasets' call) over copies of cavlc.mp4
+    on 1 and 8 threads, and frames/s per thread of the host decoder alone
+    (every frame of the clip to NV12) on 1 and 8 threads."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from oatx_torch.data import h264
     from oatx_torch.data import video_reader as vr
 
     paths = []
     for i in range(8):
         p = os.path.join(tmp, f"cost{i}.mp4")
-        shutil.copy(os.path.join(H264_DIR, "high.mp4"), p)
+        shutil.copy(os.path.join(H264_DIR, "cavlc.mp4"), p)
         paths.append(p)
     work = [paths[i % len(paths)] for i in range(DECODE_COST_READS)]
 
@@ -7820,27 +7854,33 @@ def decode_cost(smi, tmp):
         t0 = time.perf_counter()
         list(pool.map(one, range(len(work))))
         multi = (time.perf_counter() - t0) / len(work) * 1e3
-    setup = []
-    for p in paths[:4]:
-        with vr.VideoHandle(p) as hd:
-            t0 = time.perf_counter()
-            hd.decode([0, 20, 40, 45], 256)
-            t1 = time.perf_counter()
-            hd.decode([1, 21, 41, 46], 256)
-            t2 = time.perf_counter()
-        setup.append(((t1 - t0) - (t2 - t1)) * 1e3)
+
+    def all_frames(i):
+        with vr.VideoHandle(paths[i % len(paths)]) as hd:
+            n, _, w, h = hd.info()
+            host = np.empty((n, h * 3 // 2, w), np.uint8)
+            t = time.perf_counter()
+            h264.decode_nv12(hd, list(range(n)), host)
+            return n, time.perf_counter() - t
+
+    all_frames(0)
+    runs = [all_frames(i) for i in range(4)]
+    fps_1 = sum(n for n, _ in runs) / sum(t for _, t in runs)
+    with ThreadPoolExecutor(8) as pool:
+        runs = list(pool.map(all_frames, range(16)))
+    fps_8 = sum(n for n, _ in runs) / sum(t for _, t in runs)  # per thread
     out = {"ms_per_clip_1_thread": single, "ms_per_clip_8_threads": multi,
-           "first_minus_second_decode_ms": setup, "reads": len(work),
-           "clip": "high.mp4 (596x336, 50 frames, High, B-frames)",
-           "mjpeg_host_decoder": MJPEG_HOST_MS}
+           "decoder_frames_per_s_1_thread": fps_1,
+           "decoder_frames_per_s_per_thread_8_threads": fps_8, "reads": len(work),
+           "clip": "cavlc.mp4 (596x336, 50 frames, High CAVLC, 4 slices, gop 25)",
+           "mjpeg_host_decoder": MJPEG_HOST_MS, "host_cpus": os.cpu_count()}
     print(f"decode cost ({smi}): " + json.dumps(out), flush=True)
     return out
 
 
 def decode_phase(smi, dev):
     """H.264 in mp4 on the card (module docstring, phase 18) → (the
-    nv12_rgb record, the main path's launches; None where NVDEC cannot be
-    opened, and the kernel then runs on no path here)."""
+    nv12_rgb record, the main path's launches)."""
     from oatx_torch.data import nvdec
     from oatx_torch.data import video_reader as vr
 
@@ -7860,25 +7900,25 @@ def decode_phase(smi, dev):
         raise AssertionError(f"NVDEC's caps for H.264 8-bit 4:2:0: {caps}")
     demux = decode_demuxer()
     print(f"decode demuxer ({smi}): " + json.dumps(demux), flush=True)
-    record = decode_kernel(smi, refused is None)
+    fixtures, frames256 = decode_host_fixtures()
+    print(f"decode fixtures ({smi}): " + json.dumps(fixtures), flush=True)
+    lap("18 decode: fixtures")
+    record = decode_kernel(smi)
     summary = {"caps": caps, "refused": refused, "demuxer": demux,
                "kernel_ms": record["ms"], "kernel_max_abs_err": record["max_abs_err"]}
-    launches = None
     if refused is not None:
-        summary["without_nvdec"] = decode_refused(refused)
+        summary["nvdec"] = decode_nvdec_refused(refused)
     else:
-        fixtures = decode_fixtures(demux)
-        print(f"decode fixtures ({smi}): " + json.dumps(fixtures), flush=True)
-        lap("18 decode: fixtures")
-        with tempfile.TemporaryDirectory() as tmp:
-            train, launches = decode_train(tmp, smi, dev)
-            lap("18 decode: cli.train")
-            cost = decode_cost(smi, tmp)
-        summary.update(train_losses=train["losses"],
-                       first_batch_vs_oatx=train["first_batch_vs_oatx"],
-                       decode_ms_per_clip=[cost["ms_per_clip_1_thread"],
-                                           cost["ms_per_clip_8_threads"]],
-                       nvdec_setup_ms=cost["first_minus_second_decode_ms"])
+        summary["nvdec"] = decode_nvdec_fixtures(demux)
+    with tempfile.TemporaryDirectory() as tmp:
+        train, launches = decode_train(tmp, smi, dev, frames256)
+        lap("18 decode: cli.train")
+        cost = decode_cost(smi, tmp)
+    summary.update(train_losses=train["losses"], first_batch_frames=train["first_batch_frames"],
+                   decode_ms_per_clip=[cost["ms_per_clip_1_thread"],
+                                       cost["ms_per_clip_8_threads"]],
+                   decoder_frames_per_s=[cost["decoder_frames_per_s_1_thread"],
+                                         cost["decoder_frames_per_s_per_thread_8_threads"]])
     summary["phase_s"] = time.perf_counter() - t0
     print(f"decode summary ({smi}): " + json.dumps(summary), flush=True)
     return record, launches
@@ -8157,13 +8197,8 @@ def main() -> int:
     phases["finetune"] = finetune_phase(smi, dev, os.path.join(kept.name, "checkpoint-epoch1"))
     kept.cleanup()
     lap("17 finetune")
-    nv12, decode_launches = decode_phase(smi, dev)
-    if decode_launches is None:  # NVDEC refused: the kernel has no path to run on here
-        print("chip_smoke: nv12_rgb is checked above but left out of the kernels line: the "
-              "H.264 path it serves needs NVDEC, which this machine refuses", flush=True)
-    else:
-        phases["decode"] = decode_launches
-        kernels.append(nv12)
+    nv12, phases["decode"] = decode_phase(smi, dev)
+    kernels.append(nv12)
     lap("18 decode")
     print("chip_smoke seconds by step: " + json.dumps(
         {b[0]: round(b[1] - a[1], 1) for a, b in zip(LAPS, LAPS[1:])}), flush=True)

@@ -66,7 +66,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         search_dirs=search)
     dl = exp.cfg.data_loaders[0]
     ds = build_dataset(dl, exp.cfg.arch.variant, split, load_region_bank(exp.cfg),
-                       seed=exp.cfg.trainer.seed)
+                       seed=exp.cfg.trainer.seed, device=dev)
     stride = exp.args.sliding_window_stride
     if stride != -1:
         logger.info("sliding-window ensembling, stride %d", stride)

@@ -128,9 +128,9 @@ def _main(argv: Optional[Sequence[str]], device: Optional[str] = None) -> int:
     layout = current_layout(t.dcn_slices, t.model_parallel)
     # the ranks of one model group read the same rows: shard by data position
     shards = dict(shard_id=layout.position, num_shards=layout.batch_shards, seed=t.seed)
-    train_loaders = build_loaders(exp.cfg, tokenizer, split="train", **shards)
+    train_loaders = build_loaders(exp.cfg, tokenizer, split="train", device=dev, **shards)
     try:
-        valid_loaders = build_loaders(exp.cfg, tokenizer, split="val", **shards)
+        valid_loaders = build_loaders(exp.cfg, tokenizer, split="val", device=dev, **shards)
     except Exception as e:  # no validation split available
         logger.info("no validation loaders (%s)", e)
         valid_loaders = []

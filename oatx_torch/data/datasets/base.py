@@ -146,9 +146,10 @@ class TextVideoDataset(ObjectAwareDataset):
     def __init__(self, cfg: DataLoaderCfg, split: Optional[str] = None,
                  object_options: Optional[ObjectOptions] = None,
                  object_vocab: Optional[Sequence[str]] = None, canon: int = 256,
-                 sliding_window_stride: int = -1, seed: int = 0):
+                 sliding_window_stride: int = -1, seed: int = 0, device=None):
         super().__init__(object_options, object_vocab)
         self.cfg = cfg
+        self.device = device  # where H.264 pictures turn RGB (video_reader.VideoHandle.decode)
         self.dataset_name = cfg.dataset_name
         self.data_dir = cfg.data_dir
         self.object_dir = cfg.object_dir
@@ -206,7 +207,7 @@ class TextVideoDataset(ObjectAwareDataset):
     def _decode_object_frame(self, rec, frame_index: int) -> np.ndarray:
         try:
             of = vr.decode_indices(self._get_video_path(rec)[0], [frame_index],
-                                   short_side=self.canon)
+                                   short_side=self.canon, device=self.device)
             return host_canonicalize(of, self.canon)
         except vr.DecodeError:
             return self._black_frames(1)
@@ -281,7 +282,7 @@ class TextVideoDataset(ObjectAwareDataset):
                     fix_start: Optional[int] = None):
         frames, idxs, vlen = vr.read_frames(
             path, self.num_frames, sample=self._frame_sample_mode(), fix_start=fix_start,
-            rng=rng, short_side=0 if self._host_rrc_active() else self.canon)
+            rng=rng, short_side=0 if self._host_rrc_active() else self.canon, device=self.device)
         frames = self._finalize_frames(frames, rng)
         if frames.shape[0] < self.num_frames:  # short video → repeat the last frame
             pad = np.repeat(frames[-1:], self.num_frames - frames.shape[0], axis=0)
@@ -341,7 +342,8 @@ class TextImageDataset(TextVideoDataset):
 
     def _read_video(self, path: str, rng, fix_start=None):
         frames = vr.decode_indices(path, [0],
-                                   short_side=0 if self._host_rrc_active() else self.canon)
+                                   short_side=0 if self._host_rrc_active() else self.canon,
+                                   device=self.device)
         return self._finalize_frames(frames, rng), [0], 1
 
 

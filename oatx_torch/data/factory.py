@@ -94,27 +94,29 @@ def tag_token_lens_for(ds, tokenizer) -> np.ndarray:
 
 def build_dataset(dl: DataLoaderCfg, variant: str = "baseline", split: Optional[str] = None,
                   region_bank: Optional[obj.RegionMemoryBank] = None,
-                  sliding_window_stride: int = -1, seed: int = 0):
+                  sliding_window_stride: int = -1, seed: int = 0, device=None):
+    """`device`: where H.264 clips' pictures turn RGB (None the card, "cpu"
+    the plain version; video_reader.VideoHandle.decode)."""
     cls = DATASETS.get(dl.dataset_name)
     opts = object_options_for_variant(variant, dl, region_bank)
     return cls(dl, split=split, object_options=opts, object_vocab=load_object_vocab(dl),
-               sliding_window_stride=sliding_window_stride, seed=seed)
+               sliding_window_stride=sliding_window_stride, seed=seed, device=device)
 
 
 def build_loaders(exp: ExperimentCfg, tokenizer: WordPieceTokenizer,
                   split: Optional[str] = None, shard_id: int = 0, num_shards: int = 1,
-                  seed: int = 0) -> List[ShardedLoader]:
+                  seed: int = 0, device=None) -> List[ShardedLoader]:
     """One loader per data_loader entry: shuffled, drop_last and echoed on
     the train split, in order otherwise. Each reads shard `shard_id` of
     `num_shards` of its dataset (every num_shards-th sample of the epoch's
     order; oatx feeds them from jax.process_index() / process_count(), the
     port's cli.train from the rank and world size). `batch_size` is per
-    shard."""
+    shard; `device` is build_dataset's."""
     region_bank = load_region_bank(exp)
     loaders = []
     tag_lens = None
     for dl in exp.data_loaders:
-        ds = build_dataset(dl, exp.arch.variant, split, region_bank, seed=seed)
+        ds = build_dataset(dl, exp.arch.variant, split, region_bank, seed=seed, device=device)
         if exp.arch.variant == "global_local" and tag_lens is None:
             tag_lens = tag_token_lens_for(ds, tokenizer)
         collate = Collator(tokenizer, tag_token_lens=tag_lens)

@@ -1,7 +1,9 @@
 """H.264 in mp4 / mov decoded on the card's NVDEC (csrc/nvdec.cu).
 
-The port of oatx's FFmpeg H.264 path (oatx/native/oatx_decode.cpp,
-decode_seek_stepping and IndexDecode). The host demuxer (native/mp4.cpp,
+A second route for oatx's FFmpeg H.264 path (oatx/native/oatx_decode.cpp,
+decode_seek_stepping and IndexDecode), called directly (`decode(handle,
+...)`): the reader decodes H.264 on the host (data/h264.py) and never tries
+this one, before or after. The host demuxer (native/mp4.cpp,
 through `VideoHandle.h264_plan`) gives the Annex B segments that decode the
 wanted display indices; NVDEC's parser and decoder run them, each wanted
 frame's NV12 surface is copied into one device buffer, and one launch of
@@ -16,9 +18,8 @@ driver's video capability, where cuvidGetDecoderCaps itself fails; only the
 NV12 → RGB kernel is checked on a card. `chip_smoke.py --only-decode` runs
 the glue where the capability is granted.
 
-There is no decoder on the CPU: without a card, decoding H.264 raises
-`UnsupportedMedia`. On the card it raises `UnsupportedMedia` only for a
-container's refusal: libnvcuvid does not load, or the caps query returns
+Without a card `decode` raises `UnsupportedMedia`. On the card it raises
+`UnsupportedMedia` only for a container's refusal: libnvcuvid does not load, or the caps query returns
 CUDA_ERROR_OUT_OF_MEMORY, where NVIDIA_DRIVER_CAPABILITIES withholds
 'video'. Every other failure of a CUDA or NVCUVID call, of the caps, or of
 NVDEC's parser to agree with the demuxer or to display a wanted frame is a
@@ -93,8 +94,8 @@ def _raise(lib, rc: int, what: str):
         if video_capability_withheld(env):
             raise UnsupportedMedia(
                 f"{msg}; NVDEC cannot be opened here: NVIDIA_DRIVER_CAPABILITIES={env} "
-                "withholds the driver's video capability, and H.264 decodes on the "
-                "card's NVDEC only")
+                "withholds the driver's video capability (the reader decodes H.264 on "
+                "the host)")
         raise NvdecError(f"{msg}; NVIDIA_DRIVER_CAPABILITIES={env!r} does not withhold the "
                          "driver's video capability, so this is no container's refusal")
     if rc == -3:
@@ -178,8 +179,8 @@ def decode(handle, indices: Sequence[int], short_side: int) -> np.ndarray:
     from oatx_torch.ops.kernels.nv12_rgb import nv12_to_rgb
 
     if not torch.cuda.is_available():
-        raise UnsupportedMedia(f"{handle.path}: H.264 decodes on the card's NVDEC, and this "
-                               "process has no CUDA device")
+        raise UnsupportedMedia(f"{handle.path}: NVDEC decodes on a card, and this process "
+                               "has no CUDA device")
     vlen, _, w, h = handle.info()
     ow, oh = handle.out_size(short_side)
     if len(indices) == 0:

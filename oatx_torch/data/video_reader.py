@@ -10,20 +10,21 @@ device (oatx_torch.data.transforms). The decode call releases the GIL
 The host decoder reads JPEG-coded media: MJPEG in an AVI (what
 `write_test_video` writes and oatx's `tools/remux.py --codec mjpeg` makes)
 and bare JPEG stills (CC3M). H.264 in mp4 / mov (WebVid's and MSR-VTT's
-codec) is demuxed on the host (native/mp4.cpp: probe and out_size work on
-the CPU) and decoded on the card's NVDEC (data/nvdec.py, whose glue has
-never decoded a frame: unverified); without a card, decoding it raises
-`UnsupportedMedia`. The container is sniffed from the
-content, not the extension. Anything else (MPEG-4 Part 2, HEVC, H.264
+codec) is demuxed on the host (native/mp4.cpp) and decoded on the host by
+the port's own H.264 decoder (native/h264.h: CAVLC I and P slices), its
+NV12 pictures converted to RGB on the card (data/h264.py); `device="cpu"`
+converts on the CPU instead. CABAC and B slices raise NotImplementedError
+(ROADMAP A12b). The container is sniffed from the content, not the
+extension. Anything else (MPEG-4 Part 2, HEVC, H.264
 other than 8-bit 4:2:0 progressive, ...) raises `UnsupportedMedia`, which
 is not a `DecodeError`, an `OSError` or an `AssertionError`: lax loading
 must not swallow it and train on substitute clips.
 
-The library builds at first use (never at import) with the host compiler,
-`c++ -O3 -fPIC -std=c++17 -shared native/decode.cpp native/mp4.cpp` (-O3:
-the IDCT and filter loops vectorize), into oatx_torch/_build/, named by a
-hash of the sources and the flags, under a file lock. A build failure
-raises with the compiler's log.
+The library builds at first use (never at import) with the host compiler:
+each of native/*.cpp compiled at once in its own process, `c++ -O3 -fPIC
+-std=c++17 -c` (-O3: the IDCT and filter loops vectorize), then linked
+`-shared` into oatx_torch/_build/, named by a hash of the sources and the
+flags, under a file lock. A build failure raises with the compiler's log.
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ from oatx_torch.data.sampling import sample_frames
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "native" / "decode.cpp"
-SOURCES = [SOURCE, _PKG / "native" / "mp4.cpp"]
-HEADERS = [_PKG / "native" / "mp4.h"]
+SOURCES = [SOURCE, _PKG / "native" / "mp4.cpp", _PKG / "native" / "h264_slice.cpp",
+           _PKG / "native" / "h264_recon.cpp"]
+HEADERS = [_PKG / "native" / "mp4.h", _PKG / "native" / "h264.h"]
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
@@ -62,7 +64,7 @@ class DecodeError(RuntimeError):
 class UnsupportedMedia(Exception):
     """Media the port does not read (neither JPEG-coded nor 8-bit 4:2:0
     H.264 in mp4 / mov, a JPEG variant outside baseline / extended
-    sequential 8-bit Huffman), or H.264 where no card can decode it."""
+    sequential 8-bit Huffman, an H.264 tool no x264 stream uses)."""
 
 
 def library_path() -> Path:
@@ -84,11 +86,23 @@ def _compiler() -> str:
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    p = subprocess.run([_compiler(), *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES)],
-                       capture_output=True, text=True)
-    if p.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.parent} failed:\n{p.stdout}{p.stderr}")
+    objs = [out.with_suffix(f".{os.getpid()}.{src.stem}.o") for src in SOURCES]
+    compile_flags = [f for f in CXX_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([_compiler(), *compile_flags, "-c", "-o", str(o), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"building {SOURCE.parent} failed:\n" + "".join(logs))
+        p = subprocess.run([_compiler(), *CXX_FLAGS, "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True)
+        if p.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"linking {SOURCE.parent} failed:\n{p.stdout}{p.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
 
 
@@ -251,7 +265,7 @@ class VideoHandle:
 
     @property
     def is_h264(self) -> bool:
-        """H.264 in mp4 / mov: demuxed here, decoded by the card's NVDEC."""
+        """H.264 in mp4 / mov (decoded by data/h264.py)."""
         return self._lib.oatxt_handle_kind(self._handle()) == 1
 
     def h264_info(self) -> Tuple[int, int, bool, int]:
@@ -264,8 +278,8 @@ class VideoHandle:
         return int(cw.value), int(ch.value), bool(fr.value), int(prof.value)
 
     def h264_plan(self, indices: Sequence[int]) -> H264Plan:
-        """The Annex B stream NVDEC decodes for frame `indices` (indices past
-        the end stand for the last frame)."""
+        """The Annex B stream that decodes frame `indices` (indices past the
+        end stand for the last frame)."""
         lib = self._lib
         idx = np.ascontiguousarray(indices, dtype=np.int64)
         rc = ctypes.c_int(0)
@@ -286,13 +300,15 @@ class VideoHandle:
         finally:
             lib.oatxt_plan_free(plan)
 
-    def decode(self, indices: Sequence[int], short_side: int = 0) -> np.ndarray:
+    def decode(self, indices: Sequence[int], short_side: int = 0, device=None) -> np.ndarray:
         """Decode frame indices → uint8 (n, H, W, 3) RGB; indices past the
-        end give the last frame. H.264 decodes on the card (data/nvdec.py)."""
+        end give the last frame. H.264 converts its pictures to RGB on
+        `device` (data/h264.py: None the card, "cpu" the plain version); the
+        other media ignore it."""
         if self.is_h264:
-            from oatx_torch.data import nvdec
+            from oatx_torch.data import h264
 
-            return nvdec.decode(self, indices, short_side)
+            return h264.decode(self, indices, short_side, device)
         ow, oh = self.out_size(short_side)
         n = len(indices)
         out = np.empty((n, oh, ow, 3), dtype=np.uint8)
@@ -316,22 +332,25 @@ def probe(path: str) -> Tuple[int, float, int, int]:
     return int(n.value), float(fps.value), int(w.value), int(h.value)
 
 
-def decode_indices(path: str, indices: Sequence[int], short_side: int = 0) -> np.ndarray:
-    """Decode specific frame indices → uint8 (n, H, W, 3) RGB."""
+def decode_indices(path: str, indices: Sequence[int], short_side: int = 0,
+                   device=None) -> np.ndarray:
+    """Decode specific frame indices → uint8 (n, H, W, 3) RGB (`device`:
+    VideoHandle.decode)."""
     with VideoHandle(path) as h:
-        return h.decode(indices, short_side=short_side)
+        return h.decode(indices, short_side=short_side, device=device)
 
 
 def read_frames(path: str, num_frames: int, sample: str = "rand",
                 fix_start: Optional[int] = None, rng: Optional[np.random.Generator] = None,
-                short_side: int = 256) -> Tuple[np.ndarray, List[int], int]:
-    """Sample + decode: → (uint8 frames (n, H, W, 3), frame_idxs, vlen)."""
+                short_side: int = 256, device=None) -> Tuple[np.ndarray, List[int], int]:
+    """Sample + decode: → (uint8 frames (n, H, W, 3), frame_idxs, vlen)
+    (`device`: VideoHandle.decode)."""
     with VideoHandle(path) as h:
         vlen, _, _, _ = h.info()
         if vlen <= 0:
             raise DecodeError(f"no frames: {path}")
         idxs = sample_frames(num_frames, vlen, sample=sample, fix_start=fix_start, rng=rng)
-        frames = h.decode(idxs, short_side=short_side)
+        frames = h.decode(idxs, short_side=short_side, device=device)
     return frames, idxs, vlen
 
 

@@ -13,7 +13,9 @@
 // The container is sniffed from the content, never from the file name. Every
 // frame is intra-coded, so only the requested chunks are read and
 // entropy-decoded; indices past the end clamp to the last frame (the lax
-// semantics of oatx's reader).
+// semantics of oatx's reader). H.264 in an mp4 / mov is demuxed by mp4.cpp
+// and decoded by h264.h's decoder (one a handle, made at its first decode)
+// to NV12, which the caller turns RGB (oatxt_h264_decode).
 //
 // JPEG: baseline and extended-sequential 8-bit Huffman (SOF0 / SOF1), DQT,
 // DHT (the Annex K tables when a stream carries none, as AVI1 MJPEG does),
@@ -52,6 +54,7 @@
 
 #include <sys/types.h>
 
+#include "h264.h"
 #include "mp4.h"
 
 namespace {
@@ -979,6 +982,7 @@ struct Media {
   uint64_t file_size = 0;
   std::vector<FrameRef> frames;
   std::unique_ptr<oatxt::H264Track> h264;  // an H.264 mp4: samples, not JPEG frames
+  std::unique_ptr<oatxt::h264::Decoder> h264_decoder;  // made at the first decode
   double fps = 0.0;
   int width = 0, height = 0;
 
@@ -1198,7 +1202,7 @@ int decode_core(Media& m, const int64_t* indices, int n, int short_side, uint8_t
                 int out_w, int out_h) {
   if (n <= 0) return 0;
   if (m.h264)
-    return fail(kUnsupported, "H.264 decodes on the card's NVDEC, not on the host: " + m.path);
+    return fail(kBadBuffer, "H.264 decodes through oatxt_h264_decode: " + m.path);
   int ow, oh;
   compute_out_size(m.width, m.height, short_side, &ow, &oh);
   if (ow != out_w || oh != out_h) return fail(kBadBuffer, "output buffer has the wrong size");
@@ -1575,8 +1579,8 @@ extern "C" {
 const char* oatxt_last_error() { return g_error.c_str(); }
 
 const char* oatxt_version() {
-  return "oatx_torch decode 1.1 (first-party: baseline/extended JPEG, MJPEG in AVI; "
-         "H.264 in mp4 / mov demuxed for NVDEC)";
+  return "oatx_torch decode 1.2 (first-party: baseline/extended JPEG, MJPEG in AVI; "
+         "H.264 in mp4 / mov: CAVLC I/P slices decoded here)";
 }
 
 // ------------------------------------------------------------- handle API
@@ -1629,7 +1633,8 @@ int oatxt_probe(const char* path, int64_t* nframes, double* fps, int* width, int
 
 // ------------------------------------------------------------ H.264 in mp4
 
-// 0: JPEG-coded media (decoded here), 1: H.264 in mp4 / mov (decoded by NVDEC)
+// 0: JPEG-coded media (oatxt_handle_decode), 1: H.264 in mp4 / mov
+// (oatxt_h264_decode)
 int oatxt_handle_kind(void* h) { return ((Media*)h)->h264 ? 1 : 0; }
 
 // The coded size (whole macroblocks), the SPS's video_full_range_flag and
@@ -1668,6 +1673,97 @@ void* oatxt_h264_plan(void* h, const int64_t* indices, int n, int* rc) {
     return nullptr;
   }
   return p;
+}
+
+// Decode display indices `indices` (any order, duplicates allowed; past the
+// end → the last frame) of an H.264 handle with the first-party decoder
+// (h264.h): the picture of each distinct index, in ascending order, as NV12
+// cropped to the container's size (height · 3 / 2 rows of width bytes)
+// into out (out_size bytes). Returns the number of pictures, or <0:
+// kUnsupported for a tool the decoder refuses, -4 for CABAC / B slices.
+int oatxt_h264_decode(void* h, const int64_t* indices, int n, uint8_t* out, int64_t out_size) {
+  Media* m = (Media*)h;
+  return guarded([&] {
+    if (!m->h264) return fail(kUnsupported, "not an H.264 mp4: " + m->path);
+    if (n <= 0) return fail(kBadBuffer, "no frame indices");
+    const int64_t last = m->frame_count() - 1;
+    std::vector<int64_t> want(indices, indices + n);
+    for (auto& i : want) i = std::min(std::max<int64_t>(i, 0), last);
+    std::sort(want.begin(), want.end());
+    want.erase(std::unique(want.begin(), want.end()), want.end());
+    const int64_t frame = (int64_t)m->width * m->height * 3 / 2;
+    if (out_size != frame * (int64_t)want.size())
+      return fail(kBadBuffer, "NV12 buffer of " + std::to_string(out_size) + " bytes for " +
+                                  std::to_string(want.size()) + " frames of " +
+                                  std::to_string(m->width) + "x" + std::to_string(m->height));
+    oatxt::H264Plan p;
+    std::string err;
+    int r = oatxt::plan_h264(m->reader(), *m->h264, want, p, err);
+    if (r) return fail(r, err + ": " + m->path);
+    if (!m->h264_decoder) m->h264_decoder.reset(new oatxt::h264::Decoder());
+    r = oatxt::h264::decode_plan(*m->h264_decoder, p, m->width, m->height, out, err);
+    return r ? fail(r, err + ": " + m->path) : (int)want.size();
+  });
+}
+
+// Decode an Annex B plan given as mp4.h's arrays (a hand-made stream) with
+// a fresh decoder: as oatxt_h264_decode, `wanted` sorted and unique; its
+// tool counters (kStatCount of them) into `stats` when it is not null.
+int oatxt_h264_decode_stream(const uint8_t* bytes, int64_t n_bytes, const int64_t* pkt_end,
+                             const int64_t* pkt_ts, int n_pkt, const int32_t* seg_end,
+                             int n_seg, const int64_t* wanted, int n_wanted, int width,
+                             int height, uint8_t* out, int64_t* stats) {
+  return guarded([&] {
+    oatxt::H264Plan p;
+    p.bytes.assign(bytes, bytes + n_bytes);
+    p.pkt_end.assign(pkt_end, pkt_end + n_pkt);
+    p.pkt_ts.assign(pkt_ts, pkt_ts + n_pkt);
+    p.seg_end.assign(seg_end, seg_end + n_seg);
+    p.wanted.assign(wanted, wanted + n_wanted);
+    for (int i = 0; i < n_pkt; i++)
+      if (pkt_end[i] < (i ? pkt_end[i - 1] : 0) || pkt_end[i] > n_bytes)
+        return fail(kBadBuffer, "packet ends out of order");
+    for (int s = 0; s < n_seg; s++)
+      if (seg_end[s] < (s ? seg_end[s - 1] : 0) || seg_end[s] > n_pkt)
+        return fail(kBadBuffer, "segment ends out of order");
+    oatxt::h264::Decoder d;
+    std::string err;
+    const int r = oatxt::h264::decode_plan(d, p, width, height, out, err);
+    if (stats) std::copy(d.stats, d.stats + oatxt::h264::kStatCount, stats);
+    return r ? fail(r, err) : n_wanted;
+  });
+}
+
+// ue(v) / se(v) / a CAVLC residual block read from `data` (h264.h
+// read_syntax): the tests' spot checks of the code tables.
+int oatxt_h264_read_syntax(int kind, const uint8_t* data, int64_t n_bytes, int arg, int n,
+                           int32_t* out) {
+  return guarded([&] {
+    std::string err;
+    const int r = oatxt::h264::read_syntax(kind, data, (size_t)n_bytes, arg, n, out, err);
+    return r < 0 ? fail(r, err) : r;
+  });
+}
+
+// The decoder's tool counters (h264.h kStatNames; names comma-separated by
+// oatxt_h264_stat_names) since the handle opened: copies min(n, count) and
+// returns the count.
+int oatxt_h264_stats(void* h, int64_t* out, int n) {
+  Media* m = (Media*)h;
+  const int count = oatxt::h264::kStatCount;
+  for (int i = 0; i < std::min(n, count); i++)
+    out[i] = m->h264_decoder ? m->h264_decoder->stats[i] : 0;
+  return count;
+}
+
+const char* oatxt_h264_stat_names() {
+  static const std::string names = [] {
+    std::string s;
+    for (int i = 0; i < oatxt::h264::kStatCount; i++)
+      s += (i ? "," : "") + std::string(oatxt::h264::kStatNames[i]);
+    return s;
+  }();
+  return names.c_str();
 }
 
 void oatxt_plan_sizes(void* plan, int64_t* n_bytes, int* n_packets, int* n_segments,

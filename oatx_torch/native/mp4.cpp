@@ -147,8 +147,8 @@ int parse_sps(const std::vector<uint8_t>& nal, H264Track& t, std::string& err) {
       profile == 139 || profile == 134 || profile == 135) {
     chroma = (int)r.ue();
     if (chroma == 3) r.u(1);  // separate_colour_plane_flag
-    depth_y = 8 + (int)r.ue();
-    depth_c = 8 + (int)r.ue();
+    depth_y = 8 + (int)std::min(r.ue(), 64u);
+    depth_c = 8 + (int)std::min(r.ue(), 64u);
     r.u(1);  // qpprime_y_zero_transform_bypass_flag
     if (r.u(1)) {  // seq_scaling_matrix_present_flag: skip the lists
       for (int i = 0; i < (chroma != 3 ? 8 : 12); i++) {
@@ -191,7 +191,7 @@ int parse_sps(const std::vector<uint8_t>& nal, H264Track& t, std::string& err) {
       full_range = r.u(1) != 0;
     }
   }
-  if (r.over || mbs_w > 1024 || map_h > 1024) {
+  if (r.over || mbs_w > 1024 || map_h > 1024 || *std::max_element(crop, crop + 4) > 8192) {
     err = "truncated or malformed sequence parameter set";
     return kMp4Corrupt;
   }
@@ -200,11 +200,11 @@ int parse_sps(const std::vector<uint8_t>& nal, H264Track& t, std::string& err) {
                            std::to_string(profile) + ")";
   if (chroma != 1) {
     const char* fmt[] = {"4:0:0", "4:2:0", "4:2:2", "4:4:4"};
-    err = name + " at chroma " + fmt[chroma & 3] + ": NVDEC is asked for 8-bit 4:2:0 only";
+    err = name + " at chroma " + fmt[chroma & 3] + ": the port reads 8-bit 4:2:0 only";
     return kMp4Unsupported;
   }
   if (depth_y != 8 || depth_c != 8) {
-    err = name + " at " + std::to_string(depth_y) + " bits: NVDEC is asked for 8-bit 4:2:0 only";
+    err = name + " at " + std::to_string(depth_y) + " bits: the port reads 8-bit 4:2:0 only";
     return kMp4Unsupported;
   }
   if (!frame_mbs_only) {

@@ -2,10 +2,10 @@
 //
 // oatx opens mp4 clips through FFmpeg (oatx/native/oatx_decode.cpp:
 // open_decoder, oatx_handle_info). The port reads the container itself on
-// the host and hands the card's NVDEC an Annex B elementary stream: NVDEC's
-// own parser (libnvcuvid) reads the SPS, PPS and slice headers, so nothing
-// here parses below the sequence parameter set, which is read only for the
-// picture size, the chroma format, the bit depth and the range flag.
+// the host and hands its H.264 decoder (h264.h) an Annex B elementary
+// stream; nothing here parses below the sequence parameter set, which is
+// read only for the picture size, the chroma format, the bit depth and the
+// range flag.
 #pragma once
 
 #include <cstdint>

@@ -1192,9 +1192,55 @@ def test_optimizer_step_on_the_card_matches_the_cpu(card, kind):
             assert err <= 1e-5 * float(w.abs().max()), (kind, n, err)
 
 
-# ----------------------------------------------------- H.264 on the card's NVDEC
+# ------------------------------------------ H.264: host decoder, NVDEC glue
 
 H264_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_h264")
+
+
+def _sha(frame):
+    import hashlib
+
+    import numpy as np
+
+    return np.frombuffer(hashlib.sha256(np.ascontiguousarray(frame).tobytes()).digest(),
+                         np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", ["cavlc", "cbase", "cfour", "cpcm"])
+def test_host_h264_fixtures_match_oatx_digests(card, clip):
+    """The reader's H.264 path (data/h264.py: the host decoder, one
+    nv12_rgb launch a read on the card) against oatx's SHA-256 of every
+    frame (tests/torch_h264/make_fixtures.py), bitwise."""
+    import numpy as np
+
+    from oatx_torch.data import video_reader as vr
+    from oatx_torch.ops.kernels import nv12_rgb
+
+    ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
+    path = os.path.join(H264_DIR, clip + ".mp4")
+    n = vr.probe(path)[0]
+    for key in ref.files:
+        if not key.endswith("_sha256"):
+            continue
+        ss = int(key[1:-7])
+        before = nv12_rgb.nv12_to_rgb.launches
+        every = vr.decode_indices(path, list(range(n)), ss)
+        assert nv12_rgb.nv12_to_rgb.launches == before + 1
+        assert all(np.array_equal(_sha(f), d) for f, d in zip(every, ref[key])), (clip, ss)
+        np.testing.assert_array_equal(every.reshape(n, -1, 3).mean(1), ref[f"s{ss}_means"])
+        np.testing.assert_array_equal(vr.decode_indices(path, [n + 3, 0], ss),
+                                      every[[n - 1, 0]])
+
+
+def _nvdec_decode(path, indices, short_side):
+    """NVDEC's decode of an H.264 file (data/nvdec.py, called directly: the
+    reader no longer goes there)."""
+    from oatx_torch.data import nvdec
+    from oatx_torch.data import video_reader as vr
+
+    with vr.VideoHandle(path) as h:
+        return nvdec.decode(h, indices, short_side)
 
 
 @pytest.mark.cuda
@@ -1257,18 +1303,18 @@ def test_nvdec_fixtures_match_oatx(card, clip):
         if not key.endswith("_idx"):
             continue
         ss = int(key[1:-4])
-        every = vr.decode_indices(path, list(range(n)), ss)
+        every = _nvdec_decode(path, list(range(n)), ss)
         assert np.abs(every.reshape(n, -1, 3).mean(1) - ref[f"s{ss}_means"]).max() <= 0.05
         d = np.abs(every[ref[key]].astype(np.int32) - ref[f"s{ss}_frames"].astype(np.int32))
         assert d.mean() <= 0.05 and d.max() <= 4, (clip, ss, float(d.mean()), int(d.max()))
-        np.testing.assert_array_equal(vr.decode_indices(path, [n + 3, 0], ss),
-                                      every[[n - 1, 0]])
+        np.testing.assert_array_equal(_nvdec_decode(path, [n + 3, 0], ss), every[[n - 1, 0]])
 
 
 @pytest.mark.cuda
 def test_h264_raises_unsupported_media_where_nvdec_is_refused(card):
-    """No fallback hides the device: where the driver refuses NVDEC, the
-    reader raises UnsupportedMedia quoting the refused call."""
+    """No fallback hides the device: where the driver refuses NVDEC, NVDEC's
+    decode (called directly; the reader decodes on the host) raises
+    UnsupportedMedia quoting the refused call."""
     from oatx_torch.data import nvdec
     from oatx_torch.data import video_reader as vr
 
@@ -1276,5 +1322,5 @@ def test_h264_raises_unsupported_media_where_nvdec_is_refused(card):
     if refused is None:
         pytest.skip("NVDEC opens on this machine (test_nvdec_fixtures_match_oatx decodes)")
     with pytest.raises(vr.UnsupportedMedia, match="NVDEC cannot be opened here") as e:
-        vr.decode_indices(os.path.join(H264_DIR, "base.mp4"), [0, 3], 224)
+        _nvdec_decode(os.path.join(H264_DIR, "base.mp4"), [0, 3], 224)
     assert nvdec.is_observed_refusal(str(e.value)), str(e.value)

@@ -1,7 +1,7 @@
 """The port's H.264-in-mp4 path on the CPU, against oatx's FFmpeg reader.
 
-The card decodes H.264 (NVDEC, csrc/nvdec.cu); what runs here is every
-piece around it:
+The port's own decoder (native/h264.h) is held against oatx in
+tests/test_torch_h264.py; what runs here is every piece around it:
 
 * the ISO BMFF demuxer (native/mp4.cpp): `probe` / `out_size` equal oatx's
   on clips oatx writes at 128×96, 320×240 and 596×336, keyframe intervals
@@ -22,8 +22,8 @@ piece around it:
   PIX_MAX (measured: equal, bitwise);
 * the committed fixtures (tests/torch_h264/) against a fresh decode by
   oatx, bitwise;
-* decoding H.264 without a card raises UnsupportedMedia; other codecs in
-  mp4 raise it naming the codec.
+* decoding H.264 without a card raises unless the caller names the CPU;
+  other codecs in mp4 raise UnsupportedMedia naming the codec.
 """
 
 import os
@@ -334,15 +334,20 @@ def test_committed_fixtures_match_oatx(clip):
 # ----------------------------------------------------------------- refusals
 
 def test_h264_without_a_card_raises(monkeypatch):
+    """Without a card the reader raises unless the caller names the CPU
+    (oatx_torch.resolve_device): the decoder runs on the host either way,
+    its RGB comes from the card's kernel or, on the CPU, its plain version."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = os.path.join(FIXTURES, "base.mp4")
     for call in (lambda: pvr.decode_indices(path, [0]),
                  lambda: pvr.read_frames(path, 4, rng=np.random.default_rng(0))):
-        with pytest.raises(pvr.UnsupportedMedia, match="NVDEC"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert pvr.probe(path) == (16, 8.0, 320, 240)  # the demuxer needs no card
+    frames, idxs, _ = pvr.read_frames(path, 4, rng=np.random.default_rng(0), device="cpu")
+    np.testing.assert_array_equal(frames, jvr.decode_indices(path, idxs, 256))
 
 
 @pytest.mark.parametrize("fourcc,named", [(b"hvc1", "HEVC"), (b"mp4v", "MPEG-4 Part 2"),

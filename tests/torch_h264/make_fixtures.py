@@ -1,10 +1,12 @@
 """Write the H.264 fixtures of the port's mp4 reader, and oatx's frames.
 
-    python tests/torch_h264/make_fixtures.py
+    python tests/torch_h264/make_fixtures.py [CLIP ...]
 
-Needs oatx's FFmpeg reader (oatx/native, libx264): run where FFmpeg is
-installed; the files it writes are committed, and the card's machine, which
-has no FFmpeg, reads them. It writes into this directory:
+(every clip without arguments). Needs oatx's FFmpeg reader (oatx/native,
+libx264) and, for the CAVLC clips, FFmpeg's headers and a C++ compiler:
+run where FFmpeg is installed; the files it writes are committed, and the
+card's machine, which has no FFmpeg, reads them. It writes into this
+directory:
 
   high.mp4  596×336, 50 frames at 25 fps: an MJPEG clip of oatx's test
             pattern (seed 2) through `transcode(..., "libx264", gop=25)`:
@@ -17,6 +19,18 @@ has no FFmpeg, reads them. It writes into this directory:
             whose 4-frame 'rand' sample is every frame, so a training batch
             over it reads known frames;
 
+and the CAVLC clips the port's host decoder reads (native/h264.h), written
+by encode.cpp (libx264 through libavcodec with an x264-params string; built
+here into a temporary directory) from its own synthetic content:
+
+  cavlc.mp4  596×336 (coded 608×336), 50 frames at 25 fps, High profile,
+             CAVLC_PARAMS: 8×8 transform, every partition, 3 references,
+             weighted prediction, 4 slices, deblocking offsets, JVT matrices;
+  cbase.mp4  320×240, 24 frames, Constrained Baseline, every partition,
+             3 references, deblocking 2,2, constrained intra prediction;
+  cfour.mp4  596×336, 4 frames, cavlc.mp4's options (a training batch's clip);
+  cpcm.mp4   32×16, 2 frames of noise at qp 10: I_PCM beside I_8x8 and P;
+
 and, for each clip, <clip>.npz of oatx's decode (`decode_indices`) at
 the short sides of SHORT_SIDES (0 and 224; four.mp4 and one.mp4 also at
 256, the datasets' canonical side): `s<ss>_idx` the indices whose frames
@@ -24,10 +38,15 @@ are stored (`stored`), `s<ss>_frames` those frames, `s<ss>_means` every
 frame's mean per channel (float64, n × 3) and `probe` oatx's (frames, fps,
 width, height). tests/test_torch_mp4.py
 holds the stored frames against a fresh decode by oatx, and chip_smoke.py's
-decode phase holds the card's decode against them.
+decode phase holds the card's decode against them. The CAVLC clips' npz
+keep no pixels (the folder stays under 1 MiB): `s<ss>_sha256` (n, 32)
+uint8, the SHA-256 of each frame's RGB bytes, and `s<ss>_means` for every
+frame at the short sides of SHORT_SIDES, with `probe`.
 """
 
+import hashlib
 import os
+import subprocess
 import sys
 import tempfile
 
@@ -36,7 +55,19 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
 
-SHORT_SIDES = {"high": (0, 224), "base": (0, 224), "one": (0, 224, 256), "four": (0, 256)}
+SHORT_SIDES = {"high": (0, 224), "base": (0, 224), "one": (0, 224, 256), "four": (0, 256),
+               "cavlc": (0, 224), "cbase": (0, 224, 256), "cfour": (0, 224, 256),
+               "cpcm": (0, 224)}
+OLD = ("high", "base", "one", "four")
+CAVLC_PARAMS = ("cabac=0:bframes=0:8x8dct=1:partitions=all:ref=3:mixed-refs=1:weightp=2:"
+                "deblock=-1,-1:slices=4:keyint=25:cqm=jvt")
+# clip → (width, height, frames, fps, profile, crf, seed, x264-params[, "noise"])
+CAVLC = {"cavlc": (596, 336, 50, 25, "high", 46, 5, CAVLC_PARAMS),
+         "cbase": (320, 240, 24, 25, "baseline", 42, 6,
+                   "partitions=all:ref=3:deblock=2,2:constrained-intra=1:keyint=12"),
+         "cfour": (596, 336, 4, 25, "high", 42, 7, CAVLC_PARAMS),
+         "cpcm": (32, 16, 2, 25, "high", 20, 1, "qp=10:psy=0:subme=9:trellis=0:cabac=0:"
+                  "bframes=0:8x8dct=1", "noise")}
 
 
 def samples(n):
@@ -64,19 +95,65 @@ def stored(clip, n, ss):
     return sorted(set(s["uniform" if ss == 0 else "rand"]) | {n - 1})
 
 
-def main():
+def digest(frame) -> np.ndarray:
+    return np.frombuffer(hashlib.sha256(np.ascontiguousarray(frame).tobytes()).digest(),
+                         np.uint8)
+
+
+def write_cavlc(clips):
+    """Build encode.cpp into a temporary directory and write `clips` (of
+    CAVLC) with it, then their digests."""
+    from oatx.data import video_reader as jvr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "encode")
+        subprocess.run([os.environ.get("CXX", "c++"), "-O2", "-std=c++17", "-o", exe,
+                        os.path.join(HERE, "encode.cpp"), "-lavformat", "-lavcodec",
+                        "-lavutil"], check=True)
+        for clip in clips:
+            w, h, n, fps, profile, crf, seed, *params = CAVLC[clip]
+            subprocess.run([exe, os.path.join(HERE, f"{clip}.mp4"), str(w), str(h), str(n),
+                            str(fps), profile, str(crf), str(seed), *params], check=True,
+                           stderr=subprocess.DEVNULL)
+    for clip in clips:
+        path = os.path.join(HERE, f"{clip}.mp4")
+        probe = jvr.probe(path)
+        n = probe[0]
+        out = {"probe": np.asarray(probe, np.float64)}
+        for ss in SHORT_SIDES[clip]:
+            every = jvr.decode_indices(path, list(range(n)), ss)
+            out[f"s{ss}_sha256"] = np.stack([digest(f) for f in every])
+            out[f"s{ss}_means"] = every.reshape(n, -1, 3).mean(1)
+        np.savez_compressed(os.path.join(HERE, f"{clip}.npz"), **out)
+
+
+def main(clips=None):
+    clips = list(clips or (*OLD, *CAVLC))
+    if any(c in CAVLC for c in clips):
+        write_cavlc([c for c in clips if c in CAVLC])
+    if any(c in OLD for c in clips):
+        write_old([c for c in clips if c in OLD])
+    total = sum(os.path.getsize(os.path.join(HERE, f)) for f in os.listdir(HERE))
+    print(f"wrote {sorted(os.listdir(HERE))}: {total} bytes")
+
+
+def write_old(clips):
     from oatx.data import video_reader as jvr
 
     with tempfile.TemporaryDirectory() as tmp:
         for name, seed, frames in (("high", 2, 50), ("four", 3, 4)):
+            if name not in clips:
+                continue
             src = os.path.join(tmp, f"{name}.avi")
             jvr.write_test_video(src, 596, 336, frames, 25, seed=seed)
             jvr.transcode(src, os.path.join(HERE, f"{name}.mp4"), "libx264", gop=25)
-    jvr.write_test_video(os.path.join(HERE, "base.mp4"), 320, 240, 16, 8, seed=1,
-                         codec="libx264", gop=4)
-    jvr.write_test_video(os.path.join(HERE, "one.mp4"), 128, 96, 1, 8, seed=4,
-                         codec="libx264", gop=4)
-    for clip in ("high", "base", "one", "four"):
+    if "base" in clips:
+        jvr.write_test_video(os.path.join(HERE, "base.mp4"), 320, 240, 16, 8, seed=1,
+                             codec="libx264", gop=4)
+    if "one" in clips:
+        jvr.write_test_video(os.path.join(HERE, "one.mp4"), 128, 96, 1, 8, seed=4,
+                             codec="libx264", gop=4)
+    for clip in clips:
         path = os.path.join(HERE, f"{clip}.mp4")
         probe = jvr.probe(path)
         n = probe[0]
@@ -88,9 +165,7 @@ def main():
             out[f"s{ss}_frames"] = jvr.decode_indices(path, idx, ss)
             out[f"s{ss}_means"] = every.reshape(n, -1, 3).mean(1)
         np.savez_compressed(os.path.join(HERE, f"{clip}.npz"), **out)
-    total = sum(os.path.getsize(os.path.join(HERE, f)) for f in os.listdir(HERE))
-    print(f"wrote {sorted(os.listdir(HERE))}: {total} bytes")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

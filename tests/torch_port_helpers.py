@@ -208,7 +208,7 @@ class OatxBackedHandle:
     def out_size(self, short_side: int = 0):
         return self._h.out_size(short_side)
 
-    def decode(self, indices, short_side: int = 0):
+    def decode(self, indices, short_side: int = 0, device=None):
         from oatx.data import video_reader as jvr
 
         try:
