@@ -488,15 +488,17 @@ printed):
      cuvidGetDecoderCaps returning CUDA_ERROR_OUT_OF_MEMORY where the
      container withholds the driver's video capability), each fixture's
      probe and whole-clip plan against oatx's stored probe. Then every
-     CAVLC fixture (cavlc.mp4: 596×336 High, 8×8 transform, 3 references,
-     weighted prediction, 4 slices; cbase.mp4: 320×240 Constrained
-     Baseline, constrained intra; cfour.mp4: 4 frames; cpcm.mp4: I_PCM) at
-     every frame and
-     stored short side (0 / 224 / 256) equal to oatx's SHA-256 and channel
-     means, the 'rand' / 'uniform' samples and past the end equal to the
+     digest-stored fixture — CAVLC (cavlc.mp4: 596×336 High, 8×8 transform,
+     3 references, weighted prediction, 4 slices; cbase.mp4: 320×240
+     Constrained Baseline, constrained intra; cfour.mp4: 4 frames;
+     cpcm.mp4: I_PCM) and CABAC / B (high.mp4 / four.mp4 from oatx's
+     transcode; cmed.mp4 x264's default preset; ctemp.mp4 temporal direct;
+     cbcavlc.mp4 CAVLC B; cpcmb.mp4 I_PCM in CABAC; cidc1.mp4
+     cabac_init_idc 1; copen.mp4 an open GOP) — at every frame and stored
+     short side (0 / 224 / 256) equal to oatx's SHA-256 and channel means,
+     the 'rand' / 'uniform' samples and past the end equal to the
      every-frame decode, one nv12_rgb launch a read; base.mp4 / one.mp4
-     equal to oatx's stored frames; high.mp4 / four.mp4 (CABAC, B slices)
-     raising NotImplementedError (ROADMAP A12b). The kernel against its
+     equal to oatx's stored frames. The kernel against its
      plain version on the host decoder's NV12 pictures, equal (integer
      arithmetic), with ms, plain ms and the bytes bound at each shape.
      NVDEC, called directly (the reader does not go there): where refused,
@@ -504,12 +506,13 @@ printed):
      refusal; where it opens, its fixtures against oatx's stored frames
      within the reader test's bounds (unverified glue: data/nvdec.py).
      `cli.train` on norm.json's WebVid loader for DECODE_TRAIN_STEPS steps
-     over a WebVid layout of cfour.mp4 / cbase.mp4 copies (finite losses,
+     over a WebVid layout of four.mp4 / cmed.mp4 copies (finite losses,
      launches counted: nv12_rgb at least once a clip read; each frame of
      the first batch equal to the canonical square of a digest-verified
      frame of its clip, in order). The read rate: ms a clip of read_frames
-     on 1 and 8 threads beside the MJPEG host decoder's, and the host
-     decoder's frames/s per thread alone.
+     over cavlc.mp4 (CAVLC) and high.mp4 (CABAC, B) on 1 and 8 threads
+     beside the MJPEG host decoder's, and the host decoder's frames/s per
+     thread alone.
 In the run without arguments phases 10-13 overlap: their kernels are timed
 first, alone; then their gloo rank groups run RANK_GROUPS_AT_ONCE at a time
 while this process takes the phases' one-process references (so those
@@ -7496,13 +7499,17 @@ def finetune_phase(smi, dev, init=None):
 # phase 18: H.264 in mp4 through the reader on the card (host demuxer → the
 # port's host decoder → the NV12 → RGB kernel), held against oatx's frames
 # stored beside the fixtures (tests/torch_h264/make_fixtures.py, written
-# where FFmpeg is): SHA-256 of every frame for the CAVLC clips
+# where FFmpeg is): SHA-256 of every frame for all but base / one
 H264_DIR = os.path.join(HERE, "tests", "torch_h264")
 H264_CLIPS = ("high", "base", "one", "four")   # the NVDEC glue's fixtures
-CAVLC_CLIPS = ("cavlc", "cbase", "cfour", "cpcm")  # the host decoder's
+# the host decoder's, held to oatx's digests: CAVLC, then CABAC / B slices
+DIGEST_CLIPS = ("cavlc", "cbase", "cfour", "cpcm", "high", "four", "cmed", "ctemp", "cbcavlc",
+                "cpcmb", "cidc1", "copen")
+DECODE_TRAIN_CLIPS = ("four", "cmed")  # cli.train's WebVid layout, in turn
+DECODE_COST_CLIPS = ("cavlc", "high")  # the read rate: CAVLC I / P, CABAC with B
 H264_PIX_MEAN, H264_PIX_MAX = 0.05, 4  # tests/test_torch_video_reader.py's bounds (NVDEC)
 H264_MEANS_TOL = 0.05    # a frame's per-channel means, for frames whose pixels are not stored
-DECODE_TRAIN_IDS = 32    # WebVid train ids (two batches of 16), cfour.mp4 / cbase.mp4 in turn
+DECODE_TRAIN_IDS = 32    # WebVid train ids (two batches of 16), DECODE_TRAIN_CLIPS in turn
 DECODE_VAL_IDS = 4
 DECODE_TRAIN_STEPS = 2
 DECODE_COST_READS = 32   # read_frames calls (probe + 4 frames) per decode-cost reading
@@ -7534,20 +7541,19 @@ def pixels_close(tag, got, want):
 
 
 def decode_host_fixtures():
-    """Each CAVLC fixture through the reader on the card (host decoder, one
-    nv12_rgb launch a read): at each stored short side every frame's
-    SHA-256 and channel means equal oatx's, and the 'rand' / 'uniform'
-    samples and indices past the end equal the every-frame decode at their
-    clamped indices; base.mp4 / one.mp4 (x264's ultrafast Baseline) equal
-    oatx's stored frames; high.mp4 / four.mp4 (CABAC, B slices) raise
-    NotImplementedError naming ROADMAP A12b. → (the record, the verified
-    frames of each CAVLC clip at 256)."""
+    """Each digest-stored fixture (CAVLC, CABAC, B slices) through the
+    reader on the card (host decoder, one nv12_rgb launch a read): at each
+    stored short side every frame's SHA-256 and channel means equal oatx's,
+    and the 'rand' / 'uniform' samples and indices past the end equal the
+    every-frame decode at their clamped indices; base.mp4 / one.mp4 (x264's
+    ultrafast Baseline) equal oatx's stored frames. → (the record, the
+    verified frames of each clip by short side)."""
     from oatx_torch.data import video_reader as vr
     from oatx_torch.ops.kernels import nv12_rgb
 
     mf = h264_fixtures()
-    out, frames256 = {}, {}
-    for clip in CAVLC_CLIPS:
+    out, verified = {}, {}
+    for clip in DIGEST_CLIPS:
         path = os.path.join(H264_DIR, clip + ".mp4")
         ref = np.load(os.path.join(H264_DIR, clip + ".npz"))
         rec = {}
@@ -7571,8 +7577,7 @@ def decode_host_fixtures():
                         raise AssertionError(f"{clip} at {ss}, {kind} {ix}: frames differ from "
                                              "the every-frame decode's")
                 rec[f"s{ss}"] = {"frames": n, "sha256_equal": n, "shape": list(every.shape)}
-                if ss == 256:
-                    frames256[clip] = every
+                verified.setdefault(clip, {})[ss] = every
         out[clip] = rec
     for clip in ("base", "one"):
         path = os.path.join(H264_DIR, clip + ".mp4")
@@ -7583,24 +7588,17 @@ def decode_host_fixtures():
             if not np.array_equal(every[ref[f"s{ss}_idx"]], ref[f"s{ss}_frames"]):
                 raise AssertionError(f"{clip} at {ss}: stored frames differ from oatx's")
         out[clip] = {"stored_frames_equal": True}
-    for clip in ("high", "four"):
-        try:
-            vr.decode_indices(os.path.join(H264_DIR, clip + ".mp4"), [0], 256)
-        except NotImplementedError as e:
-            if "A12b" not in str(e):
-                raise AssertionError(f"{clip}: NotImplementedError without ROADMAP A12b: {e}")
-            out[clip] = {"refused": str(e).split(": ", 1)[-1]}
-        else:
-            raise AssertionError(f"{clip} (CABAC, B slices) decoded")
-    return out, frames256
+    return out, verified
 
 
-def decode_nvdec_fixtures(demux):
+def decode_nvdec_fixtures(demux, verified):
     """Where NVDEC opens: each of its fixtures through nvdec.decode (called
     directly; the reader decodes on the host) at each stored short side
-    against oatx's stored frames within the reader test's bounds, every
-    frame's channel means within H264_MEANS_TOL; NVDEC's coded size against
-    the demuxer's. Unverified glue (data/nvdec.py)."""
+    against oatx's frames within the reader test's bounds (base / one: the
+    stored frames; high / four: the host decoder's, equal to oatx's
+    digests, `verified`), every frame's channel means within
+    H264_MEANS_TOL; NVDEC's coded size against the demuxer's. Unverified
+    glue (data/nvdec.py)."""
     from oatx_torch.data import nvdec
     from oatx_torch.data import video_reader as vr
 
@@ -7619,9 +7617,12 @@ def decode_nvdec_fixtures(demux):
                 if d_means > H264_MEANS_TOL:
                     raise AssertionError(f"{clip} at {ss}: a frame's channel mean is "
                                          f"{d_means} off oatx's")
-                idx = ref[f"s{ss}_idx"]
+                if clip in verified:
+                    idx, want = np.arange(n), verified[clip][ss]
+                else:
+                    idx, want = ref[f"s{ss}_idx"], ref[f"s{ss}_frames"]
                 rec[f"s{ss}"] = {"every_frame": pixels_close(f"{clip} at {ss}", every[idx],
-                                                             ref[f"s{ss}_frames"]),
+                                                             want),
                                  "means_max_diff": d_means}
             fmt = hd.nvdec_decoder(torch.cuda.current_device()).format()
             cw, ch, full_range, _ = hd.h264_info()
@@ -7636,9 +7637,9 @@ def decode_nvdec_fixtures(demux):
 
 def decode_kernel(smi):
     """The NV12 → RGB kernel against its plain version on the host
-    decoder's NV12 pictures of the CAVLC fixtures, with its ms, the plain
-    version's and the bound. The record's shape is the main path's:
-    cfour.mp4's 4 frames to the canonical short side 256, as cli.train
+    decoder's NV12 pictures of CABAC and CAVLC fixtures, with its ms, the
+    plain version's and the bound. The record's shape is the main path's:
+    four.mp4's 4 frames to the canonical short side 256, as cli.train
     reads them."""
     from oatx_torch.data import h264
     from oatx_torch.data import video_reader as vr
@@ -7646,7 +7647,8 @@ def decode_kernel(smi):
 
     shapes = {}
     record = None
-    for clip, sides in (("cfour", (256,)), ("cavlc", (0, 224, 256)), ("cbase", (0, 224))):
+    for clip, sides in (("four", (256,)), ("cmed", (0, 224, 256)), ("cavlc", (0, 224)),
+                        ("cbase", (0, 224))):
         path = os.path.join(H264_DIR, clip + ".mp4")
         with vr.VideoHandle(path) as hd:
             n, _, w, h = hd.info()
@@ -7679,7 +7681,7 @@ def decode_kernel(smi):
                               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                               "library_ms": None}
     record["by_shape"] = shapes
-    record["surfaces"] = "the host decoder's NV12 pictures of the CAVLC fixtures"
+    record["surfaces"] = "the host decoder's NV12 pictures of CABAC and CAVLC fixtures"
     print(f"decode kernel nv12_rgb ({smi}): " + json.dumps(record), flush=True)
     return record
 
@@ -7690,7 +7692,7 @@ def decode_demuxer():
     from oatx_torch.data import video_reader as vr
 
     out = {}
-    for clip in H264_CLIPS + CAVLC_CLIPS:
+    for clip in dict.fromkeys(H264_CLIPS + DIGEST_CLIPS):
         path = os.path.join(H264_DIR, clip + ".mp4")
         want = np.load(os.path.join(H264_DIR, clip + ".npz"))["probe"]
         n, fps, w, h = probe = vr.probe(path)
@@ -7724,11 +7726,12 @@ def decode_nvdec_refused(refused):
     return {"nvdec.decode": "UnsupportedMedia for every fixture"}
 
 
-def decode_train(tmp, smi, dev, frames256):
+def decode_train(tmp, smi, dev, verified):
     """cli.train on norm.json's WebVid loader alone for DECODE_TRAIN_STEPS
-    steps over a WebVid layout of cfour.mp4 / cbase.mp4 copies; each frame
-    of the first batch's video equal to the canonical square of a frame of
-    its clip verified against oatx's SHA-256 (`frames256`), in order."""
+    steps over a WebVid layout of four.mp4 / cmed.mp4 copies (CABAC, B
+    slices); each frame of the first batch's video equal to the canonical
+    square of a frame of its clip verified against oatx's SHA-256
+    (`verified`, short side 256), in order."""
     from oatx_torch.cli import train as cli_train
     from oatx_torch.data import loader as loader_mod
     from oatx_torch.data.host_transforms import host_canonicalize
@@ -7745,7 +7748,7 @@ def decode_train(tmp, smi, dev, frames256):
         rows = ["caption\tvideoid"]
         for i in range(n):
             vid = str(base + i)
-            kind_of[vid] = "cfour" if i % 2 == 0 else "cbase"
+            kind_of[vid] = DECODE_TRAIN_CLIPS[i % len(DECODE_TRAIN_CLIPS)]
             shutil.copy(os.path.join(H264_DIR, kind_of[vid] + ".mp4"),
                         os.path.join(root, split, vid + ".mp4"))
             rows.append(f"{data_caption('h', base + i)}\t{vid}")
@@ -7799,7 +7802,7 @@ def decode_train(tmp, smi, dev, frames256):
     if len(losses) != DECODE_TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"decode train: losses {losses}")
     got = np.asarray(first["batch"]["video"])
-    canon = {c: host_canonicalize(f, got.shape[-2]) for c, f in frames256.items()}
+    canon = {c: host_canonicalize(verified[c][256], got.shape[-2]) for c in DECODE_TRAIN_CLIPS}
     picked = []
     for i, meta in enumerate(first["batch"]["meta"]):
         clip = kind_of[os.path.splitext(os.path.basename(meta["paths"]))[0]]
@@ -7810,7 +7813,7 @@ def decode_train(tmp, smi, dev, frames256):
                 raise AssertionError(f"decode train: sample {i} frame {t} ({clip}) is no "
                                      "verified frame of its clip")
             ks.append(hit[0])
-        if ks != sorted(ks) or (clip == "cfour" and ks != [0, 1, 2, 3]):
+        if ks != sorted(ks) or (clip == "four" and ks != [0, 1, 2, 3]):
             raise AssertionError(f"decode train: sample {i} ({clip}) holds frames {ks}")
         picked.append([clip, ks])
     out = {"config": "norm.json (WebVid loader)", "batch": batch, "steps": DECODE_TRAIN_STEPS,
@@ -7823,9 +7826,9 @@ def decode_train(tmp, smi, dev, frames256):
     return out, launches
 
 
-def decode_cost(smi, tmp):
-    """The H.264 read rate: ms a clip of read_frames (probe + 4 'rand'
-    frames at short side 256, the datasets' call) over copies of cavlc.mp4
+def decode_cost(smi, tmp, clip):
+    """The H.264 read rate of `clip`: ms a clip of read_frames (probe + 4
+    'rand' frames at short side 256, the datasets' call) over copies of it
     on 1 and 8 threads, and frames/s per thread of the host decoder alone
     (every frame of the clip to NV12) on 1 and 8 threads."""
     from concurrent.futures import ThreadPoolExecutor
@@ -7835,14 +7838,16 @@ def decode_cost(smi, tmp):
 
     paths = []
     for i in range(8):
-        p = os.path.join(tmp, f"cost{i}.mp4")
-        shutil.copy(os.path.join(H264_DIR, "cavlc.mp4"), p)
+        p = os.path.join(tmp, f"cost_{clip}{i}.mp4")
+        shutil.copy(os.path.join(H264_DIR, clip + ".mp4"), p)
         paths.append(p)
     work = [paths[i % len(paths)] for i in range(DECODE_COST_READS)]
+    with vr.VideoHandle(paths[0]) as hd:
+        shape = (4, *hd.out_size(256)[::-1], 3)
 
     def one(i):
         frames, _, _ = vr.read_frames(work[i], 4, rng=np.random.default_rng(i), short_side=256)
-        assert frames.shape == (4, 256, 454, 3), frames.shape
+        assert frames.shape == shape, frames.shape
 
     one(0)
     t0 = time.perf_counter()
@@ -7869,12 +7874,14 @@ def decode_cost(smi, tmp):
     with ThreadPoolExecutor(8) as pool:
         runs = list(pool.map(all_frames, range(16)))
     fps_8 = sum(n for n, _ in runs) / sum(t for _, t in runs)  # per thread
+    about = {"cavlc": "cavlc.mp4 (596x336, 50 frames, High CAVLC, 4 slices, gop 25)",
+             "high": "high.mp4 (596x336, 50 frames, x264 veryfast: CABAC, B-frames, gop 25)"}
     out = {"ms_per_clip_1_thread": single, "ms_per_clip_8_threads": multi,
            "decoder_frames_per_s_1_thread": fps_1,
            "decoder_frames_per_s_per_thread_8_threads": fps_8, "reads": len(work),
-           "clip": "cavlc.mp4 (596x336, 50 frames, High CAVLC, 4 slices, gop 25)",
-           "mjpeg_host_decoder": MJPEG_HOST_MS, "host_cpus": os.cpu_count()}
-    print(f"decode cost ({smi}): " + json.dumps(out), flush=True)
+           "clip": about.get(clip, clip), "mjpeg_host_decoder": MJPEG_HOST_MS,
+           "host_cpus": os.cpu_count()}
+    print(f"decode cost {clip} ({smi}): " + json.dumps(out), flush=True)
     return out
 
 
@@ -7900,7 +7907,7 @@ def decode_phase(smi, dev):
         raise AssertionError(f"NVDEC's caps for H.264 8-bit 4:2:0: {caps}")
     demux = decode_demuxer()
     print(f"decode demuxer ({smi}): " + json.dumps(demux), flush=True)
-    fixtures, frames256 = decode_host_fixtures()
+    fixtures, verified = decode_host_fixtures()
     print(f"decode fixtures ({smi}): " + json.dumps(fixtures), flush=True)
     lap("18 decode: fixtures")
     record = decode_kernel(smi)
@@ -7909,16 +7916,19 @@ def decode_phase(smi, dev):
     if refused is not None:
         summary["nvdec"] = decode_nvdec_refused(refused)
     else:
-        summary["nvdec"] = decode_nvdec_fixtures(demux)
+        summary["nvdec"] = decode_nvdec_fixtures(demux, verified)
     with tempfile.TemporaryDirectory() as tmp:
-        train, launches = decode_train(tmp, smi, dev, frames256)
+        train, launches = decode_train(tmp, smi, dev, verified)
+        del verified
         lap("18 decode: cli.train")
-        cost = decode_cost(smi, tmp)
-    summary.update(train_losses=train["losses"], first_batch_frames=train["first_batch_frames"],
-                   decode_ms_per_clip=[cost["ms_per_clip_1_thread"],
-                                       cost["ms_per_clip_8_threads"]],
-                   decoder_frames_per_s=[cost["decoder_frames_per_s_1_thread"],
-                                         cost["decoder_frames_per_s_per_thread_8_threads"]])
+        costs = {clip: decode_cost(smi, tmp, clip) for clip in DECODE_COST_CLIPS}
+    summary.update(train_losses=train["losses"], first_batch_frames=train["first_batch_frames"])
+    for clip, cost in costs.items():  # [1 thread, 8 threads]
+        summary[f"{clip}_ms_per_clip"] = [cost["ms_per_clip_1_thread"],
+                                          cost["ms_per_clip_8_threads"]]
+        summary[f"{clip}_decoder_frames_per_s"] = [
+            cost["decoder_frames_per_s_1_thread"],
+            cost["decoder_frames_per_s_per_thread_8_threads"]]
     summary["phase_s"] = time.perf_counter() - t0
     print(f"decode summary ({smi}): " + json.dumps(summary), flush=True)
     return record, launches

@@ -3,8 +3,10 @@
 The port of oatx's FFmpeg H.264 path (oatx/native/oatx_decode.cpp,
 decode_seek_stepping: avcodec_send_packet / avcodec_receive_frame, then
 sws_scale). The host demuxer (native/mp4.cpp) plans the Annex B segments
-that decode the wanted display indices; the port's own decoder
-(native/h264.h: CAVLC I and P slices, written from ITU-T H.264) runs them
+that decode the wanted display indices (an open GOP's from the IDR picture
+before the recovery point, as oatx's sequential read decodes them); the
+port's own decoder (native/h264.h: CAVLC and CABAC, I, P and B slices,
+written from ITU-T H.264) runs them
 in native code with the GIL released and writes each wanted picture as
 NV12, cropped to the SPS's window, into a pinned host buffer. One copy
 takes it to the card and one launch of the NV12 → RGB kernel
@@ -15,12 +17,12 @@ back as oatx's reader returns them: uint8 RGB (n, H, W, 3) on the host,
 indices past the end standing for the last frame.
 
 `device`: None names the card (oatx_torch.resolve_device; without one it
-raises), "cpu" runs the kernel's plain version on the CPU. H.264 streams
-the decoder does not read yet — CABAC and B slices — raise
-NotImplementedError naming ROADMAP A12b; a tool no x264 stream uses (FMO,
-redundant pictures, SP / SI slices, data partitioning, gaps in frame_num,
-lossless coding) raises `UnsupportedMedia` naming it. Nothing else decodes
-in their place: NVDEC (data/nvdec.py) is not tried.
+raises), "cpu" runs the kernel's plain version on the CPU. A tool no x264
+stream of this corpus uses (interlace, FMO, redundant pictures, SP / SI
+slices, data partitioning, gaps in frame_num, lossless coding, a stream
+that opens on a recovery point, cabac_init_idc 1 with the 8×8 transform)
+raises `UnsupportedMedia` naming it. Nothing else decodes in their place:
+NVDEC (data/nvdec.py) is not tried.
 """
 
 from __future__ import annotations
@@ -29,8 +31,6 @@ import ctypes
 from typing import Dict, Sequence
 
 import numpy as np
-
-_NOT_IMPLEMENTED = -4  # h264.h kNotImplemented
 
 
 def _lib(handle=None):
@@ -57,8 +57,6 @@ def _raise(lib, rc: int, what: str):
     from oatx_torch.data.video_reader import DecodeError, UnsupportedMedia
 
     msg = f"{what}: {lib.oatxt_last_error().decode(errors='replace')}"
-    if rc == _NOT_IMPLEMENTED:
-        raise NotImplementedError(msg)
     if rc == -3:
         raise UnsupportedMedia(msg)
     raise DecodeError(f"{msg} ({rc})")
@@ -111,18 +109,27 @@ def decode_stream(plan, width: int, height: int, counters: Dict[str, int] = None
     return out
 
 
-def read_syntax(kind: str, data: bytes, n: int, nc: int = 0):
+def read_syntax(kind: str, data: bytes, n: int, nc: int = 0, ctx: Sequence[int] = ()):
     """The decoder's parsing primitives on `data` (h264.h read_syntax):
     kind "ue" / "se" → (n values, bits read); "residual" → (the levels of
-    one CAVLC block with nC `nc` and maxNumCoeff `n`, TotalCoeff, bits read)."""
+    one CAVLC block with nC `nc` and maxNumCoeff `n`, TotalCoeff, bits read);
+    "cabac_init" → (the CABAC context state 2 · pStateIdx + valMPS of each
+    ctxIdx in `ctx` after the initialisation of slice kind nc // 64 (0 I,
+    1-3 cabac_init_idc 0-2) at SliceQPY nc % 64, -1 where the kind has no
+    such context; bits read); "cabac_range" → (the rangeTabLPS row of each
+    pStateIdx in `ctx`, their transIdxLPS)."""
     lib = _lib()
-    k = {"ue": 0, "se": 1, "residual": 2}[kind]
-    out = np.zeros(n + 1, np.int32)
+    k = {"ue": 0, "se": 1, "residual": 2, "cabac_init": 3, "cabac_range": 4}[kind]
+    out = np.zeros(2 * n + 1, np.int32)
+    out[:len(ctx)] = ctx
     rc = lib.oatxt_h264_read_syntax(k, data, len(data), nc, n, out.ctypes.data)
     if rc < 0:
         _raise(lib, rc, f"reading {kind}")
     if kind == "residual":
         return out[:n].tolist(), int(out[n]), rc
+    if kind == "cabac_range":
+        return [tuple(int(v) >> s & 255 for s in (24, 16, 8, 0)) for v in out[:n]], \
+            out[n:2 * n].tolist()
     return out[:n].tolist(), rc
 
 

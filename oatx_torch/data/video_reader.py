@@ -11,11 +11,10 @@ The host decoder reads JPEG-coded media: MJPEG in an AVI (what
 `write_test_video` writes and oatx's `tools/remux.py --codec mjpeg` makes)
 and bare JPEG stills (CC3M). H.264 in mp4 / mov (WebVid's and MSR-VTT's
 codec) is demuxed on the host (native/mp4.cpp) and decoded on the host by
-the port's own H.264 decoder (native/h264.h: CAVLC I and P slices), its
-NV12 pictures converted to RGB on the card (data/h264.py); `device="cpu"`
-converts on the CPU instead. CABAC and B slices raise NotImplementedError
-(ROADMAP A12b). The container is sniffed from the content, not the
-extension. Anything else (MPEG-4 Part 2, HEVC, H.264
+the port's own H.264 decoder (native/h264.h: CAVLC and CABAC, I, P and B
+slices), its NV12 pictures converted to RGB on the card (data/h264.py);
+`device="cpu"` converts on the CPU instead. The container is sniffed from
+the content, not the extension. Anything else (MPEG-4 Part 2, HEVC, H.264
 other than 8-bit 4:2:0 progressive, ...) raises `UnsupportedMedia`, which
 is not a `DecodeError`, an `OSError` or an `AssertionError`: lax loading
 must not swallow it and train on substitute clips.
@@ -46,7 +45,7 @@ from oatx_torch.data.sampling import sample_frames
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "native" / "decode.cpp"
 SOURCES = [SOURCE, _PKG / "native" / "mp4.cpp", _PKG / "native" / "h264_slice.cpp",
-           _PKG / "native" / "h264_recon.cpp"]
+           _PKG / "native" / "h264_recon.cpp", _PKG / "native" / "h264_cabac.cpp"]
 HEADERS = [_PKG / "native" / "mp4.h", _PKG / "native" / "h264.h"]
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]

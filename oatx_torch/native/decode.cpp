@@ -1579,8 +1579,8 @@ extern "C" {
 const char* oatxt_last_error() { return g_error.c_str(); }
 
 const char* oatxt_version() {
-  return "oatx_torch decode 1.2 (first-party: baseline/extended JPEG, MJPEG in AVI; "
-         "H.264 in mp4 / mov: CAVLC I/P slices decoded here)";
+  return "oatx_torch decode 1.3 (first-party: baseline/extended JPEG, MJPEG in AVI; "
+         "H.264 in mp4 / mov: CAVLC and CABAC, I, P and B slices decoded here)";
 }
 
 // ------------------------------------------------------------- handle API

@@ -1,7 +1,8 @@
 // h264_recon.cpp — the H.264 decoder's sample half (h264.h): intra
-// prediction (8.3), inter prediction with fractional-sample interpolation
-// and explicit weights (8.4.2), the inverse transforms (8.5.12, 8.5.13) and
-// the deblocking filter (8.7). Clause numbers are ITU-T H.264's.
+// prediction (8.3), inter prediction with fractional-sample interpolation,
+// bi-prediction and default, explicit and implicit weights (8.4.2), the
+// inverse transforms (8.5.12, 8.5.13) and the deblocking filter (8.7).
+// Clause numbers are ITU-T H.264's.
 
 #include <algorithm>
 #include <cstdlib>
@@ -430,39 +431,89 @@ void weight(uint8_t* dst, int stride, int w, int h, int log_wd, int wt, int off)
     }
 }
 
+// 8.4.2.3: two lists' predictions a and b (w×h, stride w) into dst: the
+// default average (w0 = w1 = 1, log_wd = 0, off = 0), or explicit / implicit
+// weights
+void combine(uint8_t* dst, int stride, const uint8_t* a, const uint8_t* b, int w, int h,
+             int log_wd, int w0, int w1, int off) {
+  for (int r = 0; r < h; r++)
+    for (int c = 0; c < w; c++)
+      dst[r * stride + c] = (uint8_t)clip1(
+          ((a[r * w + c] * w0 + b[r * w + c] * w1 + (1 << log_wd)) >> (log_wd + 1)) + off);
+}
+
+// one list's prediction of the w×h block at luma (lx, ly): luma into py
+// (stride ys), chroma into pu / pv (stride cs)
+void predict_list(SliceCtx& s, const Picture& ref, const int16_t* mv, int lx, int ly, int w, int h,
+                  uint8_t* py, int ys, uint8_t* pu, uint8_t* pv, int cs) {
+  mc_luma(s, ref, lx + (mv[0] >> 2), ly + (mv[1] >> 2), mv[0] & 3, mv[1] & 3, w, h, py, ys);
+  const int cw = ref.width / 2, ch = ref.height / 2;
+  mc_chroma(s, ref.u, cw, ch, lx / 2, ly / 2, mv, w / 2, h / 2, pu, cs);
+  mc_chroma(s, ref.v, cw, ch, lx / 2, ly / 2, mv, w / 2, h / 2, pv, cs);
+}
+
 void predict_block(SliceCtx& s, int mbx, int mby, const MbInfo& mb, int x, int y, int w, int h) {
   const int b8 = (x >> 3) + 2 * (y >> 3), blk = (x >> 2) + 4 * (y >> 2);
-  const int ref_idx = mb.ref[b8];
-  const Picture& ref = *s.ref_list[(size_t)ref_idx];
+  const int r0 = mb.ref[0][b8], r1 = mb.ref[1][b8];
   Picture& pic = s.d->cur;
-  const int16_t* mv = mb.mv[blk];
-  const int lx = mbx * 16 + x, ly = mby * 16 + y;
+  const int lx = mbx * 16 + x, ly = mby * 16 + y, cw = pic.width / 2;
   uint8_t* dy = pic.y.data() + (size_t)ly * pic.width + lx;
-  mc_luma(s, ref, lx + (mv[0] >> 2), ly + (mv[1] >> 2), mv[0] & 3, mv[1] & 3, w, h, dy,
-          pic.width);
-  const int cw = pic.width / 2, ch = pic.height / 2;
   const size_t co = (size_t)(ly / 2) * cw + lx / 2;
-  mc_chroma(s, ref.u, cw, ch, lx / 2, ly / 2, mv, w / 2, h / 2, pic.u.data() + co, cw);
-  mc_chroma(s, ref.v, cw, ch, lx / 2, ly / 2, mv, w / 2, h / 2, pic.v.data() + co, cw);
-  if (s.pps->weighted_pred && s.sh.type == 0) {
-    const PredWeight& pw = s.sh.pw;
+  uint8_t *du = pic.u.data() + co, *dv = pic.v.data() + co;
+  const bool b_slice = s.sh.type == 1;
+  // 0 default, 1 explicit, 2 implicit (8.4.2.3)
+  const int mode = b_slice ? s.pps->weighted_bipred_idc : s.pps->weighted_pred ? 1 : 0;
+  const PredWeight& pw = s.sh.pw;
+  if (r0 < 0 || r1 < 0) {  // one list
+    const int list = r0 >= 0 ? 0 : 1, ri = r0 >= 0 ? r0 : r1;
+    predict_list(s, *s.ref_list[list][(size_t)ri], mb.mv[list][blk], lx, ly, w, h, dy, pic.width,
+                 du, dv, cw);
+    if (mode == 1) {
+      s.d->stats[kStat_weighted_blocks]++;
+      weight(dy, pic.width, w, h, pw.luma_log2, pw.luma_w[list][ri], pw.luma_o[list][ri]);
+      weight(du, cw, w / 2, h / 2, pw.chroma_log2, pw.chroma_w[list][ri][0],
+             pw.chroma_o[list][ri][0]);
+      weight(dv, cw, w / 2, h / 2, pw.chroma_log2, pw.chroma_w[list][ri][1],
+             pw.chroma_o[list][ri][1]);
+    }
+    return;
+  }
+  s.d->stats[kStat_bipred_blocks]++;
+  uint8_t ly0[256], ly1[256], lu[2][64], lv[2][64];
+  predict_list(s, *s.ref_list[0][(size_t)r0], mb.mv[0][blk], lx, ly, w, h, ly0, w, lu[0], lv[0],
+               w / 2);
+  predict_list(s, *s.ref_list[1][(size_t)r1], mb.mv[1][blk], lx, ly, w, h, ly1, w, lu[1], lv[1],
+               w / 2);
+  if (mode == 0) {
+    combine(dy, pic.width, ly0, ly1, w, h, 0, 1, 1, 0);
+    combine(du, cw, lu[0], lu[1], w / 2, h / 2, 0, 1, 1, 0);
+    combine(dv, cw, lv[0], lv[1], w / 2, h / 2, 0, 1, 1, 0);
+  } else if (mode == 1) {
     s.d->stats[kStat_weighted_blocks]++;
-    weight(dy, pic.width, w, h, pw.luma_log2, pw.luma_w[ref_idx], pw.luma_o[ref_idx]);
-    weight(pic.u.data() + co, cw, w / 2, h / 2, pw.chroma_log2, pw.chroma_w[ref_idx][0],
-           pw.chroma_o[ref_idx][0]);
-    weight(pic.v.data() + co, cw, w / 2, h / 2, pw.chroma_log2, pw.chroma_w[ref_idx][1],
-           pw.chroma_o[ref_idx][1]);
+    combine(dy, pic.width, ly0, ly1, w, h, pw.luma_log2, pw.luma_w[0][r0], pw.luma_w[1][r1],
+            (pw.luma_o[0][r0] + pw.luma_o[1][r1] + 1) >> 1);
+    for (int c = 0; c < 2; c++)
+      combine(c ? dv : du, cw, c ? lv[0] : lu[0], c ? lv[1] : lu[1], w / 2, h / 2,
+              pw.chroma_log2, pw.chroma_w[0][r0][c], pw.chroma_w[1][r1][c],
+              (pw.chroma_o[0][r0][c] + pw.chroma_o[1][r1][c] + 1) >> 1);
+  } else {
+    const int w0 = s.implicit_w0[r0][r1];
+    combine(dy, pic.width, ly0, ly1, w, h, 5, w0, 64 - w0, 0);
+    combine(du, cw, lu[0], lu[1], w / 2, h / 2, 5, w0, 64 - w0, 0);
+    combine(dv, cw, lv[0], lv[1], w / 2, h / 2, 5, w0, 64 - w0, 0);
   }
 }
 
 bool same_motion(const MbInfo& mb, int x, int y, int w, int h) {
-  const int b0 = (x >> 2) + 4 * (y >> 2);
+  const int b0 = (x >> 2) + 4 * (y >> 2), r0 = (x >> 3) + 2 * (y >> 3);
   for (int j = y; j < y + h; j += 4)
     for (int i = x; i < x + w; i += 4) {
-      const int b = (i >> 2) + 4 * (j >> 2);
-      if (mb.mv[b][0] != mb.mv[b0][0] || mb.mv[b][1] != mb.mv[b0][1] ||
-          mb.ref[(i >> 3) + 2 * (j >> 3)] != mb.ref[(x >> 3) + 2 * (y >> 3)])
-        return false;
+      const int b = (i >> 2) + 4 * (j >> 2), r = (i >> 3) + 2 * (j >> 3);
+      for (int l = 0; l < 2; l++)
+        if (mb.ref[l][r] != mb.ref[l][r0] ||
+            (mb.ref[l][r0] >= 0 &&
+             (mb.mv[l][b][0] != mb.mv[l][b0][0] || mb.mv[l][b][1] != mb.mv[l][b0][1])))
+          return false;
     }
   return true;
 }
@@ -621,11 +672,31 @@ int strength(const MbInfo& p, int bp, const MbInfo& q, int bq, bool mb_edge, int
     if (p.t8x8 || q.t8x8) stats[kStat_bs2_8x8]++;
     return 2;
   }
+  // the reference pictures and motion vectors of each block, whichever list
   const int p8 = ((bp & 3) >> 1) + 2 * (bp >> 3), q8 = ((bq & 3) >> 1) + 2 * (bq >> 3);
-  if (p.ref_pic[p8] != q.ref_pic[q8]) return 1;
-  if (std::abs(p.mv[bp][0] - q.mv[bq][0]) >= 4 || std::abs(p.mv[bp][1] - q.mv[bq][1]) >= 4)
+  int pr[2], qr[2], np = 0, nq = 0;
+  const int16_t *pm[2], *qm[2];
+  for (int l = 0; l < 2; l++) {
+    if (p.ref[l][p8] >= 0) pr[np] = p.ref_pic[l][p8], pm[np++] = p.mv[l][bp];
+    if (q.ref[l][q8] >= 0) qr[nq] = q.ref_pic[l][q8], qm[nq++] = q.mv[l][bq];
+  }
+  auto far = [](const int16_t* a, const int16_t* b) {
+    return std::abs(a[0] - b[0]) >= 4 || std::abs(a[1] - b[1]) >= 4;
+  };
+  if (np != nq) {
+    stats[kStat_bs_mv_count_differs]++;
     return 1;
-  return 0;
+  }
+  if (np == 1) return pr[0] != qr[0] || far(pm[0], qm[0]) ? 1 : 0;
+  if (!((pr[0] == qr[0] && pr[1] == qr[1]) || (pr[0] == qr[1] && pr[1] == qr[0]))) return 1;
+  if (pr[0] != pr[1]) {  // two different pictures: each vector against its picture's
+    stats[kStat_bs_two_refs]++;
+    if (pr[0] == qr[0]) return far(pm[0], qm[0]) || far(pm[1], qm[1]) ? 1 : 0;
+    return far(pm[0], qm[1]) || far(pm[1], qm[0]) ? 1 : 0;
+  }
+  stats[kStat_bs_same_two_refs]++;  // both vectors of each block from one picture
+  return (far(pm[0], qm[0]) || far(pm[1], qm[1])) && (far(pm[0], qm[1]) || far(pm[1], qm[0]))
+             ? 1 : 0;
 }
 
 }  // namespace

@@ -362,7 +362,7 @@ void parse_sps(Decoder& d, Bits& b) {  // 7.3.2.1.1
   s.mb_width = b.ue(1023, "SPS picture size") + 1;
   s.mb_height = b.ue(1023, "SPS picture size") + 1;
   if (!b.flag()) raise(kUnsupported, "interlaced H.264 (frame_mbs_only_flag 0)");
-  b.skip(1);  // direct_8x8_inference_flag (B slices)
+  s.direct_8x8_inference = b.flag();
   if (b.flag()) {  // frame_cropping_flag: CropUnitX = CropUnitY = 2 for 4:2:0 frames
     s.crop_left = 2 * b.ue(8 * 1024, "SPS picture size");
     s.crop_right = 2 * b.ue(8 * 1024, "SPS picture size");
@@ -390,10 +390,11 @@ void parse_pps(Decoder& d, Bits& b) {  // 7.3.2.2
   p.bottom_field_pic_order_present = b.flag();
   if (b.ue() > 0)
     raise(kUnsupported, "H.264 flexible macroblock ordering (num_slice_groups_minus1 > 0)");
-  p.num_ref_idx_default = b.ue(31, "num_ref_idx_l0_default_active_minus1") + 1;
-  b.ue(31, "num_ref_idx_l1_default_active_minus1");
+  p.num_ref_idx_default[0] = b.ue(31, "num_ref_idx_l0_default_active_minus1") + 1;
+  p.num_ref_idx_default[1] = b.ue(31, "num_ref_idx_l1_default_active_minus1") + 1;
   p.weighted_pred = b.flag();
-  b.skip(2);  // weighted_bipred_idc (B slices)
+  p.weighted_bipred_idc = (int)b.u(2);
+  if (p.weighted_bipred_idc == 3) raise(kCorrupt, "weighted_bipred_idc out of range");
   p.pic_init_qp = 26 + b.se();
   b.se();  // pic_init_qs (SP / SI only)
   p.chroma_qp_offset[0] = p.chroma_qp_offset[1] = b.se();
@@ -461,28 +462,32 @@ void pred_weight_table(Bits& b, SliceHeader& h, int64_t* stats) {  // 7.3.3.2
   PredWeight& w = h.pw;
   w.luma_log2 = b.ue(7, "weight denominator");
   w.chroma_log2 = b.ue(7, "weight denominator");
-  for (int i = 0; i < h.num_ref_idx_active; i++) {
-    w.luma_flag[i] = b.flag();
-    w.luma_w[i] = 1 << w.luma_log2;
-    w.luma_o[i] = 0;
-    if (w.luma_flag[i]) {
-      w.luma_w[i] = b.se();
-      w.luma_o[i] = b.se();
-      stats[kStat_weighted_luma_refs]++;
-    }
-    w.chroma_flag[i] = b.flag();
-    for (int c = 0; c < 2; c++) {
-      w.chroma_w[i][c] = 1 << w.chroma_log2;
-      w.chroma_o[i][c] = 0;
-    }
-    if (w.chroma_flag[i]) {
-      stats[kStat_weighted_chroma_refs]++;
+  auto weight = [&]() {  // luma_weight / offset and their chroma kin: -128..127 (7.4.3.2)
+    const int v = b.se();
+    if (v < -128 || v > 127) raise(kCorrupt, "prediction weight or offset out of range");
+    return v;
+  };
+  for (int list = 0; list < (h.type == 1 ? 2 : 1); list++)
+    for (int i = 0; i < h.num_ref_idx_active[list]; i++) {
+      w.luma_w[list][i] = 1 << w.luma_log2;
+      w.luma_o[list][i] = 0;
+      if (b.flag()) {
+        w.luma_w[list][i] = weight();
+        w.luma_o[list][i] = weight();
+        stats[kStat_weighted_luma_refs]++;
+      }
       for (int c = 0; c < 2; c++) {
-        w.chroma_w[i][c] = b.se();
-        w.chroma_o[i][c] = b.se();
+        w.chroma_w[list][i][c] = 1 << w.chroma_log2;
+        w.chroma_o[list][i][c] = 0;
+      }
+      if (b.flag()) {
+        stats[kStat_weighted_chroma_refs]++;
+        for (int c = 0; c < 2; c++) {
+          w.chroma_w[list][i][c] = weight();
+          w.chroma_o[list][i][c] = weight();
+        }
       }
     }
-  }
 }
 
 struct ListMod {
@@ -490,25 +495,21 @@ struct ListMod {
 };
 
 void slice_header(Decoder& d, Bits& b, int nal_type, int nal_ref_idc, SliceHeader& h,
-                  std::vector<ListMod>& mods) {  // 7.3.3
+                  std::vector<ListMod> mods[2]) {  // 7.3.3
   h.first_mb = b.ue(1 << 20, "first_mb_in_slice");  // slice_data checks it against the SPS
   const uint32_t type = b.ue();
   if (type > 9) raise(kCorrupt, "slice_type out of range");
   const int t = (int)(type % 5);
-  if (t == 1) raise(kNotImplemented, "H.264 B slices are not decoded yet (ROADMAP A12b)");
   if (t == 3 || t == 4) raise(kUnsupported, "H.264 SP / SI slices");
   h.type = t;
   const uint32_t pps_id = b.ue();
   if (pps_id > 255 || !d.pps[pps_id].valid) raise(kCorrupt, "slice names a missing PPS");
   h.pps_id = (int)pps_id;
   const Pps& p = d.pps[h.pps_id];
-  if (p.cabac)
-    raise(kNotImplemented, "H.264 CABAC (entropy_coding_mode_flag) is not decoded yet "
-                           "(ROADMAP A12b)");
   const Sps& s = d.sps[p.sps_id];
   h.idr = nal_type == 5;
   h.nal_ref_idc = nal_ref_idc;
-  if (h.idr && t != 2) raise(kCorrupt, "IDR picture with a P slice");
+  if (h.idr && t != 2) raise(kCorrupt, "IDR picture with a P or B slice");
   h.frame_num = (int)b.u(s.log2_max_frame_num);
   if (h.idr) b.ue();  // idr_pic_id
   if (s.poc_type == 0) {
@@ -519,21 +520,31 @@ void slice_header(Decoder& d, Bits& b, int nal_type, int nal_ref_idc, SliceHeade
     h.delta_poc[0] = b.se();
     if (p.bottom_field_pic_order_present) h.delta_poc[1] = b.se();
   }
-  h.num_ref_idx_active = p.num_ref_idx_default;
-  mods.clear();
-  if (t == 0) {
-    if (b.flag()) h.num_ref_idx_active = b.ue(15, "num_ref_idx_l0_active_minus1") + 1;
-    if (h.num_ref_idx_active > 16) raise(kCorrupt, "num_ref_idx_l0_active out of range");
-    if (b.flag()) {  // ref_pic_list_modification_flag_l0 (7.3.3.1)
+  if (t == 1) h.direct_spatial = b.flag();
+  h.num_ref_idx_active[0] = p.num_ref_idx_default[0];
+  h.num_ref_idx_active[1] = t == 1 ? p.num_ref_idx_default[1] : 0;
+  mods[0].clear();
+  mods[1].clear();
+  if (t != 2) {
+    if (b.flag()) {  // num_ref_idx_active_override_flag
+      h.num_ref_idx_active[0] = b.ue(15, "num_ref_idx_l0_active_minus1") + 1;
+      if (t == 1) h.num_ref_idx_active[1] = b.ue(15, "num_ref_idx_l1_active_minus1") + 1;
+    }
+    if (h.num_ref_idx_active[0] > 16) raise(kCorrupt, "num_ref_idx_l0_active out of range");
+    if (h.num_ref_idx_active[1] > 16) raise(kCorrupt, "num_ref_idx_l1_active out of range");
+    for (int list = 0; list < (t == 1 ? 2 : 1); list++) {
+      if (!b.flag()) continue;  // ref_pic_list_modification_flag_lX (7.3.3.1)
       for (;;) {
         const uint32_t idc = b.ue();
         if (idc == 3) break;
-        if (idc > 2 || mods.size() > 64) raise(kCorrupt, "bad modification_of_pic_nums_idc");
-        mods.push_back({(int)idc, b.ue(65535, "abs_diff_pic_num_minus1 / long_term_pic_num")});
+        if (idc > 2 || mods[list].size() > 64)
+          raise(kCorrupt, "bad modification_of_pic_nums_idc");
+        mods[list].push_back(
+            {(int)idc, b.ue(65535, "abs_diff_pic_num_minus1 / long_term_pic_num")});
       }
     }
-    if (p.weighted_pred) {
-      d.stats[kStat_weighted_slices]++;
+    if ((p.weighted_pred && t == 0) || (p.weighted_bipred_idc == 1 && t == 1)) {
+      d.stats[t == 0 ? kStat_weighted_slices : kStat_weighted_bipred_explicit]++;
       pred_weight_table(b, h, d.stats);
     }
   }
@@ -559,6 +570,12 @@ void slice_header(Decoder& d, Bits& b, int nal_type, int nal_ref_idc, SliceHeade
         }
       }
     }
+  }
+  if (p.cabac && t != 2) {
+    h.cabac_init_idc = b.ue(2, "cabac_init_idc");
+    if (h.cabac_init_idc == 1 && p.transform_8x8_mode)
+      raise(kUnsupported, "H.264 cabac_init_idc 1 with the 8x8 transform (its context "
+                          "initialisation for ctxIdx 399-435 is not verified)");
   }
   h.qp = p.pic_init_qp + b.se();
   if (h.qp < 0 || h.qp > 51) raise(kCorrupt, "slice QP out of range");
@@ -679,23 +696,53 @@ struct Neighbour {
   int x = 0, y = 0;  // the location inside mb (luma samples)
 };
 
+// B macroblock types 1-21 (Table 7-14): the prediction of each partition
+// (1 Pred_L0, 2 Pred_L1, 3 BiPred)
+const uint8_t kBPred[22][2] = {{0, 0}, {1, 0}, {2, 0}, {3, 0}, {1, 1}, {1, 1}, {2, 2}, {2, 2},
+                               {1, 2}, {1, 2}, {2, 1}, {2, 1}, {1, 3}, {1, 3}, {2, 3}, {2, 3},
+                               {3, 1}, {3, 1}, {3, 2}, {3, 2}, {3, 3}, {3, 3}};
+// B sub_mb_type 1-12 (Table 7-18): prediction, and the shape as P's
+// sub_mb_type numbers it (0 8×8, 1 8×4, 2 4×8, 3 4×4); 0 is B_Direct_8x8
+const uint8_t kBSubPred[13] = {0, 1, 2, 3, 1, 1, 2, 2, 3, 3, 1, 2, 3};
+const uint8_t kBSubShape[13] = {0, 0, 0, 0, 1, 2, 1, 2, 1, 2, 3, 3, 3};
+const int kSubParts[4] = {1, 2, 2, 4}, kSubW[4] = {8, 8, 4, 4}, kSubH[4] = {8, 4, 8, 4};
+
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline int min_positive(int a, int b) { return a >= 0 && b >= 0 ? std::min(a, b) : std::max(a, b); }
+
+// DistScaleFactor (8.4.1.2.3) of the current picture at POC cur between
+// pic0 and pic1, whose POCs differ
+int dist_scale_factor(int cur, const Picture& p0, const Picture& p1) {
+  const int tb = clip3(-128, 127, cur - p0.poc), td = clip3(-128, 127, p1.poc - p0.poc);
+  const int tx = (16384 + std::abs(td / 2)) / td;
+  return clip3(-1024, 1023, (tb * tx + 32) >> 6);
+}
+
 struct MbDecoder {
   SliceCtx& s;
   Decoder& d;
   Bits& b;
+  Cabac* cab;  // nullptr: CAVLC
   int mbx = 0, mby = 0, addr = 0;
   MbInfo* cur = nullptr;
   MbCoeffs c;
   uint16_t mv_done = 0;  // 4×4 blocks of the current macroblock already predicted
   bool eight_ok = true;  // noSubMbPartSizeLessThan8x8Flag
+  bool prev_qp_delta = false;  // the previous macroblock's mb_qp_delta was not 0 (CABAC)
+  // spatial direct (8.4.1.2.2): the macroblock's references and predictors
+  bool spatial_done = false, spatial_zero = false;
+  int spatial_ref[2] = {0, 0};
+  int spatial_mv[2][2] = {{0, 0}, {0, 0}};
 
-  MbDecoder(SliceCtx& s_, Bits& b_) : s(s_), d(*s_.d), b(b_) {}
+  MbDecoder(SliceCtx& s_, Bits& b_, Cabac* c_) : s(s_), d(*s_.d), b(b_), cab(c_) {}
 
   const MbInfo* mb_at(int x, int y) const {  // an available macroblock of this slice
     if (x < 0 || y < 0 || x >= s.sps->mb_width || y >= s.sps->mb_height) return nullptr;
     const MbInfo& m = d.mbs[(size_t)(y * s.sps->mb_width + x)];
     return m.slice == s.slice_num ? &m : nullptr;
   }
+  const MbInfo* mb_a() const { return mb_at(mbx - 1, mby); }
+  const MbInfo* mb_b() const { return mb_at(mbx, mby - 1); }
 
   // 6.4.12: the macroblock and location covering luma (xN, yN) of the current
   // macroblock; mb == cur for the current one, nullptr when unavailable
@@ -709,6 +756,23 @@ struct MbDecoder {
     return n;
   }
 
+  // the state a macroblock starts from before its syntax is read
+  void reset_mb() {
+    cur->t8x8 = false;
+    cur->nz_filter = 0;
+    cur->cbf_dc = cur->cbp = cur->direct = 0;
+    cur->chroma_mode = 0;
+    std::memset(cur->intra4, -1, sizeof(cur->intra4));
+    std::memset(cur->nc, 0, sizeof(cur->nc));
+    std::memset(cur->ref, -1, sizeof(cur->ref));
+    std::memset(cur->ref_pic, -1, sizeof(cur->ref_pic));
+    std::memset(cur->mv, 0, sizeof(cur->mv));
+    std::memset(cur->mvd, 0, sizeof(cur->mvd));
+    mv_done = 0;
+    eight_ok = true;
+    spatial_done = false;
+  }
+
   // ------------------------------------------------------------- nC (9.2.1)
   int luma_nc(int bx, int by) {  // bx, by: the block's luma position
     const Neighbour a = locate(bx - 1, by), bb = locate(bx, by - 1);
@@ -717,18 +781,46 @@ struct MbDecoder {
     const int nb = hb ? bb.mb->nc[(bb.x >> 2) + 4 * (bb.y >> 2)] : 0;
     return ha && hb ? (na + nb + 1) >> 1 : na + nb;
   }
-  int chroma_nc(int comp, int blk) {  // blk: raster index of the 4×4 in the 8×8
+  // the count of chroma 4×4 `blk` (raster in the 8×8) of `comp` at chroma
+  // (x, y) relative to the block's macroblock, and whether it exists
+  const MbInfo* chroma_mb(int x, int y) const {
+    if (y >= 8 || (x >= 8 && y >= 0)) return nullptr;
+    const int dx = x < 0 ? -1 : 0, dy = y < 0 ? -1 : 0;
+    return (dx == 0 && dy == 0) ? cur : mb_at(mbx + dx, mby + dy);
+  }
+  static int chroma_idx(int comp, int x, int y) {
+    return 16 + 4 * comp + (((x + 8) & 7) >> 2) + 2 * (((y + 8) & 7) >> 2);
+  }
+  int chroma_nc(int comp, int blk) {
     const int bx = (blk & 1) * 4, by = (blk >> 1) * 4;
-    auto at = [&](int x, int y, bool& has) -> int {
-      if (y >= 8 || (x >= 8 && y >= 0)) return (has = false), 0;
-      const int dx = x < 0 ? -1 : 0, dy = y < 0 ? -1 : 0;
-      const MbInfo* m = (dx == 0 && dy == 0) ? cur : mb_at(mbx + dx, mby + dy);
-      has = m != nullptr;
-      return has ? m->nc[16 + 4 * comp + (((x + 8) & 7) >> 2) + 2 * (((y + 8) & 7) >> 2)] : 0;
+    const MbInfo *a = chroma_mb(bx - 1, by), *t = chroma_mb(bx, by - 1);
+    const int na = a ? a->nc[chroma_idx(comp, bx - 1, by)] : 0;
+    const int nb = t ? t->nc[chroma_idx(comp, bx, by - 1)] : 0;
+    return a && t ? (na + nb + 1) >> 1 : na + nb;
+  }
+
+  // ---------------------------- coded_block_flag's ctxIdxInc (9.3.3.1.1.9)
+  // condTermFlagN: an unavailable neighbour counts 1 for an intra macroblock
+  // and 0 for an inter one; I_PCM counts 1 (its nc and cbf_dc are all set);
+  // else the flag of the neighbouring block (0 where its 8×8 or chroma is
+  // not coded, since nc and cbf_dc are then 0)
+  int cbf_unavail() const { return is_intra(cur->kind) ? 1 : 0; }
+  int cbf_dc_inc(int bit) const {
+    const MbInfo *a = mb_a(), *t = mb_b();
+    return (a ? (a->cbf_dc >> bit) & 1 : cbf_unavail()) +
+           2 * (t ? (t->cbf_dc >> bit) & 1 : cbf_unavail());
+  }
+  int cbf_luma_inc(int bx, int by) const {
+    auto cond = [&](const Neighbour& n) {
+      return n.mb ? (n.mb->nc[(n.x >> 2) + 4 * (n.y >> 2)] != 0) : cbf_unavail();
     };
-    bool ha, hb;
-    const int na = at(bx - 1, by, ha), nb = at(bx, by - 1, hb);
-    return ha && hb ? (na + nb + 1) >> 1 : na + nb;
+    return cond(locate(bx - 1, by)) + 2 * cond(locate(bx, by - 1));
+  }
+  int cbf_chroma_inc(int comp, int blk) const {
+    const int bx = (blk & 1) * 4, by = (blk >> 1) * 4;
+    const MbInfo *a = chroma_mb(bx - 1, by), *t = chroma_mb(bx, by - 1);
+    return (a ? a->nc[chroma_idx(comp, bx - 1, by)] != 0 : cbf_unavail()) +
+           2 * (t ? t->nc[chroma_idx(comp, bx, by - 1)] != 0 : cbf_unavail());
   }
 
   // ---------------------------------------------------- intra modes (8.3.1.1)
@@ -750,9 +842,50 @@ struct MbDecoder {
   }
   int read_intra_mode(int bx, int by) {
     const int pred = pred_intra_mode(bx, by);
-    if (b.flag()) return pred;
-    const int rem = (int)b.u(3);
+    int rem;
+    if (cab) {
+      rem = cab->intra_mode();
+      if (rem < 0) return pred;
+    } else {
+      if (b.flag()) return pred;
+      rem = (int)b.u(3);
+    }
     return rem < pred ? rem : rem + 1;
+  }
+  int read_chroma_mode() {
+    if (!cab) return b.ue(3, "intra_chroma_pred_mode");
+    auto cond = [](const MbInfo* n) {
+      return n && is_intra(n->kind) && n->kind != kIPCM && n->chroma_mode != 0 ? 1 : 0;
+    };
+    return cab->chroma_pred_mode(cond(mb_a()) + cond(mb_b()));
+  }
+  bool read_t8x8() {
+    if (!cab) return b.flag();
+    auto cond = [](const MbInfo* n) { return n && n->t8x8 ? 1 : 0; };
+    return cab->transform_8x8(cond(mb_a()) + cond(mb_b())) != 0;
+  }
+  int read_cbp() {
+    if (!cab) {
+      const uint32_t code = b.ue();
+      if (code > 47) raise(kCorrupt, "coded_block_pattern out of range");
+      return is_intra(cur->kind) ? kCbpIntra[code] : kCbpInter[code];
+    }
+    // 9.3.3.1.1.4: a luma 8×8 of an available macroblock counts 1 where it
+    // is not coded (I_PCM's cbp has every bit set, a skipped one none)
+    const MbInfo *a = mb_a(), *t = mb_b();
+    auto luma = [](const MbInfo* n, int b8) { return n ? !((n->cbp >> b8) & 1) : 0; };
+    auto chroma = [](const MbInfo* n, int bin) {
+      return n ? (bin ? (n->cbp >> 4) == 2 : (n->cbp >> 4) != 0) : 0;
+    };
+    const int ca[4] = {luma(a, 1), -1, luma(a, 3), -1}, cb[4] = {luma(t, 2), luma(t, 3), -1, -1};
+    return cab->cbp(ca, cb, chroma(a, 0), chroma(t, 0), chroma(a, 1), chroma(t, 1));
+  }
+  int read_qp_delta() {
+    const int delta = cab ? cab->qp_delta(prev_qp_delta) : b.se();
+    if (delta < -26 || delta > 25) raise(kCorrupt, "mb_qp_delta out of range");
+    prev_qp_delta = delta != 0;
+    if (cab && delta) d.stats[kStat_cabac_qp_delta_nonzero]++;
+    return delta;
   }
 
   // --------------------------------------------------- mv prediction (8.4.1.3)
@@ -761,7 +894,7 @@ struct MbDecoder {
     int ref;
     int mv[2];
   };
-  Mvn mv_neighbour(int xn, int yn) const {
+  Mvn mv_neighbour(int list, int xn, int yn) const {
     Mvn r{false, -1, {0, 0}};
     const Neighbour n = locate(xn, yn);
     if (!n.mb) return r;
@@ -769,16 +902,18 @@ struct MbDecoder {
     if (n.mb == cur && !((mv_done >> blk) & 1)) return r;  // not yet decoded
     r.avail = true;
     if (is_intra(n.mb->kind)) return r;
-    r.ref = n.mb->ref[(n.x >> 3) + 2 * (n.y >> 3)];
-    r.mv[0] = n.mb->mv[blk][0];
-    r.mv[1] = n.mb->mv[blk][1];
+    r.ref = n.mb->ref[list][(n.x >> 3) + 2 * (n.y >> 3)];
+    if (r.ref < 0) return r;
+    r.mv[0] = n.mb->mv[list][blk][0];
+    r.mv[1] = n.mb->mv[list][blk][1];
     return r;
   }
   // shape: 0 any, 1 16x8 upper, 2 16x8 lower, 3 8x16 left, 4 8x16 right
-  void mv_pred(int x, int y, int w, int ref, int shape, int out[2]) {
-    Mvn a = mv_neighbour(x - 1, y), bb = mv_neighbour(x, y - 1), cc = mv_neighbour(x + w, y - 1);
+  void mv_pred(int list, int x, int y, int w, int ref, int shape, int out[2]) {
+    Mvn a = mv_neighbour(list, x - 1, y), bb = mv_neighbour(list, x, y - 1),
+        cc = mv_neighbour(list, x + w, y - 1);
     if (!cc.avail) {
-      cc = mv_neighbour(x - 1, y - 1);
+      cc = mv_neighbour(list, x - 1, y - 1);
       d.stats[kStat_mv_c_from_d]++;
     }
     const Mvn* dir = nullptr;
@@ -805,50 +940,213 @@ struct MbDecoder {
       out[k] = std::max(std::min(p, q), std::min(std::max(p, q), r));
     }
   }
-  void set_mv(int x, int y, int w, int h, const int mv[2]) {
+  void set_mv(int list, int x, int y, int w, int h, const int mv[2]) {
+    if (mv[0] < -32768 || mv[0] > 32767 || mv[1] < -32768 || mv[1] > 32767)
+      raise(kCorrupt, "motion vector out of range");
     for (int j = y; j < y + h; j += 4)
       for (int i = x; i < x + w; i += 4) {
         const int blk = (i >> 2) + 4 * (j >> 2);
-        cur->mv[blk][0] = (int16_t)mv[0];
-        cur->mv[blk][1] = (int16_t)mv[1];
-        mv_done |= (uint16_t)(1u << blk);
+        cur->mv[list][blk][0] = (int16_t)mv[0];
+        cur->mv[list][blk][1] = (int16_t)mv[1];
       }
   }
-  void set_ref(int b8, int ref) {
-    if (ref >= (int)s.ref_list.size() || !s.ref_list[(size_t)ref])
+  void done(int x, int y, int w, int h) {
+    for (int j = y; j < y + h; j += 4)
+      for (int i = x; i < x + w; i += 4) mv_done |= (uint16_t)(1u << ((i >> 2) + 4 * (j >> 2)));
+  }
+  void set_ref(int list, int b8, int ref) {
+    const std::vector<Picture*>& l = s.ref_list[list];
+    if (ref < 0 || ref >= (int)l.size() || !l[(size_t)ref])
       raise(kCorrupt, "ref_idx names no reference picture");
-    cur->ref[b8] = (int8_t)ref;
-    cur->ref_pic[b8] = s.ref_list[(size_t)ref]->id;
+    cur->ref[list][b8] = (int8_t)ref;
+    cur->ref_pic[list][b8] = l[(size_t)ref]->id;
     if (ref > 0) d.stats[kStat_ref_idx_nonzero]++;
+  }
+  void set_ref_area(int list, int x, int y, int w, int h, int ref) {
+    for (int k = 0; k < 4; k++) {
+      const int kx = (k & 1) * 8, ky = (k >> 1) * 8;
+      if (kx >= x && kx < x + w && ky >= y && ky < y + h) set_ref(list, k, ref);
+    }
+  }
+
+  // ref_idx_lX of the partition whose top-left sample is (x, y)
+  int read_ref(int list, int x, int y) {
+    const int n = s.sh.num_ref_idx_active[list];
+    if (!cab) return b.te(n - 1);
+    auto cond = [&](const Neighbour& nb) {  // 9.3.3.1.1.6
+      if (!nb.mb || is_skip(nb.mb->kind) || is_intra(nb.mb->kind)) return 0;
+      const int b8 = (nb.x >> 3) + 2 * (nb.y >> 3);
+      if ((nb.mb->direct >> b8) & 1) return 0;
+      return nb.mb->ref[list][b8] > 0 ? 1 : 0;
+    };
+    return cab->ref_idx(cond(locate(x - 1, y)) + 2 * cond(locate(x, y - 1)), n - 1);
+  }
+  // mvd_lX of a w×h partition at (x, y), its absolute values kept for CABAC
+  void read_mvd(int list, int x, int y, int w, int h, int out[2]) {
+    if (!cab) {
+      out[0] = b.se();
+      out[1] = b.se();
+    } else {
+      const Neighbour a = locate(x - 1, y), t = locate(x, y - 1);  // 9.3.3.1.1.7
+      for (int comp = 0; comp < 2; comp++) {
+        int sum = 0;
+        if (a.mb) sum += a.mb->mvd[list][(a.x >> 2) + 4 * (a.y >> 2)][comp];
+        if (t.mb) sum += t.mb->mvd[list][(t.x >> 2) + 4 * (t.y >> 2)][comp];
+        out[comp] = cab->mvd(comp, sum);
+      }
+    }
+    for (int comp = 0; comp < 2; comp++)
+      if (out[comp] < -32768 || out[comp] > 32767) raise(kCorrupt, "mvd out of range");
+    const uint8_t ax = (uint8_t)std::min(std::abs(out[0]), 64);
+    const uint8_t ay = (uint8_t)std::min(std::abs(out[1]), 64);
+    for (int j = y; j < y + h; j += 4)
+      for (int i = x; i < x + w; i += 4) {
+        cur->mvd[list][(i >> 2) + 4 * (j >> 2)][0] = ax;
+        cur->mvd[list][(i >> 2) + 4 * (j >> 2)][1] = ay;
+      }
   }
 
   void p_skip() {  // 8.4.1.1
     cur->kind = kPSkip;
     d.stats[kStat_mb_pskip]++;
-    for (int k = 0; k < 4; k++) set_ref(k, 0);
+    for (int k = 0; k < 4; k++) set_ref(0, k, 0);
     int mv[2] = {0, 0};
-    const Mvn a = mv_neighbour(-1, 0), bb = mv_neighbour(0, -1);
+    const Mvn a = mv_neighbour(0, -1, 0), bb = mv_neighbour(0, 0, -1);
     if (!a.avail || !bb.avail || (a.ref == 0 && !a.mv[0] && !a.mv[1]) ||
         (bb.ref == 0 && !bb.mv[0] && !bb.mv[1])) {
       d.stats[kStat_pskip_zero_mv]++;
     } else {
-      mv_pred(0, 0, 16, 0, 0, mv);
+      mv_pred(0, 0, 0, 16, 0, 0, mv);
       d.stats[kStat_pskip_pred_mv]++;
     }
-    set_mv(0, 0, 16, 16, mv);
+    set_mv(0, 0, 0, 16, 16, mv);
+    done(0, 0, 16, 16);
+  }
+  void b_skip() {
+    cur->kind = kBSkip;
+    d.stats[kStat_mb_bskip]++;
+    for (int k = 0; k < 4; k++) direct_8x8(k);
+  }
+
+  // ------------------------------------------------ direct prediction (8.4.1.2)
+  void spatial_setup() {  // 8.4.1.2.2: refIdxL0 / L1 and the predictors, once a macroblock
+    spatial_done = true;
+    for (int list = 0; list < 2; list++) {
+      const Mvn a = mv_neighbour(list, -1, 0), bb = mv_neighbour(list, 0, -1);
+      Mvn cc = mv_neighbour(list, 16, -1);
+      if (!cc.avail) cc = mv_neighbour(list, -1, -1);
+      spatial_ref[list] = min_positive(a.ref, min_positive(bb.ref, cc.ref));
+    }
+    spatial_zero = spatial_ref[0] < 0 && spatial_ref[1] < 0;
+    if (spatial_zero) {
+      spatial_ref[0] = spatial_ref[1] = 0;
+      d.stats[kStat_direct_zero_refs]++;
+    }
+    for (int list = 0; list < 2; list++) {
+      spatial_mv[list][0] = spatial_mv[list][1] = 0;
+      if (!spatial_zero && spatial_ref[list] >= 0)
+        mv_pred(list, 0, 0, 16, spatial_ref[list], 0, spatial_mv[list]);
+    }
+  }
+  // 8.4.1.2.3: the lowest index of RefPicList0 that holds the co-located
+  // block's reference; one the list lacks (a stream the standard does not
+  // allow) maps to 0, as FFmpeg maps it
+  int map_col_to_list0(int pic_id) {
+    const std::vector<Picture*>& l = s.ref_list[0];
+    for (size_t i = 0; i < l.size(); i++)
+      if (l[i] && l[i]->id == pic_id) {
+        if (l[i]->long_ref) d.stats[kStat_direct_long_term]++;
+        return (int)i;
+      }
+    return 0;
+  }
+  void direct_8x8(int b8) {  // the motion of one 8×8 predicted in direct mode
+    cur->direct |= (uint8_t)(1 << b8);
+    const std::vector<Picture*>& l1 = s.ref_list[1];
+    if (l1.empty() || !l1[0]) raise(kCorrupt, "direct prediction without RefPicList1[0]");
+    const Picture& col_pic = *l1[0];
+    if (col_pic.motion.size() != d.mbs.size())
+      raise(kCorrupt, "direct prediction: the co-located picture has no motion field");
+    const MbInfo& col = col_pic.motion[(size_t)addr];  // 8.4.1.2.1, frames: the same address
+    const bool infer = s.sps->direct_8x8_inference;
+    d.stats[infer ? kStat_direct_8x8_inference : kStat_direct_4x4]++;
+    const bool spatial = s.sh.direct_spatial;
+    d.stats[spatial ? kStat_direct_spatial : kStat_direct_temporal]++;
+    if (spatial && !spatial_done) spatial_setup();
+    int ref[2] = {-1, -1};
+    for (int k = 0; k < 4; k++) {
+      const int x = (b8 & 1) * 8 + (k & 1) * 4, y = (b8 >> 1) * 8 + (k >> 1) * 4;
+      const int cx = infer ? (b8 & 1) * 12 : x, cy = infer ? (b8 >> 1) * 12 : y;
+      const int cblk = (cx >> 2) + 4 * (cy >> 2), cb8 = (cx >> 3) + 2 * (cy >> 3);
+      int ref_col = -1, ref_col_pic = -1, mv_col[2] = {0, 0};
+      if (is_intra(col.kind)) {
+        d.stats[kStat_direct_col_intra]++;
+      } else {
+        const int lc = col.ref[0][cb8] >= 0 ? 0 : 1;
+        ref_col = col.ref[lc][cb8];
+        ref_col_pic = col.ref_pic[lc][cb8];
+        mv_col[0] = col.mv[lc][cblk][0];
+        mv_col[1] = col.mv[lc][cblk][1];
+      }
+      int mv[2][2] = {{0, 0}, {0, 0}};
+      if (spatial) {
+        const bool col_zero = !col_pic.long_ref && ref_col == 0 && std::abs(mv_col[0]) <= 1 &&
+                              std::abs(mv_col[1]) <= 1;
+        if (col_zero) d.stats[kStat_direct_col_zero]++;
+        for (int list = 0; list < 2; list++) {
+          ref[list] = spatial_ref[list];
+          if (spatial_zero || ref[list] < 0 || (ref[list] == 0 && col_zero)) continue;
+          mv[list][0] = spatial_mv[list][0];
+          mv[list][1] = spatial_mv[list][1];
+        }
+      } else {
+        ref[0] = ref_col < 0 ? 0 : map_col_to_list0(ref_col_pic);
+        ref[1] = 0;
+        if (ref[0] >= (int)s.ref_list[0].size() || !s.ref_list[0][(size_t)ref[0]])
+          raise(kCorrupt, "temporal direct: RefPicList0 has no such entry");
+        const Picture& p0 = *s.ref_list[0][(size_t)ref[0]];
+        if (p0.long_ref || col_pic.poc == p0.poc) {
+          if (col_pic.poc == p0.poc) d.stats[kStat_direct_td_zero]++;
+          mv[0][0] = mv_col[0];
+          mv[0][1] = mv_col[1];
+        } else {
+          const int dsf = dist_scale_factor(d.cur.poc, p0, col_pic);
+          for (int comp = 0; comp < 2; comp++) {
+            mv[0][comp] = (dsf * mv_col[comp] + 128) >> 8;
+            mv[1][comp] = mv[0][comp] - mv_col[comp];
+          }
+        }
+      }
+      for (int list = 0; list < 2; list++)
+        if (ref[list] >= 0) set_mv(list, x, y, 4, 4, mv[list]);
+    }
+    for (int list = 0; list < 2; list++)
+      if (ref[list] >= 0) set_ref(list, b8, ref[list]);
+    count_pred(ref[0] >= 0, ref[1] >= 0);
+    done((b8 & 1) * 8, (b8 >> 1) * 8, 8, 8);
+  }
+  void count_pred(bool l0, bool l1) {
+    d.stats[l0 && l1 ? kStat_part_bi : l0 ? kStat_part_l0 : kStat_part_l1]++;
   }
 
   // ---------------------------------------------------------------- residual
-  // 7.3.5.3 (CAVLC): coefficients dequantized into c (8.5)
+  // one 4×4 luma block (ctxBlockCat 1 or 2) at (bx, by): levels by scan index
+  int luma_block(int cat, int bx, int by, int max, int32_t* lv) {
+    if (!cab) return residual_block(b, luma_nc(bx, by), max, lv, d.stats);
+    return cab->residual(cat, cbf_luma_inc(bx, by), max, lv);
+  }
+  // 7.3.5.3: coefficients dequantized into c (8.5)
   void residual(int cbp, bool i16, int qp) {
     const bool intra = is_intra(cur->kind);
     const int l4 = intra ? 0 : 3, l8 = intra ? 0 : 1;
-    int32_t lv[16];
+    int32_t lv[64];
     c.luma_coded = 0;
     if (!cur->t8x8) std::memset(c.luma, 0, sizeof(c.luma));
     if (i16) {  // Intra16x16DCLevel, then AC
-      const int n = residual_block(b, luma_nc(0, 0), 16, lv, d.stats);
+      const int n = cab ? cab->residual(0, cbf_dc_inc(0), 16, lv)
+                        : residual_block(b, luma_nc(0, 0), 16, lv, d.stats);
       if (n) {
+        cur->cbf_dc |= 1;
         int32_t m[16];
         for (int k = 0; k < 16; k++) m[kZigzag4[k]] = lv[k];
         luma_dc(m, s.dq4[l4][qp][0]);
@@ -857,27 +1155,29 @@ struct MbDecoder {
     }
     for (int b8 = 0; b8 < 4; b8++) {
       const int x8 = (b8 & 1) * 8, y8 = (b8 >> 1) * 8;
-      if (!((cbp >> b8) & 1)) {
-        for (int k = 0; k < 4; k++) {
-          const int bx = x8 + (k & 1) * 4, by = y8 + (k >> 1) * 4;
-          cur->nc[(bx >> 2) + 4 * (by >> 2)] = 0;
-        }
-        continue;
-      }
+      if (!((cbp >> b8) & 1)) continue;  // nc stays 0
       if (cur->t8x8) {
         int32_t* out = c.luma8[b8];
         std::memset(out, 0, sizeof(c.luma8[b8]));
         int any = 0;
-        for (int k = 0; k < 4; k++) {  // four interleaved 4×4 blocks
-          const int bx = x8 + (k & 1) * 4, by = y8 + (k >> 1) * 4;
-          const int n = residual_block(b, luma_nc(bx, by), 16, lv, d.stats);
-          cur->nc[(bx >> 2) + 4 * (by >> 2)] = (uint8_t)n;
-          any |= n;
-          for (int i = 0; i < 16; i++)
-            if (lv[i]) {
-              const int zz = 4 * i + k;
-              out[kZigzag8[zz]] = (lv[i] * s.dq8[l8][qp][zz] + 32) >> 6;
-            }
+        if (cab) {  // one 64-coefficient block (ctxBlockCat 5)
+          any = cab->residual(5, 0, 64, lv);
+          for (int k = 0; k < 4; k++)
+            cur->nc[(x8 >> 2) + (k & 1) + 4 * ((y8 >> 2) + (k >> 1))] = (uint8_t)any;
+          for (int i = 0; i < 64; i++)
+            if (lv[i]) out[kZigzag8[i]] = (lv[i] * s.dq8[l8][qp][i] + 32) >> 6;
+        } else {
+          for (int k = 0; k < 4; k++) {  // four interleaved 4×4 blocks
+            const int bx = x8 + (k & 1) * 4, by = y8 + (k >> 1) * 4;
+            const int n = residual_block(b, luma_nc(bx, by), 16, lv, d.stats);
+            cur->nc[(bx >> 2) + 4 * (by >> 2)] = (uint8_t)n;
+            any |= n;
+            for (int i = 0; i < 16; i++)
+              if (lv[i]) {
+                const int zz = 4 * i + k;
+                out[kZigzag8[zz]] = (lv[i] * s.dq8[l8][qp][zz] + 32) >> 6;
+              }
+          }
         }
         if (any) {
           const int bits = (1 << ((x8 >> 2) + 4 * (y8 >> 2))) * 0x33;  // its four 4×4
@@ -890,7 +1190,7 @@ struct MbDecoder {
         const int bx = x8 + (k & 1) * 4, by = y8 + (k >> 1) * 4, r = (bx >> 2) + 4 * (by >> 2);
         int32_t* out = c.luma[r];
         const int start = i16 ? 1 : 0;
-        const int n = residual_block(b, luma_nc(bx, by), 16 - start, lv, d.stats);
+        const int n = luma_block(i16 ? 1 : 2, bx, by, 16 - start, lv);
         cur->nc[r] = (uint8_t)n;
         if (!n) continue;
         c.luma_coded |= (uint16_t)(1u << r);
@@ -905,16 +1205,16 @@ struct MbDecoder {
     // chroma (4:2:0): DC of Cb and Cr, then AC
     const int cbp_c = cbp >> 4;
     c.chroma_coded[0] = c.chroma_coded[1] = 0;
-    for (int comp = 0; comp < 2; comp++) {
+    for (int comp = 0; comp < 2; comp++)
       for (int k = 0; k < 4; k++) std::memset(c.chroma[comp][k], 0, sizeof(c.chroma[comp][k]));
-      for (int k = 0; k < 4; k++) cur->nc[16 + 4 * comp + k] = 0;
-    }
     if (!cbp_c) return;
     int qpc[2];
     for (int comp = 0; comp < 2; comp++) {
       qpc[comp] = chroma_qp(qp, s.pps->chroma_qp_offset[comp]);
-      const int n = residual_block(b, -1, 4, lv, d.stats);
+      const int n = cab ? cab->residual(3, cbf_dc_inc(1 + comp), 4, lv)
+                        : residual_block(b, -1, 4, lv, d.stats);
       if (!n) continue;
+      cur->cbf_dc |= (uint8_t)(2 << comp);
       // 8.5.11: f = [[1,1],[1,-1]] c [[1,1],[1,-1]], then ((f · LS) << (qP/6)) >> 5
       const int32_t t = s.dq4[(intra ? 1 : 4) + comp][qpc[comp]][0];
       const int32_t a0 = lv[0] + lv[1], a1 = lv[0] - lv[1], a2 = lv[2] + lv[3], a3 = lv[2] - lv[3];
@@ -928,7 +1228,8 @@ struct MbDecoder {
     for (int comp = 0; comp < 2; comp++) {
       const int list = (intra ? 1 : 4) + comp;
       for (int k = 0; k < 4; k++) {
-        const int n = residual_block(b, chroma_nc(comp, k), 15, lv, d.stats);
+        const int n = cab ? cab->residual(4, cbf_chroma_inc(comp, k), 15, lv)
+                          : residual_block(b, chroma_nc(comp, k), 15, lv, d.stats);
         cur->nc[16 + 4 * comp + k] = (uint8_t)n;
         if (!n) continue;
         c.chroma_coded[comp] |= (uint8_t)(1 << k);
@@ -964,31 +1265,29 @@ struct MbDecoder {
   }
 
   // ---------------------------------------------------------- the macroblock
-  void decode(int mb_type, int& qp) {  // 7.3.5, mb_type already read (I numbering)
-    const bool is_p = s.sh.type == 0;
-    cur->t8x8 = false;
-    cur->nz_filter = 0;
-    std::memset(cur->intra4, -1, sizeof(cur->intra4));
-    std::memset(cur->nc, 0, sizeof(cur->nc));
+  // 7.3.5, mb_type already read: P 0-4 inter and 5-30 intra, B 0-22 inter
+  // and 23-48 intra, I 0-25
+  void decode(int mb_type, int& qp) {
+    const int st = s.sh.type;
+    reset_mb();
     int cbp = 0;
     bool i16 = false;
     int i16_mode = 0, chroma_mode = 0;
-    if (mb_type < 5 && is_p) {
-      inter_mb(mb_type);
+    const int n_inter = st == 0 ? 5 : st == 1 ? 23 : 0;
+    if (mb_type < n_inter) {
+      if (st == 0) inter_p(mb_type);
+      else inter_b(mb_type);
     } else {
-      if (is_p) {
-        mb_type -= 5;
-        d.stats[kStat_intra_in_p]++;
-      }
-      for (int k = 0; k < 4; k++) cur->ref[k] = -1, cur->ref_pic[k] = -1;
-      std::memset(cur->mv, 0, sizeof(cur->mv));
+      mb_type -= n_inter;
+      if (st != 2) d.stats[st == 0 ? kStat_intra_in_p : kStat_intra_in_b]++;
       if (mb_type == 25) {
         pcm();
+        prev_qp_delta = false;
         return;
       }
       if (mb_type == 0) {
         cur->kind = kI4x4;
-        if (s.pps->transform_8x8_mode && b.flag()) cur->kind = kI8x8, cur->t8x8 = true;
+        if (s.pps->transform_8x8_mode && read_t8x8()) cur->kind = kI8x8, cur->t8x8 = true;
         if (cur->kind == kI4x4) {
           d.stats[kStat_mb_i4x4]++;
           for (int k = 0; k < 16; k++) {
@@ -1014,23 +1313,25 @@ struct MbDecoder {
         cbp = (((mb_type - 1) / 4) % 3) << 4 | (mb_type >= 13 ? 15 : 0);
         d.stats[kStat_i16_mode0 + i16_mode]++;
       }
-      chroma_mode = b.ue(3, "intra_chroma_pred_mode");
+      chroma_mode = read_chroma_mode();
+      cur->chroma_mode = (int8_t)chroma_mode;
       d.stats[kStat_chroma_mode0 + chroma_mode]++;
     }
     if (!i16) {
-      const uint32_t code = b.ue();
-      if (code > 47) raise(kCorrupt, "coded_block_pattern out of range");
-      cbp = is_intra(cur->kind) ? kCbpIntra[code] : kCbpInter[code];
-      if ((cbp & 15) && s.pps->transform_8x8_mode && !is_intra(cur->kind) && eight_ok) {
-        cur->t8x8 = b.flag();
+      cbp = read_cbp();
+      if ((cbp & 15) && s.pps->transform_8x8_mode && !is_intra(cur->kind) && eight_ok &&
+          (cur->kind != kBDirect16x16 || s.sps->direct_8x8_inference)) {
+        cur->t8x8 = read_t8x8();
         if (cur->t8x8) d.stats[kStat_inter_t8x8]++;
       }
     }
+    cur->cbp = (uint8_t)cbp;
     if (cbp || i16) {
-      const int delta = b.se();
-      if (delta < -26 || delta > 25) raise(kCorrupt, "mb_qp_delta out of range");
+      const int delta = read_qp_delta();
       if (qp + delta < 0 || qp + delta > 51) d.stats[kStat_qp_delta_wrap]++;
       qp = (qp + delta + 52) % 52;
+    } else {
+      prev_qp_delta = false;
     }
     cur->qp_filter = (int8_t)qp;
     if (cbp || i16) {
@@ -1039,88 +1340,174 @@ struct MbDecoder {
       c.luma_coded = 0;
       c.chroma_coded[0] = c.chroma_coded[1] = 0;
     }
-    b.check();
+    if (!cab) b.check();
     reconstruct(i16_mode, chroma_mode, i16);
   }
 
-  void inter_mb(int mb_type) {  // mb_pred / sub_mb_pred of P macroblocks
+  // mb_pred of the inter macroblocks of one or two partitions: shape 0
+  // 16×16, 1 16×8, 2 8×16; pred: each partition's lists (1 L0, 2 L1, 3 both)
+  void partitions(int shape, const uint8_t pred[2]) {
+    const int parts = shape ? 2 : 1;
+    int ref[2][2] = {{0, 0}, {0, 0}}, mvd[2][2][2];
+    int gx[2], gy[2], gw[2], gh[2];
+    for (int p = 0; p < parts; p++) {
+      gx[p] = shape == 2 ? 8 * p : 0;
+      gy[p] = shape == 1 ? 8 * p : 0;
+      gw[p] = shape == 2 ? 8 : 16;
+      gh[p] = shape == 1 ? 8 : 16;
+    }
+    for (int list = 0; list < 2; list++)
+      for (int p = 0; p < parts; p++) {
+        if (!((pred[p] >> list) & 1)) continue;
+        if (s.sh.num_ref_idx_active[list] > 1) ref[list][p] = read_ref(list, gx[p], gy[p]);
+        set_ref_area(list, gx[p], gy[p], gw[p], gh[p], ref[list][p]);
+      }
+    for (int list = 0; list < 2; list++)
+      for (int p = 0; p < parts; p++)
+        if ((pred[p] >> list) & 1) read_mvd(list, gx[p], gy[p], gw[p], gh[p], mvd[list][p]);
+    for (int p = 0; p < parts; p++) {
+      for (int list = 0; list < 2; list++) {
+        if (!((pred[p] >> list) & 1)) continue;
+        int mv[2];
+        mv_pred(list, gx[p], gy[p], gw[p], ref[list][p], shape ? 2 * shape - 1 + p : 0, mv);
+        mv[0] += mvd[list][p][0];
+        mv[1] += mvd[list][p][1];
+        set_mv(list, gx[p], gy[p], gw[p], gh[p], mv);
+      }
+      if (s.sh.type == 1) count_pred(pred[p] & 1, pred[p] & 2);
+      done(gx[p], gy[p], gw[p], gh[p]);
+    }
+  }
+
+  // sub_mb_pred of P_8x8, P_8x8ref0 and B_8x8: each 8×8's shape and lists
+  // (B_Direct_8x8 where `direct` has its bit)
+  void sub_partitions(const int shape[4], const uint8_t pred[4], bool ref0) {
+    int ref[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}}, mvd[2][16][2];
+    for (int list = 0; list < 2; list++)
+      for (int k = 0; k < 4; k++) {
+        if (((cur->direct >> k) & 1) || !((pred[k] >> list) & 1)) continue;
+        if (!ref0 && s.sh.num_ref_idx_active[list] > 1)
+          ref[list][k] = read_ref(list, (k & 1) * 8, (k >> 1) * 8);
+        set_ref(list, k, ref[list][k]);
+      }
+    auto part = [&](int k, int p, int& x, int& y) {
+      const int t = shape[k], w = kSubW[t], h = kSubH[t];
+      x = (k & 1) * 8 + (w == 4 ? 4 * (p & 1) : 0);
+      y = (k >> 1) * 8 + (h == 4 ? 4 * (w == 4 ? p >> 1 : p) : 0);
+    };
+    for (int list = 0; list < 2; list++)
+      for (int k = 0; k < 4; k++) {
+        if (((cur->direct >> k) & 1) || !((pred[k] >> list) & 1)) continue;
+        for (int p = 0; p < kSubParts[shape[k]]; p++) {
+          int x, y;
+          part(k, p, x, y);
+          read_mvd(list, x, y, kSubW[shape[k]], kSubH[shape[k]], mvd[list][4 * k + p]);
+        }
+      }
+    for (int k = 0; k < 4; k++) {
+      if ((cur->direct >> k) & 1) {
+        direct_8x8(k);
+        continue;
+      }
+      const int t = shape[k], w = kSubW[t], h = kSubH[t];
+      for (int p = 0; p < kSubParts[t]; p++) {
+        int x, y;
+        part(k, p, x, y);
+        for (int list = 0; list < 2; list++) {
+          if (!((pred[k] >> list) & 1)) continue;
+          int mv[2];
+          mv_pred(list, x, y, w, ref[list][k], 0, mv);
+          mv[0] += mvd[list][4 * k + p][0];
+          mv[1] += mvd[list][4 * k + p][1];
+          set_mv(list, x, y, w, h, mv);
+        }
+        done(x, y, w, h);
+      }
+      if (s.sh.type == 1) count_pred(pred[k] & 1, pred[k] & 2);
+    }
+  }
+
+  void inter_p(int mb_type) {  // P_L0_16x16 .. P_8x8ref0 (Table 7-13)
     static const MbKind kKinds[5] = {kP16x16, kP16x8, kP8x16, kP8x8, kP8x8ref0};
     cur->kind = kKinds[mb_type];
     d.stats[kStat_mb_p16x16 + mb_type]++;
-    eight_ok = true;
-    mv_done = 0;
-    const int nref = s.sh.num_ref_idx_active;
-    int mvd[16][2];
     if (mb_type < 3) {
-      const int parts = mb_type == 0 ? 1 : 2;
-      int ref[2] = {0, 0};
-      for (int p = 0; p < parts; p++) ref[p] = nref > 1 ? b.te(nref - 1) : 0;
-      for (int p = 0; p < parts; p++) mvd[p][0] = b.se(), mvd[p][1] = b.se();
-      for (int p = 0; p < parts; p++) {
-        int x = 0, y = 0, w = 16, h = 16, shape = 0;
-        if (mb_type == 1) y = 8 * p, h = 8, shape = 1 + p;
-        if (mb_type == 2) x = 8 * p, w = 8, shape = 3 + p;
-        for (int k = 0; k < 4; k++) {
-          const int kx = (k & 1) * 8, ky = (k >> 1) * 8;
-          if (kx >= x && kx < x + w && ky >= y && ky < y + h) set_ref(k, ref[p]);
-        }
-        int mv[2];
-        mv_pred(x, y, w, ref[p], shape, mv);
-        mv[0] += mvd[p][0];
-        mv[1] += mvd[p][1];
-        set_mv(x, y, w, h, mv);
-      }
+      static const uint8_t kL0[2] = {1, 1};
+      partitions(mb_type, kL0);
       return;
     }
-    int sub[4], ref[4] = {0, 0, 0, 0};
+    int shape[4];
+    const uint8_t pred[4] = {1, 1, 1, 1};
     for (int k = 0; k < 4; k++) {
-      const uint32_t t = b.ue();
-      if (t > 3) raise(kCorrupt, "sub_mb_type out of range");
-      sub[k] = (int)t;
-      if (t) eight_ok = false;
-      d.stats[kStat_sub_8x8 + t]++;
+      shape[k] = cab ? cab->sub_mb_type_p() : b.ue(3, "sub_mb_type");
+      if (shape[k]) eight_ok = false;
+      d.stats[kStat_sub_8x8 + shape[k]]++;
     }
-    if (mb_type == 3 && nref > 1)
-      for (int k = 0; k < 4; k++) ref[k] = b.te(nref - 1);
-    static const int kParts[4] = {1, 2, 2, 4}, kW[4] = {8, 8, 4, 4}, kH[4] = {8, 4, 8, 4};
-    int n = 0;
-    for (int k = 0; k < 4; k++)
-      for (int p = 0; p < kParts[sub[k]]; p++, n++) mvd[n][0] = b.se(), mvd[n][1] = b.se();
-    n = 0;
+    sub_partitions(shape, pred, mb_type == 4);
+  }
+
+  void inter_b(int mb_type) {  // B_Direct_16x16 .. B_8x8 (Table 7-14)
+    if (mb_type == 0) {
+      cur->kind = kBDirect16x16;
+      d.stats[kStat_mb_bdirect16x16]++;
+      for (int k = 0; k < 4; k++) direct_8x8(k);
+      return;
+    }
+    if (mb_type < 22) {
+      const int shape = mb_type < 4 ? 0 : (mb_type & 1) ? 2 : 1;
+      cur->kind = shape == 0 ? kB16x16 : shape == 1 ? kB16x8 : kB8x16;
+      d.stats[kStat_mb_b16x16 + shape]++;
+      partitions(shape, kBPred[mb_type]);
+      return;
+    }
+    cur->kind = kB8x8;
+    d.stats[kStat_mb_b8x8]++;
+    int shape[4];
+    uint8_t pred[4];
     for (int k = 0; k < 4; k++) {
-      set_ref(k, ref[k]);
-      const int t = sub[k], w = kW[t], h = kH[t];
-      for (int p = 0; p < kParts[t]; p++, n++) {
-        const int x = (k & 1) * 8 + (w == 4 ? 4 * (p & 1) : 0);
-        const int y = (k >> 1) * 8 + (h == 4 ? 4 * (w == 4 ? p >> 1 : p) : 0);
-        int mv[2];
-        mv_pred(x, y, w, ref[k], 0, mv);
-        mv[0] += mvd[n][0];
-        mv[1] += mvd[n][1];
-        set_mv(x, y, w, h, mv);
+      const int t = cab ? cab->sub_mb_type_b() : b.ue(12, "sub_mb_type");
+      shape[k] = kBSubShape[t];
+      pred[k] = kBSubPred[t];
+      if (t == 0) {
+        cur->direct |= (uint8_t)(1 << k);
+        if (!s.sps->direct_8x8_inference) eight_ok = false;
+        d.stats[kStat_sub_bdirect]++;
+      } else {
+        if (shape[k]) eight_ok = false;
+        d.stats[kStat_sub_b8x8 + shape[k]]++;
       }
     }
+    sub_partitions(shape, pred, false);
   }
 
   void pcm() {  // I_PCM (7.3.5): the samples themselves
     cur->kind = kIPCM;
     d.stats[kStat_mb_pcm]++;
-    b.pos = (b.pos + 7) & ~(size_t)7;
+    size_t& pos = cab ? cab->pos : b.pos;
+    pos = (pos + 7) & ~(size_t)7;  // pcm_alignment_zero_bit
+    if (pos / 8 + 384 > b.buf.size()) raise(kCorrupt, "I_PCM samples past the end of the slice");
+    const uint8_t* p = b.buf.data() + pos / 8;
     Picture& pic = d.cur;
     for (int y = 0; y < 16; y++)
-      for (int x = 0; x < 16; x++)
-        pic.y[(size_t)((mby * 16 + y) * pic.width + mbx * 16 + x)] = (uint8_t)b.u(8);
+      std::memcpy(&pic.y[(size_t)((mby * 16 + y) * pic.width + mbx * 16)], p + 16 * y, 16);
     const int cw = pic.width / 2;
     for (int comp = 0; comp < 2; comp++) {
       std::vector<uint8_t>& pl = comp ? pic.v : pic.u;
       for (int y = 0; y < 8; y++)
-        for (int x = 0; x < 8; x++)
-          pl[(size_t)((mby * 8 + y) * cw + mbx * 8 + x)] = (uint8_t)b.u(8);
+        std::memcpy(&pl[(size_t)((mby * 8 + y) * cw + mbx * 8)], p + 256 + 64 * comp + 8 * y, 8);
     }
+    pos += 384 * 8;
     std::memset(cur->nc, 16, sizeof(cur->nc));
+    cur->cbf_dc = 7;
+    cur->cbp = 0x2F;
     cur->qp_filter = 0;  // QP_Y,PRED of the next macroblock stays the running QP
     cur->nz_filter = 0xFFFF;
-    b.check();
+    if (cab) {
+      d.stats[kStat_cabac_pcm]++;
+      cab->start(cab->buf, pos, cab->end);  // 9.3.1.2 after the samples
+    } else {
+      b.check();
+    }
   }
 
   void reconstruct(int i16_mode, int chroma_mode, bool i16) {
@@ -1170,9 +1557,17 @@ struct MbDecoder {
 void slice_data(SliceCtx& s, Bits& b) {  // 7.3.4
   Decoder& d = *s.d;
   const int mbs = s.sps->mb_width * s.sps->mb_height;
+  const int st = s.sh.type;
   int addr = s.sh.first_mb, qp = s.sh.qp;
   if (addr >= mbs) raise(kCorrupt, "first_mb_in_slice past the picture");
-  MbDecoder m(s, b);
+  Cabac cab;
+  if (s.pps->cabac) {
+    b.pos = (b.pos + 7) & ~(size_t)7;  // cabac_alignment_one_bit
+    cab.init_contexts(st, s.sh.cabac_init_idc, s.sh.qp);
+    cab.start(b.buf.data(), b.pos, b.buf.size() * 8);
+    cab.stats = d.stats;
+  }
+  MbDecoder m(s, b, s.pps->cabac ? &cab : nullptr);
   auto begin = [&](int a) {
     if (a >= mbs) raise(kCorrupt, "slice runs past the picture's last macroblock");
     MbInfo& mb = d.mbs[(size_t)a];
@@ -1182,37 +1577,100 @@ void slice_data(SliceCtx& s, Bits& b) {  // 7.3.4
     m.mbx = a % s.sps->mb_width;
     m.mby = a / s.sps->mb_width;
     m.cur = &mb;
-    m.mv_done = 0;
   };
-  bool more = true;
-  while (more) {
-    if (s.sh.type == 0) {
-      const uint32_t run = b.ue();
-      if (run > (uint32_t)(mbs - addr)) raise(kCorrupt, "mb_skip_run past the picture");
-      for (uint32_t i = 0; i < run; i++, addr++) {
-        begin(addr);
-        std::memset(m.cur->nc, 0, sizeof(m.cur->nc));
-        std::memset(m.cur->intra4, -1, sizeof(m.cur->intra4));
-        m.cur->t8x8 = false;
-        m.cur->nz_filter = 0;
-        m.cur->qp_filter = (int8_t)qp;
-        m.p_skip();
-        inter_pred(s, m.mbx, m.mby, *m.cur);
+  auto skipped = [&] {  // P_Skip / B_Skip: no residual
+    m.reset_mb();
+    m.cur->qp_filter = (int8_t)qp;
+    m.prev_qp_delta = false;
+    if (st == 0) m.p_skip();
+    else m.b_skip();
+    inter_pred(s, m.mbx, m.mby, *m.cur);
+  };
+  if (!s.pps->cabac) {
+    bool more = true;
+    while (more) {
+      if (st != 2) {
+        const uint32_t run = b.ue();
+        if (run > (uint32_t)(mbs - addr)) raise(kCorrupt, "mb_skip_run past the picture");
+        for (uint32_t i = 0; i < run; i++, addr++) {
+          begin(addr);
+          skipped();
+        }
+        if (run > 0 && !b.more_rbsp_data()) break;
       }
-      if (run > 0 && !b.more_rbsp_data()) break;
+      begin(addr);
+      m.decode(b.ue(st == 0 ? 30 : st == 1 ? 48 : 25, "mb_type"), qp);  // Tables 7-11, 7-13, 7-14
+      more = b.more_rbsp_data();
+      addr++;
     }
-    begin(addr);
-    m.decode(b.ue(s.sh.type == 0 ? 30 : 25, "mb_type"), qp);  // Tables 7-11, 7-13
-    more = b.more_rbsp_data();
-    addr++;
+    return;
   }
+  d.stats[kStat_cabac_slices]++;
+  d.stats[kStat_cabac_init_idc0 + s.sh.cabac_init_idc] += st != 2;
+  for (;;) {
+    begin(addr);
+    // ctxIdxInc of mb_skip_flag and mb_type (9.3.3.1.1.1, 9.3.3.1.1.3): the
+    // available neighbours A and B whose kind passes `f`
+    const MbInfo *a = m.mb_a(), *t = m.mb_b();
+    auto count = [&](auto f) { return (a && f(a->kind) ? 1 : 0) + (t && f(t->kind) ? 1 : 0); };
+    const bool skip = st != 2 && cab.skip_flag(st == 1, count([](int k) { return !is_skip(k); }));
+    if (skip) {
+      skipped();
+    } else if (st == 2) {
+      m.decode(cab.mb_type_i(3, count([](int k) { return k != kI4x4 && k != kI8x8; })), qp);
+    } else if (st == 0) {
+      m.decode(cab.mb_type_p(), qp);
+    } else {
+      m.decode(cab.mb_type_b(count([](int k) { return k != kBSkip && k != kBDirect16x16; })), qp);
+    }
+    addr++;
+    if (cab.terminate()) break;  // end_of_slice_flag
+  }
+  if (cab.pos > b.end + 1) raise(kCorrupt, "slice data past the end of its NAL unit");
 }
 
 // ------------------------------------------------------- reference lists
 
 int max_frame_num(const Sps& s) { return 1 << s.log2_max_frame_num; }
 
-void init_ref_list(SliceCtx& s, const std::vector<ListMod>& mods) {  // 8.2.4
+// 8.2.4.3: modification of one list, already cut to num_ref_idx_active
+void modify_ref_list(SliceCtx& s, std::vector<Picture*>& list, const std::vector<ListMod>& mods,
+                     const std::vector<Picture*>& st, const std::vector<Picture*>& lt) {
+  Decoder& d = *s.d;
+  const int max_fn = max_frame_num(*s.sps), cur_fn = s.sh.frame_num;
+  const int n = (int)list.size();
+  list.resize((size_t)n + 1, nullptr);  // one spare entry for the modification
+  int pred = cur_fn, idx = 0;
+  for (const ListMod& m : mods) {
+    d.stats[kStat_list_mod_idc0 + m.idc]++;
+    if (idx >= n) raise(kCorrupt, "too many ref_pic_list_modification operations");
+    Picture* pic = nullptr;
+    if (m.idc < 2) {
+      const int abs_diff = m.value + 1;
+      if (abs_diff > max_fn) raise(kCorrupt, "abs_diff_pic_num out of range");
+      int no_wrap = m.idc == 0 ? pred - abs_diff : pred + abs_diff;
+      if (no_wrap < 0) no_wrap += max_fn;
+      if (no_wrap >= max_fn) no_wrap -= max_fn;
+      pred = no_wrap;
+      const int num = no_wrap > cur_fn ? no_wrap - max_fn : no_wrap;
+      for (Picture* p : st)
+        if (p->frame_num_wrap == num) pic = p;
+    } else {
+      for (Picture* p : lt)
+        if (p->long_term_idx == m.value) pic = p;
+    }
+    if (!pic) raise(kCorrupt, "ref_pic_list_modification names no reference picture");
+    for (int c = n; c > idx; c--) list[(size_t)c] = list[(size_t)c - 1];
+    list[(size_t)idx++] = pic;
+    int k = idx;
+    for (int c = idx; c <= n; c++)
+      if (list[(size_t)c] != pic) list[(size_t)k++] = list[(size_t)c];
+  }
+  list.resize((size_t)n);
+}
+
+// 8.2.4: RefPicList0 (P and B slices) and RefPicList1 (B slices)
+void init_ref_lists(SliceCtx& s, const std::vector<ListMod> mods[2]) {
   Decoder& d = *s.d;
   const int max_fn = max_frame_num(*s.sps), cur_fn = s.sh.frame_num;
   std::vector<Picture*> st, lt;
@@ -1224,44 +1682,57 @@ void init_ref_list(SliceCtx& s, const std::vector<ListMod>& mods) {  // 8.2.4
       lt.push_back(&p);
     }
   }
-  std::sort(st.begin(), st.end(),
-            [](Picture* a, Picture* b) { return a->frame_num_wrap > b->frame_num_wrap; });
   std::sort(lt.begin(), lt.end(),
             [](Picture* a, Picture* b) { return a->long_term_idx < b->long_term_idx; });
-  std::vector<Picture*> list = st;
-  list.insert(list.end(), lt.begin(), lt.end());
-  const int n = s.sh.num_ref_idx_active;
-  list.resize((size_t)n + 1, nullptr);  // one spare entry for the modification
-  if (!mods.empty()) {  // 8.2.4.3
-    int pred = cur_fn, idx = 0;
-    for (const ListMod& m : mods) {
-      d.stats[kStat_list_mod_idc0 + m.idc]++;
-      if (idx >= n) raise(kCorrupt, "too many ref_pic_list_modification operations");
-      Picture* pic = nullptr;
-      if (m.idc < 2) {
-        const int abs_diff = m.value + 1;
-        if (abs_diff > max_fn) raise(kCorrupt, "abs_diff_pic_num out of range");
-        int no_wrap = m.idc == 0 ? pred - abs_diff : pred + abs_diff;
-        if (no_wrap < 0) no_wrap += max_fn;
-        if (no_wrap >= max_fn) no_wrap -= max_fn;
-        pred = no_wrap;
-        const int num = no_wrap > cur_fn ? no_wrap - max_fn : no_wrap;
-        for (Picture* p : st)
-          if (p->frame_num_wrap == num) pic = p;
-      } else {
-        for (Picture* p : lt)
-          if (p->long_term_idx == m.value) pic = p;
-      }
-      if (!pic) raise(kCorrupt, "ref_pic_list_modification names no reference picture");
-      for (int c = n; c > idx; c--) list[(size_t)c] = list[(size_t)c - 1];
-      list[(size_t)idx++] = pic;
-      int k = idx;
-      for (int c = idx; c <= n; c++)
-        if (list[(size_t)c] != pic) list[(size_t)k++] = list[(size_t)c];
+  std::vector<Picture*> init[2];
+  if (s.sh.type == 0) {  // 8.2.4.2.1: short-term by descending PicNum, then long-term
+    std::sort(st.begin(), st.end(),
+              [](Picture* a, Picture* b) { return a->frame_num_wrap > b->frame_num_wrap; });
+    init[0] = st;
+    init[0].insert(init[0].end(), lt.begin(), lt.end());
+  } else {  // 8.2.4.2.3: by POC, those before the current picture first in list 0
+    std::vector<Picture*> before, after;
+    for (Picture* p : st) (p->poc < d.cur.poc ? before : after).push_back(p);
+    std::sort(before.begin(), before.end(), [](Picture* a, Picture* b) { return a->poc > b->poc; });
+    std::sort(after.begin(), after.end(), [](Picture* a, Picture* b) { return a->poc < b->poc; });
+    init[0] = before;
+    init[0].insert(init[0].end(), after.begin(), after.end());
+    init[1] = after;
+    init[1].insert(init[1].end(), before.begin(), before.end());
+    for (int l = 0; l < 2; l++) init[l].insert(init[l].end(), lt.begin(), lt.end());
+    if (!lt.empty()) d.stats[kStat_long_term_in_b]++;
+    if (init[1].size() > 1 && init[1] == init[0]) {
+      std::swap(init[1][0], init[1][1]);
+      d.stats[kStat_list1_swapped]++;
     }
   }
-  list.resize((size_t)n);
-  s.ref_list = list;
+  for (int l = 0; l < (s.sh.type == 1 ? 2 : 1); l++) {
+    std::vector<Picture*>& list = init[l];
+    list.resize((size_t)s.sh.num_ref_idx_active[l], nullptr);
+    if (!mods[l].empty()) {
+      if (l == 1) d.stats[kStat_list1_mods]++;
+      modify_ref_list(s, list, mods[l], st, lt);
+    }
+    s.ref_list[l] = list;
+  }
+}
+
+// 8.4.2.3.1: the implicit bi-prediction weights of a B slice
+void implicit_weights(SliceCtx& s) {
+  Decoder& d = *s.d;
+  for (size_t i = 0; i < s.ref_list[0].size(); i++)
+    for (size_t j = 0; j < s.ref_list[1].size(); j++) {
+      const Picture *p0 = s.ref_list[0][i], *p1 = s.ref_list[1][j];
+      int w0 = 32;
+      if (p0 && p1) {
+        const int dsf = p1->poc == p0->poc || p0->long_ref || p1->long_ref
+                            ? 1 << 10
+                            : dist_scale_factor(d.cur.poc, *p0, *p1) >> 2;
+        if (dsf < -64 || dsf > 128) d.stats[kStat_implicit_default_weights]++;
+        else w0 = 64 - dsf;
+      }
+      s.implicit_w0[i][j] = (int16_t)w0;
+    }
 }
 
 // 8.2.5: marking after the current picture is decoded
@@ -1443,7 +1914,7 @@ bool decode_access_unit(Decoder& d, const uint8_t* p, size_t n, bool wanted, Pic
   int slice_num = 0;
   work.headers.clear();
   work.pps.clear();
-  std::vector<ListMod> mods;
+  std::vector<ListMod> mods[2];
   for (const Nal& nal : nals) {
     if (nal.n == 0) continue;
     if (nal.p[0] & 0x80) raise(kCorrupt, "forbidden_zero_bit set");
@@ -1468,7 +1939,9 @@ bool decode_access_unit(Decoder& d, const uint8_t* p, size_t n, bool wanted, Pic
     if (!started) {
       started = true;
       if (h.idr) d.reset();
-      else if (!d.have_prev) raise(kCorrupt, "the stream does not open with an IDR picture");
+      else if (!d.have_prev)  // a sync sample that is a recovery point (x264's open_gop)
+        raise(kUnsupported, "H.264 open GOP: the stream opens on a picture that is not an "
+                            "IDR picture");
       if (d.cur_sps != &sps || d.cur.width != sps.mb_width * 16 ||
           d.cur.height != sps.mb_height * 16) {
         if (!h.idr) raise(kCorrupt, "the picture size changes without an IDR picture");
@@ -1488,9 +1961,11 @@ bool decode_access_unit(Decoder& d, const uint8_t* p, size_t n, bool wanted, Pic
       if (pps.chroma_qp_offset[1] != pps.chroma_qp_offset[0])
         d.stats[kStat_second_chroma_qp_offset]++;
       if (!ref_idc && !wanted) {  // nothing reads it
+        d.stats[kStat_non_ref_skipped]++;
         d.prev_mmco5 = false;
         return false;
       }
+      if (h.type == 1 && ref_idc) d.stats[kStat_b_ref_pictures]++;
       Picture& c = d.cur;
       c.width = sps.mb_width * 16;
       c.height = sps.mb_height * 16;
@@ -1522,7 +1997,14 @@ bool decode_access_unit(Decoder& d, const uint8_t* p, size_t n, bool wanted, Pic
     s.slice_num = slice_num++;
     s.dq4 = dq->dq4;
     s.dq8 = dq->dq8;
-    if (h.type == 0) init_ref_list(s, mods);
+    if (h.type != 2) init_ref_lists(s, mods);
+    if (h.type == 1) {
+      d.stats[kStat_b_slices]++;
+      if (pps.weighted_bipred_idc == 2) {
+        d.stats[kStat_weighted_bipred_implicit]++;
+        implicit_weights(s);
+      }
+    }
     slice_data(s, b);
     work.headers.push_back(s.sh);
     work.pps.push_back(&pps);
@@ -1536,6 +2018,7 @@ bool decode_access_unit(Decoder& d, const uint8_t* p, size_t n, bool wanted, Pic
   if (h.nal_ref_idc) {
     mark_references(d, h);
     d.dpb.push_back(d.cur);
+    d.dpb.back().motion.swap(d.mbs);  // for temporal direct; mbs is made anew per picture
   }
   d.prev_mmco5 = has_mmco5(h);
   if (h.nal_ref_idc) d.prev_ref_frame_num = d.prev_mmco5 ? 0 : h.frame_num;
@@ -1617,6 +2100,8 @@ int read_syntax(int kind, const uint8_t* data, size_t n_bytes, int arg, int n, i
     b.buf.resize(n_bytes + 8, 0);
     if (kind == 0 || kind == 1) {
       for (int i = 0; i < n; i++) out[i] = kind == 0 ? (int32_t)b.ue() : b.se();
+    } else if (kind == 3 || kind == 4) {
+      cabac_table_rows(kind, arg, n, out);
     } else {
       int64_t stats[kStatCount] = {};
       out[n] = residual_block(b, arg, n, out, stats);

@@ -474,10 +474,37 @@ int read_mp4(const ReadAt& read_at, uint64_t file_size, H264Track& t, std::strin
 
 int plan_h264(const ReadAt& read_at, const H264Track& t, const std::vector<int64_t>& wanted,
               H264Plan& p, std::string& err) {
-  // runs of samples in decode order: [sync sample, last wanted sample]
+  // whether sample i opens with an IDR picture: its first slice NAL unit's type
+  std::vector<uint8_t> buf;
+  auto idr = [&](int32_t i) {
+    const Mp4Sample& m = t.samples[(size_t)i];
+    buf.resize(m.size);
+    if (!read_at(m.offset, buf.data(), m.size)) return true;  // the copy below reports it
+    for (size_t q = 0; q + (size_t)t.nal_length < buf.size();) {
+      size_t len = 0;
+      for (int k = 0; k < t.nal_length; k++) len = len << 8 | buf[q + (size_t)k];
+      q += (size_t)t.nal_length;
+      const int type = buf[q] & 31;
+      if (type == 1 || type == 5) return type == 5;
+      q += len;
+    }
+    return true;
+  };
+  // the sample a run decodes from: the sync sample at or before s, and past
+  // sync samples that are recovery points (x264's open_gop: an I picture
+  // whose leading B pictures reference the group before) back to an IDR
+  // picture, so every picture decodes as it does from the stream's start
+  // (oatx's answer: FFmpeg's seek lands past a leading picture and oatx then
+  // decodes the clip in sequence)
+  auto start = [&](int32_t s) {
+    int32_t k = t.sync_at[(size_t)s];
+    while (k > 0 && !idr(k)) k = t.sync_at[(size_t)k - 1];
+    return k;
+  };
+  // runs of samples in decode order: [start sample, last wanted sample]
   std::vector<std::pair<int32_t, int32_t>> segs;
   for (int64_t d : wanted) {
-    const int32_t s = t.by_display[(size_t)d], k = t.sync_at[(size_t)s];
+    const int32_t s = t.by_display[(size_t)d], k = start(s);
     if (!segs.empty() && k >= segs.back().first && k <= segs.back().second + 1) {
       segs.back().second = std::max(segs.back().second, s);
     } else {
@@ -491,7 +518,6 @@ int plan_h264(const ReadAt& read_at, const H264Track& t, const std::vector<int64
     p.bytes.insert(p.bytes.end(), kStart, kStart + 4);
     p.bytes.insert(p.bytes.end(), nal, nal + len);
   };
-  std::vector<uint8_t> buf;
   for (auto& seg : segs) {
     for (int32_t i = seg.first; i <= seg.second; i++) {
       const Mp4Sample& m = t.samples[(size_t)i];

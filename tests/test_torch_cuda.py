@@ -1207,7 +1207,8 @@ def _sha(frame):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("clip", ["cavlc", "cbase", "cfour", "cpcm"])
+@pytest.mark.parametrize("clip", ["cavlc", "cbase", "cfour", "cpcm", "high", "four", "cmed",
+                                  "ctemp", "cbcavlc", "cpcmb", "cidc1", "copen"])
 def test_host_h264_fixtures_match_oatx_digests(card, clip):
     """The reader's H.264 path (data/h264.py: the host decoder, one
     nv12_rgb launch a read on the card) against oatx's SHA-256 of every
@@ -1286,9 +1287,10 @@ def _nvdec_refusal():
 @pytest.mark.parametrize("clip", ["high", "base", "one", "four"])
 def test_nvdec_fixtures_match_oatx(card, clip):
     """Each committed H.264 fixture decoded on the card against oatx's
-    stored frames (tests/torch_h264/make_fixtures.py) within the reader
-    test's bounds (mean |Δ| ≤ 0.05, max ≤ 4), every frame's channel means
-    within 0.05."""
+    frames (tests/torch_h264/make_fixtures.py: stored ones for base / one,
+    for high / four the host decoder's, once they equal oatx's SHA-256)
+    within the reader test's bounds (mean |Δ| ≤ 0.05, max ≤ 4), every
+    frame's channel means within 0.05."""
     import numpy as np
 
     from oatx_torch.data import video_reader as vr
@@ -1300,12 +1302,18 @@ def test_nvdec_fixtures_match_oatx(card, clip):
     path = os.path.join(H264_DIR, clip + ".mp4")
     n = vr.probe(path)[0]
     for key in ref.files:
-        if not key.endswith("_idx"):
+        if not key.endswith("_means"):
             continue
-        ss = int(key[1:-4])
+        ss = int(key[1:-6])
+        if f"s{ss}_idx" in ref.files:
+            idx, frames = ref[f"s{ss}_idx"], ref[f"s{ss}_frames"]
+        else:
+            idx = np.arange(n)
+            frames = vr.decode_indices(path, list(range(n)), ss)
+            assert all(np.array_equal(_sha(f), d) for f, d in zip(frames, ref[f"s{ss}_sha256"]))
         every = _nvdec_decode(path, list(range(n)), ss)
-        assert np.abs(every.reshape(n, -1, 3).mean(1) - ref[f"s{ss}_means"]).max() <= 0.05
-        d = np.abs(every[ref[key]].astype(np.int32) - ref[f"s{ss}_frames"].astype(np.int32))
+        assert np.abs(every.reshape(n, -1, 3).mean(1) - ref[key]).max() <= 0.05
+        d = np.abs(every[idx].astype(np.int32) - frames.astype(np.int32))
         assert d.mean() <= 0.05 and d.max() <= 4, (clip, ss, float(d.mean()), int(d.max()))
         np.testing.assert_array_equal(_nvdec_decode(path, [n + 3, 0], ss), every[[n - 1, 0]])
 

@@ -9,9 +9,10 @@ CPU, against oatx's FFmpeg reader, bitwise (tolerance 0).
 * oatx's `write_test_video(codec="libx264")` clips at 128×96 / 320×240 /
   596×336 × gop 1 / 4 / 12 / 25, decoded fresh by both packages;
 * the tool census: the x264 options each fixture carries in its SEI, and
-  the decoder's own counters (`h264.stats`), show every tool of the decoder
+  the decoder's own counters (`h264.stats`), show every CAVLC I / P tool
   reached by a committed fixture (cpcm.mp4: I_PCM) or by a fixture edited
-  by hand for what x264 never writes without CABAC and B slices, each
+  by hand for what x264 never writes without CABAC and B slices (the CABAC
+  and B counters, CABAC_COUNTERS, are test_torch_h264_cabac.py's), each
   edited stream bitwise against oatx's decode of the same bytes: memory
   management control operations 1-6 and long-term references, POC types 0
   and 1, ref_pic_list_modification idc 1 and 2, SPS scaling matrices with
@@ -22,12 +23,13 @@ CPU, against oatx's FFmpeg reader, bitwise (tolerance 0).
   and mb_qp_delta wrapping past 0 or 51;
 * ue(v) / se(v) and CAVLC code table spot checks against Tables 9-5, 9-7,
   9-9a and 9-10 of ITU-T H.264;
-* refusals: CABAC and B slices raise NotImplementedError naming ROADMAP
-  A12b; FMO, redundant pictures, SP / SI slices, data partitioning, gaps
-  in frame_num and lossless coding raise UnsupportedMedia naming the tool,
-  on streams edited by hand; nothing decodes in their place;
-* a lax WebVid dataset over CAVLC clips read with `device="cpu"` gives
-  oatx's samples.
+* refusals: FMO, redundant pictures, SP / SI slices, data partitioning,
+  gaps in frame_num, lossless coding and interlace raise UnsupportedMedia
+  naming the tool, on streams edited by hand; nothing decodes in their
+  place; syntax elements past their range (the B slices' and CABAC's
+  among them) raise DecodeError;
+* a lax WebVid dataset over CAVLC and CABAC / B clips read with
+  `device="cpu"` gives oatx's samples.
 """
 
 import hashlib
@@ -46,6 +48,18 @@ from oatx_torch.data.sampling import sample_frames
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_h264")
 CAVLC = ["cavlc", "cbase", "cfour", "cpcm"]
 UNTESTED = {"level_prefix_16", "qp_delta_wrap"}
+# the CABAC and B-slice counters: tests/test_torch_h264_cabac.py's census
+CABAC_COUNTERS = [
+    "cabac_slices", "cabac_init_idc0", "cabac_init_idc1", "cabac_init_idc2", "cabac_pcm",
+    "cabac_mvd_suffix", "cabac_level_suffix", "cabac_qp_delta_nonzero", "b_slices",
+    "b_ref_pictures", "non_ref_skipped", "mb_bskip", "mb_bdirect16x16", "mb_b16x16",
+    "mb_b16x8", "mb_b8x16", "mb_b8x8", "intra_in_b", "part_l0", "part_l1", "part_bi",
+    "sub_bdirect", "sub_b8x8", "sub_b8x4", "sub_b4x8", "sub_b4x4", "direct_spatial",
+    "direct_temporal", "direct_8x8_inference", "direct_4x4", "direct_col_zero",
+    "direct_zero_refs", "direct_col_intra", "direct_long_term", "direct_td_zero",
+    "list1_swapped", "list1_mods", "long_term_in_b", "weighted_bipred_explicit",
+    "weighted_bipred_implicit", "implicit_default_weights", "bipred_blocks", "bs_two_refs",
+    "bs_same_two_refs", "bs_mv_count_differs"]
 
 
 @pytest.fixture(autouse=True)
@@ -160,7 +174,8 @@ def test_tool_census():
         for k, v in counters.items():
             total[k] += v
     assert UNTESTED <= set(total), UNTESTED - set(total)
-    missing = sorted(k for k, v in total.items() if not v and k not in UNTESTED)
+    missing = sorted(k for k, v in total.items()
+                     if not v and k not in UNTESTED and k not in CABAC_COUNTERS)
     assert not missing, f"no committed fixture reaches {missing}"
     reached = sorted(k for k in UNTESTED if total[k])
     assert not reached, f"{reached} are reached now: take them out of UNTESTED"
@@ -226,14 +241,6 @@ def test_cavlc_table_spot_checks(nc, code, max_coeff, want):
 
 
 # ---------------------------------------------------------------- refusals
-
-@pytest.mark.parametrize("clip", ["high", "four"])
-def test_cabac_and_b_frames_raise_not_implemented(clip):
-    with pytest.raises(NotImplementedError, match="A12b"):
-        pvr.decode_indices(fixture(clip), [0, 1], 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="CABAC"):
-        pvr.read_frames(fixture(clip), 4, rng=np.random.default_rng(0), device="cpu")
-
 
 def test_h264_without_a_card_and_without_cpu_raises(monkeypatch):
     """No device and no card: the reader raises; nothing decodes in NVDEC's
@@ -319,6 +326,130 @@ class Rbsp:
 
 
 HIGH = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135)
+
+
+def sps_fields(nal, inference=None, frame_mbs_only=None, extra_refs=0):
+    """An SPS without scaling matrices (x264's) → (NAL, fields), its
+    direct_8x8_inference_flag / frame_mbs_only_flag replaced when given and
+    `extra_refs` added to max_num_ref_frames."""
+    r = Rbsp(nal)
+    high = r.u(8) in HIGH
+    r.u(16), r.ue()
+    if high:
+        assert r.ue() == 1
+        r.ue(), r.ue(), r.u(1)
+        assert r.u(1) == 0
+    f = {"log2_max_frame_num": r.ue() + 4, "poc": r.ue()}
+    if f["poc"] == 0:
+        f["log2_poc_lsb"] = r.ue() + 4
+    assert f["poc"] != 1
+    r.put_ue(r.take_ue() + extra_refs)
+    r.u(1), r.ue(), r.ue()
+    assert r.u(1, frame_mbs_only) == 1
+    f["inference"] = r.u(1, inference)
+    return r.nal(), f
+
+
+def pps_fields_b(nal, bipred=None, transform_8x8=False):
+    """A PPS's fields for slice_edit_b, with weighted_bipred_idc replaced
+    and / or transform_8x8_mode_flag set when given → (NAL, fields)."""
+    r = Rbsp(nal)
+    r.ue(), r.ue()
+    f = {"cabac": r.u(1)}
+    r.u(1)
+    assert r.ue() == 0
+    f["nref"] = [r.ue() + 1, r.ue() + 1]
+    f["wp"] = r.u(1)
+    f["bipred"] = r.u(2, bipred)
+    if bipred is not None:
+        f["bipred"] = bipred
+    r.se(), r.se()
+    first = r.se()
+    f["dfc"] = r.u(1)
+    r.u(1), r.u(1)
+    if transform_8x8:
+        if r.pos < len(r.bits):
+            r.u(1, 1)
+        else:  # no extension yet: transform_8x8_mode_flag, no matrix, the same offset
+            r.put(1, 1), r.put(0, 1), r.put_se(first)
+    return r.nal(), f
+
+
+def slice_edit_b(nal, sps, pps, weights=None, marking=None, mods=None, field=None,
+                 idr_long_term=False):
+    """A P or B slice (any POC type 0 or 2 SPS of sps_fields) with its header
+    edited: `weights` a function (num_ref_idx_active per list) → the
+    pred_weight_table's bits written into a B slice (the PPS made
+    weighted_bipred_idc 1), `marking` as slice_edit's, an IDR picture made
+    long-term 0 by `idr_long_term`, `mods` {list:
+    modifications}; `field` (name, value) writes one element past its range
+    (num_ref_idx_l1_active_minus1, cabac_init_idc). → (NAL, slice_type)."""
+    head = nal[0]
+    r = Rbsp(nal)
+    r.ue()
+    t = r.ue() % 5
+    r.ue()
+    r.u(sps["log2_max_frame_num"])
+    if head & 31 == 5:
+        r.ue()
+    if sps["poc"] == 0:
+        r.u(sps["log2_poc_lsb"])
+    if t == 1:
+        r.u(1)  # direct_spatial_mv_pred_flag
+    active = list(pps["nref"])
+    if t in (0, 1):
+        override = r.take(1)
+        if field and field[0] == "num_ref_idx_l1_active_minus1" and t == 1:
+            active = [r.take_ue() + 1, r.take_ue() + 1] if override else active
+            r.put(1, 1), r.put_ue(active[0] - 1), r.put_ue(field[1])
+        else:
+            r.put(override, 1)
+            if override:
+                active[0] = r.ue() + 1
+                if t == 1:
+                    active[1] = r.ue() + 1
+        for lst in range(2 if t == 1 else 1):
+            old = []
+            if r.take(1):
+                while (idc := r.take_ue()) != 3:
+                    old.append((idc, r.take_ue()))
+            new = (mods or {}).get(lst, old)
+            r.put(bool(new), 1)
+            for idc, v in new:
+                r.put_ue(idc), r.put_ue(v)
+            if new:
+                r.put_ue(3)
+        if (pps["wp"] and t == 0) or (pps["bipred"] == 1 and t == 1 and weights is None):
+            r.ue(), r.ue()  # pred_weight_table copied
+            for lst in range(2 if t == 1 else 1):
+                for _ in range(active[lst]):
+                    if r.u(1):
+                        r.se(), r.se()
+                    if r.u(1):
+                        r.se(), r.se(), r.se(), r.se()
+        if weights is not None and t == 1:
+            r.out += weights(active)
+    if head & 0x60:
+        if head & 31 == 5:
+            r.u(1), r.u(1, 1 if idr_long_term else None)
+        else:
+            ops = []
+            if r.take(1):
+                while (op := r.take_ue()) != 0:
+                    args = 2 if op == 3 else 0 if op == 5 else 1
+                    ops.append((op, *[r.take_ue() for _ in range(args)]))
+            new = ops if marking is None else marking
+            r.put(bool(new), 1)
+            for op, *args in new:
+                r.put_ue(op)
+                for a in args:
+                    r.put_ue(a)
+            if new:
+                r.put_ue(0)
+    if pps["cabac"] and t != 2:
+        idc = r.take_ue()
+        r.put_ue(field[1] if field and field[0] == "cabac_init_idc" else idc)
+    return r.nal(), t
 
 
 def scaling_lists(r, n):
@@ -561,9 +692,9 @@ def hand_made(clip, tool):
     assert kinds[0][:2] == [7, 8] and 5 in kinds[0] and all(1 in k for k in kinds[1:])
     if tool == "fmo" or tool == "redundant":
         pkts[0][1] = edit_pps(pkts[0][1], tool)
-    elif tool in ("sp", "si", "b"):
+    elif tool in ("sp", "si"):
         i = kinds[1].index(1)
-        pkts[1][i] = edit_slice_type(pkts[1][i], {"sp": 3, "si": 4, "b": 1}[tool])
+        pkts[1][i] = edit_slice_type(pkts[1][i], {"sp": 3, "si": 4}[tool])
     elif tool == "partition":
         i = kinds[1].index(1)
         pkts[1][i] = bytes([pkts[1][i][0] & 0xE0 | 2]) + pkts[1][i][1:]
@@ -571,6 +702,8 @@ def hand_made(clip, tool):
         del pkts[1]
     elif tool == "lossless":
         pkts[0][0] = edit_sps_lossless(pkts[0][0])
+    elif tool == "interlace":
+        pkts[0][0] = sps_fields(pkts[0][0], frame_mbs_only=0)[0]
     return replan(plan, pkts), w, h
 
 
@@ -596,7 +729,7 @@ def test_hand_made_streams_decode_when_unedited():
     ("cbase", "partition", pvr.UnsupportedMedia, "data partitioning"),
     ("cbase", "gap", pvr.UnsupportedMedia, "gaps in frame_num"),
     ("cavlc", "lossless", pvr.UnsupportedMedia, "lossless"),
-    ("cbase", "b", NotImplementedError, "B slices.*A12b")])
+    ("cmed", "interlace", pvr.UnsupportedMedia, "interlaced")])
 def test_refusals_name_the_tool(clip, tool, raised, named):
     plan, w, h = hand_made(clip, tool)
     with pytest.raises(raised, match=named) as e:
@@ -604,8 +737,34 @@ def test_refusals_name_the_tool(clip, tool, raised, named):
     assert type(e.value) is raised
 
 
+def malformed_b(field, value):
+    """A B-frame clip's first 8 pictures (CAVLC cbcavlc.mp4, CABAC cmed.mp4
+    for cabac_init_idc) with one element of every P and B slice header, or
+    of the PPS, set to `value`."""
+    clip = "cmed" if field == "cabac_init_idc" else "cbcavlc"
+    with pvr.VideoHandle(fixture(clip)) as hd:
+        w, h = hd.info()[2:]
+        plan = hd.h264_plan(list(range(8)))
+    pkts = packets(plan)
+    _, sps = sps_fields(pkts[0][0])
+    if field == "weighted_bipred_idc":
+        r = Rbsp(pkts[0][1])
+        r.ue(), r.ue(), r.u(1), r.u(1), r.ue(), r.ue(), r.ue(), r.u(1)
+        r.u(2, value)
+        pkts[0][1] = r.nal()
+        return replan(plan, pkts), w, h
+    _, pps = pps_fields_b(pkts[0][1])
+    for p in pkts:
+        for j, nal in enumerate(p):
+            if nal[0] & 31 == 1:
+                p[j], _ = slice_edit_b(nal, sps, pps, field=(field, value))
+    return replan(plan, pkts), w, h
+
+
 def malformed(field, value):
     """cbase's first 6 pictures with one syntax element set to `value`."""
+    if field in ("num_ref_idx_l1_active_minus1", "cabac_init_idc", "weighted_bipred_idc"):
+        return malformed_b(field, value)
     with pvr.VideoHandle(fixture("cbase")) as hd:
         n, _, w, h = hd.info()
         plan = hd.h264_plan(list(range(6)))
@@ -652,6 +811,9 @@ MALFORMED = [
     ("mb_type", 2 ** 31, "mb_type out of range"),
     ("ref_idx", 3, "ref_idx out of range"),
     ("ref_idx", 2 ** 31, "ref_idx out of range"),
+    ("num_ref_idx_l1_active_minus1", 16, "num_ref_idx_l1_active_minus1 out of range"),
+    ("cabac_init_idc", 3, "cabac_init_idc out of range"),
+    ("weighted_bipred_idc", 3, "weighted_bipred_idc out of range"),
 ]
 
 
@@ -740,7 +902,8 @@ def test_lax_webvid_over_cavlc_clips_matches_oatx(tmp_path):
     (root / "meta_data").mkdir(parents=True)
     (root / "train").mkdir()
     rows = ["caption\tvideoid"]
-    for i, clip in enumerate(["cfour", "cbase", "cfour", "cbase"]):
+    clips = ["cfour", "cbase", "four", "cmed", "cfour", "high"]  # CAVLC, then CABAC with B
+    for i, clip in enumerate(clips):
         shutil.copy(fixture(clip), root / "train" / f"{200 + i}.mp4")
         rows.append(f"clip {i} from {clip}\t{200 + i}")
     (root / "meta_data" / "webvid_training_success_full.tsv").write_text("\n".join(rows) + "\n")
@@ -748,8 +911,8 @@ def test_lax_webvid_over_cavlc_clips_matches_oatx(tmp_path):
                 video_params={"num_frames": 4, "loading": "lax"})
     jds = jfactory.build_dataset(JCfg(**args), "baseline", "train")
     pds = pfactory.build_dataset(PCfg(**args), "baseline", "train", device="cpu")
-    assert len(pds) == len(jds) == 4
-    for i in range(4):
+    assert len(pds) == len(jds) == len(clips)
+    for i in range(len(clips)):
         a = jds.get_sample(i, np.random.default_rng((0, i)))
         b = pds.get_sample(i, np.random.default_rng((0, i)))
         assert sorted(a) == sorted(b)
